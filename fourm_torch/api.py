@@ -1,0 +1,186 @@
+"""FourMSampler: the one-class generation API of the PyTorch port.
+
+Counterpart of fourm_tpu/api.py (reference fourm/demo_4M_sampler.py:29-447):
+holds a FourM model on its device, builds chained generation schedules from
+per-modality defaults, and generates. This slice serves image-token targets
+(the ROAR chain of RGB-to-X); sequence targets, token decoding and
+super-resolution come with later slices and raise NotImplementedError.
+
+Usage:
+    sampler = FourMSampler(model)                 # runs on "cuda"
+    mod_dict = sampler.prepare_sample({"rgb@224": img_nhwc}, ["rgb@224"],
+                                      ["tok_clip@224", "tok_depth@224"], batch_size=8)
+    out = sampler.generate(mod_dict, sampler.build_schedule(["rgb@224"], targets), seed=0)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .data.modality_info import MODALITY_INFO
+from .generate import (
+    GenerationSampler,
+    build_chained_generation_schedules,
+    custom_text,
+    expand_to_batch,
+    init_empty_target_modality,
+    init_full_input_modality,
+)
+
+# Default chained generation order (reference demo_4M_sampler.py:29-39)
+DEFAULT_ORDER = [
+    "tok_clip@224", "tok_dinov2@224", "tok_imagebind@224", "tok_depth@224",
+    "tok_normal@224", "tok_semseg@224", "tok_canny_edge@224", "tok_sam_edge@224",
+    "tok_rgb@224", "caption", "det", "human_poses", "sam_instance",
+    "color_palette", "metadata",
+]
+DEFAULT_ORDER_SR = [
+    "tok_clip@448", "tok_depth@448", "tok_normal@448", "tok_semseg@448", "tok_rgb@448",
+]
+
+
+def _expand_defaults(d: Dict[str, Dict]) -> Dict[str, Dict]:
+    return {k: v for ks, v in d.items() for k in ks.split("/")}
+
+
+def _roar(tokens, steps, temp, temp_schedule, cfg):
+    return {"tokens_per_target": tokens, "autoregression_scheme": "roar",
+            "decoding_steps": steps, "token_decoding_schedule": "linear", "temp": temp,
+            "temp_schedule": temp_schedule, "cfg_scale": cfg, "cfg_schedule": "constant"}
+
+
+def _ar(tokens, temp):
+    return {"tokens_per_target": tokens, "autoregression_scheme": "autoregressive",
+            "decoding_steps": None, "token_decoding_schedule": None, "temp": temp,
+            "temp_schedule": "constant", "cfg_scale": 1.0, "cfg_schedule": "constant"}
+
+
+# (reference demo_4M_sampler.py:42-136; the same values as fourm_tpu/api.py)
+DEFAULTS_RGB2X = _expand_defaults({
+    "tok_clip@224/tok_depth@224/tok_normal@224/tok_semseg@224/tok_canny_edge@224/"
+    "tok_sam_edge@224": _roar(196, 1, 0.01, "constant", 2.0),
+    "tok_dinov2@224/tok_imagebind@224": _roar(256, 1, 0.01, "constant", 2.0),
+    "tok_dinov2_global/tok_imagebind_global": _roar(16, 1, 0.01, "constant", 2.0),
+    "caption/det": _ar(256, 0.3),
+    "human_poses": _ar(275, 0.1),
+    "sam_instance": _ar(256, 0.01),
+    "color_palette": _ar(23, 0.1),
+    "metadata": _ar(40, 0.1),
+})
+
+DEFAULTS_X2RGB = _expand_defaults({
+    "tok_clip@224": _roar(196, 50, 5.0, "onex:0.5:0.5", 3.0),
+    "tok_dinov2@224/tok_imagebind@224": _roar(256, 8, 0.01, "constant", 2.0),
+    "tok_dinov2_global/tok_imagebind_global": _roar(16, 1, 0.01, "constant", 2.0),
+    "tok_depth@224/tok_normal@224/tok_semseg@224/tok_canny_edge@224/tok_sam_edge@224":
+        _roar(196, 8, 3.0, "onex:0.5:0.5", 2.0),
+    "tok_rgb@224": _roar(196, 25, 3.0, "onex:0.5:0.5", 2.0),
+    "caption/det": _ar(256, 0.3),
+    "human_poses": _ar(275, 0.1),
+    "sam_instance": _ar(256, 0.01),
+    "color_palette": _ar(23, 0.1),
+    "metadata": _ar(40, 0.1),
+})
+
+DEFAULTS_SR = _expand_defaults({
+    "tok_clip@448/tok_depth@448/tok_normal@448/tok_semseg@448/tok_rgb@448": {
+        "tokens_per_target": 784, "autoregression_scheme": "maskgit", "decoding_steps": 8,
+        "token_decoding_schedule": "cosine", "temp": 1.0, "temp_schedule": "constant",
+        "cfg_scale": 2.0, "cfg_schedule": "constant",
+    },
+})
+
+_SCHEDULE_KEYS = ("tokens_per_target", "autoregression_scheme", "decoding_steps",
+                  "token_decoding_schedule", "temp", "temp_schedule", "cfg_scale",
+                  "cfg_schedule")
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU. Without a GPU, anything but an explicit CPU request raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fourm_torch runs on a CUDA device and none is available; "
+                           "pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+class FourMSampler:
+    """High-level chained generation (reference Demo4MSampler,
+    demo_4M_sampler.py:202-447) for a FourM model of the port."""
+
+    def __init__(self, fm, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
+                 device: str = "cuda"):
+        """fm: a FourM of the port, moved to `device`; text_tokenizer encodes
+        text prompts given as conditioning."""
+        self.device = resolve_device(device)
+        self.model = fm.to(self.device).eval()
+        self.sampler = GenerationSampler(self.model, top_k=top_k, top_p=top_p)
+        self.text_tokenizer = text_tokenizer
+
+    def _ordered_targets(self, target_domains, order):
+        """Default order first; targets outside it are appended."""
+        ordered = [m for m in order if m in target_domains]
+        return ordered + [m for m in target_domains if m not in ordered]
+
+    def resolve_defaults(self, cond_domains: List[str]) -> Dict[str, Dict]:
+        """Per-modality schedule defaults for this conditioning side."""
+        rgb = any(d.startswith("rgb") or d.startswith("tok_rgb") for d in cond_domains)
+        return {**(DEFAULTS_RGB2X if rgb else DEFAULTS_X2RGB), **DEFAULTS_SR}
+
+    def build_schedule(self, cond_domains: List[str], target_domains: List[str],
+                       defaults: Optional[Dict] = None, cfg_grow_conditioning: bool = True):
+        """A chained schedule from per-modality defaults (reference
+        __setup_sample_and_schedule, demo_4M_sampler.py:304-404)."""
+        if defaults is None:
+            defaults = self.resolve_defaults(cond_domains)
+        targets = self._ordered_targets(target_domains, DEFAULT_ORDER + DEFAULT_ORDER_SR)
+        cols = {k: [defaults[t][k] for t in targets] for k in _SCHEDULE_KEYS}
+        return build_chained_generation_schedules(
+            cond_domains=list(cond_domains), target_domains=targets,
+            tokens_per_target=cols["tokens_per_target"],
+            autoregression_schemes=cols["autoregression_scheme"],
+            decoding_steps=cols["decoding_steps"],
+            token_decoding_schedules=cols["token_decoding_schedule"],
+            temps=cols["temp"], temp_schedules=cols["temp_schedule"],
+            cfg_scales=cols["cfg_scale"], cfg_schedules=cols["cfg_schedule"],
+            cfg_grow_conditioning=cfg_grow_conditioning, modality_info=MODALITY_INFO,
+        )
+
+    def prepare_sample(self, sample: Dict[str, Any], cond_domains: List[str],
+                       target_domains: List[str], batch_size: int = 1) -> Dict:
+        """Wrap raw conditioning values (NHWC images, token arrays, text) into
+        full mod dicts plus empty targets, as numpy arrays."""
+        mod_dict: Dict[str, Dict] = {}
+        for mod in cond_domains:
+            value = sample[mod]
+            if isinstance(value, dict):
+                mod_dict[mod] = dict(value)
+            elif MODALITY_INFO[mod].type in ("seq", "seq_token") and isinstance(value, str):
+                custom_text(mod_dict, value, "[EOS]", mod, self.text_tokenizer)
+                init_full_input_modality(mod_dict, mod)
+                continue
+            else:
+                arr = np.array(value)  # a copy: the init helpers mutate in place
+                if arr.ndim in (1, 3):  # unbatched tokens / image
+                    arr = arr[None]
+                mod_dict[mod] = {"tensor": arr}
+            init_full_input_modality(mod_dict, mod)
+        for mod in self._ordered_targets(target_domains, DEFAULT_ORDER + DEFAULT_ORDER_SR):
+            init_empty_target_modality(mod_dict, mod, batch_size,
+                                       MODALITY_INFO[mod].resolved_max_tokens())
+        return expand_to_batch(mod_dict, batch_size)
+
+    def generate(self, mod_dict, schedule, seed: Optional[int] = None):
+        return self.sampler.generate(mod_dict, schedule, seed=seed)
+
+    def decode(self, *args, **kwargs):
+        raise NotImplementedError("token decoding (VQ / diffusion decoders) is a later "
+                                  "slice of the port (ROADMAP.md)")
+
+    def super_resolve(self, *args, **kwargs):
+        raise NotImplementedError("224 -> 448 super-resolution is a later slice of the "
+                                  "port (ROADMAP.md)")

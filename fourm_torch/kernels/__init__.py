@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels (csrc/) for the slice's hot path, with their
+wrappers, plain PyTorch twins and launch counters: `fused_mlp.ln_matmul`,
+`fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`.
+Importing this package needs no CUDA toolkit: the kernels build on first
+launch (see _build)."""
+
+from . import attention as _attention
+from . import fused_mlp as _fused_mlp
+
+WRAPPERS = {"ln_matmul": _fused_mlp.ln_matmul, "ln_mlp": _fused_mlp.ln_mlp,
+            "flash_mha": _attention.flash_mha, "attention": _attention.attention}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

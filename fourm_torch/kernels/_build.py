@@ -1,0 +1,113 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc + ctypes.
+
+Each source compiles on first use into its own shared library with a plain C
+interface, under fourm_torch/kernels/_build/ (ignored by git), named after
+the hash of the source, the shared header and the flags, so an edited source
+rebuilds and an unchanged one loads at once. All missing libraries compile
+in parallel, one nvcc process per source. Importing this module needs no
+nvcc; `library()` does, and raises if the toolkit is absent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("ln_matmul", "ln_mlp", "attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of each C entry point (restype is int: cudaGetLastError())
+SIGNATURES = {
+    "ln_matmul": ("fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "ln_mlp": ("fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _P]),
+    "attention": ("fourm_attention", [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4
+                  + [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the fourm_torch CUDA kernels build on a "
+                       "machine with the CUDA toolkit (set CUDA_HOME or PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every missing library, all sources at once. Returns seconds."""
+    t0 = time.perf_counter()
+    todo = [(n, _lib_path(n)) for n in SOURCES if not _lib_path(n).exists()]
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library holding kernel `name`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            sym, argtypes = SIGNATURES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def entry(name: str):
+    """The C entry point of kernel `name`, with argtypes set."""
+    return getattr(library(name), SIGNATURES[name][0])
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error (refused launch)."""
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")

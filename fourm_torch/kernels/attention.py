@@ -1,0 +1,156 @@
+"""Attention: `flash_mha` on heads-concatenated (B, N, C) q/k/v with in-kernel
+QK-norm, and `attention` on (B, H, N, Dh) with an fp32 additive bias.
+
+Counterparts of fourm_tpu/kernels/attention.py: `flash_mha` is
+pallas_flash_mha, `attention` is pallas_attention and, having no size split,
+also its blocked form flash_attention. Both wrappers launch one CUDA kernel
+body (csrc/attention.cu) for CUDA tensors, counting launches in
+`<wrapper>.launches`, and compute their plain PyTorch twins for CPU tensors.
+
+Masked logits carry the finite bias finfo(f32).min, so a row whose keys are
+all masked gets uniform weights, never NaN. The twins are the XLA path of
+the JAX package (fourm_tpu/ops/transformer.py:dot_product_attention):
+logits in fp32, scale then bias, softmax (or softmax1) in fp32,
+probabilities cast to v's dtype, products summed in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ._checks import aligned, f32, ptr, require, require_bf16, require_cuda, stream
+from .fused_mlp import layer_norm_fp32
+
+
+def softmax1(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax with an implicit extra zero logit (reference fm_utils.py:28-30)."""
+    m = torch.clamp_min(logits.amax(dim=dim, keepdim=True), 0.0)
+    e = torch.exp(logits - m)
+    return e / (e.sum(dim=dim, keepdim=True) + torch.exp(-m))
+
+
+def attention_plain(q, k, v, bias=None, allow_zero_attn: bool = False) -> torch.Tensor:
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = softmax1(logits) if allow_zero_attn else torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def _strides_ok(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) and aligned(t, 16)
+
+
+def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, eps,
+            allow_zero_attn, dev):
+    from . import _build
+
+    code = _build.entry("attention")(
+        ptr(q), ptr(k), ptr(v), ptr(o), *qs, *ks, *vs, *os_, ptr(bias), *bs,
+        *[ptr(t) for t in norms], B, H, N, M, float(Dh) ** -0.5, float(eps),
+        int(allow_zero_attn), stream(dev))
+    _build.check(name, code)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              allow_zero_attn: bool = False) -> torch.Tensor:
+    """softmax(q k^T * Dh^-0.5 + bias) v. q: (B, H, N, Dh); k, v: (B, H, M, Dh);
+    bias: fp32, broadcastable as (B, 1|H, N|1, M). Returns (B, H, N, Dh) in
+    q.dtype; on CUDA it is a (B, N, H, Dh) buffer seen through a permute, so
+    moving heads back next to channels is free."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, bias, allow_zero_attn)
+    name = "attention"
+    dev = require_cuda(name, q, k, v, bias)
+    require_bf16(name, q, k, v)
+    B, H, N, Dh = q.shape
+    M = k.shape[2]
+    require(Dh == 64, f"{name}: head dim {Dh} (the kernel is built for 64)")
+    require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
+            f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
+    require(all(_strides_ok(t) for t in (q, k, v)),
+            f"{name}: q/k/v need a contiguous last dim, strides % 8 == 0, 16-byte alignment")
+    require(max(t.numel() for t in (q, k, v)) < 2**31, f"{name}: too large")
+    bs = (0, 0, 0, 0)
+    if bias is not None:
+        require(bias.dtype == torch.float32, f"{name}: bias must be fp32")
+        require(bias.ndim == 4 and bias.shape[-1] == M
+                and all(bias.shape[i] in (1, (B, H, N)[i]) for i in range(3)),
+                f"{name}: bias {tuple(bias.shape)} not broadcastable to ({B}, {H}, {N}, {M})")
+        # stride 0 on broadcast axes: (B, 1, 1, M) is never materialised
+        bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(4))
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=dev)
+    _launch(name, q, k, v, out, q.stride()[:3], k.stride()[:3], v.stride()[:3],
+            (out.stride(0), out.stride(2), out.stride(1)), bias, bs,
+            (None, None, None, None), B, H, N, M, Dh, 1e-6, allow_zero_attn, dev)
+    attention.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+attention.launches = 0
+
+
+def flash_mha_plain(q, k, v, num_heads: int, bias=None, qn_gamma=None, qn_beta=None,
+                    kn_gamma=None, kn_beta=None, eps: float = 1e-6,
+                    allow_zero_attn: bool = False) -> torch.Tensor:
+    B, N, C = q.shape
+    M = k.shape[1]
+    Dh = C // num_heads
+    qh = q.reshape(B, N, num_heads, Dh).transpose(1, 2)
+    kh = k.reshape(B, M, num_heads, Dh).transpose(1, 2)
+    vh = v.reshape(B, M, num_heads, Dh).transpose(1, 2)
+    if qn_gamma is not None:
+        qh = layer_norm_fp32(qh.float(), qn_gamma, qn_beta, eps).to(q.dtype)
+        kh = layer_norm_fp32(kh.float(), kn_gamma, kn_beta, eps).to(k.dtype)
+    b4 = None if bias is None else bias.float()[:, None, None, :]
+    out = attention_plain(qh, kh, vh, b4, allow_zero_attn)
+    return out.transpose(1, 2).reshape(B, N, C)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+              bias: Optional[torch.Tensor] = None, qn_gamma=None, qn_beta=None,
+              kn_gamma=None, kn_beta=None, eps: float = 1e-6,
+              allow_zero_attn: bool = False) -> torch.Tensor:
+    """Multi-head attention on (B, N, C) heads-concatenated q and (B, M, C)
+    k, v (e.g. column slices of a fused QKV output, read through their
+    strides), with optional per-head QK-norm (fp32 LN over Dh, cast to the
+    compute dtype) and an fp32 (B, M) additive key bias. Returns (B, N, C)."""
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, num_heads, bias, qn_gamma, qn_beta,
+                               kn_gamma, kn_beta, eps, allow_zero_attn)
+    name = "flash_mha"
+    dev = require_cuda(name, q, k, v, bias, qn_gamma, qn_beta, kn_gamma, kn_beta)
+    require_bf16(name, q, k, v)
+    B, N, C = q.shape
+    M = k.shape[1]
+    Dh = C // num_heads
+    require(Dh * num_heads == C and Dh == 64,
+            f"{name}: C={C} over {num_heads} heads (the kernel is built for Dh=64)")
+    require(tuple(k.shape) == (B, M, C) and tuple(v.shape) == (B, M, C),
+            f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
+    require(all(_strides_ok(t) for t in (q, k, v)),
+            f"{name}: q/k/v need a contiguous last dim, strides % 8 == 0, 16-byte alignment")
+    require(max(t.storage_offset() + t.stride(0) * t.shape[0] for t in (q, k, v)) < 2**31,
+            f"{name}: too large")
+    qk_norm = qn_gamma is not None
+    require(not qk_norm or kn_gamma is not None, f"{name}: QK-norm needs both gammas")
+    bs = (0, 0, 0, 0)
+    if bias is not None:
+        require(bias.dtype == torch.float32 and tuple(bias.shape) == (B, M),
+                f"{name}: bias must be fp32 ({B}, {M}), got {bias.dtype} {tuple(bias.shape)}")
+        bs = (bias.stride(0), 0, 0, bias.stride(1))
+    norms = (f32(qn_gamma), f32(qn_beta), f32(kn_gamma), f32(kn_beta))
+    out = torch.empty((B, N, C), dtype=q.dtype, device=dev)
+    _launch(name, q, k, v, out, (q.stride(0), Dh, q.stride(1)), (k.stride(0), Dh, k.stride(1)),
+            (v.stride(0), Dh, v.stride(1)), (out.stride(0), Dh, out.stride(1)), bias, bs,
+            norms, B, num_heads, N, M, Dh, eps, allow_zero_attn, dev)
+    flash_mha.launches += 1
+    return out
+
+
+flash_mha.launches = 0

@@ -1,0 +1,324 @@
+"""FourM: the 4M multimodal encoder-decoder, PyTorch port (generation forward).
+
+Counterpart of fourm_tpu/models/fourm.py (reference fourm/models/fm.py): the
+same configuration, registry, modality-dict format and generation forward,
+as an nn.Module whose parameter names are the reference torch names
+(`encoder.{i}.attn.qkv.weight`, `encoder_embeddings.{mod}.mod_emb`, ...).
+This slice ports the image-target generation path; the training forward
+and the autoregressive methods come with later slices.
+
+mod_dict format (per modality): {
+  'tensor': int tokens (B, L) / image-token grid (B, N) / raw NHWC image,
+  'input_mask': (B, L) bool, True = NOT an encoder input,
+  'target_mask': (B, L) bool, True = NOT a decoder target,
+  'decoder_attention_mask': (B, L) int compressed decoder attention mask,
+}
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..data.modality_info import MODALITY_INFO, ModalitySpec
+from ..ops.token_select import gather_tokens, select_tokens
+from ..ops.transformer import Block, DecoderBlock, LayerNorm, _dense
+from .embeddings import (
+    ImageEncoderEmbedding,
+    ImageTokenDecoderEmbedding,
+    ImageTokenEncoderEmbedding,
+    SequenceDecoderEmbedding,
+    SequenceEmbEncoderEmbedding,
+    SequenceEncoderEmbedding,
+)
+
+SEQ_TYPES = ("seq", "seq_emb", "seq_token")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class FourMConfig:
+    """Static configuration of a FourM model (reference fm.py:81-174)."""
+
+    encoder_modalities: Tuple[str, ...]
+    decoder_modalities: Tuple[str, ...]
+    dim: int = 768
+    encoder_depth: int = 12
+    decoder_depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    proj_bias: bool = True
+    mlp_bias: bool = True
+    norm_bias: bool = True
+    act: str = "gelu"
+    gated_mlp: bool = False
+    qk_norm: bool = False
+    decoder_causal_mask: bool = False
+    decoder_sep_mask: bool = True
+    num_register_tokens: int = 0
+    share_modality_embeddings: bool = True
+    decoder_share_embedding: bool = True
+    drop_path_rate_encoder: float = 0.0
+    drop_path_rate_decoder: float = 0.0
+    shared_drop_path: bool = False
+    remat: bool = False
+    dtype: str = "float32"  # compute dtype
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def spec(self, mod: str) -> ModalitySpec:
+        return MODALITY_INFO[mod]
+
+
+def _grid_for(spec: ModalitySpec) -> Tuple[int, int]:
+    g = spec.grid_size
+    if g is not None:
+        return g
+    n = int(round(spec.resolved_max_tokens() ** 0.5))  # global-token modalities
+    return (n, n)
+
+
+def _build_encoder_embedding(spec: ModalitySpec, dim: int, dtype) -> Optional[nn.Module]:
+    kind = spec.encoder_embedding
+    if kind is None:
+        return None
+    if kind == "image":
+        gh, gw = _grid_for(spec)
+        return ImageEncoderEmbedding(spec.num_channels, spec.patch_size, gh, gw, dim,
+                                     spec.sincos_pos_emb, dtype)
+    if kind == "image_token":
+        gh, gw = _grid_for(spec)
+        return ImageTokenEncoderEmbedding(spec.vocab_size, gh, gw, dim,
+                                          spec.sincos_pos_emb, dtype)
+    if kind == "sequence":
+        return SequenceEncoderEmbedding(spec.vocab_size, spec.max_length, dim,
+                                        spec.sincos_pos_emb, dtype=dtype)
+    if kind == "sequence_emb":
+        return SequenceEmbEncoderEmbedding(spec.max_length, dim, spec.orig_emb_dim, dtype=dtype)
+    raise ValueError(f"unknown encoder embedding kind {kind}")
+
+
+def _build_decoder_embedding(spec: ModalitySpec, dim: int, dtype,
+                             share_embedding: bool) -> Optional[nn.Module]:
+    kind = spec.decoder_embedding
+    if kind is None:
+        return None
+    if kind == "image_token":
+        gh, gw = _grid_for(spec)
+        return ImageTokenDecoderEmbedding(spec.vocab_size, gh, gw, dim, spec.sincos_pos_emb,
+                                          share_embedding, dtype)
+    if kind == "sequence":
+        return SequenceDecoderEmbedding(spec.vocab_size, spec.max_length, dim,
+                                        spec.sincos_pos_emb, share_embedding=share_embedding,
+                                        dtype=dtype)
+    raise ValueError(f"unknown decoder embedding kind {kind}")
+
+
+class FourM(nn.Module):
+    """4M encoder-decoder over modality dicts (generation forward)."""
+
+    def __init__(self, config: FourMConfig):
+        super().__init__()
+        cfg = self.config = config
+        dtype = cfg.compute_dtype
+        self.encoder_embeddings = nn.ModuleDict()
+        for mod in cfg.encoder_modalities:
+            m = _build_encoder_embedding(cfg.spec(mod), cfg.dim, dtype)
+            if m is not None:
+                self.encoder_embeddings[mod] = m
+        self.decoder_embeddings = nn.ModuleDict()
+        for mod in cfg.decoder_modalities:
+            m = _build_decoder_embedding(cfg.spec(mod), cfg.dim, dtype,
+                                         cfg.decoder_share_embedding)
+            if m is not None:
+                self.decoder_embeddings[mod] = m
+        if cfg.share_modality_embeddings:  # reference fm.py:176-180
+            for mod, dec in self.decoder_embeddings.items():
+                if mod in self.encoder_embeddings:
+                    dec.mod_emb = self.encoder_embeddings[mod].mod_emb
+
+        block_kw = dict(
+            dim=cfg.dim, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+            qkv_bias=cfg.qkv_bias, proj_bias=cfg.proj_bias, mlp_bias=cfg.mlp_bias,
+            act=cfg.act, gated_mlp=cfg.gated_mlp, qk_norm=cfg.qk_norm,
+            norm_bias=cfg.norm_bias, dtype=dtype,
+        )
+        self.encoder = nn.ModuleList([Block(**block_kw) for _ in range(cfg.encoder_depth)])
+        self.encoder_norm = LayerNorm(cfg.dim, use_bias=cfg.norm_bias, dtype=dtype)
+        self.decoder_proj_context = nn.Linear(cfg.dim, cfg.dim)
+        self.decoder = nn.ModuleList(
+            [DecoderBlock(**block_kw) for _ in range(cfg.decoder_depth)])
+        self.decoder_norm = LayerNorm(cfg.dim, use_bias=cfg.norm_bias, dtype=dtype)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
+        if cfg.num_register_tokens > 0:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, cfg.num_register_tokens, cfg.dim))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mask_token.device
+
+    # ------------------------------------------------------------------ encoder
+
+    def _cat_encoder(self, mod_dict: Dict[str, Dict[str, torch.Tensor]]):
+        """Embed and concatenate all encoder modalities (reference fm.py:245-278)."""
+        xs, embs, masks, modids = [], [], [], []
+        dtype = self.config.compute_dtype
+        for mod in self.config.encoder_modalities:
+            if mod not in mod_dict or mod not in self.encoder_embeddings:
+                continue
+            d = mod_dict[mod]
+            emb_mod = self.encoder_embeddings[mod]
+            x, pos = emb_mod(d["tensor"], d["input_mask"])
+            xs.append(x)
+            embs.append(pos + emb_mod.mod_emb.to(dtype))
+            masks.append(d["input_mask"])
+            modids.append(torch.full(d["input_mask"].shape, self.config.spec(mod).id,
+                                     dtype=torch.int64, device=x.device))
+        return (torch.cat(xs, 1), torch.cat(embs, 1), torch.cat(masks, 1),
+                torch.cat(modids, 1))
+
+    def forward_mask_encoder(self, mod_dict, num_encoder_tokens: Optional[int]):
+        """Select the encoder token subset (reference fm.py:338-390);
+        None keeps the whole concatenated stream."""
+        x, emb, mask, modid = self._cat_encoder(mod_dict)
+        B = x.shape[0]
+        if num_encoder_tokens is not None:
+            idx = select_tokens(mask, num_encoder_tokens)
+            x, emb = gather_tokens(x, idx), gather_tokens(emb, idx)
+            mask, modid = torch.gather(mask, 1, idx), torch.gather(modid, 1, idx)
+        if self.config.num_register_tokens > 0:
+            R = self.config.num_register_tokens
+            reg = self.register_tokens.to(x.dtype).expand(B, R, -1)
+            x = torch.cat([reg, x], 1)
+            emb = torch.cat([torch.zeros_like(reg), emb], 1)
+            mask = torch.cat([torch.zeros((B, R), dtype=torch.bool, device=x.device), mask], 1)
+            modid = torch.cat([torch.full((B, R), -1, dtype=modid.dtype,
+                                          device=x.device), modid], 1)
+        x = x.masked_fill(mask[..., None], 0.0)
+        emb = emb.masked_fill(mask[..., None], 0.0)
+        modid = modid.masked_fill(mask, -1)
+        return x, emb, mask, modid
+
+    def forward_encoder(self, x, encoder_mask):
+        """Encoder blocks; encoder_mask (B, N) or (B, 1, N) bool (fm.py:477-495)."""
+        if encoder_mask is not None and encoder_mask.ndim == 2:
+            encoder_mask = encoder_mask[:, None, :]
+        for blk in self.encoder:
+            x = blk(x, encoder_mask)
+        return self.encoder_norm(x)
+
+    def encode(self, mod_dict, num_encoder_tokens: Optional[int] = None):
+        """Embed + select + encode. Returns (enc_out, enc_emb, enc_mask, enc_modid)."""
+        x, emb, mask, modid = self.forward_mask_encoder(mod_dict, num_encoder_tokens)
+        return self.forward_encoder(x + emb, mask), emb, mask, modid
+
+    def decoder_context(self, enc_out, enc_emb):
+        """Project the encoder output and re-add its embeddings (fm.py:674)."""
+        return _dense(enc_out, self.decoder_proj_context, self.config.compute_dtype) + enc_emb
+
+    # ------------------------------------------------------------------ decoder
+
+    def forward_decoder(self, y, context, encoder_mask, decoder_attention_mask):
+        """Decoder blocks (fm.py:497-519)."""
+        if encoder_mask is not None and encoder_mask.ndim == 2:
+            encoder_mask = encoder_mask[:, None, :]
+        for blk in self.decoder:
+            y = blk(y, context, decoder_attention_mask, encoder_mask)
+        return self.decoder_norm(y)
+
+    def mod_logits(self, mod: str, y: torch.Tensor) -> torch.Tensor:
+        """Logits for one modality over all given decoder outputs."""
+        return self.decoder_embeddings[mod].logits(y)
+
+    def forward_generation_img(self, mod_dict, target_mod: str, sa_keys_valid: torch.Tensor,
+                               num_encoder_tokens: Optional[int] = None) -> torch.Tensor:
+        """Generation forward for an image-token target over its full token grid
+        (reference generate.py:628-765, in the fixed-shape form of the JAX
+        package): every grid position is a decoder query; self-attention keys
+        are restricted to `sa_keys_valid` (True = attendable).
+        num_encoder_tokens compacts the encoder stream to its first K selected
+        (valid-first) tokens; every valid token is kept, so logits do not change.
+        Returns logits (B, N_grid, V) in the compute dtype."""
+        enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens)
+        context = self.decoder_context(enc_out, enc_emb)
+        d = mod_dict[target_mod]
+        dtype = self.config.compute_dtype
+        dec_emb = self.decoder_embeddings[target_mod]
+        x, pos, _ids = dec_emb.embed(d["tensor"], d["target_mask"])
+        emb = pos + dec_emb.mod_emb.to(dtype)
+        y = self.mask_token.to(dtype).expand_as(x) + emb
+        sa_mask = ~sa_keys_valid[:, None, :]  # (B, 1, N) keys
+        y = self.forward_decoder(y, context, enc_mask, sa_mask)
+        return self.mod_logits(target_mod, y)
+
+
+def init_weights(model: FourM, seed: int, std: float = 0.02) -> FourM:
+    """Random weights from a seeded torch.Generator on the model's device,
+    following the JAX package's initialisers: linear weights lecun-normal
+    (std 1/sqrt(fan_in)), embeddings, modality and mask tokens normal(std),
+    LayerNorm weights one, all biases zero."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+            if isinstance(owner, LayerNorm):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif isinstance(owner, nn.Linear):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                        * p.shape[1] ** -0.5)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+    return model
+
+
+# ---------------------------------------------------------------------- registry
+
+MODEL_SIZES = {
+    "tiny": dict(dim=384, encoder_depth=6, decoder_depth=6, num_heads=6),
+    "small": dict(dim=512, encoder_depth=8, decoder_depth=8, num_heads=8),
+    "base": dict(dim=768, encoder_depth=12, decoder_depth=12, num_heads=12),
+    "large": dict(dim=1024, encoder_depth=24, decoder_depth=24, num_heads=16),
+    "xlarge": dict(dim=2048, encoder_depth=24, decoder_depth=24, num_heads=32),
+}
+
+_FLAVORS = {
+    "gelu": dict(act="gelu"),
+    "swiglu_nobias": dict(
+        act="silu", gated_mlp=True, qkv_bias=False, proj_bias=False,
+        mlp_bias=False, norm_bias=False,
+    ),
+    "swiglu_qknorm_nobias": dict(
+        act="silu", gated_mlp=True, qkv_bias=False, proj_bias=False,
+        mlp_bias=False, norm_bias=False, qk_norm=True,
+    ),
+}
+
+# 13 registered constructors (reference fm.py:33-50 / :839-1130)
+MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {}
+for _size in MODEL_SIZES:
+    for _flavor, _fkw in _FLAVORS.items():
+        if _flavor == "swiglu_qknorm_nobias" and _size in ("tiny", "small"):
+            continue
+        _d = MODEL_SIZES[_size]["encoder_depth"]
+        MODEL_REGISTRY[f"fm_{_size}_{_d}e_{_d}d_{_flavor}"] = {**MODEL_SIZES[_size], **_fkw}
+
+
+def create_fourm_config(model_name: str, encoder_modalities: Tuple[str, ...],
+                        decoder_modalities: Tuple[str, ...], **overrides) -> FourMConfig:
+    """A FourMConfig from a registered size variant plus overrides."""
+    if model_name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {model_name}; known: {sorted(MODEL_REGISTRY)}")
+    kw = dict(MODEL_REGISTRY[model_name])
+    kw.update(overrides)
+    return FourMConfig(encoder_modalities=tuple(encoder_modalities),
+                       decoder_modalities=tuple(decoder_modalities), **kw)

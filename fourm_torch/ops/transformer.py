@@ -1,0 +1,284 @@
+"""Transformer primitives of the PyTorch port (inference).
+
+Counterparts of fourm_tpu/ops/transformer.py: pre-LN blocks, bias-optional
+LayerNorm, SwiGLU gated MLP, attention with boolean masks (True = masked
+out), optional QK-norm and softmax-off-by-one. Submodule names follow the
+reference torch tree (qkv/proj/fc1/fc2/fc3/norm1/query_norm/...), so a
+reference state dict loads with `load_state_dict`.
+
+The pre-norm halves of every block always go through the kernel wrappers
+(fourm_torch/kernels): LN -> QKV is `ln_matmul`, self-attention is
+`flash_mha` (QK-norm in the kernel), cross-attention is `attention`, the MLP
+half is `ln_mlp`. On CUDA tensors those launch the hand-written kernels; on
+CPU tensors they compute their plain twins, which equal the XLA path of the
+JAX package up to summation order. Parameters may be held in any float
+dtype; like the JAX modules, each product casts them to the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.attention import attention, flash_mha
+from ..kernels.attention import softmax1  # noqa: F401  (re-exported, as in fourm_tpu)
+from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_mlp
+
+# Finite fill for masked logits (reference masked_fill(-finfo.max), fm_utils.py:168):
+# a fully masked row gets uniform weights instead of NaN.
+MASK_FILL_VALUE = torch.finfo(torch.float32).min
+
+
+def mask_to_bias(mask: Optional[torch.Tensor], num_query: int) -> Optional[torch.Tensor]:
+    """Boolean mask (B, K), (B, 1, K) or (B, Q, K), True = masked out, to an
+    fp32 additive bias (B, 1, Q or 1, K), broadcastable over heads."""
+    if mask is None:
+        return None
+    if mask.ndim == 2:
+        mask = mask[:, None, :]
+    if mask.ndim != 3:
+        raise ValueError(f"mask must be 2D or 3D, got shape {tuple(mask.shape)}")
+    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    bias = bias.masked_fill(mask, MASK_FILL_VALUE)
+    return bias[:, None, :, :]
+
+
+def _key_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B, M) fp32 key bias from a (B, M) or (B, 1, M) mask."""
+    if mask is None:
+        return None
+    m2 = mask if mask.ndim == 2 else mask[:, 0]
+    return torch.zeros(m2.shape, dtype=torch.float32,
+                       device=m2.device).masked_fill(m2, MASK_FILL_VALUE)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          allow_zero_attn: bool = False) -> torch.Tensor:
+    """Attention core. q, k, v: (B, H, N|M, Dh); bias fp32 (B, 1|H, N|1, M).
+    Goes through the `attention` kernel (its plain twin on the CPU)."""
+    return attention(q, k, v, bias, allow_zero_attn)
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """nn.Dense(dtype=dtype) semantics: input, weight and bias cast to the
+    compute dtype, then one product."""
+    b = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with an optional bias (reference fm_utils.py:93-112); fp32
+    statistics, output in the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_fp32(x.float(), self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """Two-layer MLP with exact-erf GELU (reference fm_utils.py:114-126)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(dim, hidden_dim, bias=use_bias)
+        self.fc2 = nn.Linear(hidden_dim, out_dim or dim, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(_dense(x, self.fc1, self.dtype), approximate="none")
+        return _dense(h, self.fc2, self.dtype)
+
+
+class GatedMlp(nn.Module):
+    """SwiGLU MLP (reference fm_utils.py:128-144). `hidden_dim` is the
+    ungated width; the actual width is int(2 * hidden_dim / 3)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        hidden = int(2 * hidden_dim / 3)
+        self.fc1 = nn.Linear(dim, hidden, bias=use_bias)
+        self.fc2 = nn.Linear(hidden, out_dim or dim, bias=use_bias)
+        self.fc3 = nn.Linear(dim, hidden, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = _dense(x, self.fc1, self.dtype)
+        u = _dense(x, self.fc3, self.dtype)
+        return _dense(F.silu(g) * u, self.fc2, self.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with optional QK-norm (reference Attention /
+    NormAttention, fm_utils.py:147-262). Masks are boolean, True = masked."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_bias: bool = True, qk_norm: bool = False,
+                 allow_zero_attn: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.head_dim = dim // num_heads
+        self.qk_norm, self.allow_zero_attn, self.dtype = qk_norm, allow_zero_attn, dtype
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim, bias=proj_bias)
+        if qk_norm:
+            self.q_norm = LayerNorm(self.head_dim, dtype=dtype)
+            self.k_norm = LayerNorm(self.head_dim, dtype=dtype)
+
+    def _split_qkv(self, x):
+        B, N, _ = x.shape
+        qkv = _dense(x, self.qkv, self.dtype).reshape(B, N, 3, self.num_heads, self.head_dim)
+        q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]  # (B, H, N, Dh)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, C = x.shape
+        q, k, v = self._split_qkv(x)
+        out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
+        return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
+
+    def fused_prenorm(self, x: torch.Tensor, norm: LayerNorm,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pre-norm attention half, residual included: x + proj(MHA(qkv(LN x))).
+        LN -> QKV is one `ln_matmul`; `flash_mha` reads q/k/v as column slices
+        of its output and applies the QK-norm itself. A query-dependent
+        (B, N, N) mask, which a key bias cannot express, takes the generic
+        path through `attention`."""
+        B, N, C = x.shape
+        if mask is not None and mask.ndim == 3 and mask.shape[1] != 1:
+            return x + self.forward(norm(x), mask)
+        w = self.qkv.weight.to(self.dtype)
+        qkv = ln_matmul(x, norm.weight, norm.bias, w, self.qkv.bias, eps=norm.eps)
+        if self.qk_norm:
+            qn = (self.q_norm.weight, self.q_norm.bias, self.k_norm.weight, self.k_norm.bias)
+        else:
+            qn = (None, None, None, None)
+        out = flash_mha(qkv[:, :, :C], qkv[:, :, C:2 * C], qkv[:, :, 2 * C:],
+                        self.num_heads, _key_bias(mask), *qn, eps=norm.eps,
+                        allow_zero_attn=self.allow_zero_attn)
+        return x + _dense(out, self.proj, self.dtype)
+
+
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention with optional QK-norm (reference
+    CrossAttention / NormCrossAttention, fm_utils.py:182-307)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_bias: bool = True, qk_norm: bool = False,
+                 allow_zero_attn: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.head_dim = dim // num_heads
+        self.qk_norm, self.allow_zero_attn, self.dtype = qk_norm, allow_zero_attn, dtype
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim, bias=proj_bias)
+        if qk_norm:
+            self.q_norm = LayerNorm(self.head_dim, dtype=dtype)
+            self.k_norm = LayerNorm(self.head_dim, dtype=dtype)
+
+    def project_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, M, _ = context.shape
+        kv = _dense(context, self.kv, self.dtype).reshape(B, M, 2, self.num_heads, self.head_dim)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        if self.qk_norm:
+            k = self.k_norm(k)
+        return k, v
+
+    def project_q(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
+        q = _dense(x, self.q, self.dtype).reshape(B, N, self.num_heads, self.head_dim)
+        q = q.transpose(1, 2)
+        return self.q_norm(q) if self.qk_norm else q
+
+    def attend(self, x, k, v, mask=None):
+        B, N, C = x.shape
+        q = self.project_q(x)
+        out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
+        return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        k, v = self.project_kv(context)
+        return self.attend(x, k, v, mask)
+
+
+def _make_mlp(gated_mlp: bool, act: str, dim: int, mlp_ratio: float, mlp_bias: bool, dtype):
+    # the ln_mlp kernel computes the two MLPs of the 4M registry flavours
+    if (gated_mlp, act) not in ((True, "silu"), (False, "gelu")):
+        raise ValueError(f"unsupported MLP: gated={gated_mlp} act={act!r} "
+                         "(the port serves gated SiLU and plain exact GELU)")
+    cls = GatedMlp if gated_mlp else Mlp
+    return cls(dim, int(dim * mlp_ratio), use_bias=mlp_bias, dtype=dtype)
+
+
+def _fused_ln_mlp(norm: LayerNorm, mlp: nn.Module, x: torch.Tensor, gated: bool):
+    """x + mlp(norm(x)) through the `ln_mlp` kernel."""
+    dt = mlp.dtype
+    w3 = mlp.fc3.weight.to(dt) if gated else None
+    b3 = mlp.fc3.bias if gated else None
+    return ln_mlp(x, norm.weight, norm.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias,
+                  mlp.fc2.weight.to(dt), mlp.fc2.bias, w3, b3, eps=norm.eps, gated=gated)
+
+
+class Block(nn.Module):
+    """Pre-LN encoder block (reference fm_utils.py:310-334), inference."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, proj_bias: bool = True, mlp_bias: bool = True,
+                 act: str = "gelu", gated_mlp: bool = False, qk_norm: bool = False,
+                 allow_zero_attn: bool = False, norm_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gated_mlp = gated_mlp
+        self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
+                              allow_zero_attn, dtype)
+        self.norm1 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.norm2 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.attn.fused_prenorm(x, self.norm1, mask)
+        return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-LN decoder block: self-attention, cross-attention, MLP (reference
+    fm_utils.py:337-366), inference over a full query grid."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, proj_bias: bool = True, mlp_bias: bool = True,
+                 act: str = "gelu", gated_mlp: bool = False, qk_norm: bool = False,
+                 allow_zero_attn: bool = False, norm_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gated_mlp = gated_mlp
+        common = (dim, num_heads, qkv_bias, proj_bias, qk_norm, allow_zero_attn, dtype)
+        self.self_attn = Attention(*common)
+        self.cross_attn = CrossAttention(*common)
+        self.norm1 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.query_norm = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.context_norm = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.norm2 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                sa_mask: Optional[torch.Tensor] = None,
+                xa_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.self_attn.fused_prenorm(x, self.norm1, sa_mask)
+        x = x + self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask)
+        return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
