@@ -7,18 +7,27 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
 nothing of JAX or fourm_tpu. Phases, each printing its lines:
   1. the card (nvidia-smi name and power limit) and the kernel build, from
      fourm_torch/kernels/csrc, timed;
-  2. every kernel of the slice against its plain PyTorch twin on the card, in
-     bf16 at the slice's shapes: max abs error against the stated tolerance,
-     kernel ms, twin ms, a PyTorch library yardstick (never used by the port)
-     and the least time the card could take (bound);
-  3. the slice at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_nobias on
-     the 4M-21 modality sets, random bf16 weights from a seeded generator):
-     FourMSampler decodes RGB -> 8 image-token targets (DEFAULTS_RGB2X:
-     ROAR, one step, CFG 2.0) for 8 requests; the launch counters are reset
-     just before and read just after;
-  4. one forward_generation_img of that model at batch 2 on the card
-     (kernels, bf16) against the same weights on the CPU in fp32 (plain
-     twins) and in bf16.
+  2. every kernel of the port against its plain PyTorch twin on the card, in
+     bf16 at the main path's shapes: max abs error against the stated
+     tolerance, kernel ms, twin ms, a PyTorch library yardstick (never used
+     by the port) and the least time the card could take (bound); for
+     self_decode and decode_attention, wrong outputs (a cache position too
+     many or too few, the new token or the last key chunk left out) that the
+     tolerance must tell apart; then the options off the path, for
+     correctness only;
+  3. the headline chain at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_
+     nobias on the 4M-21 modality sets, random bf16 weights from a seeded
+     generator): FourMSampler decodes RGB -> all 14 targets of the default
+     order (DEFAULTS_RGB2X: 8 image-token targets by one ROAR step with CFG
+     2.0, then caption, det, human_poses, sam_instance, color_palette and
+     metadata autoregressively) for 8 requests, with a stand-in for the text
+     tokenizer's layout; the launch counters are reset just before and read
+     just after a run of the public entry alone, and a further, instrumented
+     run times each sequence target; then the decode microbenchmark of
+     bench.py (B = 16, L = 256, M = 2304, 64 greedy caption tokens);
+  4. one forward_generation_img at batch 2, and one ar_prefill + 4
+     decode_one_token steps at batch 2, on the card (kernels, bf16) against
+     the same weights on the CPU in fp32 (plain twins) and in bf16.
 The second-to-last line is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
@@ -43,11 +52,34 @@ MOD21 = ("rgb@224", "tok_rgb@224", "tok_depth@224", "tok_normal@224", "tok_semse
          "color_palette", "sam_instance", "tok_canny_edge@224", "tok_sam_edge@224",
          "tok_dinov2@224", "tok_imagebind@224", "tok_dinov2_global", "tok_imagebind_global")
 MOD21_DEC = tuple(m for m in MOD21 if m not in ("rgb@224", "t5_caption"))
-TARGETS = ["tok_clip@224", "tok_dinov2@224", "tok_imagebind@224", "tok_depth@224",
-           "tok_normal@224", "tok_semseg@224", "tok_canny_edge@224", "tok_sam_edge@224"]
+ROAR_TARGETS = ["tok_clip@224", "tok_dinov2@224", "tok_imagebind@224", "tok_depth@224",
+                "tok_normal@224", "tok_semseg@224", "tok_canny_edge@224", "tok_sam_edge@224"]
+AR_TARGETS = ["caption", "det", "human_poses", "sam_instance", "color_palette", "metadata"]
+TARGETS = ROAR_TARGETS + AR_TARGETS  # the default order without tok_rgb (bench.py:433)
 REQUESTS = 8
+DEPTH = 12
 # launches of each wrapper in one forward_generation_img of a 12+12 model
 PER_STEP = {"ln_matmul": 24, "ln_mlp": 24, "flash_mha": 24, "attention": 12}
+# in one ar_prefill (the encoder) and in one decoded token (the decoder)
+PER_PREFILL = {"ln_matmul": DEPTH, "ln_mlp": DEPTH, "flash_mha": DEPTH}
+PER_TOKEN = {"self_decode": DEPTH, "cross_decode_attn": DEPTH, "decode_attention": DEPTH,
+             "residual_mlp": DEPTH}
+
+
+class StandInTokenizer:
+    """The layout of bench.py's text tokenizer, as far as generation reads
+    it: [PAD]=0, [UNK]=1, [SOS]=2, [EOS]=3, then the sentinels [S_0] ..
+    [S_19] = 4 .. 23 (the sentinel ids drive the span merge)."""
+
+    def __init__(self):
+        names = ["[PAD]", "[UNK]", "[SOS]", "[EOS]"] + [f"[S_{i}]" for i in range(20)]
+        self.vocab = {t: i for i, t in enumerate(names)}
+
+    def get_vocab(self):
+        return dict(self.vocab)
+
+    def token_to_id(self, token):
+        return self.vocab[token]
 
 
 def check(cond: bool, what: str) -> None:
@@ -56,11 +88,15 @@ def check(cond: bool, what: str) -> None:
 
 
 def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn over `iters` launches, after one warm-up."""
+    """Mean device time of fn over `iters` launches, after one warm-up. A
+    sleep kernel ahead of the start event keeps the card busy while the
+    host queues the launches, so a call whose host side is slower than its
+    kernels is timed by its kernels, not by the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 1e6))  # ~0.5 ms of the card per launch queued
     start.record()
     for _ in range(iters):
         fn()
@@ -70,7 +106,8 @@ def time_ms(torch, fn, iters: int) -> float:
 
 
 def kernel_phase(torch):
-    """Phase 2: each kernel against its twin at the slice's shapes."""
+    """Phase 2: each kernel against its twin at the main path's shapes: the
+    ROAR kernels, then the decode-step kernels."""
     import torch.nn.functional as F
 
     from fourm_torch.kernels import attention as at
@@ -153,34 +190,55 @@ def kernel_phase(torch):
          attn_case(16, 196, 512, full_rows=8)),
         ("attention@SR448", "fourm_tpu/kernels/attention.py:127", fa, attn_case(16, 784, 1536)),
     ]
-    def held(name, run, plain):
-        out = run()
-        ref = plain()
+    decode_cases, decode_variants = decode_kernel_cases(torch, rn, key_bias, gen)
+    cases += decode_cases
+
+    def held(name, run, plain, faults=None):
+        """Kernel against twin. `run`/`plain` return one tensor or a dict of
+        named parts, each held to its own tolerance. `faults` (optional)
+        gives wrong outputs that the first part's tolerance must tell from
+        the twin's, so a kernel with such a fault could not pass."""
+        outs, refs = run(), plain()
+        if not isinstance(outs, dict):
+            outs, refs = {"out": outs}, {"out": refs}
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # two bf16 ulps of the largest output: kernel and twin round the same
-        # fp32 sums to bf16, summed in different orders
-        tol = 2.0 ** -6 * ref.float().abs().max().item()
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        check(err <= tol, f"{name}: max abs error {err} > tolerance {tol}")
-        return err, tol
+        parts = {}
+        for part, out in outs.items():
+            ref = refs[part].float()
+            err = (out.float() - ref).abs().max().item()
+            # two bf16 ulps of the part's largest value: kernel and twin
+            # round the same fp32 sums to bf16, summed in different orders
+            tol = 2.0 ** -6 * ref.abs().max().item()
+            check(bool(torch.isfinite(out).all()), f"{name}: non-finite {part}")
+            check(err <= tol, f"{name}: {part}: max abs error {err} > tolerance {tol}")
+            parts[part] = (err, tol)
+        if faults is not None:
+            first = next(iter(refs))
+            fault_check(torch, name, faults, refs[first].float(), parts[first][1])
+        return parts
 
     results = []
     for name, replaces, source, c in cases:
-        err, tol = held(name, c["run"], c["plain"])
+        parts = held(name, c.get("held_run", c["run"]), c.get("held_plain", c["plain"]),
+                     c.get("faults"))
+        err, tol = max(parts.values(), key=lambda et: et[0] / max(et[1], 1e-30))
         ms = time_ms(torch, c["run"], 10)
         plain_ms = time_ms(torch, c["plain"], 3)
         library_ms = time_ms(torch, c["library"], 10)
         bound_ms = max(c["flops"] / PEAK_BF16_FLOPS, c["bytes"] / PEAK_BYTES) * 1e3
         bound_by = "operations" if c["flops"] / PEAK_BF16_FLOPS >= c["bytes"] / PEAK_BYTES \
             else "bytes"
-        print(f"kernel {name}: {c['shape']}: max_abs_err {err:.6g} (tol {tol:.6g}), "
+        errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
+        print(f"kernel {name}: {c['shape']}: {errs}, "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": name.split("@")[0], "max_abs_err": err, "tolerance": tol,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
+        if len(parts) > 1:
+            results[-1]["parts"] = {p: {"max_abs_err": e, "tolerance": t}
+                                    for p, (e, t) in parts.items()}
 
     # options the main path does not take (biases, GELU, no QK-norm, softmax1,
     # a per-head query-dependent bias, ragged row counts): correctness only
@@ -214,10 +272,214 @@ def kernel_phase(torch):
         ("ln_matmul, 3 rows", lambda: fm.ln_matmul(x[:3], gamma, None, w_qkv),
          lambda: fm.ln_matmul_plain(x[:3], gamma, None, w_qkv)),
     ]
-    for name, run, plain in variants:
-        err, tol = held(name, run, plain)
+    for name, run, plain in variants + decode_variants:
+        (err, tol), = held(name, run, plain).values()
         print(f"variant {name}: max_abs_err {err:.6g} (tol {tol:.6g})", flush=True)
     return results
+
+
+def fault_check(torch, name, faults, ref, tol) -> None:
+    """`faults()` gives (right, wrong, must): the right output recomputed
+    in fp32 by the same means as the wrong ones, and named wrong outputs.
+    The right one must sit within `tol` of the twin (so the recomputation
+    is sound); each wrong one named in `must` must sit farther than `tol`.
+    The others are printed: faults below two bf16 ulps of the output."""
+    right, wrong, must = faults()
+    err = (right - ref).abs().max().item()
+    check(err <= tol, f"{name}: the faults' right output is {err} from the twin (tol {tol})")
+    for label, out in wrong.items():
+        d = (out - ref).abs().max().item()
+        seen = d > tol
+        print(f"  fault {label}: {d:.6g} from the twin, {d / tol:.4g} x tol "
+              f"({'caught' if seen else 'not caught: below two bf16 ulps'})", flush=True)
+        check(seen or label not in must, f"{name}: tolerance {tol} cannot tell '{label}' ({d})")
+
+
+def decode_kernel_cases(torch, rn, key_bias, gen):
+    """The decode-step kernels at the AR part's shapes (B = 8 requests, no
+    CFG; caches L = 256; cross K/V at the encoder budget M = 2048 and at a
+    ragged whole-stream M), and their options off the path."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import decode_step as ds
+
+    dev, bf = "cuda", torch.bfloat16
+    B, C, H, Dh, L, HID = 8, 768, 12, 64, 256, 2048
+
+    def norm(n):
+        return (torch.rand(n, generator=gen, device=dev) + 0.5).to(bf)
+
+    def shift(n):
+        return (torch.randn(n, generator=gen, device=dev) * 0.1).to(bf)
+
+    x = rn(B, C)
+    g1, w_qkv, w_q = norm(C), rn(3 * C, C, std=C ** -0.5), rn(C, C, std=C ** -0.5)
+    qk = [norm(Dh), None, norm(Dh), None]  # 4M-21 B: QK-norm without biases
+    cache_k, cache_v = rn(B, H, L, Dh), rn(B, H, L, Dh)
+    sd_src = "fourm_torch/kernels/csrc/self_decode.cu"
+    da_src = "fourm_torch/kernels/csrc/decode_attn.cu"
+
+    def lib_qkv_attn(xx, w, kk, vv, bias=None):
+        h = F.layer_norm(xx, (C,), g1, None, 1e-6)
+        q = F.linear(h, w)[:, :C].reshape(xx.shape[0], H, 1, Dh)
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=bias)
+
+    def self_faults(step):
+        """self_decode's output recomputed from the untouched caches, and
+        wrong versions of it: the new token left out, one cache position
+        too many or too few read, q not rounded to bf16 before the logits."""
+        h = F.layer_norm(x.float(), (C,), g1.float(), None, 1e-6).to(bf).float()
+        q, k, v = (h @ w_qkv.float().t()).reshape(B, 3, H, Dh).unbind(1)
+        q = F.layer_norm(q, (Dh,), qk[0].float(), None, 1e-6)
+        k = F.layer_norm(k, (Dh,), qk[2].float(), None, 1e-6)
+        qb, k, v = (t.to(bf).float() for t in (q, k, v))
+
+        def attend(qq, n, new=True):
+            keys = torch.cat([cache_k[:, :, :n].float()] + [k[:, :, None]] * new, 2)
+            vals = torch.cat([cache_v[:, :, :n].float()] + [v[:, :, None]] * new, 2)
+            p = torch.softmax(torch.einsum("bhd,bhld->bhl", qq, keys) * Dh ** -0.5, -1)
+            return torch.einsum("bhl,bhld->bhd", p, vals).reshape(B, C)
+
+        wrong = {"one cache position too many read": attend(qb, step + 1)}
+        if step:  # at step 0 the output is the new v, whatever q is
+            wrong["new token left out"] = attend(qb, step, new=False)
+            wrong["one cache position too few read"] = attend(qb, step - 1)
+            wrong["q not rounded to bf16"] = attend(q, step)
+        return attend(qb, step), wrong, set(wrong) - {"q not rounded to bf16"}
+
+    def self_case(step):
+        caches = [(cache_k.clone(), cache_v.clone()) for _ in range(2)]
+        st = torch.tensor([step], dtype=torch.int32, device=dev)
+
+        def call(fn, i):  # the output and the two cache rows it wrote, held apart
+            ck, cv = caches[i]
+            out = fn(x, g1, None, w_qkv, None, *qk, ck, cv, st, H)
+            return {"out": out, f"k row {step}": ck[:, :, step], f"v row {step}": cv[:, :, step]}
+
+        ck0, cv0 = caches[0]
+        kv = slice(0, step + 1)
+        return dict(
+            run=lambda: ds.self_decode(x, g1, None, w_qkv, None, *qk, ck0, cv0, st, H),
+            plain=lambda: ds.self_decode_plain(x, g1, None, w_qkv, None, *qk, *caches[1], st, H),
+            held_run=lambda: call(ds.self_decode, 0),
+            held_plain=lambda: call(ds.self_decode_plain, 1),
+            faults=lambda: self_faults(step),
+            library=lambda: lib_qkv_attn(x, w_qkv, ck0[:, :, kv], cv0[:, :, kv]),
+            flops=2 * B * C * 3 * C + 4 * B * H * step * Dh,
+            bytes=(3 * C * C + 2 * B * C) * 2 + 2 * B * H * (step + 1) * Dh * 2 + C * 2,
+            shape=f"x (B={B}, 768), w_qkv (2304, 768), caches (B, 12, L={L}, 64), "
+                  f"step_idx {step}, QK-norm")
+
+    def cross_kv(M):
+        kv = rn(B, M, 2, H, Dh)  # head views of one KV projection, read through strides
+        return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+
+    def cross_case(M):
+        k, v = cross_kv(M)
+        bias = key_bias(B, M, full_rows=1)
+        args = (x, g1, None, w_q, None, qk[0], None, k, v, bias, H)
+        return dict(
+            run=lambda: ds.cross_decode_attn(*args),
+            plain=lambda: ds.cross_decode_attn_plain(*args),
+            library=lambda: lib_qkv_attn(x, w_q, k, v, bias[:, None, None, :].to(bf)),
+            flops=2 * B * C * C + 4 * B * H * M * Dh,
+            bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh * 2 + B * M * 4 + C * 2,
+            shape=f"x (B={B}, 768), w_q (768, 768), cross K/V (B, 12, M={M}, 64) views, "
+                  "(B, M) key bias, 1 row fully masked, QK-norm")
+
+    def attn_case(M):
+        k, v = cross_kv(M)
+        q = rn(B, H, 1, Dh)
+        bias = key_bias(B, M, full_rows=1)[:, None, :]
+        args = (q, k, v, bias, False, False)  # the cross path: fp32 probabilities
+        tail = (M - 1) // ds.DECODE_CHUNK * ds.DECODE_CHUNK  # keys before the last chunk
+
+        def faults():
+            cut = (q, k[:, :, :tail], v[:, :, :tail], bias[..., :tail], False, False)
+            return (ds.decode_attention_plain(*args).float(),
+                    {"last chunk left out": ds.decode_attention_plain(*cut).float()},
+                    {"last chunk left out"})
+
+        return dict(
+            run=lambda: ds.decode_attention(*args), plain=lambda: ds.decode_attention_plain(*args),
+            faults=faults,
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, :, None, :]
+                                                           .to(bf)),
+            flops=4 * B * H * M * Dh, bytes=2 * B * H * M * Dh * 2 + 2 * B * H * Dh * 2 + B * M * 4,
+            shape=f"q (B={B}, 12, 1, 64), K/V (B, 12, M={M}, 64) views, (B, 1, M) bias, "
+                  "1 row fully masked, fp32 probabilities")
+
+    wp, w1, w3, w2 = (rn(C, C, std=C ** -0.5), rn(HID, C, std=C ** -0.5),
+                      rn(HID, C, std=C ** -0.5), rn(C, HID, std=HID ** -0.5))
+    g2 = norm(C)
+
+    def mlp_case(rows):
+        xx, attn = rn(rows, C), rn(rows, C)
+        args = (xx, attn, wp, None, g2, None, w1, None, w2, None, w3, None)
+
+        def library():
+            x1 = xx + F.linear(attn, wp)
+            h = F.layer_norm(x1, (C,), g2, None, 1e-6)
+            return x1 + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
+
+        return dict(
+            run=lambda: ds.residual_mlp(*args, gated=True),
+            plain=lambda: ds.residual_mlp_plain(*args, gated=True), library=library,
+            flops=2 * rows * (C * C + 3 * C * HID),
+            bytes=(C * C + 3 * C * HID + 3 * rows * C) * 2 + C * 2,
+            shape=f"x, attn (B={rows}, 768), Wp (768, 768), SwiGLU hidden 2048, no biases")
+
+    cases = [
+        ("self_decode", "fourm_tpu/kernels/decode_step.py:163", sd_src, self_case(200)),
+        ("self_decode@step0", "fourm_tpu/kernels/decode_step.py:163", sd_src, self_case(0)),
+        ("cross_decode_attn", "fourm_tpu/kernels/decode_step.py:377", da_src, cross_case(2048)),
+        ("cross_decode_attn@M2900", "fourm_tpu/kernels/decode_step.py:377", da_src,
+         cross_case(2900)),
+        ("decode_attention", "fourm_tpu/kernels/decode_step.py:594", da_src, attn_case(2048)),
+        ("decode_attention@M2900", "fourm_tpu/kernels/decode_step.py:594", da_src,
+         attn_case(2900)),
+        ("residual_mlp", "fourm_tpu/kernels/decode_step.py:752",
+         "fourm_torch/kernels/csrc/residual_mlp.cu", mlp_case(8)),
+        ("residual_mlp@B16", "fourm_tpu/kernels/decode_step.py:752",
+         "fourm_torch/kernels/csrc/residual_mlp.cu", mlp_case(16)),
+    ]
+
+    # options the main path does not take: correctness only
+    b1, bq = shift(C), shift(3 * C)
+    qkb = [norm(Dh), shift(Dh), norm(Dh), shift(Dh)]
+    c2 = [(cache_k.clone(), cache_v.clone()) for _ in range(2)]
+    st = torch.tensor([100], dtype=torch.int32, device=dev)
+    st_past = torch.tensor([L + 3], dtype=torch.int32, device=dev)
+    k3, v3 = cross_kv(333)
+    q3 = rn(5, H, 1, Dh)
+    bias_h = torch.randn(5, H, 333, generator=gen, device=dev)
+    k5, v5 = k3[:5], v3[:5]
+    wg1, wg2 = rn(3072, C, std=C ** -0.5), rn(C, 3072, std=3072 ** -0.5)
+    bg1, bg2 = shift(3072), shift(C)
+    x3, a3 = rn(3, C), rn(3, C)
+
+    def sd(fn, i, step_t, qkn=(None,) * 4, **kw):
+        return lambda: fn(x, g1, b1, w_qkv, bq, *qkn, *c2[i], step_t, H, **kw)
+
+    variants = [
+        ("self_decode, biases, no QK-norm, softmax1, step 100",
+         sd(ds.self_decode, 0, st, allow_zero_attn=True),
+         sd(ds.self_decode_plain, 1, st, allow_zero_attn=True)),
+        ("self_decode, QK-norm with biases, step_idx past L (no write, all L attended)",
+         sd(ds.self_decode, 0, st_past, qkn=qkb), sd(ds.self_decode_plain, 1, st_past, qkn=qkb)),
+        ("cross_decode_attn, biases, no QK-norm, softmax1, no mask, M=333",
+         lambda: ds.cross_decode_attn(x[:5], g1, b1, w_q, b1, None, None, k5, v5, None, H,
+                                      allow_zero_attn=True),
+         lambda: ds.cross_decode_attn_plain(x[:5], g1, b1, w_q, b1, None, None, k5, v5, None, H,
+                                            allow_zero_attn=True)),
+        ("decode_attention, (B, H, M) bias, softmax1, probabilities cast to bf16, M=333",
+         lambda: ds.decode_attention(q3, k5, v5, bias_h, True),
+         lambda: ds.decode_attention_plain(q3, k5, v5, bias_h, True)),
+        ("residual_mlp, exact GELU + biases, hidden 3072, 3 rows",
+         lambda: ds.residual_mlp(x3, a3, wp, b1, g2, b1, wg1, bg1, wg2, bg2),
+         lambda: ds.residual_mlp_plain(x3, a3, wp, b1, g2, b1, wg1, bg1, wg2, bg2)),
+    ]
+    return cases, variants
 
 
 def build_model(torch, dtype: str, device: str, seed: int = 0):
@@ -230,18 +492,21 @@ def build_model(torch, dtype: str, device: str, seed: int = 0):
     return init_weights(model, seed).eval()
 
 
-def slice_phase(torch, model, card: str):
-    """Phase 3: 8 requests, RGB -> 8 image-token targets, at full width."""
+def chain_phase(torch, model, card: str):
+    """Phase 3: 8 requests, RGB -> all 14 targets, at full width."""
     from fourm_torch import kernels
     from fourm_torch.api import FourMSampler
     from fourm_torch.data.modality_info import MODALITY_INFO
 
-    sampler = FourMSampler(model)  # the card, by default
+    sampler = FourMSampler(model, StandInTokenizer())  # the card, by default
     rgb = np.random.RandomState(0).rand(REQUESTS, 224, 224, 3).astype(np.float32)
     schedule = sampler.build_schedule(["rgb@224"], TARGETS)
-    check(len(schedule) == len(TARGETS) and all(
-        s["scheme"] == "roar" and s["cfg_scale"] == 2.0 and s["temperature"] == 0.01
-        for s in schedule), "schedule is not DEFAULTS_RGB2X's one-step ROAR with CFG 2.0")
+    check([s["target_domain"] for s in schedule] == TARGETS, "schedule order")
+    check(all(s["scheme"] == "roar" and s["cfg_scale"] == 2.0 and s["temperature"] == 0.01
+              for s in schedule[:len(ROAR_TARGETS)]),
+          "image targets are not DEFAULTS_RGB2X's one-step ROAR with CFG 2.0")
+    check(all(s["scheme"] == "autoregressive" and s["cfg_scale"] == 1.0
+              for s in schedule[len(ROAR_TARGETS):]), "sequence targets are not AR")
 
     def run():
         md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], TARGETS,
@@ -253,70 +518,196 @@ def slice_phase(torch, model, card: str):
     run()  # warm-up: cuBLAS handles, allocator
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = run()
+    out = run()  # the public entry alone: samples/s and the launch counts
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    tokens = dict(sampler.sampler._ar_tokens)
+
+    # a third run, instrumented: each sequence target's seconds (its
+    # prefill, token loop and merge, fenced by syncs) and its encoder budget
+    # (the cross K/V length its tokens read)
+    ar_seconds, ar_budget = {}, {}
+    inner = sampler.sampler._generate_seq_target
+
+    def timed(mod_dict, step_info, *args, **kwargs):
+        ar_budget[step_info["target_domain"]] = sampler.sampler._encoder_budget(
+            kwargs["counts"], mod_dict)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(mod_dict, step_info, *args, **kwargs)
+        torch.cuda.synchronize()
+        ar_seconds[step_info["target_domain"]] = time.perf_counter() - t0
+        return out
+
+    sampler.sampler._generate_seq_target = timed
+    t0 = time.perf_counter()
+    run()
+    seconds_inst = time.perf_counter() - t0
+    del sampler.sampler._generate_seq_target  # the class's method again
 
     for t in TARGETS:
+        spec = MODALITY_INFO[t]
         d = out[t]
-        check(bool(d["target_mask"].all()) and not bool(d["input_mask"].any()),
-              f"{t}: not fully decoded")
         tok = d["tensor"]
-        check(tok.shape == (REQUESTS, MODALITY_INFO[t].resolved_max_tokens()), f"{t}: shape")
-        check(int(tok.min()) >= 0 and int(tok.max()) < MODALITY_INFO[t].vocab_size,
+        check(bool(d["target_mask"].all()), f"{t}: still has targets")
+        if spec.type == "img":
+            check(not bool(d["input_mask"].any()), f"{t}: not fully decoded")
+            check(tok.shape == (REQUESTS, spec.resolved_max_tokens()), f"{t}: shape")
+        else:  # decoded to the target's bound, or to EOS in every row
+            bound = spec.resolved_max_tokens() - 1
+            check(0 < tokens[t] <= bound, f"{t}: {tokens[t]} tokens decoded, bound {bound}")
+            check(tok.shape == (REQUESTS, (spec.resolved_max_tokens() + 1) * 2), f"{t}: shape")
+        check(int(tok.min()) >= 0 and int(tok.max()) < spec.vocab_size,
               f"{t}: token outside [0, vocab)")
-    expected = {k: v * len(TARGETS) for k, v in PER_STEP.items()}
+    n_tok = sum(tokens.values())
+    expected = {k: 0 for k in launches}
+    for k, v in PER_STEP.items():
+        expected[k] += v * len(ROAR_TARGETS)
+    for k, v in PER_PREFILL.items():
+        expected[k] += v * len(AR_TARGETS)
+    for k, v in PER_TOKEN.items():
+        expected[k] += v * n_tok
     check(launches == expected, f"launch counts {launches} != {expected}")
-    print(f"slice: {REQUESTS} requests x {len(TARGETS)} targets (batch {2 * REQUESTS} with "
-          f"CFG): {seconds:.4f} s, {seconds / len(TARGETS):.4f} s/target, "
-          f"{REQUESTS / seconds:.4f} samples/s; launches {json.dumps(launches)}; {card}",
-          flush=True)
+    ar_s = sum(ar_seconds.values())
+    img_s = seconds_inst - ar_s
+    print(f"chain: {REQUESTS} requests x {len(TARGETS)} targets, FourMSampler.generate alone: "
+          f"{seconds:.4f} s, {REQUESTS / seconds:.4f} samples/s; {card}", flush=True)
+    print(f"chain, instrumented run: {seconds_inst:.4f} s; image targets (batch "
+          f"{2 * REQUESTS} with CFG) {img_s:.4f} s, {img_s / len(ROAR_TARGETS):.4f} s/target; "
+          f"sequence targets {ar_s:.4f} s for {n_tok} decoded tokens, "
+          f"{ar_s / n_tok * 1e3:.4f} ms/token with prefill and merge", flush=True)
+    for t in AR_TARGETS:
+        print(f"  {t}: {tokens[t]} tokens, {ar_seconds[t]:.4f} s, "
+              f"{ar_seconds[t] / tokens[t] * 1e3:.4f} ms/token, encoder budget {ar_budget[t]}",
+              flush=True)
+    print(f"launches {json.dumps(launches)}", flush=True)
     return out, launches, seconds
 
 
-def parity_phase(torch, model, out):
-    """Phase 4: one forward_generation_img at batch 2, card bf16 kernels against
-    the CPU plain twins in fp32 (and in bf16, to size bf16's own error)."""
-    from fourm_torch.api import FourMSampler
-
-    target = "tok_clip@224"
-    md = {m: {k: v[:2] for k, v in d.items()} for m, d in out.items()}
-    md[target] = dict(md[target], input_mask=torch.ones_like(md[target]["input_mask"]),
-                      target_mask=torch.zeros_like(md[target]["target_mask"]))
-    sampler = FourMSampler(model)
-    budget = sampler.sampler._encoder_budget(sampler.sampler._init_valid_counts(md), md)
-    sa = torch.ones(2, 196, dtype=torch.bool, device="cuda")
+def decode_bench(torch, model, out, card: str) -> float:
+    """The decode microbenchmark of bench.py:301-363 at B = 16, L = 256,
+    M = 2304: ar_prefill of caption, then 64 greedy tokens
+    (embed_target_token, decode_one_token, mod_logits, argmax); best of 3
+    runs, each from fresh caches. Returns ms per token."""
+    B, L, M, steps, target = 16, 256, 2304, 64, "caption"
+    md = {m: {k: torch.cat([v] * -(-B // v.shape[0]))[:B] for k, v in d.items()}
+          for m, d in out.items()}
     with torch.inference_mode():
-        gpu = model.forward_generation_img(md, target, sa, budget).float().cpu()
+        cross_kvs, enc_mask, y_emb = model.ar_prefill(md, target, L, M)
+        check(enc_mask.shape == (B, M), f"decode bench: encoder stream {tuple(enc_mask.shape)}")
+        best = None
+        for rep in range(4):  # the first run warms up
+            caches = model.init_kv_caches(B, L)
+            tok = torch.full((B, 1), 7, dtype=torch.int32, device=model.device)
+            step = torch.zeros(1, dtype=torch.int32, device=model.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                y = model.embed_target_token(target, tok) + y_emb[:, i:i + 1]
+                y, caches = model.decode_one_token(y, caches, cross_kvs, enc_mask, step)
+                tok = model.mod_logits(target, y)[:, 0].argmax(-1).to(torch.int32)[:, None]
+                step += 1
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            if rep:
+                best = ms if best is None else min(best, ms)
+    print(f"decode bench: ar_decode_ms_per_token {best:.4f} (B={B}, L={L}, M={M}, "
+          f"{steps} greedy caption tokens, 12 layers, best of 3); {card}", flush=True)
+    return best
+
+
+def cpu_models(torch, model):
+    """The card model's weights on the CPU, in fp32 and in bf16."""
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
-    md_cpu = {m: {k: v.cpu() for k, v in d.items()} for m, d in md.items()}
-    logits = {}
+    models = {}
     for dtype in ("float32", "bfloat16"):
-        cpu_model = build_model(torch, dtype, "cpu")
-        cpu_model.load_state_dict(state)
-        with torch.inference_mode():
-            logits[dtype] = cpu_model.forward_generation_img(
-                md_cpu, target, sa.cpu(), budget).float()
-        del cpu_model
-    ref, ref_bf16 = logits["float32"], logits["bfloat16"]
+        models[dtype] = build_model(torch, dtype, "cpu")
+        models[dtype].load_state_dict(state)
+    return models
+
+
+def gate(torch, name: str, gpu, ref, ref_bf16, what: str) -> float:
+    """Card bf16 logits against fp32 CPU logits: bf16 carries 8 significant
+    bits through 24 blocks, so the card's path may be as far from fp32 as
+    the plain bf16 path is, not much further. Returns the error."""
     err = (gpu - ref).abs().max().item()
     err_plain = (ref_bf16 - ref).abs().max().item()
-    # bf16 carries 8 significant bits through 24 blocks: the card's bf16 path
-    # may be as far from fp32 as the plain bf16 path is, not much further
     tol = 2.0 * err_plain + 1e-3
     agree = (gpu.argmax(-1) == ref.argmax(-1)).float().mean().item()
     agree_plain = (ref_bf16.argmax(-1) == ref.argmax(-1)).float().mean().item()
     top2 = ref.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 2 * tol  # a bf16 error cannot flip these
-    agree_decided = (gpu.argmax(-1) == ref.argmax(-1))[decided].float().mean().item()
-    print(f"parity: forward_generation_img B=2 {target}, encoder budget {budget}: logits "
-          f"max abs err {err:.6g} vs fp32 (tol {tol:.6g}; plain bf16 {err_plain:.6g}; "
-          f"logit std {ref.std().item():.6g}); argmax agreement {agree:.6f} (plain bf16 "
-          f"{agree_plain:.6f}), {agree_decided:.6f} on the {decided.float().mean().item():.4f}"
-          f" of positions whose fp32 top-2 margin exceeds 2*tol", flush=True)
-    check(bool(torch.isfinite(gpu).all()), "parity: non-finite logits")
-    check(err <= tol, f"parity: logits error {err} > {tol}")
-    check(agree_decided >= 0.99, f"parity: argmax agreement {agree_decided} < 0.99")
+    # with no such position (flat random-weight logits) the argmax gate has
+    # nothing to hold; the logit gate still does
+    n_decided = int(decided.sum())
+    agree_decided = (gpu.argmax(-1) == ref.argmax(-1))[decided].float().mean().item() \
+        if n_decided else 1.0
+    print(f"{name}: {what}: logits max abs err {err:.6g} vs fp32 (tol {tol:.6g}; plain bf16 "
+          f"{err_plain:.6g}; logit std {ref.std().item():.6g}); argmax agreement {agree:.6f} "
+          f"(plain bf16 {agree_plain:.6f}), {agree_decided:.6f} on the {n_decided} of "
+          f"{decided.numel()} positions whose fp32 top-2 margin exceeds 2*tol", flush=True)
+    check(bool(torch.isfinite(gpu).all()), f"{name}: non-finite logits")
+    check(err <= tol, f"{name}: logits error {err} > {tol}")
+    check(agree_decided >= 0.99, f"{name}: argmax agreement {agree_decided} < 0.99")
+    return err
+
+
+def _on(md, dev):
+    return {m: {k: v.to(dev) for k, v in d.items()} for m, d in md.items()}
+
+
+def parity_phase(torch, model, out, cpu):
+    """Phase 4a: one forward_generation_img at batch 2 over the image
+    targets, card bf16 kernels against the CPU plain twins in fp32 (and in
+    bf16, to size bf16's own error)."""
+    from fourm_torch.generate import GenerationSampler
+
+    target = "tok_clip@224"
+    md = {m: {k: v[:2] for k, v in out[m].items()} for m in ("rgb@224", *ROAR_TARGETS)}
+    md[target] = dict(md[target], input_mask=torch.ones_like(md[target]["input_mask"]),
+                      target_mask=torch.zeros_like(md[target]["target_mask"]))
+    sampler = GenerationSampler(model)
+    budget = sampler._encoder_budget(sampler._init_valid_counts(md), md)
+    sa = torch.ones(2, 196, dtype=torch.bool, device=model.device)
+    logits = {}
+    with torch.inference_mode():
+        gpu = model.forward_generation_img(md, target, sa, budget).float().cpu()
+        for dtype, m in cpu.items():
+            logits[dtype] = m.forward_generation_img(_on(md, "cpu"), target, sa.cpu(),
+                                                     budget).float()
+    gate(torch, "parity", gpu, logits["float32"], logits["bfloat16"],
+         f"forward_generation_img B=2 {target}, encoder budget {budget}")
+
+
+def decode_parity_phase(torch, model, out, cpu):
+    """Phase 4b: ar_prefill of det (conditioned on RGB, the CLIP tokens and
+    the caption the chain decoded) + 4 teacher-forced decode_one_token steps
+    at batch 2, card bf16 kernels against the CPU plain twins."""
+    from fourm_torch.generate import GenerationSampler
+
+    target, L, steps = "det", 16, 4
+    md = {m: {k: v[:2] for k, v in out[m].items()} for m in ("rgb@224", "tok_clip@224", "caption")}
+    sampler = GenerationSampler(model)
+    budget = sampler._encoder_budget(sampler._init_valid_counts(md), md)
+    toks = torch.from_numpy(np.random.RandomState(5).randint(30, 30000, (2, steps)))
+
+    def run(m, dev):
+        with torch.inference_mode():
+            kvs, mask, emb = m.ar_prefill(_on(md, dev), target, L, budget)
+            caches = m.init_kv_caches(2, L)
+            step = torch.zeros(1, dtype=torch.int32, device=dev)
+            logits = []
+            for t in range(steps):
+                y = m.embed_target_token(target, toks[:, t:t + 1].to(dev)) + emb[:, t:t + 1]
+                y, caches = m.decode_one_token(y, caches, kvs, mask, step)
+                logits.append(m.mod_logits(target, y)[:, 0].float().cpu())
+                step += 1
+        return torch.stack(logits, 1)
+
+    gpu = run(model, model.device)
+    ref = {dtype: run(m, "cpu") for dtype, m in cpu.items()}
+    gate(torch, "decode parity", gpu, ref["float32"], ref["bfloat16"],
+         f"ar_prefill {target} + {steps} decode steps B=2, encoder budget {budget}")
 
 
 def main() -> int:
@@ -346,11 +737,14 @@ def main() -> int:
 
     results = kernel_phase(torch)
     model = build_model(torch, "bfloat16", "cuda")
-    out, launches, _ = slice_phase(torch, model, card)
+    out, launches, _ = chain_phase(torch, model, card)
     for r in results:
         r["launches"] = launches[r.pop("wrapper")]
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
-    parity_phase(torch, model, out)
+    decode_bench(torch, model, out, card)
+    cpu = cpu_models(torch, model)
+    parity_phase(torch, model, out, cpu)
+    decode_parity_phase(torch, model, out, cpu)
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
     print(json.dumps({"kernels": results}), flush=True)

@@ -2,12 +2,13 @@
 
 Counterpart of fourm_tpu/api.py (reference fourm/demo_4M_sampler.py:29-447):
 holds a FourM model on its device, builds chained generation schedules from
-per-modality defaults, and generates. This slice serves image-token targets
-(the ROAR chain of RGB-to-X); sequence targets, token decoding and
-super-resolution come with later slices and raise NotImplementedError.
+per-modality defaults, and generates: image-token targets (ROAR / MaskGIT)
+and sequence targets (KV-cached autoregressive decoding), so the whole
+RGB-to-all chain. Token decoding and super-resolution come with later
+slices and raise NotImplementedError.
 
 Usage:
-    sampler = FourMSampler(model)                 # runs on "cuda"
+    sampler = FourMSampler(model, text_tokenizer)  # runs on "cuda"
     mod_dict = sampler.prepare_sample({"rgb@224": img_nhwc}, ["rgb@224"],
                                       ["tok_clip@224", "tok_depth@224"], batch_size=8)
     out = sampler.generate(mod_dict, sampler.build_schedule(["rgb@224"], targets), seed=0)
@@ -115,10 +116,12 @@ class FourMSampler:
     def __init__(self, fm, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
                  device: str = "cuda"):
         """fm: a FourM of the port, moved to `device`; text_tokenizer encodes
-        text prompts given as conditioning."""
+        text prompts given as conditioning, and its sentinel ids drive the
+        span merge of sequence targets (it needs `get_vocab()` and
+        `token_to_id()`; `encode()` only for text prompts)."""
         self.device = resolve_device(device)
         self.model = fm.to(self.device).eval()
-        self.sampler = GenerationSampler(self.model, top_k=top_k, top_p=top_p)
+        self.sampler = GenerationSampler(self.model, text_tokenizer, top_k=top_k, top_p=top_p)
         self.text_tokenizer = text_tokenizer
 
     def _ordered_targets(self, target_domains, order):
@@ -175,7 +178,8 @@ class FourMSampler:
         return expand_to_batch(mod_dict, batch_size)
 
     def generate(self, mod_dict, schedule, seed: Optional[int] = None):
-        return self.sampler.generate(mod_dict, schedule, seed=seed)
+        return self.sampler.generate(mod_dict, schedule, seed=seed,
+                                     text_tokenizer=self.text_tokenizer)
 
     def decode(self, *args, **kwargs):
         raise NotImplementedError("token decoding (VQ / diffusion decoders) is a later "

@@ -1,4 +1,4 @@
-"""GenerationSampler: chained generation over image-token targets, PyTorch port.
+"""GenerationSampler: chained generation, PyTorch port.
 
 Counterpart of fourm_tpu/generate/sampler.py (reference
 fourm/models/generate.py:323-1273), in its fixed-shape form:
@@ -7,26 +7,35 @@ fourm/models/generate.py:323-1273), in its fixed-shape form:
     step of a target runs at one shape;
   * classifier-free guidance runs cond and uncond in one batch-doubled
     forward;
+  * sequence targets decode autoregressively with per-layer KV caches and
+    cross-attention K/V computed once at prefill, in a fixed-shape token
+    loop with per-row EOS freezing; the finished sequence is spliced back
+    into the target's input on the device (span merge);
   * the encoder stream is compacted to a host-computed bucket of valid
     tokens (`_encoder_budget`), with counts updated analytically per step.
 The steps of one target run as one Python loop (the counterpart of the JAX
-package's fused lax.scan). Randomness comes from one torch.Generator on the
-model's device, seeded from `seed`; its draws are not those of jax.random, so
-equality with the JAX package is tested where no draw matters (one step per
-target, temperature 0). Sequence targets (autoregressive decoding) belong
-to the next slice of the port and raise NotImplementedError.
+package's fused lax.scan / while_loop). Randomness comes from one
+torch.Generator on the model's device, seeded from `seed`; its draws are not
+those of jax.random, so equality with the JAX package is tested where no
+draw matters (one step per image target, temperature 0).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.modality_info import MODALITY_INFO
 from ..ops.sampling import top_k_top_p_filtering_dynamic
-from .init_helpers import S1_ID
+from ..ops.token_select import select_tokens
+from ..utils.text_tokenizer import get_sentinel_to_id_mapping
+from .init_helpers import PAD_ID, S1_ID
+
+# rows that are done only write PAD, so whether every row is done is read
+# from the device once every this many tokens, not after each token
+DONE_CHECK_EVERY = 16
 
 IMG = "img"
 SEQ = ("seq", "seq_token")
@@ -90,18 +99,103 @@ def _np(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _head_sentinel(toks: torch.Tensor, is_sent: torch.Tensor, before: torch.Tensor):
+    """The most recent sentinel at or before each position, `before` where
+    none precedes it."""
+    pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+    last_pos = torch.cummax(torch.where(is_sent, pos, -1), dim=1).values
+    return torch.where(last_pos >= 0, torch.gather(toks, 1, last_pos.clamp_min(0)), before)
+
+
+def merge_empty_input(out_ids: torch.Tensor, L: int, sentinels: Tuple[int, ...],
+                      span_sentinel: int):
+    """Span merge when the target's input region was empty (fourm_tpu
+    sampler.py:452-502): the merged sequence is the non-PAD tokens of every
+    decoder segment headed by `span_sentinel`, the start marker heading
+    segment 0 (a repeated sentinel continues its span, as the JAX package's
+    split_by_sentinel appends). Returns (tensor (B, L) int32, input_mask, max valid count)."""
+    toks = out_ids[:, 1:].long()
+    start = out_ids[:, :1].long()
+    sent = torch.tensor(sentinels, dtype=torch.int64, device=toks.device)
+    is_sent = (toks[..., None] == sent).any(-1)
+    head = _head_sentinel(toks, is_sent, start)
+    keep = (toks != PAD_ID) & ~is_sent & (head == span_sentinel)
+    n_keep = keep.sum(1)
+    idx = select_tokens(~keep, min(L, toks.shape[1]))
+    valid = torch.arange(idx.shape[1], device=toks.device)[None, :] < n_keep[:, None]
+    merged = torch.where(valid, torch.gather(toks, 1, idx), PAD_ID).to(torch.int32)
+    if L > merged.shape[1]:
+        merged = torch.nn.functional.pad(merged, (0, L - merged.shape[1]), value=PAD_ID)
+        valid = torch.nn.functional.pad(valid, (0, L - valid.shape[1]))
+    return merged, ~valid, int(n_keep.max())
+
+
+def merge_general(in_tensor: torch.Tensor, in_mask: torch.Tensor, out_ids: torch.Tensor,
+                  L: int, sentinels: Tuple[int, ...], default_sentinel: int):
+    """General span merge (fourm_tpu sampler.py:504-596, reference
+    generate.py:550-626): walk the input tokens, copy non-sentinels, and
+    expand each input sentinel into the decoder tokens, in order, whose most
+    recent preceding sentinel is that one; an empty input acts as
+    [default_sentinel]. Fixed shapes; returns (tensor (B, L) int32,
+    input_mask, max valid count)."""
+    dev = in_tensor.device
+    B, T_in = in_tensor.shape
+    T_dec = out_ids.shape[1]
+    sent = torch.tensor(sentinels, dtype=torch.int64, device=dev)
+    S = sent.shape[0]
+    # the input tokens, valid first in their order
+    in_tok = torch.gather(in_tensor, 1, select_tokens(in_mask, T_in)).long()
+    n_in = (~in_mask).sum(1)
+    col = torch.arange(T_in, device=dev)[None, :]
+    in_tok = torch.where((n_in == 0)[:, None] & (col == 0), default_sentinel, in_tok)
+    valid_in = col < n_in.clamp_min(1)[:, None]
+    # each decoder token's head sentinel; per sentinel, its tokens in order
+    toks = out_ids.long()
+    is_pad_d = toks == PAD_ID
+    is_sent_d = (toks[..., None] == sent).any(-1) & ~is_pad_d
+    head = _head_sentinel(toks, is_sent_d, torch.full_like(toks, -1))
+    keep_d = ~is_pad_d & ~is_sent_d & (head >= 0)
+    mine = keep_d[:, None, :] & (head[:, None, :] == sent[None, :, None])  # (B, S, T_dec)
+    dec_tab = torch.gather(toks[:, None, :].expand(B, S, T_dec), 2, select_tokens(~mine, T_dec))
+    dec_cnt = mine.sum(-1)  # (B, S)
+    # run length and exclusive start of each input position
+    sent_match = in_tok[..., None] == sent  # (B, T_in, S)
+    is_sent_i = sent_match.any(-1) & valid_in
+    sent_j = sent_match.to(torch.uint8).argmax(-1)  # first match
+    len_i = torch.where(valid_in, torch.where(is_sent_i, torch.gather(dec_cnt, 1, sent_j), 1), 0)
+    start_i = torch.cumsum(len_i, 1) - len_i
+    n_out = len_i.sum(1)
+    # each output slot from the run that contains it
+    o = torch.arange(L, device=dev)[None, None, :]
+    contains = (start_i[:, :, None] <= o) & (o < (start_i + len_i)[:, :, None])  # (B, T_in, L)
+    found = contains.any(1)
+    i_of_o = contains.to(torch.uint8).argmax(1)  # (B, L)
+    k = torch.arange(L, device=dev)[None, :] - torch.gather(start_i, 1, i_of_o)
+    dec_val = dec_tab[torch.arange(B, device=dev)[:, None], torch.gather(sent_j, 1, i_of_o),
+                      k.clamp(0, T_dec - 1)]
+    val = torch.where(torch.gather(is_sent_i, 1, i_of_o), dec_val, torch.gather(in_tok, 1, i_of_o))
+    merged = torch.where(found, val, PAD_ID).to(torch.int32)
+    return merged, ~found, int(n_out.clamp_max(L).max())
+
+
 class GenerationSampler:
     """Chained generation with a FourM model (its parameters held by the model).
 
     Usage:
-      sampler = GenerationSampler(model)
+      sampler = GenerationSampler(model, text_tokenizer)
       out = sampler.generate(mod_dict, schedule, seed=0)
+
+    `text_tokenizer` (anything with `get_vocab()` and `token_to_id()`) gives
+    the sentinel ids that the span merge of sequence targets needs.
     """
 
-    def __init__(self, model, top_k: float = 0.0, top_p: float = 0.0):
+    def __init__(self, model, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0):
         self.model = model
+        self.text_tokenizer = text_tokenizer
         self.top_k = top_k
         self.top_p = top_p
+        # tokens decoded per sequence target in the last `generate` call
+        self._ar_tokens: Dict[str, int] = {}
 
     def _init_valid_counts(self, mod_dict) -> Dict[str, int]:
         """Per-modality max (over batch) count of valid encoder tokens, taken
@@ -214,8 +308,146 @@ class GenerationSampler:
             counts[target_mod] = end_counts[target_mod]
         return mod_dict
 
+    def _ar_decode(self, mod_dict, target_mod: str, cond_mods, use_cfg: bool, max_len: int,
+                   temperature: float, cfg_scale: float, top_k: float, top_p: float,
+                   enc_budget: Optional[int], gen: torch.Generator):
+        """KV-cached autoregressive decoding of one sequence target, the
+        JAX package's _ar_step_fn (sampler.py:357-448) as a Python loop over
+        fixed shapes. Returns (out_ids (B, max_len) int32, length); the
+        number of tokens decoded goes to self._ar_tokens[target_mod]."""
+        model = self.model
+        d_t = mod_dict[target_mod]
+        tensor, target_mask = d_t["tensor"], d_t["target_mask"]
+        B, T = tensor.shape
+        dev = tensor.device
+        # start token = first target-region token ([S_1]); eos = its last one
+        tgt_ids = torch.gather(tensor, 1, select_tokens(target_mask, min(max_len, T)))
+        n_valid = (~target_mask).sum(1)
+        start = tgt_ids[:, 0].to(torch.int32)
+        eos_tok = torch.gather(tgt_ids, 1, (n_valid - 1).clamp_min(0)[:, None])[:, 0]
+        done = start == eos_tok
+        # generate at most as many tokens as the target region holds, none if
+        # every row is done: one host read per target, made before the
+        # prefill is queued so that the host does not wait for it
+        n_max, all_done0 = torch.stack([n_valid.max(), done.all().to(n_valid.dtype)]).tolist()
+        bound = 0 if all_done0 else min(n_max, max_len - 1)
+        md = _tree_concat([mod_dict, _empty_cond_tree(mod_dict, cond_mods)]) if use_cfg \
+            else mod_dict
+        cross_kvs, enc_mask, y_emb = model.ar_prefill(md, target_mod, max_len, enc_budget)
+        caches = model.init_kv_caches(y_emb.shape[0], max_len)
+
+        out = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
+        out[:, 0] = start
+        # all_done[t] is True once every row is done after t tokens; the
+        # loop reads it every DONE_CHECK_EVERY tokens, the length at the end
+        all_done = torch.zeros(bound + 1, dtype=torch.bool, device=dev)
+        all_done[0] = done.all()
+        step_idx = torch.zeros(1, dtype=torch.int32, device=dev)
+        tok = start
+        t = 0
+        while t < bound:
+            if t > 0 and t % DONE_CHECK_EVERY == 0 and bool(all_done[t]):
+                break
+            tok_f = torch.cat([tok, tok]) if use_cfg else tok
+            y_t = model.embed_target_token(target_mod, tok_f[:, None]) + y_emb[:, t:t + 1]
+            y_out, caches = model.decode_one_token(y_t, caches, cross_kvs, enc_mask, step_idx)
+            logits = model.mod_logits(target_mod, y_out)[:, 0].float()
+            if use_cfg:
+                lc, lu = logits[:B], logits[B:]
+                logits = lu + cfg_scale * (lc - lu)
+            if top_k or top_p:
+                logits = top_k_top_p_filtering_dynamic(logits, top_k, top_p)
+            sample, _ = _sample_traced_temp(gen, logits, temperature)
+            sample = torch.where(done, PAD_ID, sample.to(torch.int32))  # freeze finished rows
+            out[:, t + 1] = sample
+            done = done | (sample == eos_tok)
+            all_done[t + 1] = done.all()
+            tok = sample
+            step_idx += 1
+            t += 1
+        self._ar_tokens[target_mod] = t
+        # the JAX loop stops at the first token after which every row is done
+        finished = torch.nonzero(all_done[:t + 1])
+        length = (int(finished[0, 0]) if finished.numel() else t) + 1
+        return out, length
+
+    def merge_sequences_device(self, mod_dict, out_ids, target_mod: str,
+                               text_tokenizer=None) -> Dict:
+        """Span merge for a target whose input region was empty (fourm_tpu
+        sampler.py:598-617), on the device; one scalar comes to the host for
+        the encoder budget."""
+        tok = self._tokenizer(text_tokenizer, target_mod)
+        sentinels = tuple(sorted(get_sentinel_to_id_mapping(tok).values()))
+        L = (MODALITY_INFO[target_mod].resolved_max_tokens() + 1) * 2
+        tensor, input_mask, n_valid = merge_empty_input(out_ids, L, sentinels,
+                                                        tok.token_to_id("[S_1]"))
+        return self._set_merged(mod_dict, target_mod, tensor, input_mask, n_valid)
+
+    def merge_sequences_device_general(self, mod_dict, out_ids, target_mod: str,
+                                       text_tokenizer=None) -> Dict:
+        """General span merge into the existing input sequence (fourm_tpu
+        sampler.py:619-641), on the device; one scalar comes to the host."""
+        tok = self._tokenizer(text_tokenizer, target_mod)
+        sentinels = tuple(sorted(get_sentinel_to_id_mapping(tok).values()))
+        L = (MODALITY_INFO[target_mod].resolved_max_tokens() + 1) * 2
+        d = mod_dict[target_mod]
+        tensor, input_mask, n_valid = merge_general(d["tensor"], d["input_mask"], out_ids, L,
+                                                    sentinels, tok.token_to_id("[S_1]"))
+        return self._set_merged(mod_dict, target_mod, tensor, input_mask, n_valid)
+
+    def _tokenizer(self, text_tokenizer, target_mod: str):
+        tok = text_tokenizer or self.text_tokenizer
+        if tok is None:
+            raise ValueError(f"sequence target {target_mod!r} needs a text tokenizer: its "
+                             "sentinel ids drive the span merge")
+        return tok
+
+    def _set_merged(self, mod_dict, target_mod, tensor, input_mask, n_valid: int):
+        B, L = tensor.shape
+        self._last_merge_valid = n_valid
+        mod_dict[target_mod] = {
+            "tensor": tensor,
+            "input_mask": input_mask,
+            "target_mask": torch.ones((B, L), dtype=torch.bool, device=tensor.device),
+            "decoder_attention_mask": torch.zeros((B, L), dtype=torch.int32,
+                                                  device=tensor.device),
+        }
+        return mod_dict
+
+    def _generate_seq_target(self, mod_dict, step_info: dict, gen: torch.Generator,
+                             top_k: float, top_p: float, counts: Dict[str, int],
+                             text_tokenizer=None):
+        """One sequence target: AR decode, then the span merge on the device
+        (the sequence branch of the JAX package's _generate_one_step,
+        sampler.py:815-843). The target's encoder count becomes its merged
+        length."""
+        target_mod = step_info["target_domain"]
+        self._tokenizer(text_tokenizer, target_mod)  # fail before decoding
+        cfg_scale = step_info.get("cfg_scale", 1.0)
+        conds = tuple(step_info.get("cfg_cond_domains", ()))
+        use_cfg = (not isinstance(cfg_scale, (list, tuple))) and cfg_scale != 1.0 \
+            and len(conds) > 0
+        max_len = min(MODALITY_INFO[target_mod].resolved_max_tokens(),
+                      int(mod_dict[target_mod]["tensor"].shape[1]))
+        out_ids, _ = self._ar_decode(
+            mod_dict, target_mod, conds if use_cfg else (), use_cfg, max_len,
+            float(step_info["temperature"]), float(cfg_scale) if use_cfg else 1.0, top_k,
+            top_p, self._encoder_budget(counts, mod_dict), gen)
+        # an empty sequence target starts with [S_1] as its one input token,
+        # so the chain takes the general merge; the empty-input one serves a
+        # truly empty input region
+        if counts.get(target_mod, None) == 0:
+            mod_dict = self.merge_sequences_device(mod_dict, out_ids, target_mod, text_tokenizer)
+        else:
+            mod_dict = self.merge_sequences_device_general(mod_dict, out_ids, target_mod,
+                                                           text_tokenizer)
+        if target_mod in counts:
+            counts[target_mod] = self._last_merge_valid
+        return mod_dict
+
     def generate(self, mod_dict, schedule: List[dict], seed: Optional[int] = None,
-                 top_k: Optional[float] = None, top_p: Optional[float] = None):
+                 top_k: Optional[float] = None, top_p: Optional[float] = None,
+                 text_tokenizer=None):
         """Run a chained generation schedule (reference generate.py:1028-1095).
         Returns the mod dict with every target filled in, as tensors on the
         model's device."""
@@ -224,15 +456,19 @@ class GenerationSampler:
         dev = self.model.device
         gen = torch.Generator(device=dev).manual_seed(0 if seed is None else int(seed))
         counts = self._init_valid_counts(mod_dict)
+        self._ar_tokens = {}
         mod_dict = {m: {k: torch.as_tensor(v).to(dev) for k, v in d.items()}
                     for m, d in mod_dict.items()}
         with torch.inference_mode():
             for group in self._group_schedule(schedule):
-                target = group[0]["target_domain"]
-                if MODALITY_INFO[target].type != IMG:
-                    raise NotImplementedError(
-                        f"sequence target {target!r}: autoregressive decoding is the next "
-                        "slice of the port (ROADMAP.md, 'AR targets')")
-                mod_dict = self._generate_img_target(mod_dict, group, gen, top_k, top_p,
-                                                     counts)
+                kind = MODALITY_INFO[group[0]["target_domain"]].type
+                if kind == IMG:
+                    mod_dict = self._generate_img_target(mod_dict, group, gen, top_k, top_p,
+                                                         counts=counts)
+                elif kind in SEQ:
+                    mod_dict = self._generate_seq_target(mod_dict, group[0], gen, top_k,
+                                                         top_p, counts=counts,
+                                                         text_tokenizer=text_tokenizer)
+                else:
+                    raise ValueError(f"invalid target modality type {kind}")
         return mod_dict

@@ -1,14 +1,21 @@
-"""Hand-written CUDA kernels (csrc/) for the slice's hot path, with their
+"""Hand-written CUDA kernels (csrc/) for the port's hot path, with their
 wrappers, plain PyTorch twins and launch counters: `fused_mlp.ln_matmul`,
-`fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`.
+`fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`, and the
+decode step's `decode_step.self_decode`, `decode_step.cross_decode_attn`,
+`decode_step.decode_attention`, `decode_step.residual_mlp`.
 Importing this package needs no CUDA toolkit: the kernels build on first
 launch (see _build)."""
 
 from . import attention as _attention
+from . import decode_step as _decode_step
 from . import fused_mlp as _fused_mlp
 
 WRAPPERS = {"ln_matmul": _fused_mlp.ln_matmul, "ln_mlp": _fused_mlp.ln_mlp,
-            "flash_mha": _attention.flash_mha, "attention": _attention.attention}
+            "flash_mha": _attention.flash_mha, "attention": _attention.attention,
+            "self_decode": _decode_step.self_decode,
+            "cross_decode_attn": _decode_step.cross_decode_attn,
+            "decode_attention": _decode_step.decode_attention,
+            "residual_mlp": _decode_step.residual_mlp}
 
 
 def reset_launch_counts() -> None:

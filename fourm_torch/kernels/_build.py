@@ -22,20 +22,31 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ln_matmul", "ln_mlp", "attention")
+SOURCES = ("ln_matmul", "ln_mlp", "attention", "self_decode", "decode_attn", "residual_mlp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of each C entry point (restype is int: cudaGetLastError())
+# each C entry point: its source, its symbol and its argtypes (restype is
+# int: cudaGetLastError())
 SIGNATURES = {
-    "ln_matmul": ("fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
-    "ln_mlp": ("fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _F, _P]),
-    "attention": ("fourm_attention", [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4
-                  + [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P]),
+    "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _F, _P]),
+    "attention": ("attention", "fourm_attention",
+                  [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 4 + [_I] * 4
+                  + [_F, _F, _I, _P]),
+    "self_decode": ("self_decode", "fourm_self_decode",
+                    [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
+    "decode_attention": ("decode_attn", "fourm_decode_attention",
+                         [_P, _I, _I, _P, _P] + [_I] * 6 + [_P] + [_I] * 3 + [_P, _P]
+                         + [_I] * 4 + [_F, _I, _I, _P]),
+    "cross_decode_q": ("decode_attn", "fourm_cross_q",
+                       [_P] * 6 + [_I] + [_P, _P] + [_I] * 3 + [_F, _P]),
+    "residual_mlp": ("residual_mlp", "fourm_residual_mlp",
+                     [_P] * 12 + [_I] + [_P] * 3 + [_I] * 4 + [_F, _P]),
 }
 
 _lock = threading.Lock()
@@ -87,24 +98,27 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library holding kernel `name`, built on first use."""
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library built from csrc/<source>.cu, built on first use,
+    with the argtypes of its entry points set."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(_lib_path(source)))
+            for src, sym, argtypes in SIGNATURES.values():
+                if src == source:
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            _libs[source] = lib
         return lib
 
 
 def entry(name: str):
-    """The C entry point of kernel `name`, with argtypes set."""
-    return getattr(library(name), SIGNATURES[name][0])
+    """The C entry point `name` of SIGNATURES, with argtypes set."""
+    source, sym, _ = SIGNATURES[name]
+    return getattr(library(source), sym)
 
 
 def check(name: str, code: int) -> None:

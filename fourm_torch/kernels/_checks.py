@@ -6,9 +6,11 @@ from __future__ import annotations
 import torch
 
 
-def require(cond: bool, what: str) -> None:
+def require(cond: bool, what) -> None:
+    """Raise ValueError(what) unless cond; `what` may be a callable that
+    builds the message, so a hot path formats nothing when the check holds."""
     if not cond:
-        raise ValueError(what)
+        raise ValueError(what() if callable(what) else what)
 
 
 def require_bf16(name: str, *tensors) -> None:
@@ -22,14 +24,13 @@ def require_cuda(name: str, *tensors) -> torch.device:
     for t in tensors:
         if t is None:
             continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: all tensors must be on the same CUDA device, "
-                             f"got {t.device}")
+        index = t.get_device()  # -1 on the CPU
         if dev is None:
-            dev = t.device
-        elif t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-    return dev
+            dev = index
+        if index < 0 or index != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device, got "
+                             f"{[str(u.device) for u in tensors if u is not None]}")
+    return torch.device("cuda", dev)
 
 
 def aligned(t: torch.Tensor, nbytes: int) -> bool:
@@ -39,6 +40,24 @@ def aligned(t: torch.Tensor, nbytes: int) -> bool:
 def f32(t):
     """fp32 contiguous copy of a small parameter vector (None passes)."""
     return None if t is None else t.detach().float().contiguous()
+
+
+def small_params(*tensors):
+    """Small parameter vectors (LN scales and shifts, biases) for a kernel
+    that reads them in fp32 or in bf16, one flag for all: returns the
+    tensors (None passes) and 1 when they are bf16. Contiguous fp32 or bf16
+    vectors of one dtype pass as they are, with no copy kernel; anything
+    else goes to fp32 copies."""
+    dtype = None
+    for t in tensors:
+        if t is None:
+            continue
+        if dtype is None:
+            dtype = t.dtype
+        if t.dtype is not dtype or dtype not in (torch.float32, torch.bfloat16) \
+                or not t.is_contiguous():
+            return [f32(u) for u in tensors], 0
+    return tensors, int(dtype is torch.bfloat16)
 
 
 def ptr(t) -> int | None:

@@ -1,9 +1,11 @@
 // Shared helpers for the fourm_torch Hopper kernels (sm_90a).
 //
-// Every kernel here takes bf16 activations and weights, keeps statistics
-// and sums in fp32, and computes its products with WMMA 16x16x16 bf16
-// fragments (tensor cores, fp32 accumulation). The C entry points return
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// Every kernel here takes bf16 activations and weights and keeps statistics
+// and sums in fp32. The many-row kernels compute their products with WMMA
+// 16x16x16 bf16 fragments (tensor cores, fp32 accumulation); the decode-step
+// kernels, one token per batch row, with fp32 FMAs. The C entry points
+// return cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +78,172 @@ __device__ __forceinline__ void ln_rows_to_smem(
       dst[v] = u;
     }
   }
+}
+
+// ---- helpers of the decode-step kernels (self_decode, decode_attn,
+// residual_mlp): one token per batch row, so their products are GEMVs on
+// CUDA cores, fp32 sums of bf16 products.
+
+// Element i of a small parameter vector (LN scale or shift, bias) held in
+// fp32 or in bf16 (is_bf16), so the wrapper needs no copy kernel.
+__device__ __forceinline__ float ld_param(const void* p, int i, int is_bf16) {
+  return is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(p)[i])
+                 : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(e[i]);
+}
+
+// LayerNorm of one bf16 row of C values (C % 8 == 0, 16-byte aligned) by
+// one warp, into `out` (shared memory) as bf16: fp32 mean, then fp32 mean of
+// squared deviations, y = (x - mean) * rsqrt(var + eps) * g (+ b), one
+// rounding -- the order of fused_mlp.py:_ln. A null x writes zeros.
+__device__ __forceinline__ void warp_ln_row(const bf16* __restrict__ x, int C,
+                                            const void* g, const void* b, int pbf,
+                                            float eps, bf16* out) {
+  const int lane = threadIdx.x % 32;
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  if (x == nullptr) {
+    for (int v = lane; v < C / 8; v += 32) dst[v] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(x);
+  float s = 0.f;
+  for (int v = lane; v < C / 8; v += 32) {
+    float f[8];
+    unpack8(src[v], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mean = warp_sum(s) / (float)C;
+  float q = 0.f;
+  for (int v = lane; v < C / 8; v += 32) {
+    float f[8];
+    unpack8(src[v], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q += (f[i] - mean) * (f[i] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(q) / (float)C + eps);
+  for (int v = lane; v < C / 8; v += 32) {
+    float f[8];
+    unpack8(src[v], f);
+    uint4 u;
+    bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = v * 8 + i;
+      float y = (f[i] - mean) * rstd * ld_param(g, c, pbf);
+      if (b != nullptr) y += ld_param(b, c, pbf);
+      e[i] = __float2bfloat16(y);
+    }
+    dst[v] = u;
+  }
+}
+
+// acc[i][r] = sum_k a[r][k] * w[i][k] for the R bf16 rows of `a` (shared
+// memory, row stride lda elements, lda % 8 == 0) and NW bf16 weight rows
+// w[i] of K values in device memory (K % 8 == 0, 16-byte aligned), by one
+// warp: each lane takes 16-byte slices, and issues the loads of U slices of
+// every weight row before it uses any, so U * NW loads per lane are in
+// flight (a GEMV at a few token rows is bound by the latency of its weight
+// loads); products summed in fp32. Every lane returns the sums.
+template <int R, int NW, int U>
+__device__ __forceinline__ void warp_gemv(const bf16* a, int lda, const bf16* const (&w)[NW],
+                                          int K, float (&acc)[NW][R]) {
+  const int lane = threadIdx.x % 32, nv = K / 8;
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[i][r] = 0.f;
+  for (int v0 = lane; v0 < nv; v0 += 32 * U) {
+    uint4 wu[U][NW];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        wu[u][i] = v0 + 32 * u < nv
+                       ? __ldg(reinterpret_cast<const uint4*>(w[i]) + v0 + 32 * u)
+                       : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + 32 * u;
+      if (v >= nv) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float af[8];
+        unpack8(*reinterpret_cast<const uint4*>(a + (size_t)r * lda + v * 8), af);
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          float wf[8];
+          unpack8(wu[u][i], wf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[i][r] += af[e] * wf[e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[i][r] = warp_sum(acc[i][r]);
+}
+
+// LayerNorm over the 64 values v[0..63] (shared memory, fp32) by one warp,
+// two per lane, in place, in fp32 (per-head QK-norm: fp32 statistics on the
+// fp32 projection; the caller then rounds to bf16, as decode_step.py:126-134).
+__device__ __forceinline__ void warp_head_norm64(float* v, const void* g, const void* b,
+                                                 int pbf, float eps) {
+  const int lane = threadIdx.x % 32;
+  const float a0 = v[lane], a1 = v[lane + 32];
+  const float mean = warp_sum(a0 + a1) / 64.f;
+  const float d0 = a0 - mean, d1 = a1 - mean;
+  const float rstd = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / 64.f + eps);
+  float y0 = d0 * rstd * ld_param(g, lane, pbf);
+  float y1 = d1 * rstd * ld_param(g, lane + 32, pbf);
+  if (b != nullptr) {
+    y0 += ld_param(b, lane, pbf);
+    y1 += ld_param(b, lane + 32, pbf);
+  }
+  __syncwarp();
+  v[lane] = y0;
+  v[lane + 32] = y1;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide sum / max of one value per thread (blockDim.x % 32 == 0,
+// red holds one float per warp). Every thread returns the result.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < nw; ++i) t += red[i];
+  return t;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = red[0];
+  for (int i = 1; i < nw; ++i) t = fmaxf(t, red[i]);
+  return t;
 }
 
 inline int num_sms() {

@@ -1,0 +1,319 @@
+"""Decode-step kernels: one token through a decoder block, KV-cached.
+
+Counterparts of fourm_tpu/kernels/decode_step.py, the composition of
+DecoderBlock._fused_step with every kernel on (transformer.py:940-1013):
+  * `self_decode` is pallas_self_decode: LN1 -> QKV -> per-head QK-norm ->
+    softmax over the cache's earlier positions plus the new token, the new
+    K/V written into the cache at `step_idx`;
+  * `decode_attention` is pallas_decode_attention: single-query attention
+    over (B, H, M, Dh) K/V with an fp32 (B|1, 1|H, M) bias;
+  * `cross_decode_attn` is pallas_cross_decode_attn (bf16 K/V; its int8
+    mode is not ported): query_norm -> Q projection -> per-head Q-norm,
+    then the `decode_attention` kernel over the cross K/V;
+  * `residual_mlp` is pallas_residual_mlp: x' = x + attn Wp (+b), then
+    x' + MLP(LN2 x').
+Each wrapper launches its CUDA kernels (csrc/self_decode.cu,
+csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA tensors, counting
+launches in `<wrapper>.launches`, and computes its plain PyTorch twin for
+CPU tensors.
+
+Layout: the port keeps caches and cross K/V as (B, H, L|M, Dh), each key one
+128-byte row, not the TPU's (B, H, Dh, L) lane layout. Weights use the
+nn.Linear layout (out_features, in_features).
+
+The twins follow the TPU kernels' arithmetic: LN statistics in fp32 with
+one rounding to the compute dtype, products summed in fp32, per-head
+QK-norm on the fp32 projection before its rounding, logits scaled after the
+sum, softmax in fp32. Probabilities meet V in fp32 in `self_decode` and
+`cross_decode_attn`, and cast to V's dtype first in `decode_attention` (as
+XLA's decode_attention and pallas_decode_attention do): `cast_probs`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ._checks import ptr, require, require_bf16, require_cuda, small_params, stream
+from .attention import softmax1
+from .fused_mlp import _mm, layer_norm_fp32, ln_mlp_plain
+
+# keys per block of the split-K decode attention; decode_attn.cu takes it as
+# an argument and sizes its shared memory from it
+DECODE_CHUNK = 256
+_NEG = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------- self_decode
+
+def self_decode_plain(x, gamma1, beta1, w_qkv, b_qkv, qn_gamma, qn_beta, kn_gamma,
+                      kn_beta, cache_k, cache_v, step_idx, num_heads: int,
+                      eps: float = 1e-6, allow_zero_attn: bool = False) -> torch.Tensor:
+    B, C = x.shape
+    H = num_heads
+    Dh = C // H
+    L = cache_k.shape[2]
+    dt = w_qkv.dtype
+    h = layer_norm_fp32(x.float(), gamma1, beta1, eps).to(dt)
+    q, k, v = _mm(h, w_qkv, b_qkv).reshape(B, 3, H, Dh).unbind(1)  # fp32 (B, H, Dh)
+    if qn_gamma is not None:
+        q = layer_norm_fp32(q, qn_gamma, qn_beta, eps)
+        k = layer_norm_fp32(k, kn_gamma, kn_beta, eps)
+    q, k, v = (t.to(cache_k.dtype).float() for t in (q, k, v))
+    step = step_idx.reshape(())
+    pos = torch.arange(L, device=x.device)
+    valid = pos < step  # earlier tokens; the new one comes from registers
+    scale = Dh ** -0.5
+    s = torch.einsum("bhd,bhld->bhl", q, cache_k.float()) * scale
+    s = s.masked_fill(~valid, _NEG)
+    s_n = (q * k).sum(-1, keepdim=True) * scale
+    m = torch.maximum(s.amax(-1, keepdim=True), s_n)
+    if allow_zero_attn:
+        m = m.clamp_min(0.0)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    p_n = torch.exp(s_n - m)
+    denom = p.sum(-1, keepdim=True) + p_n
+    if allow_zero_attn:  # softmax1: the implicit zero logit
+        denom = denom + torch.exp(-m)
+    out = (torch.einsum("bhl,bhld->bhd", p, cache_v.float()) + p_n * v) / denom
+    here = (pos == step)[None, None, :, None]
+    cache_k.copy_(torch.where(here, k[:, :, None, :].to(cache_k.dtype), cache_k))
+    cache_v.copy_(torch.where(here, v[:, :, None, :].to(cache_v.dtype), cache_v))
+    return out.reshape(B, C).to(x.dtype)
+
+
+def self_decode(x: torch.Tensor, gamma1, beta1, w_qkv: torch.Tensor, b_qkv, qn_gamma,
+                qn_beta, kn_gamma, kn_beta, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                step_idx: torch.Tensor, num_heads: int, eps: float = 1e-6,
+                allow_zero_attn: bool = False) -> torch.Tensor:
+    """Self-attention core of one decode step. x (B, C) is the token's hidden
+    state; w_qkv (3C, C); caches (B, H, L, Dh); step_idx a one-element int32
+    tensor (read on the device, so no per-token value comes from the host).
+    Returns the raw heads-concatenated attention (B, C); the out-projection
+    stays outside, as in the JAX package.
+
+    The caches are updated IN PLACE (the TPU kernel aliases them): the new
+    token's K/V (after QK-norm) is written at position step_idx. Only
+    positions < step_idx are read from the cache; the new token's K/V is
+    taken from registers, so the write races with no reader. A step_idx at
+    or past L writes nothing. At step_idx 0 the output is the new V."""
+    if x.device.type == "cpu":
+        return self_decode_plain(x, gamma1, beta1, w_qkv, b_qkv, qn_gamma, qn_beta, kn_gamma,
+                                 kn_beta, cache_k, cache_v, step_idx, num_heads, eps,
+                                 allow_zero_attn)
+    name = "self_decode"
+    dev = require_cuda(name, x, w_qkv, cache_k, cache_v, step_idx, gamma1, beta1, b_qkv,
+                       qn_gamma, qn_beta, kn_gamma, kn_beta)
+    require_bf16(name, x, w_qkv, cache_k, cache_v)
+    B, C = x.shape
+    H = num_heads
+    Dh = C // H
+    L = cache_k.shape[2]
+    require(Dh * H == C and Dh == 64 and C % 8 == 0 and C <= 2048,
+            lambda: f"{name}: C={C} over {H} heads (Dh must be 64, C <= 2048)")
+    require(tuple(w_qkv.shape) == (3 * C, C), lambda: f"{name}: w_qkv must be ({3 * C}, {C})")
+    require(tuple(cache_k.shape) == (B, H, L, Dh) and tuple(cache_v.shape) == (B, H, L, Dh),
+            lambda: f"{name}: caches must be ({B}, {H}, L, {Dh})")
+    require(all(t.is_contiguous() for t in (x, w_qkv, cache_k, cache_v)),
+            lambda: f"{name}: x, w_qkv and the caches must be contiguous")
+    require(L <= 8192 and cache_k.numel() < 2**31, lambda: f"{name}: cache too long")
+    require(step_idx.dtype == torch.int32 and step_idx.numel() == 1,
+            lambda: f"{name}: step_idx must be a one-element int32 tensor")
+    require(qn_gamma is None or kn_gamma is not None,
+            lambda: f"{name}: QK-norm needs both gammas")
+    ps, pbf = small_params(gamma1, beta1, b_qkv, qn_gamma, qn_beta, kn_gamma, kn_beta)
+    out = torch.empty((B, C), dtype=torch.bfloat16, device=dev)
+    from . import _build
+
+    code = _build.entry(name)(
+        ptr(x), *[ptr(t) for t in ps], pbf, ptr(w_qkv), ptr(cache_k), ptr(cache_v),
+        ptr(step_idx), ptr(out), B, H, L, C, float(eps), int(allow_zero_attn), stream(dev))
+    _build.check(name, code)
+    self_decode.launches += 1
+    return out
+
+
+self_decode.launches = 0
+
+
+# ----------------------------------------------------------- decode_attention
+
+def decode_attention_plain(q, k, v, bias=None, allow_zero_attn: bool = False,
+                           cast_probs: bool = True) -> torch.Tensor:
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale  # (B, H, 1, M)
+    if bias is not None:
+        logits = logits + bias.float()[:, :, None, :]
+    probs = softmax1(logits) if allow_zero_attn else torch.softmax(logits, dim=-1)
+    if cast_probs:
+        probs = probs.to(v.dtype).float()
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _row_strides_ok(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, allow_zero_attn: bool = False,
+                     cast_probs: bool = True) -> torch.Tensor:
+    """Single-query attention. q (B, H, 1, Dh); k, v (B, H, M, Dh), read
+    through their strides (e.g. head views of a fused KV projection); bias
+    fp32 (B|1, 1|H, M). Returns (B, H, 1, Dh) in q.dtype.
+
+    cast_probs: probabilities are cast to v's dtype before the product with
+    V (pallas_decode_attention and XLA's decode_attention); False keeps
+    them in fp32 (pallas_cross_decode_attn). A row whose keys all carry the
+    finfo(f32).min bias gets uniform weights, never NaN."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, bias, allow_zero_attn, cast_probs)
+    name = "decode_attention"
+    dev = require_cuda(name, q, k, v, bias)
+    require_bf16(name, q, k, v)
+    B, H, N, Dh = q.shape
+    M = k.shape[2]
+    require(N == 1 and Dh == 64,
+            lambda: f"{name}: q must be (B, H, 1, 64), got {tuple(q.shape)}")
+    require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
+            lambda: f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
+    require(q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v),
+            lambda: f"{name}: k/v rows must be contiguous, strides % 8 == 0, 16-byte aligned")
+    require(max(t.storage_offset() + sum((d - 1) * s for d, s in zip(t.shape, t.stride()))
+                for t in (k, v)) < 2**31 and M > 0, lambda: f"{name}: too large")
+    bs = (0, 0, 0)
+    if bias is not None:
+        require(bias.dtype == torch.float32 and bias.ndim == 3 and bias.shape[-1] == M
+                and bias.shape[0] in (1, B) and bias.shape[1] in (1, H),
+                lambda: f"{name}: bias {tuple(bias.shape)} not fp32 (B|1, 1|H, {M})")
+        bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3))
+    nchunk = -(-M // DECODE_CHUNK)
+    part = torch.empty((B * H * nchunk * (Dh + 2),), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H, 1, Dh), dtype=q.dtype, device=dev)
+    from . import _build
+
+    code = _build.entry(name)(
+        ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v), *k.stride()[:3], *v.stride()[:3],
+        ptr(bias), *bs, ptr(part), ptr(out), B, H, M, DECODE_CHUNK, float(Dh) ** -0.5,
+        int(allow_zero_attn), int(cast_probs), stream(dev))
+    _build.check(name, code)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+# ----------------------------------------------------------- cross_decode_attn
+
+def _cross_q_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, num_heads, eps):
+    B, C = x.shape
+    dt = w_q.dtype
+    h = layer_norm_fp32(x.float(), qn_gamma, qn_beta, eps).to(dt)
+    q = _mm(h, w_q, b_q).reshape(B, num_heads, 1, C // num_heads)
+    if cqn_gamma is not None:
+        q = layer_norm_fp32(q, cqn_gamma, cqn_beta, eps)
+    return q.to(dt)
+
+
+def cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, k, v,
+                            bias, num_heads: int, eps: float = 1e-6,
+                            allow_zero_attn: bool = False) -> torch.Tensor:
+    q = _cross_q_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, num_heads, eps)
+    b3 = None if bias is None else bias[:, None, :]
+    out = decode_attention_plain(q, k, v, b3, allow_zero_attn, cast_probs=False)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q,
+                      cqn_gamma, cqn_beta, k: torch.Tensor, v: torch.Tensor,
+                      bias: Optional[torch.Tensor], num_heads: int, eps: float = 1e-6,
+                      allow_zero_attn: bool = False) -> torch.Tensor:
+    """Cross-attention core of one decode step: per-head attention of
+    q_norm(LN_q(x) Wq^T (+b)) over the cross K/V (B, H, M, Dh) with an fp32
+    (B, M) key bias. Returns the raw heads-concatenated output (B, C); the
+    out-projection runs in `residual_mlp`. On CUDA a prologue kernel makes
+    q, then the `decode_attention` kernel (fp32 probabilities) reads K/V."""
+    if x.device.type == "cpu":
+        return cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta,
+                                       k, v, bias, num_heads, eps, allow_zero_attn)
+    name = "cross_decode_attn"
+    dev = require_cuda(name, x, w_q, k, v, bias, qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
+    require_bf16(name, x, w_q)
+    B, C = x.shape
+    H = num_heads
+    Dh = C // H
+    require(Dh * H == C and Dh == 64 and C % 8 == 0 and C <= 2048,
+            lambda: f"{name}: C={C} over {H} heads (Dh must be 64, C <= 2048)")
+    require(tuple(w_q.shape) == (C, C), lambda: f"{name}: w_q must be ({C}, {C})")
+    require(x.is_contiguous() and w_q.is_contiguous(),
+            lambda: f"{name}: x and w_q must be contiguous")
+    require(bias is None or bias.ndim == 2, lambda: f"{name}: bias must be (B, M)")
+    ps, pbf = small_params(qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
+    q = torch.empty((B, H, 1, Dh), dtype=torch.bfloat16, device=dev)
+    from . import _build
+
+    code = _build.entry("cross_decode_q")(
+        ptr(x), *[ptr(t) for t in ps], pbf, ptr(w_q), ptr(q), B, H, C, float(eps),
+        stream(dev))
+    _build.check(name, code)
+    cross_decode_attn.launches += 1
+    out = decode_attention(q, k, v, None if bias is None else bias[:, None, :],
+                           allow_zero_attn, cast_probs=False)
+    return out.reshape(B, C)
+
+
+cross_decode_attn.launches = 0
+
+
+# ---------------------------------------------------------------- residual_mlp
+
+def residual_mlp_plain(x, attn, w_proj, b_proj, gamma2, beta2, w1, b1, w2, b2, w3=None,
+                       b3=None, eps: float = 1e-6, gated: bool = False) -> torch.Tensor:
+    x1 = x + _mm(attn.to(w_proj.dtype), w_proj, b_proj).to(x.dtype)
+    return ln_mlp_plain(x1, gamma2, beta2, w1, b1, w2, b2, w3, b3, eps, gated)
+
+
+def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_proj,
+                 gamma2, beta2, w1: torch.Tensor, b1, w2: torch.Tensor, b2,
+                 w3: Optional[torch.Tensor] = None, b3=None, eps: float = 1e-6,
+                 gated: bool = False) -> torch.Tensor:
+    """The tail of a decode step: x' = x + attn Wp^T (+bp), returns
+    x' + fc2(act(fc1(LN2 x'))), act = silu(fc1) * fc3 when gated, else exact
+    GELU. x, attn (B, C); w_proj (C, C); w1, w3 (HID, C); w2 (C, HID)."""
+    if x.device.type == "cpu":
+        return residual_mlp_plain(x, attn, w_proj, b_proj, gamma2, beta2, w1, b1, w2, b2,
+                                  w3, b3, eps, gated)
+    name = "residual_mlp"
+    dev = require_cuda(name, x, attn, w_proj, w1, w2, w3, b_proj, gamma2, beta2, b1, b2, b3)
+    require_bf16(name, x, attn, w_proj, w1, w2, w3)
+    B, C = x.shape
+    HID = w1.shape[0]
+    require(C % 8 == 0 and C <= 2048 and HID % 8 == 0 and HID <= 8192,
+            lambda: f"{name}: C={C}, HID={HID} must be multiples of 8, C <= 2048, HID <= 8192")
+    require(tuple(attn.shape) == (B, C) and tuple(w_proj.shape) == (C, C)
+            and tuple(w1.shape) == (HID, C) and tuple(w2.shape) == (C, HID),
+            lambda: f"{name}: shapes attn {tuple(attn.shape)}, w_proj {tuple(w_proj.shape)}, "
+            f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    require(not gated or (w3 is not None and tuple(w3.shape) == (HID, C)),
+            lambda: f"{name}: gated needs w3 of shape ({HID}, {C})")
+    tensors = [x, attn, w_proj, w1, w2] + ([w3] if gated else [])
+    require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors),
+            lambda: f"{name}: inputs must be contiguous and 16-byte aligned")
+    ps, pbf = small_params(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
+    x1 = torch.empty_like(x)
+    hid = torch.empty((B, HID), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    from . import _build
+
+    code = _build.entry(name)(
+        ptr(x), ptr(attn), ptr(w_proj), ptr(w1), ptr(w3 if gated else None), ptr(w2),
+        *[ptr(t) for t in ps], pbf, ptr(x1), ptr(hid), ptr(out), B, C, HID, int(gated),
+        float(eps), stream(dev))
+    _build.check(name, code)
+    residual_mlp.launches += 1
+    return out
+
+
+residual_mlp.launches = 0

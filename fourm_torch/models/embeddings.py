@@ -40,14 +40,14 @@ class _SeqPos(_ModEmb):
         if sincos:
             if max_length > max_sincos:
                 raise ValueError(f"max_length {max_length} > {max_sincos}")
-            self.register_buffer("pos_table",
+            self.register_buffer("sincos_table",
                                  build_1d_sincos_posemb(max_sincos, dim)[:max_length],
                                  persistent=False)
         else:
             self.pos_emb = nn.Parameter(torch.zeros(1, max_length, dim))
 
     def _table(self):
-        return self.pos_table if hasattr(self, "pos_table") else self.pos_emb[0]
+        return self.sincos_table if hasattr(self, "sincos_table") else self.pos_emb[0]
 
 
 class _GridPos(_ModEmb):
@@ -160,9 +160,9 @@ class _TokenLogits(nn.Module):
 
 class SequenceDecoderEmbedding(_SeqPos, _TokenLogits):
     """Decoder-side sequence embedding with a (tied) output projection
-    (reference decoder_embeddings.py:24-160). This slice holds its
-    parameters and logits; its embedding of decoder inputs comes with the
-    autoregressive slice."""
+    (reference decoder_embeddings.py:24-160; fourm_tpu/models/embeddings.py:
+    229-263). `embed` returns (x, pos, ids); `token_embed` and `pos_table`
+    serve KV-cached autoregressive decoding."""
 
     def __init__(self, vocab_size: int, max_length: int, dim: int,
                  sincos_pos_emb: bool = True, max_sincos_pos_emb: int = 512,
@@ -172,6 +172,31 @@ class SequenceDecoderEmbedding(_SeqPos, _TokenLogits):
         self.token_emb = nn.Embedding(vocab_size, dim)
         self._init_logits(vocab_size, dim, share_embedding)
         self._init_pos(max_length, dim, sincos_pos_emb, max_sincos_pos_emb)
+
+    def embed(self, tensor, target_mask):
+        ids = tensor
+        x = self.token_embed(ids)
+        # positions at or past max_length take position-embedding 0
+        # (reference decoder_embeddings.py:129-131)
+        pos_id = compact_position_ids(target_mask, max_length=self.max_length)
+        pos = self._table()[pos_id]
+        pos = pos.masked_fill(target_mask[..., None], 0.0).to(self.dtype)
+        return x, pos, ids
+
+    def token_embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding lookup, padding zeroed, for AR decoding."""
+        x = _embed(self.token_emb, ids, self.dtype)
+        return x.masked_fill((ids == self.padding_idx)[..., None], 0.0)
+
+    def pos_table(self, max_len: int) -> torch.Tensor:
+        """Positional table (max_len, D) for compacted AR positions; rows at
+        or past max_length repeat position-embedding 0."""
+        table = self._table()
+        n = min(max_len, self.max_length)
+        out = table[:n]
+        if max_len > n:
+            out = torch.cat([out, table[:1].expand(max_len - n, -1)])
+        return out
 
 
 class ImageTokenDecoderEmbedding(_GridPos, _TokenLogits):

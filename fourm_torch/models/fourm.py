@@ -4,8 +4,8 @@ Counterpart of fourm_tpu/models/fourm.py (reference fourm/models/fm.py): the
 same configuration, registry, modality-dict format and generation forward,
 as an nn.Module whose parameter names are the reference torch names
 (`encoder.{i}.attn.qkv.weight`, `encoder_embeddings.{mod}.mod_emb`, ...).
-This slice ports the image-target generation path; the training forward
-and the autoregressive methods come with later slices.
+The port serves generation: the image-target forward and the KV-cached
+autoregressive methods; the training forward comes with a later slice.
 
 mod_dict format (per modality): {
   'tensor': int tokens (B, L) / image-token grid (B, N) / raw NHWC image,
@@ -25,7 +25,7 @@ from torch import nn
 
 from ..data.modality_info import MODALITY_INFO, ModalitySpec
 from ..ops.token_select import gather_tokens, select_tokens
-from ..ops.transformer import Block, DecoderBlock, LayerNorm, _dense
+from ..ops.transformer import Block, DecoderBlock, LayerNorm, _dense, _key_bias
 from .embeddings import (
     ImageEncoderEmbedding,
     ImageTokenDecoderEmbedding,
@@ -257,6 +257,51 @@ class FourM(nn.Module):
         sa_mask = ~sa_keys_valid[:, None, :]  # (B, 1, N) keys
         y = self.forward_decoder(y, context, enc_mask, sa_mask)
         return self.mod_logits(target_mod, y)
+
+    # ------------------------------------------------ autoregressive decoding
+
+    def ar_prefill(self, mod_dict, target_mod: str, max_len: int,
+                   num_encoder_tokens: Optional[int] = None):
+        """Encoder pass, per-layer cross-attention K/V and the target's
+        position embeddings for KV-cached AR decoding (fourm_tpu
+        models/fourm.py:428-442). Returns (cross_kvs, enc_mask, y_emb
+        (B, max_len, D)); num_encoder_tokens as in forward_generation_img."""
+        enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens)
+        context = self.decoder_context(enc_out, enc_emb)
+        cross_kvs = self.decoder_cross_kvs(context)
+        dec_emb = self.decoder_embeddings[target_mod]
+        y_emb = (dec_emb.pos_table(max_len).float() + dec_emb.mod_emb[0].float())
+        y_emb = y_emb.to(self.config.compute_dtype)
+        return cross_kvs, enc_mask, y_emb[None].expand(enc_out.shape[0], -1, -1)
+
+    def decoder_cross_kvs(self, context):
+        """Per-layer cross-attention K/V, computed once per AR target."""
+        return [blk.cross_kv(context) for blk in self.decoder]
+
+    def embed_target_token(self, mod: str, ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding lookup for AR decoding (sequence modalities)."""
+        return self.decoder_embeddings[mod].token_embed(ids)
+
+    def decode_one_token(self, y_t, caches, cross_kvs, enc_mask, step_idx):
+        """One KV-cached decoder step (fourm_tpu models/fourm.py:456-464).
+        y_t (B, 1, D); caches per-layer (k, v) of shape (B, H, L, Dh), updated
+        in place; step_idx a one-element int32 tensor. Returns (normed output,
+        caches)."""
+        xa_bias = _key_bias(enc_mask)  # once per token, shared by every layer
+        for blk, (ck, cv), (xk, xv) in zip(self.decoder, caches, cross_kvs):
+            y_t, _, _ = blk.step(y_t, ck, cv, xk, xv, xa_bias, step_idx)
+        return self.decoder_norm(y_t), caches
+
+    def init_kv_caches(self, batch_size: int, max_len: int):
+        """Zeroed per-layer self-attention KV caches, (B, H, L, Dh), one
+        buffer each (the decode step writes them in place)."""
+        cfg = self.config
+        shape = (batch_size, cfg.num_heads, max_len, cfg.dim // cfg.num_heads)
+
+        def zeros():
+            return torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device)
+
+        return [(zeros(), zeros()) for _ in range(cfg.decoder_depth)]
 
 
 def init_weights(model: FourM, seed: int, std: float = 0.02) -> FourM:

@@ -9,7 +9,9 @@ reference state dict loads with `load_state_dict`.
 The pre-norm halves of every block always go through the kernel wrappers
 (fourm_torch/kernels): LN -> QKV is `ln_matmul`, self-attention is
 `flash_mha` (QK-norm in the kernel), cross-attention is `attention`, the MLP
-half is `ln_mlp`. On CUDA tensors those launch the hand-written kernels; on
+half is `ln_mlp`. A KV-cached decode step (`DecoderBlock.step`) goes
+through `self_decode`, `cross_decode_attn` and `residual_mlp`. On CUDA
+tensors those launch the hand-written kernels; on
 CPU tensors they compute their plain twins, which equal the XLA path of the
 JAX package up to summation order. Parameters may be held in any float
 dtype; like the JAX modules, each product casts them to the compute dtype.
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..kernels.attention import attention, flash_mha
 from ..kernels.attention import softmax1  # noqa: F401  (re-exported, as in fourm_tpu)
+from ..kernels.decode_step import cross_decode_attn, residual_mlp, self_decode
 from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_mlp
 
 # Finite fill for masked logits (reference masked_fill(-finfo.max), fm_utils.py:168):
@@ -51,8 +54,7 @@ def _key_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if mask is None:
         return None
     m2 = mask if mask.ndim == 2 else mask[:, 0]
-    return torch.zeros(m2.shape, dtype=torch.float32,
-                       device=m2.device).masked_fill(m2, MASK_FILL_VALUE)
+    return torch.where(m2, MASK_FILL_VALUE, 0.0).to(torch.float32)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -282,3 +284,41 @@ class DecoderBlock(nn.Module):
         x = self.self_attn.fused_prenorm(x, self.norm1, sa_mask)
         x = x + self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask)
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
+
+    def cross_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This block's cross-attention K/V for decoding, (B, H, M, Dh) head
+        views of one KV projection (fourm_tpu transformer.py:888-891; the
+        port keeps project_kv's layout, the decode kernels read it through
+        its strides)."""
+        return self.cross_attn.project_kv(self.context_norm(context))
+
+    def step(self, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+             cross_k: torch.Tensor, cross_v: torch.Tensor,
+             xa_bias: Optional[torch.Tensor], step_idx: torch.Tensor):
+        """One KV-cached decode step: the composition of the JAX package's
+        DecoderBlock._fused_step with every kernel on (transformer.py:940-1013).
+        x_t (B, 1, C); caches (B, H, L, Dh), updated in place at step_idx (a
+        one-element int32 tensor); cross K/V (B, H, M, Dh) from `cross_kv`;
+        xa_bias the fp32 (B, M) key bias of the encoder mask (`_key_bias`).
+        Returns (x_t, cache_k, cache_v)."""
+        sa, xa, mlp = self.self_attn, self.cross_attn, self.mlp
+        dt = sa.dtype
+        x2 = x_t[:, 0]
+        qk = ((sa.q_norm.weight, sa.q_norm.bias, sa.k_norm.weight, sa.k_norm.bias)
+              if sa.qk_norm else (None,) * 4)
+        attn = self_decode(x2, self.norm1.weight, self.norm1.bias, sa.qkv.weight.to(dt),
+                           sa.qkv.bias, *qk, cache_k, cache_v, step_idx, sa.num_heads,
+                           eps=self.norm1.eps, allow_zero_attn=sa.allow_zero_attn)
+        x2 = x2 + _dense(attn, sa.proj, dt)
+        cq = (xa.q_norm.weight, xa.q_norm.bias) if xa.qk_norm else (None, None)
+        attn_x = cross_decode_attn(x2, self.query_norm.weight, self.query_norm.bias,
+                                   xa.q.weight.to(dt), xa.q.bias, *cq, cross_k, cross_v,
+                                   xa_bias, xa.num_heads, eps=self.query_norm.eps,
+                                   allow_zero_attn=xa.allow_zero_attn)
+        gated = self.gated_mlp
+        out = residual_mlp(x2, attn_x, xa.proj.weight.to(dt), xa.proj.bias, self.norm2.weight,
+                           self.norm2.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias,
+                           mlp.fc2.weight.to(dt), mlp.fc2.bias,
+                           mlp.fc3.weight.to(dt) if gated else None,
+                           mlp.fc3.bias if gated else None, eps=self.norm2.eps, gated=gated)
+        return out[:, None, :], cache_k, cache_v
