@@ -27,7 +27,25 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      bench.py (B = 16, L = 256, M = 2304, 64 greedy caption tokens);
   4. one forward_generation_img at batch 2, and one ar_prefill + 4
      decode_one_token steps at batch 2, on the card (kernels, bf16) against
-     the same weights on the CPU in fp32 (plain twins) and in bf16.
+     the same weights on the CPU in fp32 (plain twins) and in bf16;
+  5. the VQ tokenization kernels (attn_block, ln_mlp with exact GELU,
+     mha_short, nearest_code, nearest_code_cosine) against their twins at the
+     VQ paths' shapes, as phase 2 (the codebook searches must equal their
+     twins index for index), after the chain's phases so that they cannot
+     move its figures; and the longest sequence attn_block's library says
+     its shared memory holds;
+  6. VQ tokenization at ViT-B width, random bf16 weights from a seeded
+     generator: (A) the RGB tokenizer of bench.py (VQ 224/16, vit_b_enc,
+     16384 codes of 32, cosine) on 64 images, then its Euclidean variant,
+     and (B) CLIP-B16 pretokenization (the ViTTeacher CLIP-B16 preset, then
+     the CLIP tokenizer: 1x1 projection of 512 channels, post-MLP, 8192
+     codes) on 64 images; each path's launch counts are reset just before
+     and read just after one call, and checked exactly; images/s over 10
+     timed calls;
+  7. at batch 2, the VQ encoder latents and the teacher features on the card
+     against the same weights on the CPU in fp32 and in bf16, the card's
+     tokens against the plain search on the card's own latents (exact), and
+     the agreement with the fp32 CPU tokens.
 The second-to-last line is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
@@ -44,6 +62,7 @@ import time
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 CUDA-core rate (an FMA counts two)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 MODEL = "fm_base_12e_12d_swiglu_qknorm_nobias"
 # the 4M-21 modality sets (reference cfgs/default/4m/models/main/4m-b_mod21_*.yaml)
@@ -64,6 +83,17 @@ PER_STEP = {"ln_matmul": 24, "ln_mlp": 24, "flash_mha": 24, "attention": 12}
 PER_PREFILL = {"ln_matmul": DEPTH, "ln_mlp": DEPTH, "flash_mha": DEPTH}
 PER_TOKEN = {"self_decode": DEPTH, "cross_decode_attn": DEPTH, "decode_attention": DEPTH,
              "residual_mlp": DEPTH}
+# VQ tokenization: the RGB tokenizer of bench.py:179-183 and the CLIP-B16
+# tokenizer of cfgs/default/tokenization/vqvae/CLIP-B16/ViTB-ViTB_8k_224.yaml
+VQ_BATCH = 64
+VQ_RGB = dict(image_size=224, patch_size=16, enc_type="vit_b_enc", codebook_size=16384,
+              latent_dim=32, norm_codes=True, dtype="bfloat16")
+VQ_CLIP = dict(VQ_RGB, n_channels=512, patch_proj=False, post_mlp=True, codebook_size=8192)
+# launches of one tokenize call (12 ViT-B blocks, one search), per path
+PER_ENCODER = {"attn_block": DEPTH, "ln_mlp": DEPTH}
+PER_VQ_PATH = {"vq_a": dict(PER_ENCODER, nearest_code_cosine=1),
+               "vq_a_euclid": dict(PER_ENCODER, nearest_code=1),
+               "vq_b": dict(PER_ENCODER, nearest_code_cosine=1, mha_short=DEPTH)}
 
 
 class StandInTokenizer:
@@ -105,6 +135,86 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def random_makers(torch, seed: int):
+    """A seeded generator on the card, and from it makers of bf16 normal
+    tensors and of fp32 (B, M) key biases (a fraction `frac` of the keys
+    masked, the first `full_rows` rows wholly)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    neg = torch.finfo(torch.float32).min
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    def key_bias(B, M, frac=0.3, full_rows=0):
+        bias = torch.where(torch.rand(B, M, generator=gen, device="cuda") < frac, neg, 0.0)
+        bias[:full_rows] = neg
+        return bias
+
+    return gen, rn, key_bias
+
+
+def held(torch, name, run, plain, faults=None, exact=False):
+    """Kernel against twin. `run`/`plain` return one tensor or a dict of
+    named parts, each held to its own tolerance (0 when `exact`: the
+    codebook searches). `faults` (optional) gives wrong outputs that the
+    first part's tolerance must tell from the twin's, so a kernel with
+    such a fault could not pass."""
+    outs, refs = run(), plain()
+    if not isinstance(outs, dict):
+        outs, refs = {"out": outs}, {"out": refs}
+    torch.cuda.synchronize()
+    parts = {}
+    for part, out in outs.items():
+        ref = refs[part].float()
+        err = (out.float() - ref).abs().max().item()
+        # two bf16 ulps of the part's largest value: kernel and twin
+        # round the same fp32 sums to bf16, summed in different orders
+        tol = 0.0 if exact else 2.0 ** -6 * ref.abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite {part}")
+        check(err <= tol, f"{name}: {part}: max abs error {err} > tolerance {tol}")
+        parts[part] = (err, tol)
+    if faults is not None:
+        first = next(iter(refs))
+        fault_check(torch, name, faults, refs[first].float(), parts[first][1])
+    return parts
+
+
+def time_cases(torch, cases):
+    """Hold each case's kernel to its twin, time kernel, twin and library
+    yardstick, and reckon the bound. Returns the kernels' JSON rows."""
+    results = []
+    for name, replaces, source, c in cases:
+        parts = held(torch, name, c.get("held_run", c["run"]), c.get("held_plain", c["plain"]),
+                     c.get("faults"), c.get("exact", False))
+        err, tol = max(parts.values(), key=lambda et: et[0] / max(et[1], 1e-30))
+        ms = time_ms(torch, c["run"], 10)
+        plain_ms = time_ms(torch, c["plain"], 3)
+        library_ms = time_ms(torch, c["library"], 10)
+        peak = c.get("peak", PEAK_BF16_FLOPS)
+        bound_ms = max(c["flops"] / peak, c["bytes"] / PEAK_BYTES) * 1e3
+        bound_by = "operations" if c["flops"] / peak >= c["bytes"] / PEAK_BYTES else "bytes"
+        errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
+        print(f"kernel {name}: {c['shape']}: {errs}, "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "wrapper": name.split("@")[0], "path": c.get("path", "chain"),
+                        "max_abs_err": err, "tolerance": tol,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
+        if len(parts) > 1:
+            results[-1]["parts"] = {p: {"max_abs_err": e, "tolerance": t}
+                                    for p, (e, t) in parts.items()}
+    return results
+
+
+def hold_variants(torch, variants) -> None:
+    """The options a path does not take, for correctness only."""
+    for name, run, plain, *exact in variants:
+        (err, tol), = held(torch, name, run, plain, exact=bool(exact)).values()
+        print(f"variant {name}: max_abs_err {err:.6g} (tol {tol:.6g})", flush=True)
+
+
 def kernel_phase(torch):
     """Phase 2: each kernel against its twin at the main path's shapes: the
     ROAR kernels, then the decode-step kernels."""
@@ -114,17 +224,8 @@ def kernel_phase(torch):
     from fourm_torch.kernels import fused_mlp as fm
 
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen, rn, key_bias = random_makers(torch, 0)
     bf = torch.bfloat16
-    neg = torch.finfo(torch.float32).min
-
-    def rn(*shape, std=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf)
-
-    def key_bias(B, M, frac=0.3, full_rows=0):
-        bias = torch.where(torch.rand(B, M, generator=gen, device=dev) < frac, neg, 0.0)
-        bias[:full_rows] = neg
-        return bias
 
     rows, D, H, Dh = 16 * 2048, 768, 12, 64
     x = rn(rows, D)
@@ -191,54 +292,7 @@ def kernel_phase(torch):
         ("attention@SR448", "fourm_tpu/kernels/attention.py:127", fa, attn_case(16, 784, 1536)),
     ]
     decode_cases, decode_variants = decode_kernel_cases(torch, rn, key_bias, gen)
-    cases += decode_cases
-
-    def held(name, run, plain, faults=None):
-        """Kernel against twin. `run`/`plain` return one tensor or a dict of
-        named parts, each held to its own tolerance. `faults` (optional)
-        gives wrong outputs that the first part's tolerance must tell from
-        the twin's, so a kernel with such a fault could not pass."""
-        outs, refs = run(), plain()
-        if not isinstance(outs, dict):
-            outs, refs = {"out": outs}, {"out": refs}
-        torch.cuda.synchronize()
-        parts = {}
-        for part, out in outs.items():
-            ref = refs[part].float()
-            err = (out.float() - ref).abs().max().item()
-            # two bf16 ulps of the part's largest value: kernel and twin
-            # round the same fp32 sums to bf16, summed in different orders
-            tol = 2.0 ** -6 * ref.abs().max().item()
-            check(bool(torch.isfinite(out).all()), f"{name}: non-finite {part}")
-            check(err <= tol, f"{name}: {part}: max abs error {err} > tolerance {tol}")
-            parts[part] = (err, tol)
-        if faults is not None:
-            first = next(iter(refs))
-            fault_check(torch, name, faults, refs[first].float(), parts[first][1])
-        return parts
-
-    results = []
-    for name, replaces, source, c in cases:
-        parts = held(name, c.get("held_run", c["run"]), c.get("held_plain", c["plain"]),
-                     c.get("faults"))
-        err, tol = max(parts.values(), key=lambda et: et[0] / max(et[1], 1e-30))
-        ms = time_ms(torch, c["run"], 10)
-        plain_ms = time_ms(torch, c["plain"], 3)
-        library_ms = time_ms(torch, c["library"], 10)
-        bound_ms = max(c["flops"] / PEAK_BF16_FLOPS, c["bytes"] / PEAK_BYTES) * 1e3
-        bound_by = "operations" if c["flops"] / PEAK_BF16_FLOPS >= c["bytes"] / PEAK_BYTES \
-            else "bytes"
-        errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
-        print(f"kernel {name}: {c['shape']}: {errs}, "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "wrapper": name.split("@")[0], "max_abs_err": err, "tolerance": tol,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
-        if len(parts) > 1:
-            results[-1]["parts"] = {p: {"max_abs_err": e, "tolerance": t}
-                                    for p, (e, t) in parts.items()}
+    results = time_cases(torch, cases + decode_cases)
 
     # options the main path does not take (biases, GELU, no QK-norm, softmax1,
     # a per-head query-dependent bias, ragged row counts): correctness only
@@ -272,9 +326,7 @@ def kernel_phase(torch):
         ("ln_matmul, 3 rows", lambda: fm.ln_matmul(x[:3], gamma, None, w_qkv),
          lambda: fm.ln_matmul_plain(x[:3], gamma, None, w_qkv)),
     ]
-    for name, run, plain in variants + decode_variants:
-        (err, tol), = held(name, run, plain).values()
-        print(f"variant {name}: max_abs_err {err:.6g} (tol {tol:.6g})", flush=True)
+    hold_variants(torch, variants + decode_variants)
     return results
 
 
@@ -480,6 +532,184 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
          lambda: ds.residual_mlp_plain(x3, a3, wp, b1, g2, b1, wg1, bg1, wg2, bg2)),
     ]
     return cases, variants
+
+
+def vq_kernel_cases(torch, rn, key_bias, gen):
+    """The VQ tokenization kernels at the VQ paths' shapes (64 images of 196
+    tokens at ViT-B width; the CLIP teacher's 197 tokens; 64 x 196 latents
+    of 32 against 16384 and 8192 codes), and their options off the path."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+    from fourm_torch.kernels import fused_mlp as fm
+    from fourm_torch.kernels import vq_codebook as vc
+    from fourm_torch.kernels.fused_mlp import _mm, layer_norm_fp32
+    from fourm_torch.vq import l2norm
+
+    dev, bf = "cuda", torch.bfloat16
+    B, N, C, H, Dh, HID, NT = 64, 196, 768, 12, 64, 3072, 197
+
+    def vec(n, std=0.1):
+        return torch.randn(n, generator=gen, device=dev) * std
+
+    # Wqkv and Wproj at 3x the lecun scale: peaked attention and a branch
+    # larger than the residual, so that a head or a key tile left out moves
+    # the output well past two bf16 ulps of its largest value
+    x = rn(B, N, C)
+    g1, b1 = torch.rand(C, generator=gen, device=dev) + 0.5, vec(C)
+    wq, wp = rn(3 * C, C, std=3 * C ** -0.5), rn(C, C, std=3 * C ** -0.5)
+    bq, bp = vec(3 * C), vec(C)
+
+    def block(fn, xx=x, bias=None, biases=True, **kw):
+        return lambda: fn(xx, g1, b1 if biases else None, wq, bq if biases else None, wp,
+                          bp if biases else None, H, bias, **kw)
+
+    def block_faults():
+        """attn_block's output recomputed in fp32 from the twin's rounded
+        q/k/v and head outputs, and with one head's output or the last key
+        tile (keys 192..195, the kernel's last 64-key step) left out."""
+        h = layer_norm_fp32(x.float(), g1, b1, 1e-6).to(bf)
+        q, k, v = _mm(h, wq, bq).to(bf).split(C, dim=-1)
+        attn = at.flash_mha_plain(q, k, v, H)
+        no_head = attn.clone()
+        no_head[..., 5 * Dh:6 * Dh] = 0
+        short = at.flash_mha_plain(q, k[:, :192], v[:, :192], H)
+
+        def out(a):
+            return x.float() + _mm(a, wp, bp)
+
+        wrong = {"one head's output left out": out(no_head), "last key tile left out": out(short)}
+        return out(attn), wrong, set(wrong)
+
+    def block_library():
+        hh = F.layer_norm(x, (C,), g1.to(bf), b1.to(bf), 1e-6)
+        q, k, v = F.linear(hh, wq, bq.to(bf)).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, N, C)
+        return x + F.linear(o, wp, bp.to(bf))
+
+    xg = rn(B * N, C)
+    wg1, wg2 = rn(HID, C, std=C ** -0.5), rn(C, HID, std=HID ** -0.5)
+    bg1, bg2 = vec(HID), vec(C)
+
+    def gelu_library():
+        hh = F.layer_norm(xg, (C,), g1.to(bf), b1.to(bf), 1e-6)
+        return xg + F.linear(F.gelu(F.linear(hh, wg1, bg1.to(bf))), wg2, bg2.to(bf))
+
+    def mha_case(with_bias):
+        qkv = rn(B, NT, 3 * C, std=3.0)  # peaked attention, as above
+        bias = key_bias(B, NT, full_rows=1) if with_bias else None
+        heads = [t.reshape(B, NT, H, Dh).transpose(1, 2) for t in qkv.split(C, dim=-1)]
+        mask = None if bias is None else bias[:, None, None, :].to(bf)
+
+        def faults():
+            right = at.mha_short_plain(qkv, H, bias).float()
+            no_head = right.clone()
+            no_head[..., 5 * Dh:6 * Dh] = 0
+            q, k, v = qkv.split(C, dim=-1)
+            cut = at.flash_mha_plain(q, k[:, :192], v[:, :192], H,
+                                     None if bias is None else bias[:, :192])
+            wrong = {"one head's output left out": no_head, "last key tile left out": cut.float()}
+            return right, wrong, set(wrong)
+
+        return dict(
+            run=lambda: at.mha_short(qkv, H, bias), plain=lambda: at.mha_short_plain(qkv, H, bias),
+            faults=faults, path="vq_b",
+            library=lambda: F.scaled_dot_product_attention(*heads, attn_mask=mask),
+            flops=4 * B * H * NT * NT * Dh,
+            bytes=B * NT * 4 * C * 2 + (B * NT * 4 if with_bias else 0),
+            shape=f"qkv (B={B}, N={NT}, 3*768), 12 heads" + (
+                ", (B, N) key bias, 1 row fully masked" if with_bias else ", no mask"))
+
+    def search_case(name, K, path, N_rows=B * N, D=32):
+        cosine = name.endswith("cosine")
+        xl = torch.randn(N_rows, D, generator=gen, device=dev)
+        e = torch.randn(K, D, generator=gen, device=dev)
+        if cosine:
+            xl, e = l2norm(xl), l2norm(e)
+        fn, plain = getattr(vc, name), getattr(vc, name + "_plain")
+        return dict(
+            run=lambda: fn(xl, e), plain=lambda: plain(xl, e), exact=True, path=path,
+            library=(lambda: (xl @ e.t()).argmax(1)) if cosine
+            else (lambda: torch.cdist(xl, e).argmin(1)),
+            flops=2 * N_rows * K * D, peak=PEAK_FP32_FLOPS,
+            bytes=(N_rows + K) * D * 4 + N_rows * 8,
+            shape=f"x ({N_rows}, {D}) fp32 against ({K}, {D}) codes, exact fp32")
+
+    ab = "fourm_torch/kernels/csrc/attn_block.cu"
+    vq = "fourm_torch/kernels/csrc/vq_codebook.cu"
+    cases = [
+        ("attn_block", "fourm_tpu/kernels/attention.py:435", ab, dict(
+            run=block(at.attn_block), plain=block(at.attn_block_plain), faults=block_faults,
+            library=block_library, path="vq_a",
+            flops=2 * B * N * C * 4 * C + 4 * B * H * N * N * Dh,
+            bytes=(2 * B * N * C + 4 * C * C) * 2 + 6 * C * 4,
+            shape=f"x (B={B}, N={N}, 768), 12 heads, LN bias + qkv/proj biases, no mask")),
+        ("ln_mlp@gelu", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
+         dict(run=lambda: fm.ln_mlp(xg, g1, b1, wg1, bg1, wg2, bg2),
+              plain=lambda: fm.ln_mlp_plain(xg, g1, b1, wg1, bg1, wg2, bg2),
+              library=gelu_library, path="vq_a",
+              flops=2 * 2 * B * N * C * HID,
+              bytes=(2 * B * N * C + 2 * C * HID) * 2 + (3 * C + HID) * 4,
+              shape=f"exact GELU, x ({B}*{N}, 768), hidden 3072, LN bias + biases")),
+        ("mha_short", "fourm_tpu/kernels/attention.py:261", "fourm_torch/kernels/csrc/attention.cu",
+         mha_case(False)),
+        ("mha_short@key_bias", "fourm_tpu/kernels/attention.py:261",
+         "fourm_torch/kernels/csrc/attention.cu", mha_case(True)),
+        ("nearest_code_cosine", "fourm_tpu/kernels/vq_codebook.py:158", vq,
+         search_case("nearest_code_cosine", 16384, "vq_a")),
+        ("nearest_code_cosine@K8192", "fourm_tpu/kernels/vq_codebook.py:158", vq,
+         search_case("nearest_code_cosine", 8192, "vq_b")),
+        ("nearest_code", "fourm_tpu/kernels/vq_codebook.py:103", vq,
+         search_case("nearest_code", 16384, "vq_a_euclid")),
+    ]
+
+    # options the VQ paths do not take, correctness only: a key bias (with a
+    # fully masked image), softmax1, no biases, the largest N the kernel
+    # holds and a tiny one; the Euclidean search at the CLIP codebook's size
+    # (path B searches by cosine), on ragged N and K and on duplicate codes
+    # (the first index wins), exactly
+    kb = key_bias(B, N, full_rows=1)
+    x400, x7 = rn(3, 400, C), rn(5, 7, C)
+    tie_e = torch.eye(32, device=dev).repeat(4, 1)
+    tie_x = torch.eye(32, device=dev)
+    rag = search_case("nearest_code", 1000, "", N_rows=1000)
+    rag_c = search_case("nearest_code_cosine", 1000, "", N_rows=1000)
+    k8 = search_case("nearest_code", 8192, "")
+    variants = [
+        ("attn_block, key bias with 1 image fully masked",
+         block(at.attn_block, bias=kb), block(at.attn_block_plain, bias=kb)),
+        ("attn_block, softmax1, key bias, no biases",
+         block(at.attn_block, bias=kb, biases=False, allow_zero_attn=True),
+         block(at.attn_block_plain, bias=kb, biases=False, allow_zero_attn=True)),
+        ("attn_block, N=400 (the most its shared memory holds at C=768)",
+         block(at.attn_block, xx=x400), block(at.attn_block_plain, xx=x400)),
+        ("attn_block, N=7", block(at.attn_block, xx=x7), block(at.attn_block_plain, xx=x7)),
+        ("nearest_code, N=12544, K=8192", k8["run"], k8["plain"], True),
+        ("nearest_code, N=1000, K=1000", rag["run"], rag["plain"], True),
+        ("nearest_code_cosine, N=1000, K=1000", rag_c["run"], rag_c["plain"], True),
+        ("nearest_code, duplicate codes", lambda: vc.nearest_code(tie_x, tie_e),
+         lambda: torch.arange(32, device=dev), True),
+        ("nearest_code_cosine, duplicate codes", lambda: vc.nearest_code_cosine(tie_x, tie_e),
+         lambda: torch.arange(32, device=dev), True),
+    ]
+    return cases, variants
+
+
+def vq_kernel_phase(torch):
+    """Phase 5: the VQ tokenization kernels against their twins, as phase 2;
+    then the longest sequence attn_block takes at each width it takes, as
+    its library reports it (the routing asks the same library)."""
+    from fourm_torch.kernels import attention as at
+
+    gen, rn, key_bias = random_makers(torch, 1)
+    cases, variants = vq_kernel_cases(torch, rn, key_bias, gen)
+    results = time_cases(torch, cases)
+    hold_variants(torch, variants)
+    longest = {C: max(N for N in range(1, 1025) if at.attn_block_takes(N, C, "cuda"))
+               for C in (512, 768, 1024)}
+    print(f"attn_block holds N <= {longest} (by width C)", flush=True)
+    check(longest[768] == 400, f"attn_block at C=768 holds N <= {longest[768]}, not 400")
+    return results
 
 
 def build_model(torch, dtype: str, device: str, seed: int = 0):
@@ -710,6 +940,153 @@ def decode_parity_phase(torch, model, out, cpu):
          f"ar_prefill {target} + {steps} decode steps B=2, encoder budget {budget}")
 
 
+def vq_phase(torch, card: str):
+    """Phase 6: one tokenize call per path with exact launch counts, then
+    images/s over 10 timed calls after a warm-up (bench.py:186-198)."""
+    from fourm_torch import kernels
+    from fourm_torch.vq import (
+        TEACHER_PRESETS,
+        VQ,
+        ViTTeacher,
+        init_teacher_weights,
+        init_vq_weights,
+    )
+
+    models = {"rgb": init_vq_weights(VQ(**VQ_RGB), 0),  # the card, by default
+              "rgb_euclid": init_vq_weights(VQ(**dict(VQ_RGB, norm_codes=False)), 1),
+              "teacher": init_teacher_weights(
+                  ViTTeacher(**TEACHER_PRESETS["CLIP-B16"], dtype="bfloat16"), 2),
+              "clip": init_vq_weights(VQ(**VQ_CLIP), 3)}
+    x = torch.from_numpy(np.random.RandomState(0).rand(VQ_BATCH, 224, 224, 3)
+                         .astype(np.float32)).cuda()
+    feats = {}
+
+    def clip_path():
+        feats["clip"] = models["teacher"](x)
+        return models["clip"].tokenize(feats["clip"])
+
+    paths = {"vq_a": (lambda: models["rgb"].tokenize(x), 16384,
+                      "RGB tokenizer (VQ 224/16 vit_b_enc, 16384 codes, cosine)"),
+             "vq_a_euclid": (lambda: models["rgb_euclid"].tokenize(x), 16384,
+                             "RGB tokenizer, Euclidean codebook"),
+             "vq_b": (clip_path, 8192, "CLIP-B16 teacher + CLIP tokenizer (1x1, post-MLP, 8192 "
+                                       "codes, cosine)")}
+    counts = {}
+    for path, (run, K, what) in paths.items():
+        run()  # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tokens = run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        expected = {k: PER_VQ_PATH[path].get(k, 0) for k in launches}
+        check(launches == expected, f"{path}: launch counts {launches} != {expected}")
+        check(tuple(tokens.shape) == (VQ_BATCH, 14, 14), f"{path}: tokens {tuple(tokens.shape)}")
+        check(int(tokens.min()) >= 0 and int(tokens.max()) < K, f"{path}: token outside [0, K)")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            out = run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 10
+        print(f"vq {path}: {what}: {VQ_BATCH} images, {dt * 1e3:.4f} ms per call, "
+              f"{VQ_BATCH / dt:.4f} images/s; {len(torch.unique(out))} distinct tokens; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}; {card}",
+              flush=True)
+        counts[path] = launches
+    f = feats["clip"]
+    check(tuple(f.shape) == (VQ_BATCH, 14, 14, 512) and bool(torch.isfinite(f).all()),
+          f"CLIP-B16 features {tuple(f.shape)}")
+    return counts, models, x
+
+
+def latent_gate(torch, name: str, gpu, ref, ref_bf16) -> float:
+    """Card bf16 values against the fp32 CPU run: within 2 x (the plain bf16
+    path's error) + 1e-3, as phase 4. Returns that tolerance."""
+    err = (gpu - ref).abs().max().item()
+    err_plain = (ref_bf16 - ref).abs().max().item()
+    tol = 2.0 * err_plain + 1e-3
+    print(f"vq parity: {name}: max abs err {err:.6g} vs fp32 (tol {tol:.6g}; plain bf16 "
+          f"{err_plain:.6g}; fp32 max {ref.abs().max().item():.6g})", flush=True)
+    check(bool(torch.isfinite(gpu).all()), f"{name}: non-finite values")
+    check(err <= tol, f"{name}: error {err} > {tol}")
+    return tol
+
+
+def token_gate(torch, name: str, vq, lat, vq32, lat32, tol: float) -> None:
+    """The card's tokens (the search kernel on the card's latents) equal the
+    plain search on the same latents on the card, exactly; their agreement
+    with the fp32 CPU tokens is gated at 99% on the rows whose fp32 top-2
+    gap exceeds what a latent error of `tol` per element can move."""
+    from fourm_torch.kernels import vq_codebook as vc
+
+    B, D = lat.shape[0], lat.shape[-1]
+    tokens = vq.quantize(lat.reshape(B, -1, D))[1].reshape(-1)
+    flat, embed, _ = vq.quantize.search_inputs(lat.reshape(B, -1, D))
+    cosine = vq.quantize.use_cosine_sim
+    plain = (vc.nearest_code_cosine_plain if cosine else vc.nearest_code_plain)(flat, embed)
+    check(torch.equal(tokens, plain), f"{name}: tokens differ from the plain search on the "
+                                      f"card's latents at {int((tokens != plain).sum())} rows")
+    ref = vq32.quantize(lat32.reshape(B, -1, D))[1].reshape(-1)
+    f32, e32, _ = vq32.quantize.search_inputs(lat32.reshape(B, -1, D))
+    f64, e64 = f32.double(), e32.double()
+    delta = tol * D ** 0.5  # the largest latent error, as a vector norm
+    if cosine:
+        dist = f64 @ e64.t()
+        move = 4 * delta / lat32.reshape(-1, D).double().norm(dim=-1)
+    else:
+        dist = -torch.cdist(f64, e64).square()
+        move = 4 * delta * e64.norm(dim=-1).max() * torch.ones(len(f64), dtype=torch.float64)
+    top2 = dist.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > move
+    same = tokens.cpu() == ref
+    agree = same.float().mean().item()
+    n = int(decided.sum())
+    agree_decided = same[decided].float().mean().item() if n else 1.0
+    print(f"vq parity: {name}: tokens equal the plain search on the card's latents ({len(tokens)} "
+          f"rows); agreement with fp32 CPU tokens {agree:.6f}, {agree_decided:.6f} on the {n} "
+          f"rows whose fp32 top-2 gap exceeds the latent tolerance's effect"
+          + ("" if n else " (no row qualifies: the gate holds nothing)"), flush=True)
+    check(agree_decided >= 0.99, f"{name}: agreement {agree_decided} < 0.99 on decided rows")
+
+
+def vq_parity_phase(torch, models, x) -> None:
+    """Phase 7: batch 2 on the card against the same weights on the CPU."""
+    from fourm_torch.vq import TEACHER_PRESETS, VQ, ViTTeacher
+
+    xb = x[:2]
+
+    def cpu_copies(model, build):
+        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            out[dtype] = build(dtype)
+            out[dtype].load_state_dict(state)
+        return out
+
+    rgb = cpu_copies(models["rgb"], lambda dt: VQ(**dict(VQ_RGB, dtype=dt), device="cpu"))
+    lat = models["rgb"].latents(xb)
+    ref = {dt: m.latents(xb.cpu()).float() for dt, m in rgb.items()}
+    tol = latent_gate(torch, "RGB tokenizer latents B=2", lat.float().cpu(), ref["float32"],
+                      ref["bfloat16"])
+    token_gate(torch, "RGB tokenizer", models["rgb"], lat, rgb["float32"], ref["float32"], tol)
+
+    teacher = cpu_copies(models["teacher"], lambda dt: ViTTeacher(
+        **TEACHER_PRESETS["CLIP-B16"], dtype=dt, device="cpu"))
+    feat = models["teacher"](xb)
+    fref = {dt: m(xb.cpu()).float() for dt, m in teacher.items()}
+    latent_gate(torch, "CLIP-B16 teacher features B=2", feat.float().cpu(), fref["float32"],
+                fref["bfloat16"])
+
+    # the CLIP tokenizer on one input for all three runs: the fp32 features
+    clip = cpu_copies(models["clip"], lambda dt: VQ(**dict(VQ_CLIP, dtype=dt), device="cpu"))
+    f32 = fref["float32"]
+    lat = models["clip"].latents(f32.cuda())
+    ref = {dt: m.latents(f32).float() for dt, m in clip.items()}
+    tol = latent_gate(torch, "CLIP tokenizer latents B=2", lat.float().cpu(), ref["float32"],
+                      ref["bfloat16"])
+    token_gate(torch, "CLIP tokenizer", models["clip"], lat, clip["float32"], ref["float32"], tol)
+
+
 def main() -> int:
     import torch
 
@@ -736,15 +1113,24 @@ def main() -> int:
           f"({', '.join(_build.SOURCES)})", flush=True)
 
     results = kernel_phase(torch)
+    torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
-    for r in results:
-        r["launches"] = launches[r.pop("wrapper")]
-        check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     decode_bench(torch, model, out, card)
     cpu = cpu_models(torch, model)
     parity_phase(torch, model, out, cpu)
     decode_parity_phase(torch, model, out, cpu)
+    del model, cpu
+    torch.cuda.empty_cache()
+    results += vq_kernel_phase(torch)
+    torch.cuda.empty_cache()
+    vq_launches, vq_models, vq_x = vq_phase(torch, card)
+    vq_parity_phase(torch, vq_models, vq_x)
+    path_launches = dict(vq_launches, chain=launches)
+    for r in results:  # each wrapper's launches on the path that runs it
+        path = r.pop("path")
+        r["launches"] = path_launches[path][r.pop("wrapper")]
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
     print(json.dumps({"kernels": results}), flush=True)

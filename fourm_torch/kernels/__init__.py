@@ -1,21 +1,27 @@
 """Hand-written CUDA kernels (csrc/) for the port's hot path, with their
 wrappers, plain PyTorch twins and launch counters: `fused_mlp.ln_matmul`,
-`fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`, and the
+`fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`, the
 decode step's `decode_step.self_decode`, `decode_step.cross_decode_attn`,
-`decode_step.decode_attention`, `decode_step.residual_mlp`.
+`decode_step.decode_attention`, `decode_step.residual_mlp`, and VQ
+tokenization's `attention.attn_block`, `attention.mha_short`,
+`vq_codebook.nearest_code`, `vq_codebook.nearest_code_cosine`.
 Importing this package needs no CUDA toolkit: the kernels build on first
 launch (see _build)."""
 
 from . import attention as _attention
 from . import decode_step as _decode_step
 from . import fused_mlp as _fused_mlp
+from . import vq_codebook as _vq_codebook
 
 WRAPPERS = {"ln_matmul": _fused_mlp.ln_matmul, "ln_mlp": _fused_mlp.ln_mlp,
             "flash_mha": _attention.flash_mha, "attention": _attention.attention,
             "self_decode": _decode_step.self_decode,
             "cross_decode_attn": _decode_step.cross_decode_attn,
             "decode_attention": _decode_step.decode_attention,
-            "residual_mlp": _decode_step.residual_mlp}
+            "residual_mlp": _decode_step.residual_mlp,
+            "attn_block": _attention.attn_block, "mha_short": _attention.mha_short,
+            "nearest_code": _vq_codebook.nearest_code,
+            "nearest_code_cosine": _vq_codebook.nearest_code_cosine}
 
 
 def reset_launch_counts() -> None:

@@ -22,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ln_matmul", "ln_mlp", "attention", "self_decode", "decode_attn", "residual_mlp")
+SOURCES = ("ln_matmul", "ln_mlp", "attention", "self_decode", "decode_attn", "residual_mlp",
+           "attn_block", "vq_codebook")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -30,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # each C entry point: its source, its symbol and its argtypes (restype is
-# int: cudaGetLastError())
+# int: cudaGetLastError(), or attn_block_fits' answer)
 SIGNATURES = {
     "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -47,6 +48,9 @@ SIGNATURES = {
                        [_P] * 6 + [_I] + [_P, _P] + [_I] * 3 + [_F, _P]),
     "residual_mlp": ("residual_mlp", "fourm_residual_mlp",
                      [_P] * 12 + [_I] + [_P] * 3 + [_I] * 4 + [_F, _P]),
+    "attn_block": ("attn_block", "fourm_attn_block", [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P]),
+    "attn_block_fits": ("attn_block", "fourm_attn_block_fits", [_I, _I]),
+    "nearest_code": ("vq_codebook", "fourm_nearest_code", [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,15 @@
 """Attention: `flash_mha` on heads-concatenated (B, N, C) q/k/v with in-kernel
-QK-norm, and `attention` on (B, H, N, Dh) with an fp32 additive bias.
+QK-norm, `mha_short` on a fused (B, N, 3C) QKV output, `attention` on
+(B, H, N, Dh) with an fp32 additive bias, and `attn_block`, the whole
+pre-norm attention half of a block in one call.
 
 Counterparts of fourm_tpu/kernels/attention.py: `flash_mha` is
-pallas_flash_mha, `attention` is pallas_attention and, having no size split,
-also its blocked form flash_attention. Both wrappers launch one CUDA kernel
-body (csrc/attention.cu) for CUDA tensors, counting launches in
-`<wrapper>.launches`, and compute their plain PyTorch twins for CPU tensors.
+pallas_flash_mha, `mha_short` is pallas_mha_short, `attention` is
+pallas_attention and, having no size split, also its blocked form
+flash_attention; those three wrappers launch one CUDA kernel body
+(csrc/attention.cu). `attn_block` is pallas_attn_block (csrc/attn_block.cu).
+Each wrapper counts its launches in `<wrapper>.launches` and computes its
+plain PyTorch twin for CPU tensors.
 
 Masked logits carry the finite bias finfo(f32).min, so a row whose keys are
 all masked gets uniform weights, never NaN. The twins are the XLA path of
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 
 from ._checks import aligned, f32, ptr, require, require_bf16, require_cuda, stream
-from .fused_mlp import layer_norm_fp32
+from .fused_mlp import _mm, layer_norm_fp32
 
 
 def softmax1(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -112,19 +116,10 @@ def flash_mha_plain(q, k, v, num_heads: int, bias=None, qn_gamma=None, qn_beta=N
     return out.transpose(1, 2).reshape(B, N, C)
 
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-              bias: Optional[torch.Tensor] = None, qn_gamma=None, qn_beta=None,
-              kn_gamma=None, kn_beta=None, eps: float = 1e-6,
-              allow_zero_attn: bool = False) -> torch.Tensor:
-    """Multi-head attention on (B, N, C) heads-concatenated q and (B, M, C)
-    k, v (e.g. column slices of a fused QKV output, read through their
-    strides), with optional per-head QK-norm (fp32 LN over Dh, cast to the
-    compute dtype) and an fp32 (B, M) additive key bias. Returns (B, N, C)."""
-    if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, num_heads, bias, qn_gamma, qn_beta,
-                               kn_gamma, kn_beta, eps, allow_zero_attn)
-    name = "flash_mha"
-    dev = require_cuda(name, q, k, v, bias, qn_gamma, qn_beta, kn_gamma, kn_beta)
+def _heads_launch(name, q, k, v, num_heads, bias, norms, eps, allow_zero_attn):
+    """Checks and launch of the attention.cu kernel on heads-concatenated
+    (B, N, C) q and (B, M, C) k, v read through their strides."""
+    dev = require_cuda(name, q, k, v, bias, *norms)
     require_bf16(name, q, k, v)
     B, N, C = q.shape
     M = k.shape[1]
@@ -137,20 +132,133 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
             f"{name}: q/k/v need a contiguous last dim, strides % 8 == 0, 16-byte alignment")
     require(max(t.storage_offset() + t.stride(0) * t.shape[0] for t in (q, k, v)) < 2**31,
             f"{name}: too large")
-    qk_norm = qn_gamma is not None
-    require(not qk_norm or kn_gamma is not None, f"{name}: QK-norm needs both gammas")
+    require(norms[0] is None or norms[2] is not None, f"{name}: QK-norm needs both gammas")
     bs = (0, 0, 0, 0)
     if bias is not None:
         require(bias.dtype == torch.float32 and tuple(bias.shape) == (B, M),
                 f"{name}: bias must be fp32 ({B}, {M}), got {bias.dtype} {tuple(bias.shape)}")
         bs = (bias.stride(0), 0, 0, bias.stride(1))
-    norms = (f32(qn_gamma), f32(qn_beta), f32(kn_gamma), f32(kn_beta))
     out = torch.empty((B, N, C), dtype=q.dtype, device=dev)
     _launch(name, q, k, v, out, (q.stride(0), Dh, q.stride(1)), (k.stride(0), Dh, k.stride(1)),
             (v.stride(0), Dh, v.stride(1)), (out.stride(0), Dh, out.stride(1)), bias, bs,
-            norms, B, num_heads, N, M, Dh, eps, allow_zero_attn, dev)
+            tuple(f32(t) for t in norms), B, num_heads, N, M, Dh, eps, allow_zero_attn, dev)
+    return out
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+              bias: Optional[torch.Tensor] = None, qn_gamma=None, qn_beta=None,
+              kn_gamma=None, kn_beta=None, eps: float = 1e-6,
+              allow_zero_attn: bool = False) -> torch.Tensor:
+    """Multi-head attention on (B, N, C) heads-concatenated q and (B, M, C)
+    k, v (e.g. column slices of a fused QKV output, read through their
+    strides), with optional per-head QK-norm (fp32 LN over Dh, cast to the
+    compute dtype) and an fp32 (B, M) additive key bias. Returns (B, N, C)."""
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, num_heads, bias, qn_gamma, qn_beta,
+                               kn_gamma, kn_beta, eps, allow_zero_attn)
+    out = _heads_launch("flash_mha", q, k, v, num_heads, bias,
+                        (qn_gamma, qn_beta, kn_gamma, kn_beta), eps, allow_zero_attn)
     flash_mha.launches += 1
     return out
 
 
 flash_mha.launches = 0
+
+
+def _split3(qkv: torch.Tensor):
+    C = qkv.shape[-1] // 3
+    return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+
+def mha_short_plain(qkv, num_heads: int, bias=None, allow_zero_attn: bool = False):
+    return flash_mha_plain(*_split3(qkv), num_heads, bias, allow_zero_attn=allow_zero_attn)
+
+
+def mha_short(qkv: torch.Tensor, num_heads: int, bias: Optional[torch.Tensor] = None,
+              allow_zero_attn: bool = False) -> torch.Tensor:
+    """Multi-head self-attention straight from a fused (B, N, 3C) QKV
+    projection output, heads on the channel axis, no QK-norm, an fp32 (B, N)
+    additive key bias. Returns (B, N, C). On CUDA it passes the three column
+    slices of `qkv` to the attention.cu kernel, as flash_mha does."""
+    if qkv.device.type == "cpu":
+        return mha_short_plain(qkv, num_heads, bias, allow_zero_attn)
+    out = _heads_launch("mha_short", *_split3(qkv), num_heads, bias, (None,) * 4, 1e-6,
+                        allow_zero_attn)
+    mha_short.launches += 1
+    return out
+
+
+mha_short.launches = 0
+
+
+def attn_block_takes(N: int, C: int, device: torch.device) -> bool:
+    """Whether attn_block holds a sequence of N tokens of width C on
+    `device`: the port's counterpart of the JAX package's VMEM estimate for
+    pallas_attn_block (ops/transformer.py:474-482). On CUDA the kernel's own
+    library answers (csrc/attn_block.cu keeps q, k and v of one image and
+    head in shared memory, which bounds N: 400 at C = 768). The plain twin
+    takes any N."""
+    if torch.device(device).type == "cpu":
+        return True
+    from . import _build
+
+    return bool(_build.entry("attn_block_fits")(N, C))
+
+
+def attn_block_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+                     bias=None, eps: float = 1e-6, allow_zero_attn: bool = False):
+    dt = w_qkv.dtype
+    h = layer_norm_fp32(x.float(), gamma, beta, eps).to(dt)
+    qkv = _mm(h, w_qkv, b_qkv).to(dt)
+    attn = mha_short_plain(qkv, num_heads, bias, allow_zero_attn)
+    return x + _mm(attn, w_proj, b_proj).to(x.dtype)
+
+
+def attn_block(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
+               w_qkv: torch.Tensor, b_qkv: Optional[torch.Tensor], w_proj: torch.Tensor,
+               b_proj: Optional[torch.Tensor], num_heads: int,
+               bias: Optional[torch.Tensor] = None, eps: float = 1e-6,
+               allow_zero_attn: bool = False) -> torch.Tensor:
+    """x + proj(MHA(LN(x) @ w_qkv.T + b_qkv)) + b_proj over (B, N, C) tokens:
+    LN statistics in fp32, q/k/v rounded to the compute dtype (w_qkv's),
+    softmax in fp32, each head's output and the projected branch rounded
+    before the residual add. w_qkv (3C, C), w_proj (C, C): nn.Linear layout;
+    bias: fp32 (B, N) additive key bias. Returns (B, N, C) in x.dtype."""
+    if x.device.type == "cpu":
+        return attn_block_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+                                bias, eps, allow_zero_attn)
+    name = "attn_block"
+    dev = require_cuda(name, x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, bias)
+    require_bf16(name, x, w_qkv, w_proj)
+    require(x.ndim == 3, f"{name}: x must be (B, N, C), got {tuple(x.shape)}")
+    B, N, C = x.shape
+    require(C in (512, 768, 1024) and C == 64 * num_heads,
+            f"{name}: C={C} over {num_heads} heads (the kernel takes Dh=64, C in 512/768/1024)")
+    require(attn_block_takes(N, C, dev), f"{name}: N={N} does not fit shared memory at C={C}")
+    require(tuple(w_qkv.shape) == (3 * C, C) and tuple(w_proj.shape) == (C, C),
+            f"{name}: w_qkv must be ({3 * C}, {C}) and w_proj ({C}, {C})")
+    require(all(t.is_contiguous() for t in (x, w_qkv, w_proj)), f"{name}: inputs must be contiguous")
+    require(aligned(x, 16) and aligned(w_qkv, 32) and aligned(w_proj, 32),
+            f"{name}: pointers misaligned")
+    require(x.numel() < 2**31, f"{name}: too large")
+    if bias is not None:
+        require(bias.dtype == torch.float32 and tuple(bias.shape) == (B, N)
+                and bias.is_contiguous(),
+                f"{name}: bias must be contiguous fp32 ({B}, {N}), got {bias.dtype} "
+                f"{tuple(bias.shape)}")
+    # fp32 copies stay referenced until the launch is queued
+    g32, be32, bq32, bp32 = f32(gamma), f32(beta), f32(b_qkv), f32(b_proj)
+    scratch = torch.empty_like(x)
+    out = torch.empty_like(x)
+    from . import _build
+
+    code = _build.entry(name)(
+        ptr(x), ptr(g32), ptr(be32), ptr(w_qkv), ptr(bq32), ptr(w_proj), ptr(bp32), ptr(bias),
+        ptr(scratch), ptr(out), B, N, C, num_heads, float(eps), float(64) ** -0.5,
+        int(allow_zero_attn), stream(dev))
+    _build.check(name, code)
+    attn_block.launches += 1
+    return out
+
+
+attn_block.launches = 0

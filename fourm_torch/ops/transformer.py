@@ -7,13 +7,17 @@ reference torch tree (qkv/proj/fc1/fc2/fc3/norm1/query_norm/...), so a
 reference state dict loads with `load_state_dict`.
 
 The pre-norm halves of every block always go through the kernel wrappers
-(fourm_torch/kernels): LN -> QKV is `ln_matmul`, self-attention is
-`flash_mha` (QK-norm in the kernel), cross-attention is `attention`, the MLP
-half is `ln_mlp`. A KV-cached decode step (`DecoderBlock.step`) goes
-through `self_decode`, `cross_decode_attn` and `residual_mlp`. On CUDA
-tensors those launch the hand-written kernels; on
-CPU tensors they compute their plain twins, which equal the XLA path of the
-JAX package up to summation order. Parameters may be held in any float
+(fourm_torch/kernels). The attention half of a short sequence (N <= 1024)
+without QK-norm under a key-only mask is one `attn_block`, or, where that
+kernel's shared memory cannot hold the sequence, `ln_matmul` + `mha_short`;
+otherwise LN -> QKV is `ln_matmul` and self-attention is `flash_mha` (QK-norm
+in the kernel). Cross-attention is `attention`, the MLP half is `ln_mlp`.
+`Attention.forward` (a block without the pre-norm fusion, e.g. the VQ
+teachers) takes `mha_short` on the same short, unnormed, key-masked cases.
+A KV-cached decode step (`DecoderBlock.step`) goes through `self_decode`,
+`cross_decode_attn` and `residual_mlp`. On CUDA tensors those launch the
+hand-written kernels; on CPU tensors they compute their plain twins, which
+equal the XLA path of the JAX package up to summation order. Parameters may be held in any float
 dtype; like the JAX modules, each product casts them to the compute dtype.
 """
 
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import attention, flash_mha
+from ..kernels.attention import attention, attn_block, attn_block_takes, flash_mha, mha_short
 from ..kernels.attention import softmax1  # noqa: F401  (re-exported, as in fourm_tpu)
 from ..kernels.decode_step import cross_decode_attn, residual_mlp, self_decode
 from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_mlp
@@ -88,19 +92,27 @@ class LayerNorm(nn.Module):
         return layer_norm_fp32(x.float(), self.weight, self.bias, self.eps).to(self.dtype)
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+ACTIVATIONS = {"gelu": gelu_exact, "tanh": torch.tanh}
+
+
 class Mlp(nn.Module):
-    """Two-layer MLP with exact-erf GELU (reference fm_utils.py:114-126)."""
+    """Two-layer MLP (reference fm_utils.py:114-126); `act` names the
+    activation: exact-erf GELU, or tanh for the VQ encoders' post-MLP."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32, act: str = "gelu"):
         super().__init__()
         self.dtype = dtype
+        self.act = ACTIVATIONS[act]
         self.fc1 = nn.Linear(dim, hidden_dim, bias=use_bias)
         self.fc2 = nn.Linear(hidden_dim, out_dim or dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(x, self.fc1, self.dtype), approximate="none")
-        return _dense(h, self.fc2, self.dtype)
+        return _dense(self.act(_dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
 
 
 class GatedMlp(nn.Module):
@@ -147,8 +159,18 @@ class Attention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         return q, k, v
 
+    def _short(self, N: int, mask: Optional[torch.Tensor]) -> bool:
+        """The cases the JAX package sends to pallas_mha_short / attn_block:
+        no QK-norm, N <= 1024, no mask or a key-only one (B, M) / (B, 1, M)."""
+        return (not self.qk_norm and N <= 1024
+                and (mask is None or mask.ndim == 2 or (mask.ndim == 3 and mask.shape[1] == 1)))
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, C = x.shape
+        if self._short(N, mask):
+            out = mha_short(_dense(x, self.qkv, self.dtype), self.num_heads, _key_bias(mask),
+                            self.allow_zero_attn)
+            return _dense(out, self.proj, self.dtype)
         q, k, v = self._split_qkv(x)
         out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
         return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
@@ -156,15 +178,25 @@ class Attention(nn.Module):
     def fused_prenorm(self, x: torch.Tensor, norm: LayerNorm,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pre-norm attention half, residual included: x + proj(MHA(qkv(LN x))).
-        LN -> QKV is one `ln_matmul`; `flash_mha` reads q/k/v as column slices
-        of its output and applies the QK-norm itself. A query-dependent
+        A short unnormed sequence is one `attn_block` (transformer.py:469-490),
+        or `ln_matmul` + `mha_short` past what that kernel holds on the card
+        (attn_block_takes). Otherwise LN ->
+        QKV is one `ln_matmul`; `flash_mha` reads q/k/v as column slices of
+        its output and applies the QK-norm itself. A query-dependent
         (B, N, N) mask, which a key bias cannot express, takes the generic
         path through `attention`."""
         B, N, C = x.shape
         if mask is not None and mask.ndim == 3 and mask.shape[1] != 1:
             return x + self.forward(norm(x), mask)
         w = self.qkv.weight.to(self.dtype)
+        if self._short(N, mask) and attn_block_takes(N, C, x.device):
+            return attn_block(x, norm.weight, norm.bias, w, self.qkv.bias,
+                              self.proj.weight.to(self.dtype), self.proj.bias, self.num_heads,
+                              _key_bias(mask), eps=norm.eps, allow_zero_attn=self.allow_zero_attn)
         qkv = ln_matmul(x, norm.weight, norm.bias, w, self.qkv.bias, eps=norm.eps)
+        if self._short(N, mask):
+            out = mha_short(qkv, self.num_heads, _key_bias(mask), self.allow_zero_attn)
+            return x + _dense(out, self.proj, self.dtype)
         if self.qk_norm:
             qn = (self.q_norm.weight, self.q_norm.bias, self.k_norm.weight, self.k_norm.bias)
         else:

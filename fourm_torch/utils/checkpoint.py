@@ -1,13 +1,19 @@
-"""Weight bridge: the JAX package's parameter tree -> the port's state dict.
+"""Weight bridge: the JAX package's parameter trees -> the port's state dicts.
 
-`from_jax_params(params, config)` takes `variables["params"]` of a
-fourm_tpu FourM as nested dicts of numpy arrays (what
-`jax.tree.map(np.asarray, variables)` gives) and returns the reference-named
-torch state dict that `FourM.load_state_dict(..., strict=True)` takes. The
-mapping is the port's own copy of fourm_tpu/utils/checkpoint.py:
-export_fourm_torch_state: Dense kernels (in, out) become nn.Linear weights
-(out, in), embedding tables keep their layout, modality and mask tokens take
-the reference (1, 1, D) shape. Sin-cos tables are computed, not loaded.
+Each function takes a fourm_tpu variables tree as nested dicts of numpy
+arrays (what `jax.tree.map(np.asarray, variables)` gives) and returns the
+reference-named torch state dict that the port's module takes with
+`load_state_dict(..., strict=True)`:
+  * `from_jax_params(params, config)`: `variables["params"]` of a FourM, the
+    port's own copy of fourm_tpu/utils/checkpoint.py:export_fourm_torch_state;
+  * `from_jax_vq_variables(variables)`: a VQ's `params` and `codebook`
+    collection, the naming of checkpoint.py:_vq_torch_name /
+    export_vq_torch_state (356-408) as far as the VQ encoder reaches;
+  * `from_jax_teacher_params(params)`: a ViTTeacher's `params`.
+Dense kernels (in, out) become nn.Linear weights (out, in), convolution
+kernels (kh, kw, in, out) the reference's (out, in, kh, kw), embedding
+tables keep their layout, modality and mask tokens take the reference
+(1, 1, D) shape. Sin-cos tables are computed, not loaded.
 """
 
 from __future__ import annotations
@@ -70,3 +76,57 @@ def from_jax_params(params: Mapping, config) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unhandled JAX param {key}")
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+
+
+_VQ_SEG = re.compile(r"^blocks_(\d+)$")
+
+
+def _flax_tree(out: Dict[str, np.ndarray], prefix: str, tree: Mapping) -> None:
+    """Flax names to the reference's: `blocks_<i>` -> `blocks.<i>`, `kernel`
+    and `embedding` -> `weight` (2-D kernels transposed, 4-D ones to
+    (out, in, kh, kw)), other leaves as they are."""
+    for name, sub in tree.items():
+        seg = _VQ_SEG.sub(lambda m: f"blocks.{m.group(1)}", name)
+        path = f"{prefix}.{seg}" if prefix else seg
+        if isinstance(sub, Mapping):
+            _flax_tree(out, path, sub)
+            continue
+        arr = np.asarray(sub, dtype=np.float32)
+        if name == "kernel":
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
+            path = f"{prefix}.weight"
+        elif name == "embedding":
+            path = f"{prefix}.weight"
+        out[path] = np.ascontiguousarray(arr)
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+
+
+def from_jax_vq_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's VQ from a JAX VQ's variables. Of the codebook
+    collection the search needs `embed`; the EMA state (embed_avg,
+    cluster_size, initted) belongs to training and is left out."""
+    out: Dict[str, np.ndarray] = {}
+    _flax_tree(out, "", variables["params"])
+    for path, cb in _codebooks(variables.get("codebook", {}), []):
+        out[f"{'.'.join(path) or 'quantize'}._codebook.embed"] = np.asarray(cb["embed"],
+                                                                            np.float32)
+    return _tensors(out)
+
+
+def _codebooks(tree: Mapping, path: list):
+    if "embed" in tree and not isinstance(tree["embed"], Mapping):
+        yield path, tree
+        return
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _codebooks(v, path + [k])
+
+
+def from_jax_teacher_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ViTTeacher from a JAX ViTTeacher's params."""
+    out: Dict[str, np.ndarray] = {}
+    _flax_tree(out, "", params)
+    return _tensors(out)

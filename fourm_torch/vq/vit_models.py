@@ -1,0 +1,101 @@
+"""ViT encoder of the VQ tokenizers, channel-last, inference.
+
+Counterpart of the encoder side of fourm_tpu/vq/vit_models.py (reference
+fourm/vq/models/vit_models.py:338-501): patch projection (or a 1x1
+projection of a feature map), 2D sin-cos positions, pre-LN blocks, and the
+optional fp32 tanh post-MLP. The blocks are fourm_torch.ops.transformer's,
+so their halves run as `attn_block` and `ln_mlp`. A positional grid that
+differs from the encoder's resolution needs a bicubic resize, which is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.posemb import build_2d_sincos_posemb
+from ..ops.transformer import Block, LayerNorm, Mlp
+
+# Size presets (reference vit_models.py:664-861; vit_t is the JAX package's
+# test size)
+VIT_SIZES = {
+    "vit_t": dict(dim_tokens=64, depth=2, num_heads=2),
+    "vit_s": dict(dim_tokens=512, depth=8, num_heads=8),
+    "vit_b": dict(dim_tokens=768, depth=12, num_heads=12),
+    "vit_l": dict(dim_tokens=1024, depth=24, num_heads=16),
+}
+
+
+class PatchProj(nn.Module):
+    """Patch embedding as space-to-depth plus one F.linear, numerically the
+    stride-p convolution it stands for. The weight keeps the convolution's
+    layout (out, in, p, p), as the reference's `proj` and the JAX package's
+    (p, p, in, out) kernel transposed; p = 1 is a 1x1 projection of a
+    feature map. Input (B, H, W, C) -> (B, H/p, W/p, out)."""
+
+    def __init__(self, in_channels: int, features: int, patch_size: int, bias: bool = True):
+        super().__init__()
+        self.p = patch_size
+        self.weight = nn.Parameter(torch.zeros(features, in_channels, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        p = self.p
+        B, H, W, C = x.shape
+        nh, nw = H // p, W // p
+        if p > 1:  # (B, nh, nw, C, p, p): the weight's (in, p, p) order
+            x = x.reshape(B, nh, p, nw, p, C).permute(0, 1, 3, 5, 2, 4)
+        x = x.reshape(B, nh, nw, C * p * p).to(dtype)
+        w = self.weight.reshape(self.weight.shape[0], -1).to(dtype)
+        return F.linear(x, w, None if self.bias is None else self.bias.to(dtype))
+
+
+class ViTEncoder(nn.Module):
+    """Images / feature maps -> latent grid. Input (B, H, W, C) with
+    patch_proj, else a (B, N_H, N_W, C) feature map; output
+    (B, N_H, N_W, dim_tokens) in the compute dtype."""
+
+    def __init__(self, in_channels: int = 3, patch_size: int = 16, resolution: int = 256,
+                 dim_tokens: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_proj: bool = True,
+                 post_mlp: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size, self.resolution, self.dim_tokens = patch_size, resolution, dim_tokens
+        self.patch_proj, self.dtype = patch_proj, dtype
+        self.proj = PatchProj(in_channels, dim_tokens, patch_size if patch_proj else 1)
+        self.blocks = nn.ModuleList(
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias=qkv_bias, dtype=dtype)
+            for _ in range(depth))
+        if post_mlp:  # fp32, tanh (ViT-VQGAN; reference :495-497)
+            self.norm_mlp = LayerNorm(dim_tokens)
+            self.post_mlp = Mlp(dim_tokens, int(mlp_ratio * dim_tokens), act="tanh")
+        else:
+            self.norm_mlp = self.post_mlp = None
+        self._pos = {}  # (nh, nw, device) -> (1, nh*nw, dim) sin-cos table
+
+    def pos_table(self, nh: int, nw: int, device) -> torch.Tensor:
+        key = (nh, nw, str(device))
+        if key not in self._pos:
+            self._pos[key] = build_2d_sincos_posemb(nh, nw, self.dim_tokens)[None].to(device)
+        return self._pos[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        x = self.proj(x, self.dtype)
+        nh, nw = x.shape[1:3]
+        n0 = self.resolution // self.patch_size
+        if self.patch_proj and (nh, nw) != (n0, n0):
+            raise NotImplementedError(
+                f"a {nh}x{nw} token grid against positions for {n0}x{n0} needs the bicubic "
+                "positional-embedding resize (fourm_tpu vit_models.py:_interp_posemb), "
+                "not ported yet")
+        pos = self.pos_table(nh, nw, x.device)
+        x = x.reshape(B, nh * nw, self.dim_tokens) + pos.to(self.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        if self.post_mlp is not None:
+            x32 = x.float()
+            x = (x32 + self.post_mlp(self.norm_mlp(x32))).to(self.dtype)
+        return x.reshape(B, nh, nw, self.dim_tokens)

@@ -144,6 +144,7 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
     # and at run time: importing the whole port loads no JAX module, and not
     # the `tokenizers` package, which the machine with the card lacks
     code = ("import sys, fourm_torch.api, fourm_torch.utils.checkpoint, fourm_torch.kernels, "
+            "fourm_torch.vq, "
             "fourm_torch.utils.text_tokenizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'fourm_tpu', 'tokenizers')]; "
