@@ -45,7 +45,28 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
   7. at batch 2, the VQ encoder latents and the teacher features on the card
      against the same weights on the CPU in fp32 and in bf16, the card's
      tokens against the plain search on the card's own latents (exact), and
-     the agreement with the fp32 CPU tokens.
+     the agreement with the fp32 CPU tokens;
+  8. the train step's kernels against their twins at its shapes, as phase
+     2: attention_train forward and backward (B = 32, 12 heads, N = M =
+     128) under a key and a full bias, with wrong outputs that the
+     tolerance must tell apart (the backward without its D term, dk
+     without its scale, the last key tile left out), and fused_adamw over
+     the 256 leaves of the 4M-B mod-7 tree, bit for bit; then the options
+     off the path (no bias, softmax1, ragged tiles, AdamW at t = 1000,
+     without decay, with the clip engaged);
+  9. bench.py's train step (4M-B mod-7, fm_base_12e_12d_swiglu_nobias, B =
+     32, 128 + 128 tokens, bf16 compute over fp32 master weights from a
+     seeded generator, AdamW) through fourm_torch.parallel.build_train_step:
+     the launch counts of one step, reset just before and read just after
+     it, checked exactly (36 + 36 attention_train, 1 fused_adamw, no
+     inference kernel); samples/s as the median of 10 steps after 2
+     warm-up steps, and the share of the bf16 peak; the loss over 13 steps
+     on one batch at lr 1e-3 finite and falling. Then one step at batch 2
+     against the same weights on the CPU in fp32 and in bf16 (the loss, the
+     whole gradient and each of its 256 leaves), the card's update against
+     the AdamW twin applied on the card to the card's own gradients
+     (exact), and a planted fault (the cross-attention cores' dq zeroed)
+     that the per-leaf gate must catch.
 The second-to-last line is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
@@ -94,6 +115,16 @@ PER_ENCODER = {"attn_block": DEPTH, "ln_mlp": DEPTH}
 PER_VQ_PATH = {"vq_a": dict(PER_ENCODER, nearest_code_cosine=1),
                "vq_a_euclid": dict(PER_ENCODER, nearest_code=1),
                "vq_b": dict(PER_ENCODER, nearest_code_cosine=1, mha_short=DEPTH)}
+# the train step of bench.py:224-279: 4M-B on the 4M-7 modality sets, B = 32,
+# 128 input and 128 target tokens, bf16 compute over fp32 master weights
+TRAIN_MODEL = "fm_base_12e_12d_swiglu_nobias"
+TRAIN_BATCH, TRAIN_TOKENS = 32, 128
+TRAIN_PARAMS, TRAIN_LEAVES = 360_791_040, 256
+# launches of one train step of a 12+12 model: each of its 36 attention cores
+# (12 encoder self, 12 decoder self, 12 decoder cross) forward and backward,
+# and one AdamW launch over every leaf
+PER_TRAIN_STEP = {"attention_train_fwd": 3 * DEPTH, "attention_train_bwd": 3 * DEPTH,
+                  "fused_adamw": 1}
 
 
 class StandInTokenizer:
@@ -174,12 +205,12 @@ def held(torch, name, run, plain, faults=None, exact=False):
         check(err <= tol, f"{name}: {part}: max abs error {err} > tolerance {tol}")
         parts[part] = (err, tol)
     if faults is not None:
-        first = next(iter(refs))
-        fault_check(torch, name, faults, refs[first].float(), parts[first][1])
+        fault_check(torch, name, faults, {p: r.float() for p, r in refs.items()},
+                    {p: t for p, (_e, t) in parts.items()})
     return parts
 
 
-def time_cases(torch, cases):
+def time_cases(torch, cases, card: str):
     """Hold each case's kernel to its twin, time kernel, twin and library
     yardstick, and reckon the bound. Returns the kernels' JSON rows."""
     results = []
@@ -196,7 +227,7 @@ def time_cases(torch, cases):
         errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
         print(f"kernel {name}: {c['shape']}: {errs}, "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"bound {bound_ms:.4f} ms ({bound_by}); {card}", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": name.split("@")[0], "path": c.get("path", "chain"),
                         "max_abs_err": err, "tolerance": tol,
@@ -211,11 +242,13 @@ def time_cases(torch, cases):
 def hold_variants(torch, variants) -> None:
     """The options a path does not take, for correctness only."""
     for name, run, plain, *exact in variants:
-        (err, tol), = held(torch, name, run, plain, exact=bool(exact)).values()
-        print(f"variant {name}: max_abs_err {err:.6g} (tol {tol:.6g})", flush=True)
+        parts = held(torch, name, run, plain, exact=bool(exact))
+        errs = "; ".join(f"{'' if p == 'out' else p + ' '}max_abs_err {e:.6g} (tol {t:.6g})"
+                         for p, (e, t) in parts.items())
+        print(f"variant {name}: {errs}", flush=True)
 
 
-def kernel_phase(torch):
+def kernel_phase(torch, card: str):
     """Phase 2: each kernel against its twin at the main path's shapes: the
     ROAR kernels, then the decode-step kernels."""
     import torch.nn.functional as F
@@ -292,7 +325,7 @@ def kernel_phase(torch):
         ("attention@SR448", "fourm_tpu/kernels/attention.py:127", fa, attn_case(16, 784, 1536)),
     ]
     decode_cases, decode_variants = decode_kernel_cases(torch, rn, key_bias, gen)
-    results = time_cases(torch, cases + decode_cases)
+    results = time_cases(torch, cases + decode_cases, card)
 
     # options the main path does not take (biases, GELU, no QK-norm, softmax1,
     # a per-head query-dependent bias, ragged row counts): correctness only
@@ -330,19 +363,31 @@ def kernel_phase(torch):
     return results
 
 
-def fault_check(torch, name, faults, ref, tol) -> None:
+def fault_check(torch, name, faults, refs, tols) -> None:
     """`faults()` gives (right, wrong, must): the right output recomputed
-    in fp32 by the same means as the wrong ones, and named wrong outputs.
-    The right one must sit within `tol` of the twin (so the recomputation
-    is sound); each wrong one named in `must` must sit farther than `tol`.
-    The others are printed: faults below two bf16 ulps of the output."""
+    in fp32 by the same means as the wrong ones, and named wrong outputs,
+    each one tensor (the first part) or a dict of parts. The right one must
+    sit within each part's tolerance of the twin (so the recomputation is
+    sound); each wrong one named in `must` must sit farther than the
+    tolerance in some part. The others are printed: faults below two bf16
+    ulps of the output."""
     right, wrong, must = faults()
-    err = (right - ref).abs().max().item()
-    check(err <= tol, f"{name}: the faults' right output is {err} from the twin (tol {tol})")
+    first = next(iter(refs))
+
+    def parts(out):
+        return out if isinstance(out, dict) else {first: out}
+
+    for part, out in parts(right).items():
+        err = (out - refs[part]).abs().max().item()
+        check(err <= tols[part], f"{name}: the faults' right {part} is {err} from the twin "
+                                 f"(tol {tols[part]})")
     for label, out in wrong.items():
-        d = (out - ref).abs().max().item()
+        dist = {p: (o - refs[p]).abs().max().item() for p, o in parts(out).items()}
+        part = max(dist, key=lambda p: dist[p] / tols[p])
+        d, tol = dist[part], tols[part]
         seen = d > tol
-        print(f"  fault {label}: {d:.6g} from the twin, {d / tol:.4g} x tol "
+        where = "" if part == first else f" in {part}"
+        print(f"  fault {label}: {d:.6g} from the twin{where}, {d / tol:.4g} x tol "
               f"({'caught' if seen else 'not caught: below two bf16 ulps'})", flush=True)
         check(seen or label not in must, f"{name}: tolerance {tol} cannot tell '{label}' ({d})")
 
@@ -695,7 +740,7 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
     return cases, variants
 
 
-def vq_kernel_phase(torch):
+def vq_kernel_phase(torch, card: str):
     """Phase 5: the VQ tokenization kernels against their twins, as phase 2;
     then the longest sequence attn_block takes at each width it takes, as
     its library reports it (the routing asks the same library)."""
@@ -703,7 +748,7 @@ def vq_kernel_phase(torch):
 
     gen, rn, key_bias = random_makers(torch, 1)
     cases, variants = vq_kernel_cases(torch, rn, key_bias, gen)
-    results = time_cases(torch, cases)
+    results = time_cases(torch, cases, card)
     hold_variants(torch, variants)
     longest = {C: max(N for N in range(1, 1025) if at.attn_block_takes(N, C, "cuda"))
                for C in (512, 768, 1024)}
@@ -1087,6 +1132,428 @@ def vq_parity_phase(torch, models, x) -> None:
     token_gate(torch, "CLIP tokenizer", models["clip"], lat, clip["float32"], ref["float32"], tol)
 
 
+def train_model(torch, device: str, dtype: str = "bfloat16", seed=0):
+    """bench.py's train model (4M-B mod-7) with fp32 master weights from a
+    seeded generator (none with seed None); `dtype` is the compute dtype."""
+    from fourm_torch.models import FourM, create_fourm_config, init_weights
+    from fourm_torch.utils.synthetic import MOD7_DECODER_MODALITIES, MOD7_MODALITIES
+
+    cfg = create_fourm_config(TRAIN_MODEL, MOD7_MODALITIES, MOD7_DECODER_MODALITIES, dtype=dtype)
+    with torch.device(device):
+        model = FourM(cfg)
+    return model if seed is None else init_weights(model, seed)
+
+
+def train_batch(torch, B: int, seed: int, device: str):
+    from fourm_torch.utils.synthetic import MOD7_MODALITIES, synthetic_mod_batch, to_torch
+
+    return to_torch(synthetic_mod_batch(MOD7_MODALITIES, B, TRAIN_TOKENS, TRAIN_TOKENS,
+                                        seed=seed), device)
+
+
+def train_kernel_cases(torch, rn, gen, model):
+    """The train step's kernels at its shapes: attention_train forward and
+    backward at B = 32, 12 heads, N = M = 128 under a key bias (the encoder
+    self- and the decoder cross-attention) and a full (B, 1, N, M) bias (the
+    decoder self-attention); fused_adamw over the 256 leaves of `model`, the
+    4M-B mod-7 tree. Then their options off the path."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention_train as at
+    from fourm_torch.kernels import fused_adamw as fa
+    from fourm_torch.utils.optim import weight_decay_mask
+
+    dev, bf = "cuda", torch.bfloat16
+    B, H, N, Dh = TRAIN_BATCH, 12, TRAIN_TOKENS, 64
+    neg = torch.finfo(torch.float32).min
+    src = "fourm_torch/kernels/csrc/attention_train.cu"
+    fwd_at = "fourm_tpu/kernels/attention_bwd.py:161"
+    bwd_at = "fourm_tpu/kernels/attention_bwd.py:193"
+
+    def bias_of(mode, B, N, M):
+        if mode == "none":
+            return None
+        bias = torch.where(torch.rand(B, 1, 1 if mode == "key" else N, M, generator=gen,
+                                      device=dev) < 0.3, neg, 0.0)
+        if mode == "key":
+            bias[0] = neg  # a batch row whose keys are all masked
+        else:
+            bias[:, :, 0] = neg  # a query row with no key
+        return bias
+
+    def problem(mode, N, M, B=B):
+        q, do = rn(B, H, N, Dh), rn(B, H, N, Dh)
+        k, v = rn(B, H, M, Dh), rn(B, H, M, Dh)
+        return q, k, v, bias_of(mode, B, N, M), do
+
+    def bias_bytes(bias):
+        return 0 if bias is None else bias.numel() * 4
+
+    def bwd_fp32(q, k, v, bias, o, do, cut=None, with_d=True):
+        """The twin's backward in fp32 with its roundings, for the faults:
+        without the D term, or with the key tiles from `cut` on left out."""
+        scale = Dh ** -0.5
+        s = q.float() @ k.float().transpose(-1, -2) * scale
+        p = torch.softmax(s if bias is None else s + bias, -1)
+        dp = do.float() @ v.float().transpose(-1, -2)
+        d = (do.float() * o.float()).sum(-1, keepdim=True) if with_d else 0.0
+        ds, pb = (p * (dp - d)).to(bf).float(), p.to(bf).float()
+        if cut is not None:
+            ds[..., cut:], pb[..., cut:] = 0.0, 0.0
+        return {"dq": ds @ k.float() * scale, "dk": ds.transpose(-1, -2) @ q.float() * scale,
+                "dv": pb.transpose(-1, -2) @ do.float()}
+
+    def fwd_case(mode):
+        q, k, v, bias, _ = problem(mode, N, N)
+        mask = None if bias is None else bias.to(bf)
+
+        def faults():
+            p = torch.softmax(q.float() @ k.float().transpose(-1, -2) * Dh ** -0.5 + bias, -1)
+            cut = at.attention_train_fwd_plain(q, k[:, :, :64], v[:, :, :64], bias[..., :64])
+            return (p.to(bf).float() @ v.float(), {"last key tile left out": cut.float()},
+                    {"last key tile left out"})
+
+        return dict(
+            run=lambda: at.attention_train_fwd(q, k, v, bias)[0],
+            plain=lambda: at.attention_train_fwd_plain(q, k, v, bias), faults=faults,
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            flops=4 * B * H * N * N * Dh,
+            bytes=4 * B * H * N * Dh * 2 + B * H * N * 8 + bias_bytes(bias), path="train",
+            shape=f"q, k, v (B={B}, 12, N=M={N}, 64), {mode} bias "
+                  f"{tuple(bias.shape)}, o bf16 + row statistics fp32")
+
+    def bwd_case(mode):
+        q, k, v, bias, do = problem(mode, N, N)
+        o, stats = at.attention_train_fwd(q, k, v, bias)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias.to(bf))
+
+        def run():
+            out = at.attention_train_bwd(q, k, v, bias, o, stats, do)
+            return dict(zip(("dq", "dk", "dv"), out))
+
+        def plain():
+            return dict(zip(("dq", "dk", "dv"), at.attention_train_bwd_plain(q, k, v, bias, o, do)))
+
+        def faults():
+            right = bwd_fp32(q, k, v, bias, o, do)
+            wrong = {"D term left out": bwd_fp32(q, k, v, bias, o, do, with_d=False),
+                     "dk without its scale": {"dk": right["dk"] * Dh ** 0.5},
+                     "last key tile left out": bwd_fp32(q, k, v, bias, o, do, cut=64)}
+            return right, wrong, set(wrong)
+
+        return dict(
+            run=run, plain=plain, faults=faults,
+            library=lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+            flops=10 * B * H * N * N * Dh,  # s, dp, dv, dq, dk: five products
+            bytes=8 * B * H * N * Dh * 2 + B * H * N * 8 + bias_bytes(bias), path="train",
+            shape=f"q, k, v, o, do (B={B}, 12, N=M={N}, 64), {mode} bias {tuple(bias.shape)}"
+                  " -> dq, dk, dv")
+
+    # fused_adamw: the model's leaves laid out in flat buffers (each leaf at a
+    # 256-byte boundary, as the allocator places parameters), so that the
+    # kernel and the twin start from the same values and compare whole
+    params = [p.detach() for _, p in model.named_parameters()]
+    decay = list(weight_decay_mask(model).values())
+    check(len(params) == TRAIN_LEAVES and sum(p.numel() for p in params) == TRAIN_PARAMS,
+          f"train tree: {len(params)} leaves, {sum(p.numel() for p in params)} parameters")
+    sizes = [p.numel() for p in params]
+    offsets = np.cumsum([0] + [-(-n // 64) * 64 for n in sizes])
+    total = int(offsets[-1])
+
+    def leaves(flat):
+        return [flat[int(o):int(o) + n].view(p.shape) for o, n, p in zip(offsets, sizes, params)]
+
+    def flat_of(fill):
+        flat = torch.zeros(total, device=dev)
+        for leaf, value in zip(leaves(flat), fill):
+            leaf.copy_(value)
+        return flat
+
+    p0 = flat_of(params)
+    g = torch.randn(total, generator=gen, device=dev) * 1e-2
+    m0 = torch.randn(total, generator=gen, device=dev) * 1e-3
+    v0 = torch.rand(total, generator=gen, device=dev) * 1e-5
+    bufs = {who: [torch.empty_like(p0) for _ in range(3)] for who in ("kernel", "twin")}
+    views = {who: [leaves(t) for t in ts] for who, ts in bufs.items()}
+    g_leaves = leaves(g)
+    tables = {}  # one per list of decay flags, as an optimizer holds one
+    norm = torch.linalg.vector_norm(g).reshape(1)
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.05
+
+    def adam_step(who, count, dec, clip=None):
+        s = fa.adamw_scalars(count, 1e-3, b1, b2, eps, wd)
+        grad_norm = None if clip is None else norm
+        ps, ms, vs = views[who]
+        if who == "kernel":
+            if tuple(dec) not in tables:
+                tables[tuple(dec)] = fa.AdamwTable(ps, ms, vs, dec)
+            fa.fused_adamw(ps, g_leaves, ms, vs, dec, s, grad_norm, clip, tables[tuple(dec)])
+        else:
+            fa.fused_adamw_plain(ps, g_leaves, ms, vs, dec, s, grad_norm, clip)
+
+    def adam_held(who, count, dec, clip=None):
+        def go():
+            for buf, start in zip(bufs[who], (p0, m0, v0)):
+                buf.copy_(start)
+            adam_step(who, count, dec, clip)
+            return dict(zip("pmv", bufs[who]))
+        return go
+
+    lib_p = [torch.nn.Parameter(t.clone()) for t in leaves(p0)]
+    for p, gl in zip(lib_p, leaves(g)):
+        p.grad = gl
+    library = torch.optim.AdamW(
+        [{"params": [p for p, d in zip(lib_p, decay) if d]},
+         {"params": [p for p, d in zip(lib_p, decay) if not d], "weight_decay": 0.0}],
+        lr=1e-3, betas=(b1, b2), eps=eps, weight_decay=wd, fused=True)
+    no_decay = [False] * len(decay)
+    n = TRAIN_PARAMS
+    adam = dict(run=lambda: adam_step("kernel", 0, decay),
+                plain=lambda: adam_step("twin", 0, decay),
+                held_run=adam_held("kernel", 0, decay), held_plain=adam_held("twin", 0, decay),
+                exact=True, library=library.step, path="train",
+                flops=16 * n, peak=PEAK_FP32_FLOPS, bytes=7 * 4 * n,
+                shape=f"{len(params)} leaves, {n} fp32 parameters (4M-B mod-7), decay mask of "
+                      f"the 4M rules, t = 1, one launch")
+    cases = [("attention_train_fwd", fwd_at, src, fwd_case("key")),
+             ("attention_train_fwd@full", fwd_at, src, fwd_case("full")),
+             ("attention_train_bwd", bwd_at, src, bwd_case("key")),
+             ("attention_train_bwd@full", bwd_at, src, bwd_case("full")),
+             ("fused_adamw", "fourm_tpu/kernels/fused_adamw.py:73",
+              "fourm_torch/kernels/csrc/fused_adamw.cu", adam)]
+
+    # options the train step does not take, correctness only: no bias,
+    # softmax1, ragged and short tiles (the kernels' row and key edges);
+    # AdamW at t = 1000, with decay off, and with the global-norm clip engaged
+    def attn_variant(mode, N, M, zero_attn=False, B=4):
+        q, k, v, bias, do = problem(mode, N, M, B)
+        o, stats = at.attention_train_fwd(q, k, v, bias, zero_attn)
+        what = f"{mode} bias, N={N}, M={M}" + (", softmax1" if zero_attn else "")
+        return [
+            (f"attention_train_fwd, {what}", lambda: at.attention_train_fwd(
+                q, k, v, bias, zero_attn)[0],
+             lambda: at.attention_train_fwd_plain(q, k, v, bias, zero_attn)),
+            (f"attention_train_bwd, {what}",
+             lambda: dict(zip(("dq", "dk", "dv"), at.attention_train_bwd(q, k, v, bias, o, stats,
+                                                                         do))),
+             lambda: dict(zip(("dq", "dk", "dv"), at.attention_train_bwd_plain(
+                 q, k, v, bias, o, do, zero_attn))))]
+
+    variants = [*attn_variant("none", N, N, B=B), *attn_variant("key", N, N, True, B=B),
+                *attn_variant("full", N, N, True, B=B), *attn_variant("full", 100, 77),
+                *attn_variant("key", 5, 200), *attn_variant("none", 200, 5, True)]
+    for count, dec, clip, what in ((999, decay, None, "t = 1000"),
+                                   (0, no_decay, None, "decay off, t = 1"),
+                                   (999, no_decay, None, "decay off, t = 1000"),
+                                   (0, decay, 0.5 * norm.item(), "global-norm clip engaged")):
+        variants.append((f"fused_adamw, {what}", adam_held("kernel", count, dec, clip),
+                         adam_held("twin", count, dec, clip), True))
+    return cases, variants
+
+
+def train_kernel_phase(torch, card: str):
+    """Phase 8: the train step's kernels against their twins, as phase 2;
+    fused_adamw exactly (bit for bit)."""
+    gen, rn, _ = random_makers(torch, 2)
+    model = train_model(torch, "cuda")
+    cases, variants = train_kernel_cases(torch, rn, gen, model)
+    results = time_cases(torch, cases, card)
+    hold_variants(torch, variants)
+    return results
+
+
+def train_step_flops(model, batch) -> float:
+    """Matmul FLOPs of one train step: 3 x the forward's (the backward's
+    products are twice the forward's), the forward summed over the raw-RGB
+    patch projection, 12 encoder blocks (qkv, proj, 4 N^2 D of attention,
+    the SwiGLU MLP), the context projection, 12 decoder blocks
+    (self-attention as the encoder's, cross-attention q, kv over the
+    encoder's N tokens, proj and 4 N M D, the MLP) and each target
+    modality's logits over its loss bucket."""
+    cfg = model.config
+    D, B = cfg.dim, next(iter(batch.values()))["tensor"].shape[0]
+    N = M = TRAIN_TOKENS
+    hidden = model.encoder[0].mlp.fc1.weight.shape[0]
+    mlp = 3 * 2 * D * hidden
+    patches = model.encoder_embeddings["rgb@224"].proj.weight
+    n_patches = batch["rgb@224"]["tensor"][0].numel() // patches.shape[1]
+    fwd = 2 * n_patches * patches.numel()
+    fwd += cfg.encoder_depth * (N * (2 * 4 * D * D + mlp) + 4 * N * N * D)
+    fwd += 2 * N * D * D
+    fwd += cfg.decoder_depth * (M * (2 * 4 * D * D + mlp) + 4 * M * M * D
+                                + 2 * M * D * 2 * D + 2 * N * D * 2 * D + 4 * M * N * D)
+    for mod in cfg.decoder_modalities:
+        cap = min(model._decoder_stream_length(mod, batch), M)
+        fwd += 2 * cap * D * cfg.spec(mod).vocab_size
+    return 3.0 * fwd * B
+
+
+def train_phase(torch, card: str):
+    """Phase 9: bench.py's train step at full width on the card through the
+    public entry points: exact launch counts of one step, samples/s (median
+    of 10 steps after 2 warm-up steps) and its share of the bf16 peak, and
+    a falling, finite loss over the steps on one fixed batch at lr 1e-3."""
+    from fourm_torch import kernels
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+
+    model = train_model(torch, "cuda")
+    tx = create_optimizer(model, constant_schedule(1e-3), weight_decay=0.05, betas=(0.9, 0.95))
+    state = init_train_state(model, tx)  # the card, by default
+    step = build_train_step(model, tx, TRAIN_TOKENS, TRAIN_TOKENS)
+    batch = train_batch(torch, TRAIN_BATCH, 0, "cuda")
+    losses, times = [], []
+
+    def run():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        return metrics
+
+    kernels.reset_launch_counts()
+    metrics = run()
+    launches = kernels.launch_counts()
+    expected = {k: PER_TRAIN_STEP.get(k, 0) for k in launches}
+    check(launches == expected, f"train step: launch counts {launches} != {expected}")
+    check(set(metrics) == {"loss", "grad_norm"} | {f"loss_{m}" for m in model.config
+                                                   .decoder_modalities},
+          f"train step: metrics {sorted(metrics)}")
+    for _ in range(12):
+        run()
+    check(all(np.isfinite(losses)), f"train step: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"train step: the loss did not fall: {losses}")
+    sec = float(np.median(times[3:]))
+    flops = train_step_flops(model, batch)
+    print(f"train step: 4M-B mod-7 ({TRAIN_MODEL}, {TRAIN_PARAMS} fp32 parameters in "
+          f"{TRAIN_LEAVES} leaves, bf16 compute), B={TRAIN_BATCH}, {TRAIN_TOKENS}+{TRAIN_TOKENS} "
+          f"tokens: median {sec * 1e3:.4f} ms per step over 10 after 2 warm-up (range "
+          f"{min(times[3:]) * 1e3:.4f}-{max(times[3:]) * 1e3:.4f}), "
+          f"{TRAIN_BATCH / sec:.4f} samples/s; "
+          f"{flops / 1e9:.2f} GFLOP per step (3 x forward matmuls), {flops / sec / 1e12:.4f} "
+          f"TFLOP/s = {flops / sec / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s; {card}", flush=True)
+    print(f"train step: losses over 13 steps on one batch at lr 1e-3: "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad_norm {float(metrics['grad_norm']):.6g}; "
+          f"{card}", flush=True)
+    print(f"launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    del state, model, tx, step
+    return launches
+
+
+def train_parity_phase(torch, card: str) -> None:
+    """Phase 9b: one train step at batch 2 on the card (kernels, bf16)
+    against the same weights on the CPU in fp32 and in bf16 (plain twins):
+    the loss, the gradients as a whole and every gradient leaf within 2 x
+    (the plain bf16 error) + 1e-3; the card's new parameters and moments
+    equal to the AdamW twin applied on the card to the card's own gradients.
+    Then a planted fault, the cross-attention cores' dq zeroed (q detached),
+    must fail the leaf gate."""
+    from fourm_torch.kernels import fused_adamw as fa
+    from fourm_torch.ops.transformer import CrossAttention
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+
+    start = {k: v.cpu() for k, v in train_model(torch, "cuda", seed=1).state_dict().items()}
+
+    def card_step(check_update: bool):
+        """One step at batch 2 on the card from `start`: (loss, grads on the
+        CPU), the update held to the AdamW twin when asked."""
+        model = train_model(torch, "cuda", seed=None)
+        model.load_state_dict(start)
+        tx = create_optimizer(model, constant_schedule(1e-3), weight_decay=0.05,
+                              betas=(0.9, 0.95))
+        state = init_train_state(model, tx)
+        names, params = [n for n, _ in tx.named_params()], tx.params()
+
+        def moments():
+            return [tx.mu[n] for n in names], [tx.nu[n] for n in names]
+
+        p_b, m_b, v_b = ([t.detach().clone() for t in ts] for ts in (params, *moments()))
+        state, metrics = build_train_step(model, tx, TRAIN_TOKENS, TRAIN_TOKENS)(
+            state, train_batch(torch, 2, 1, "cuda"))
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if check_update:
+            s = fa.adamw_scalars(0, tx.schedule(0), tx.b1, tx.b2, tx.eps, tx.weight_decay)
+            fa.fused_adamw_plain(p_b, grads, m_b, v_b, [tx.decay[n] for n in names], s)
+            for what, ts, refs in zip("pmv", (params, *moments()), (p_b, m_b, v_b)):
+                same = sum(int(torch.equal(t.detach(), r)) for t, r in zip(ts, refs))
+                check(same == len(refs), f"train parity: {what} equals the twin's update in "
+                                         f"{same} of {len(refs)} leaves")
+        out = float(metrics["loss"]), [g.float().cpu() for g in grads], names
+        del state, model, tx, grads, p_b, m_b, v_b
+        torch.cuda.empty_cache()
+        return out
+
+    card_loss, grads, names = card_step(check_update=True)
+
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        cm = train_model(torch, "cpu", dtype=dtype, seed=None)
+        cm.load_state_dict(start)
+        loss, _ = cm(train_batch(torch, 2, 1, "cpu"), TRAIN_TOKENS, TRAIN_TOKENS)
+        loss.backward()
+        ref[dtype] = (loss.item(), [torch.zeros_like(p) if p.grad is None else p.grad
+                                    for _, p in cm.named_parameters()])
+        del cm
+
+    def grad_err(gs):
+        g32 = ref["float32"][1]
+        num = sum(float((g.float().cpu() - r).square().sum()) for g, r in zip(gs, g32))
+        return (num / sum(float(r.square().sum()) for r in g32)) ** 0.5
+
+    def leaf_errs(gs):
+        return [float((g.float().cpu() - r).norm() / r.norm().clamp_min(1e-30))
+                for g, r in zip(gs, ref["float32"][1])]
+
+    plain_leaf = leaf_errs(ref["bfloat16"][1])
+    leaf_tol = [2.0 * e + 1e-3 for e in plain_leaf]
+    grad_tol = 2.0 * grad_err(ref["bfloat16"][1]) + 1e-3
+
+    def leaves_out(card_leaf):
+        return [n for n, e, t in zip(names, card_leaf, leaf_tol) if not e <= t]
+
+    loss32 = ref["float32"][0]
+    for what, card_err, plain_err in (
+            ("loss", abs(card_loss - loss32), abs(ref["bfloat16"][0] - loss32)),
+            ("gradient, relative norm error", grad_err(grads), grad_err(ref["bfloat16"][1]))):
+        tol = 2.0 * plain_err + 1e-3
+        print(f"train parity: B=2 {what}: card {card_err:.6g} from fp32 (tol {tol:.6g}; plain "
+              f"bf16 {plain_err:.6g}); fp32 loss {loss32:.6g}; {card}", flush=True)
+        check(card_err <= tol, f"train parity: {what} {card_err} > {tol}")
+    card_leaf = leaf_errs(grads)
+    out = leaves_out(card_leaf)
+    worst = max(range(len(names)), key=lambda i: card_leaf[i] / leaf_tol[i])
+    print(f"train parity: per-leaf relative gradient error, each leaf within 2 x (plain bf16) + "
+          f"1e-3: card max {max(card_leaf):.6g}, plain bf16 max {max(plain_leaf):.6g}; nearest "
+          f"its tolerance {names[worst]} card {card_leaf[worst]:.6g} (tol {leaf_tol[worst]:.6g}, "
+          f"plain {plain_leaf[worst]:.6g}); {len(names) - len(out)} of {len(names)} leaves "
+          f"within; the card's update equals the AdamW twin's on its own gradients in all "
+          f"{len(names)} leaves (p, m, v); {card}", flush=True)
+    check(not out, f"train parity: gradient leaves beyond their tolerance: {out}")
+
+    # the planted fault: q of every cross-attention core detached, so its dq
+    # is zero; only decoder.*.cross_attn.q.weight is reached by nothing else
+    project_q = CrossAttention.project_q
+    CrossAttention.project_q = lambda self, x: project_q(self, x).detach()
+    try:
+        _, bad, _ = card_step(check_update=False)
+    finally:
+        CrossAttention.project_q = project_q
+    out = leaves_out(leaf_errs(bad))
+    hit = [n for n in names if n.endswith("cross_attn.q.weight")]
+    bad_err = grad_err(bad)
+    print(f"train parity: fault cross-attention dq zeroed: {len(out)} leaves beyond their "
+          f"tolerance, {len(set(hit) & set(out))} of the {len(hit)} cross_attn.q leaves "
+          f"(caught); whole-gradient error {bad_err:.6g} against its tol {grad_tol:.6g} "
+          f"({'caught' if bad_err > grad_tol else 'missed'} by the global gate alone); {card}",
+          flush=True)
+    check(hit and set(hit) <= set(out),
+          f"train parity: the zeroed cross-attention dq was not caught: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -1112,7 +1579,7 @@ def main() -> int:
     print(f"build: {_build.build_all():.2f} s for {len(_build.SOURCES)} sources "
           f"({', '.join(_build.SOURCES)})", flush=True)
 
-    results = kernel_phase(torch)
+    results = kernel_phase(torch, card)
     torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
@@ -1122,13 +1589,20 @@ def main() -> int:
     decode_parity_phase(torch, model, out, cpu)
     del model, cpu
     torch.cuda.empty_cache()
-    results += vq_kernel_phase(torch)
+    results += vq_kernel_phase(torch, card)
     torch.cuda.empty_cache()
     vq_launches, vq_models, vq_x = vq_phase(torch, card)
     vq_parity_phase(torch, vq_models, vq_x)
-    path_launches = dict(vq_launches, chain=launches)
+    del vq_models, vq_x
+    torch.cuda.empty_cache()
+    results += train_kernel_phase(torch, card)
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch, card)
+    torch.cuda.empty_cache()
+    train_parity_phase(torch, card)
+    path_launches = dict(vq_launches, chain=launches, train=train_launches)
     for r in results:  # each wrapper's launches on the path that runs it
-        path = r.pop("path")
+        path = r["path"]
         r["launches"] = path_launches[path][r.pop("wrapper")]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 

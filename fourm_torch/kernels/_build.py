@@ -23,15 +23,16 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("ln_matmul", "ln_mlp", "attention", "self_decode", "decode_attn", "residual_mlp",
-           "attn_block", "vq_codebook")
+           "attn_block", "vq_codebook", "attention_train", "fused_adamw")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IA = ctypes.POINTER(ctypes.c_int)  # a host int array (ctypes.c_int * n)
 # each C entry point: its source, its symbol and its argtypes (restype is
-# int: cudaGetLastError(), or attn_block_fits' answer)
+# int: cudaGetLastError(), or a *_fits answer)
 SIGNATURES = {
     "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -51,6 +52,11 @@ SIGNATURES = {
     "attn_block": ("attn_block", "fourm_attn_block", [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P]),
     "attn_block_fits": ("attn_block", "fourm_attn_block_fits", [_I, _I]),
     "nearest_code": ("vq_codebook", "fourm_nearest_code", [_P] * 3 + [_I] * 4 + [_P]),
+    "attention_train_fwd": ("attention_train", "fourm_attention_train_fwd",
+                            [_P] * 6 + [_IA, _F, _I, _P]),
+    "attention_train_bwd": ("attention_train", "fourm_attention_train_bwd",
+                            [_P] * 11 + [_IA, _F, _P]),
+    "fused_adamw": ("fused_adamw", "fourm_fused_adamw", [_P] * 3 + [_I] + [_F] * 9 + [_P, _F, _P]),
 }
 
 _lock = threading.Lock()

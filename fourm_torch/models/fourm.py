@@ -1,11 +1,12 @@
-"""FourM: the 4M multimodal encoder-decoder, PyTorch port (generation forward).
+"""FourM: the 4M multimodal encoder-decoder, PyTorch port.
 
 Counterpart of fourm_tpu/models/fourm.py (reference fourm/models/fm.py): the
-same configuration, registry, modality-dict format and generation forward,
-as an nn.Module whose parameter names are the reference torch names
-(`encoder.{i}.attn.qkv.weight`, `encoder_embeddings.{mod}.mod_emb`, ...).
-The port serves generation: the image-target forward and the KV-cached
-autoregressive methods; the training forward comes with a later slice.
+same configuration, registry, modality-dict format, generation forwards and
+training forward, as an nn.Module whose parameter names are the reference
+torch names (`encoder.{i}.attn.qkv.weight`, `encoder_embeddings.{mod}.mod_emb`,
+...). Generation: the image-target forward and the KV-cached autoregressive
+methods. Training: `forward` (JAX's `__call__` with deterministic=False),
+the masked-modeling loss over exact per-modality buckets.
 
 mod_dict format (per modality): {
   'tensor': int tokens (B, L) / image-token grid (B, N) / raw NHWC image,
@@ -20,11 +21,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..data.modality_info import MODALITY_INFO, ModalitySpec
-from ..ops.token_select import gather_tokens, select_tokens
+from ..ops.token_select import adapt_decoder_attention_mask, gather_tokens, select_tokens
 from ..ops.transformer import Block, DecoderBlock, LayerNorm, _dense, _key_bias
 from .embeddings import (
     ImageEncoderEmbedding,
@@ -120,8 +123,21 @@ def _build_decoder_embedding(spec: ModalitySpec, dim: int, dtype,
     raise ValueError(f"unknown decoder embedding kind {kind}")
 
 
+def _drop_path_rates(cfg: FourMConfig):
+    """Per-block stochastic-depth rates, linear in depth (fourm.py:208-214)."""
+    if cfg.shared_drop_path:
+        total = cfg.encoder_depth + cfg.decoder_depth
+        dprs = [cfg.drop_path_rate_encoder * i / max(total - 1, 1) for i in range(total)]
+        return dprs[:cfg.encoder_depth], dprs[cfg.encoder_depth:]
+    enc = [cfg.drop_path_rate_encoder * i / max(cfg.encoder_depth - 1, 1)
+           for i in range(cfg.encoder_depth)]
+    dec = [cfg.drop_path_rate_decoder * i / max(cfg.decoder_depth - 1, 1)
+           for i in range(cfg.decoder_depth)]
+    return enc, dec
+
+
 class FourM(nn.Module):
-    """4M encoder-decoder over modality dicts (generation forward)."""
+    """4M encoder-decoder over modality dicts."""
 
     def __init__(self, config: FourMConfig):
         super().__init__()
@@ -149,11 +165,12 @@ class FourM(nn.Module):
             act=cfg.act, gated_mlp=cfg.gated_mlp, qk_norm=cfg.qk_norm,
             norm_bias=cfg.norm_bias, dtype=dtype,
         )
-        self.encoder = nn.ModuleList([Block(**block_kw) for _ in range(cfg.encoder_depth)])
+        dpr_enc, dpr_dec = _drop_path_rates(cfg)
+        self.encoder = nn.ModuleList([Block(**block_kw, drop_path_rate=r) for r in dpr_enc])
         self.encoder_norm = LayerNorm(cfg.dim, use_bias=cfg.norm_bias, dtype=dtype)
         self.decoder_proj_context = nn.Linear(cfg.dim, cfg.dim)
-        self.decoder = nn.ModuleList(
-            [DecoderBlock(**block_kw) for _ in range(cfg.decoder_depth)])
+        self.decoder = nn.ModuleList([DecoderBlock(**block_kw, drop_path_rate=r)
+                                      for r in dpr_dec])
         self.decoder_norm = LayerNorm(cfg.dim, use_bias=cfg.norm_bias, dtype=dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         if cfg.num_register_tokens > 0:
@@ -206,18 +223,21 @@ class FourM(nn.Module):
         modid = modid.masked_fill(mask, -1)
         return x, emb, mask, modid
 
-    def forward_encoder(self, x, encoder_mask):
-        """Encoder blocks; encoder_mask (B, N) or (B, 1, N) bool (fm.py:477-495)."""
+    def forward_encoder(self, x, encoder_mask, train: bool = False,
+                        generator: Optional[torch.Generator] = None):
+        """Encoder blocks; encoder_mask (B, N) or (B, 1, N) bool (fm.py:477-495).
+        `train` runs the blocks' differentiable training path."""
         if encoder_mask is not None and encoder_mask.ndim == 2:
             encoder_mask = encoder_mask[:, None, :]
         for blk in self.encoder:
-            x = blk(x, encoder_mask)
+            x = blk(x, encoder_mask, train=train, generator=generator)
         return self.encoder_norm(x)
 
-    def encode(self, mod_dict, num_encoder_tokens: Optional[int] = None):
+    def encode(self, mod_dict, num_encoder_tokens: Optional[int] = None, train: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Embed + select + encode. Returns (enc_out, enc_emb, enc_mask, enc_modid)."""
         x, emb, mask, modid = self.forward_mask_encoder(mod_dict, num_encoder_tokens)
-        return self.forward_encoder(x + emb, mask), emb, mask, modid
+        return self.forward_encoder(x + emb, mask, train, generator), emb, mask, modid
 
     def decoder_context(self, enc_out, enc_emb):
         """Project the encoder output and re-add its embeddings (fm.py:674)."""
@@ -225,12 +245,68 @@ class FourM(nn.Module):
 
     # ------------------------------------------------------------------ decoder
 
-    def forward_decoder(self, y, context, encoder_mask, decoder_attention_mask):
+    def _cat_decoder(self, mod_dict):
+        """Embed and concatenate the decoder modalities, sequence ones shifted
+        for next-token prediction (fourm_tpu fourm.py:320-358, reference
+        fm.py:279-334): input[:-1] predicts ids[1:], the merged mask drops
+        the last unmasked position; image modalities take the mask token as
+        input."""
+        xs, embs, masks, ids, attn, modids = [], [], [], [], [], []
+        dtype = self.config.compute_dtype
+        mask_token = self.mask_token.to(dtype)
+        for mod in self.config.decoder_modalities:
+            if mod not in mod_dict or mod not in self.decoder_embeddings:
+                continue
+            d = mod_dict[mod]
+            spec = self.config.spec(mod)
+            dec_emb = self.decoder_embeddings[mod]
+            x, pos, tok_ids = dec_emb.embed(d["tensor"], d["target_mask"])
+            emb = pos + dec_emb.mod_emb.to(dtype)
+            if spec.type in SEQ_TYPES:
+                xs.append(x[:, :-1])
+                embs.append(emb[:, :-1])
+                ids.append(tok_ids[:, 1:])
+                masks.append(d["target_mask"][:, 1:] | d["target_mask"][:, :-1])
+                attn.append(d["decoder_attention_mask"][:, :-1])
+                n = x.shape[1] - 1
+            else:
+                xs.append(mask_token.expand(x.shape))
+                embs.append(emb)
+                ids.append(tok_ids)
+                masks.append(d["target_mask"])
+                attn.append(d["decoder_attention_mask"])
+                n = x.shape[1]
+            modids.append(torch.full((x.shape[0], n), spec.id, dtype=torch.int64,
+                                     device=x.device))
+        return (torch.cat(xs, 1), torch.cat(embs, 1), torch.cat(masks, 1), torch.cat(ids, 1),
+                torch.cat(attn, 1), torch.cat(modids, 1))
+
+    def forward_mask_decoder(self, mod_dict, num_decoder_tokens: Optional[int]):
+        """Select the decoder token subset and build its full self-attention
+        mask (fm.py:392-438). Returns (x, emb, mask, target ids, sa_mask
+        (B, M, M), modid)."""
+        x, emb, mask, ids, attn, modid = self._cat_decoder(mod_dict)
+        if num_decoder_tokens is not None:
+            idx = select_tokens(mask, num_decoder_tokens)
+            x, emb = gather_tokens(x, idx), gather_tokens(emb, idx)
+            mask, ids = torch.gather(mask, 1, idx), torch.gather(ids.long(), 1, idx)
+            attn, modid = torch.gather(attn, 1, idx), torch.gather(modid, 1, idx)
+        x = x.masked_fill(mask[..., None], 0.0)
+        emb = emb.masked_fill(mask[..., None], 0.0)
+        ids = ids.masked_fill(mask, 0)
+        sa_mask = adapt_decoder_attention_mask(attn, modid, causal=self.config.decoder_causal_mask,
+                                               sep_mask=self.config.decoder_sep_mask)
+        modid = modid.masked_fill(mask, -1)
+        return x, emb, mask, ids, sa_mask, modid
+
+    def forward_decoder(self, y, context, encoder_mask, decoder_attention_mask,
+                        train: bool = False, generator: Optional[torch.Generator] = None):
         """Decoder blocks (fm.py:497-519)."""
         if encoder_mask is not None and encoder_mask.ndim == 2:
             encoder_mask = encoder_mask[:, None, :]
         for blk in self.decoder:
-            y = blk(y, context, decoder_attention_mask, encoder_mask)
+            y = blk(y, context, decoder_attention_mask, encoder_mask, train=train,
+                    generator=generator)
         return self.decoder_norm(y)
 
     def mod_logits(self, mod: str, y: torch.Tensor) -> torch.Tensor:
@@ -291,6 +367,74 @@ class FourM(nn.Module):
         for blk, (ck, cv), (xk, xv) in zip(self.decoder, caches, cross_kvs):
             y_t, _, _ = blk.step(y_t, ck, cv, xk, xv, xa_bias, step_idx)
         return self.decoder_norm(y_t), caches
+
+    # ------------------------------------------------------------------ loss
+
+    def _decoder_stream_length(self, mod: str, mod_dict) -> int:
+        """Length this modality contributes to the decoder stream, from the
+        data's shapes (sequence tensors lose one position to the AR shift)."""
+        t = mod_dict[mod]["tensor"]
+        n = int(np.prod(t.shape[1:])) if t.ndim > 2 else t.shape[1]
+        return n - 1 if self.config.spec(mod).type in SEQ_TYPES else n
+
+    def forward_loss(self, y, target_ids, decoder_modid, mods, mod_dict,
+                     num_decoder_tokens: Optional[int], loss_type: str = "mod"):
+        """Per-modality cross-entropy over exact fixed-capacity buckets
+        (fourm_tpu fourm.py:485-525, reference fm.py:547-637): each target
+        modality gathers the first C positions carrying its id (C = min(its
+        stream length, the budget, M), which bounds how many it can hold),
+        logits in fp32. "mod" averages the modalities' mean losses; "token"
+        weights each by its count times its vocabulary (logits.numel(), as
+        the reference)."""
+        M = y.shape[1]
+        mod_loss, mod_count = {}, {}
+        total_sum, total_cnt = 0.0, 0.0
+        for mod in mods:
+            spec = self.config.spec(mod)
+            cap = min(self._decoder_stream_length(mod, mod_dict), num_decoder_tokens or M, M)
+            bucket = select_tokens(decoder_modid != spec.id, cap)
+            y_m = gather_tokens(y, bucket)
+            valid = torch.gather(decoder_modid, 1, bucket) == spec.id
+            # a position of another modality may hold an id past this vocabulary:
+            # its loss is masked out, so any in-range id does
+            tgt = torch.gather(target_ids, 1, bucket).masked_fill(~valid, 0)
+            logits = self.mod_logits(mod, y_m).float()
+            ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, tgt[..., None].long())[..., 0]
+            cnt = valid.sum()
+            mod_loss[mod] = torch.where(valid, ce, 0.0).sum() / cnt.clamp_min(1)
+            mod_count[mod] = cnt
+            vocab = logits.shape[-1]
+            total_sum = total_sum + mod_loss[mod] * cnt * vocab
+            total_cnt = total_cnt + cnt * vocab
+        if loss_type in ("mod", "modality"):
+            loss = sum(mod_loss.values()) / max(len(mod_loss), 1)
+        elif loss_type == "token":
+            loss = total_sum / torch.clamp_min(torch.as_tensor(total_cnt), 1)
+        else:
+            raise ValueError(f"invalid loss type {loss_type}")
+        return loss, mod_loss, mod_count
+
+    # ------------------------------------------------------------------ train
+
+    def forward(self, mod_dict: Dict[str, Dict[str, torch.Tensor]], num_encoder_tokens: int,
+                num_decoder_tokens: int, loss_type: str = "mod",
+                generator: Optional[torch.Generator] = None):
+        """The training forward (fourm_tpu fourm.py:529-557 with
+        deterministic=False; reference fm.py:640-692): encoder and decoder
+        on their training paths, then the loss. `generator` draws the
+        stochastic-depth masks. Returns (loss, (mod_loss, mod_count))."""
+        if self.config.remat:
+            raise NotImplementedError("remat (activation checkpointing) is not ported yet")
+        enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens, True, generator)
+        dec_x, dec_emb, _dec_mask, target_ids, sa_mask, dec_modid = self.forward_mask_decoder(
+            mod_dict, num_decoder_tokens)
+        context = self.decoder_context(enc_out, enc_emb)
+        y = self.forward_decoder(dec_x + dec_emb, context, enc_mask, sa_mask, True, generator)
+        mods = [m for m in self.config.decoder_modalities
+                if m in mod_dict and m in self.decoder_embeddings]
+        loss, mod_loss, mod_count = self.forward_loss(y, target_ids, dec_modid, mods, mod_dict,
+                                                      num_decoder_tokens, loss_type)
+        return loss, (mod_loss, mod_count)
 
     def init_kv_caches(self, batch_size: int, max_len: int):
         """Zeroed per-layer self-attention KV caches, (B, H, L, Dh), one

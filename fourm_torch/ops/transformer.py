@@ -1,4 +1,4 @@
-"""Transformer primitives of the PyTorch port (inference).
+"""Transformer primitives of the PyTorch port (inference and training).
 
 Counterparts of fourm_tpu/ops/transformer.py: pre-LN blocks, bias-optional
 LayerNorm, SwiGLU gated MLP, attention with boolean masks (True = masked
@@ -19,6 +19,15 @@ A KV-cached decode step (`DecoderBlock.step`) goes through `self_decode`,
 hand-written kernels; on CPU tensors they compute their plain twins, which
 equal the XLA path of the JAX package up to summation order. Parameters may be held in any float
 dtype; like the JAX modules, each product casts them to the compute dtype.
+
+The training forward (`train=True`, the counterpart of JAX's
+`deterministic=False`, passed down explicitly: nn.Module.training is not
+read) is differentiable end to end: LayerNorms as plain fp32 ops, products
+as `_dense`, the MLPs as `Mlp` / `GatedMlp`, every attention core through
+`attention_train` (forward and backward kernels) unless its shape gate
+refuses the problem, and each branch through `DropPath` before its residual
+add (transformer.py:821-824, :878-885). The inference kernels have no
+backward and never run in a train step.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from torch import nn
 
 from ..kernels.attention import attention, attn_block, attn_block_takes, flash_mha, mha_short
 from ..kernels.attention import softmax1  # noqa: F401  (re-exported, as in fourm_tpu)
+from ..kernels.attention_train import (attention_train, attention_train_fwd_plain,
+                                       attention_train_takes)
 from ..kernels.decode_step import cross_decode_attn, residual_mlp, self_decode
 from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_mlp
 
@@ -63,10 +74,17 @@ def _key_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
-                          allow_zero_attn: bool = False) -> torch.Tensor:
+                          allow_zero_attn: bool = False, train: bool = False) -> torch.Tensor:
     """Attention core. q, k, v: (B, H, N|M, Dh); bias fp32 (B, 1|H, N|1, M).
-    Goes through the `attention` kernel (its plain twin on the CPU)."""
-    return attention(q, k, v, bias, allow_zero_attn)
+    Inference goes through the `attention` kernel (its plain twin on the
+    CPU). `train` makes it differentiable: `attention_train` where its shape
+    gate takes the problem, else the plain autograd ops (as JAX falls back
+    to XLA, ops/transformer.py:256-264)."""
+    if not train:
+        return attention(q, k, v, bias, allow_zero_attn)
+    if attention_train_takes(q, k, bias):
+        return attention_train(q, k, v, bias, allow_zero_attn)
+    return attention_train_fwd_plain(q, k, v, bias, allow_zero_attn)
 
 
 def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -165,8 +183,14 @@ class Attention(nn.Module):
         return (not self.qk_norm and N <= 1024
                 and (mask is None or mask.ndim == 2 or (mask.ndim == 3 and mask.shape[1] == 1)))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         B, N, C = x.shape
+        if train:
+            q, k, v = self._split_qkv(x)
+            out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn,
+                                        train=True)
+            return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
         if self._short(N, mask):
             out = mha_short(_dense(x, self.qkv, self.dtype), self.num_heads, _key_bias(mask),
                             self.allow_zero_attn)
@@ -239,16 +263,43 @@ class CrossAttention(nn.Module):
         q = q.transpose(1, 2)
         return self.q_norm(q) if self.qk_norm else q
 
-    def attend(self, x, k, v, mask=None):
+    def attend(self, x, k, v, mask=None, train: bool = False):
         B, N, C = x.shape
         q = self.project_q(x)
-        out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
+        out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn,
+                                    train=train)
         return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         k, v = self.project_kv(context)
-        return self.attend(x, k, v, mask)
+        return self.attend(x, k, v, mask, train)
+
+
+def drop_path(x: torch.Tensor, drop_prob: float, train: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth per sample (reference fm_utils.py:66-90;
+    fourm_tpu/ops/transformer.py:703-712): in training, each sample's branch
+    is kept with probability 1 - drop_prob and scaled by its inverse, or
+    zeroed. The keep draw comes from `generator` (the default one if None)."""
+    if drop_prob == 0.0 or not train:
+        return x
+    keep_prob = 1.0 - drop_prob
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """drop_path with a fixed rate (transformer.py:715-722)."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.drop_prob, train, generator)
 
 
 def _make_mlp(gated_mlp: bool, act: str, dim: int, mlp_ratio: float, mlp_bias: bool, dtype):
@@ -270,13 +321,13 @@ def _fused_ln_mlp(norm: LayerNorm, mlp: nn.Module, x: torch.Tensor, gated: bool)
 
 
 class Block(nn.Module):
-    """Pre-LN encoder block (reference fm_utils.py:310-334), inference."""
+    """Pre-LN encoder block (reference fm_utils.py:310-334)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True, mlp_bias: bool = True,
                  act: str = "gelu", gated_mlp: bool = False, qk_norm: bool = False,
                  allow_zero_attn: bool = False, norm_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.0):
         super().__init__()
         self.gated_mlp = gated_mlp
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
@@ -284,21 +335,28 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
         self.norm2 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
         self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
+        self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            dp = self.drop_path
+            x = x + dp(self.attn(self.norm1(x), mask, train=True), True, generator)
+            return x + dp(self.mlp(self.norm2(x)), True, generator)
         x = self.attn.fused_prenorm(x, self.norm1, mask)
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
 
 
 class DecoderBlock(nn.Module):
     """Pre-LN decoder block: self-attention, cross-attention, MLP (reference
-    fm_utils.py:337-366), inference over a full query grid."""
+    fm_utils.py:337-366) over a full query grid, and its KV-cached decode
+    step."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True, mlp_bias: bool = True,
                  act: str = "gelu", gated_mlp: bool = False, qk_norm: bool = False,
                  allow_zero_attn: bool = False, norm_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path_rate: float = 0.0):
         super().__init__()
         self.gated_mlp = gated_mlp
         common = (dim, num_heads, qkv_bias, proj_bias, qk_norm, allow_zero_attn, dtype)
@@ -309,10 +367,18 @@ class DecoderBlock(nn.Module):
         self.context_norm = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
         self.norm2 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
         self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sa_mask: Optional[torch.Tensor] = None,
-                xa_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                xa_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            dp = self.drop_path
+            x = x + dp(self.self_attn(self.norm1(x), sa_mask, train=True), True, generator)
+            x = x + dp(self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask,
+                                       train=True), True, generator)
+            return x + dp(self.mlp(self.norm2(x)), True, generator)
         x = self.self_attn.fused_prenorm(x, self.norm1, sa_mask)
         x = x + self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask)
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)

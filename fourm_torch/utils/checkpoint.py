@@ -9,7 +9,9 @@ reference-named torch state dict that the port's module takes with
   * `from_jax_vq_variables(variables)`: a VQ's `params` and `codebook`
     collection, the naming of checkpoint.py:_vq_torch_name /
     export_vq_torch_state (356-408) as far as the VQ encoder reaches;
-  * `from_jax_teacher_params(params)`: a ViTTeacher's `params`.
+  * `from_jax_teacher_params(params)`: a ViTTeacher's `params`;
+  * `from_jax_adam_state(opt_state, config)`: optax AdamW's `count`, `mu`
+    and `nu` of a FourM, as the port's FusedAdamW state (`load_state_dict`).
 Dense kernels (in, out) become nn.Linear weights (out, in), convolution
 kernels (kh, kw, in, out) the reference's (out, in, kh, kw), embedding
 tables keep their layout, modality and mask tokens take the reference
@@ -130,3 +132,39 @@ def from_jax_teacher_params(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     _flax_tree(out, "", params)
     return _tensors(out)
+
+
+def _adam_states(state):
+    """The optax ScaleByAdamState(s) in an optimizer state: any node with
+    count, mu and nu, found through tuples, lists and NamedTuples."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        yield state
+    elif isinstance(state, (tuple, list)):
+        for sub in state:
+            yield from _adam_states(sub)
+
+
+def from_jax_adam_state(opt_state, config) -> dict:
+    """The port's optimizer state from a JAX optimizer state: the AdamW
+    moments under the parameter names of `from_jax_params` and the step
+    count, {"count": int, "mu": {name: tensor}, "nu": {name: tensor}}, for
+    `FusedAdamW.load_state_dict`. Takes the optax chain of
+    fourm_tpu.utils.optim.create_optimizer (one ScaleByAdamState; moment
+    trees of variables `{"params": ...}` or of params)."""
+    found = list(_adam_states(opt_state))
+    if len(found) != 1:
+        raise ValueError(f"expected one AdamW state in the optimizer state, found {len(found)}")
+    adam = found[0]
+
+    def moments(tree):
+        tree = tree["params"] if "params" in tree else tree
+        return from_jax_params(_numpy_tree(tree), config)
+
+    return {"count": int(np.asarray(adam.count)), "mu": moments(adam.mu),
+            "nu": moments(adam.nu)}
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, dtype=np.float32)

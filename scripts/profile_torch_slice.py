@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's headline chain on the card: RGB -> all
-14 targets for 8 requests (8 image-token targets by ROAR with CFG, batch 16;
-6 sequence targets decoded autoregressively, batch 8), 4M-21 B at full
-width, random bf16 weights -- the run of chip_smoke.py's phase 3, under
-torch.profiler.
+"""Where the time goes in the port on the card, under torch.profiler.
 
-    python3 scripts/profile_torch_slice.py [--out out/chain_trace.json]
+    python3 scripts/profile_torch_slice.py [--part all|chain|train] [--out out/chain_trace.json]
 
-Two profiled windows: the whole chain, and its sequence part alone (the 6
-AR targets, conditioned on the image targets the first window decoded).
-For each it prints the device time by kernel name and by kernel group, the
-device busy share (summed kernel time over the wall time of the same window
-run without the profiler, which slows the host's launches; the share over
-the profiled wall time is printed beside it), and the host operators with
-the most self CPU time; the last line is one JSON object with the same
-numbers. Needs one CUDA card and nvcc.
+The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
+ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
+batch 8), 4M-21 B at full width, random bf16 weights -- the run of
+chip_smoke.py's phase 3. Two profiled windows: the whole chain, and its
+sequence part alone (the 6 AR targets, conditioned on the image targets the
+first window decoded). For each it prints the device time by kernel name
+and by kernel group, the device busy share (summed kernel time over the
+wall time of the same window run without the profiler, which slows the
+host's launches; the share over the profiled wall time is printed beside
+it), and the host operators with the most self CPU time.
+
+The train step: chip_smoke.py's phase 9 (4M-B mod-7, B = 32, 128 + 128
+tokens, bf16 compute over fp32 master weights, one fused AdamW launch).
+One step's work (build_train_step's, one microbatch) is profiled in three
+windows fenced by synchronizations -- forward, backward, optimizer -- and
+its device time is given by kernel group: attention_train forward and
+backward, fused_adamw, cuBLAS GEMMs of each window, and the other ops of
+each window (plain LayerNorm, cross-entropy, casts of the fp32 masters to
+bf16, residual adds, the global norm). The busy share is the summed kernel
+time over the median wall time of 5 unfenced steps run without the
+profiler.
+
+The last line is one JSON object with the numbers. Needs one CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -43,6 +55,13 @@ WRAPPER_KERNELS = {"ln_matmul_kernel": "ln_matmul", "ln_mlp_kernel": "ln_mlp",
                    "decode_combine_kernel": "decode_attention",
                    "proj_residual_kernel": "residual_mlp", "hidden_kernel": "residual_mlp",
                    "out_residual_kernel": "residual_mlp"}
+# the train step's kernels (substring) -> group; cuBLAS GEMMs by name marks
+TRAIN_KERNELS = {"attn_train_fwd_kernel": "attention_train forward",
+                 "attn_train_dsum_kernel": "attention_train backward",
+                 "attn_train_dkdv_kernel": "attention_train backward",
+                 "attn_train_dq_kernel": "attention_train backward",
+                 "adamw_kernel": "fused_adamw"}
+GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
 
 
 def profile(run, label: str, trace: str | None, wall_plain_ms: float):
@@ -85,14 +104,118 @@ def profile(run, label: str, trace: str | None, wall_plain_ms: float):
             "top_host": [{"ms": ms, "count": c, "name": k[:200]} for ms, c, k in host_rows[:15]]}
 
 
+def train_group(name: str, window: str) -> str:
+    for mark, group in TRAIN_KERNELS.items():
+        if mark in name:
+            return group
+    if any(m in name.lower() for m in GEMM_MARKS):
+        return f"cuBLAS GEMM, {window}"
+    return f"other ops, {window}"
+
+
+def train_profile() -> dict:
+    """The train step's device time by kernel group and window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+
+    T = chip_smoke.TRAIN_TOKENS
+    model = chip_smoke.train_model(torch, "cuda")
+    tx = create_optimizer(model, constant_schedule(1e-3), weight_decay=0.05, betas=(0.9, 0.95))
+    state = init_train_state(model, tx)
+    step = build_train_step(model, tx, T, T)
+    batch = chip_smoke.train_batch(torch, chip_smoke.TRAIN_BATCH, 0, "cuda")
+
+    def run():
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    walls = []
+    for i in range(8):  # 3 warm-up steps, then 5 timed
+        t0 = time.perf_counter()
+        run()
+        if i >= 3:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+
+    def fenced():
+        """build_train_step's work for one microbatch, each part fenced."""
+        for p in tx.params():
+            p.grad = None
+        with record_function("train/forward"):
+            loss, _ = model(batch, T, T)
+            torch.cuda.synchronize()
+        with record_function("train/backward"):
+            loss.backward()
+            torch.cuda.synchronize()
+        with record_function("train/optimizer"):
+            grads = [p.grad for p in tx.params() if p.grad is not None]
+            tx.step(torch.nn.utils.get_total_norm(grads))
+            torch.cuda.synchronize()
+
+    fenced()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fenced()
+        wall_fenced = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = {e.name.split("/", 1)[1]: (e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("train/") and e.device_type == DeviceType.CPU}
+    groups, windows, names = {}, {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("train/"):
+            continue
+        t = e.time_range.start
+        window = next((w for w, (a, b) in spans.items() if a <= t <= b), "outside the windows")
+        ms = e.time_range.elapsed_us() / 1e3
+        group = train_group(e.name, window)
+        groups[group] = groups.get(group, 0.0) + ms
+        windows[window] = windows.get(window, 0.0) + ms
+        count, total = names.get(e.name, (0, 0.0))
+        names[e.name] = (count + 1, total + ms)
+    device_ms = sum(groups.values())
+    print(f"[train step] {torch.cuda.get_device_name(0)}; B={chip_smoke.TRAIN_BATCH}, {T}+{T} "
+          f"tokens; device busy {device_ms:.3f} ms: {device_ms / wall_ms:.4f} of the "
+          f"{wall_ms:.3f} ms median step without the profiler (steps "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms; the fenced step under the profiler "
+          f"{wall_fenced:.3f} ms)")
+    for w, ms in windows.items():
+        print(f"  window {w}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:20]
+    for name, (count, ms) in top:
+        print(f"  device {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    return {"wall_ms_unprofiled": wall_ms, "wall_ms_steps": walls,
+            "wall_ms_fenced_profiled": wall_fenced, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "by_window_ms": windows, "by_group_ms": groups,
+            "top_device": [{"ms": ms, "count": c, "name": n[:200]} for n, (c, ms) in top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--part", choices=["all", "chain", "train"], default="all")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
+    res = {}
+    if args.part in ("all", "chain"):
+        res.update(chain_profile(args.out))
+    if args.part in ("all", "train"):
+        torch.cuda.empty_cache()
+        res["train_step"] = train_profile()
+    print(json.dumps(res))
+    return 0
+
+
+def chain_profile(trace) -> dict:
+    """The chain and its sequence part."""
     model = chip_smoke.build_model(torch, "bfloat16", "cuda")
     sampler = FourMSampler(model, chip_smoke.StandInTokenizer())
     rgb = np.random.RandomState(0).rand(chip_smoke.REQUESTS, 224, 224, 3).astype(np.float32)
@@ -125,12 +248,11 @@ def main() -> int:
     tokens = dict(sampler.sampler._ar_tokens)
     ar_ms = wall_ms(ar_part)
     res = {"tokens": tokens,
-           "chain": profile(chain, "chain", args.out, chain_ms),
+           "chain": profile(chain, "chain", trace, chain_ms),
            "ar_part": profile(ar_part, "sequence targets", None, ar_ms)}
     print(f"wall without the profiler: chain {chain_ms:.3f} ms, sequence targets "
           f"{ar_ms:.3f} ms; decoded tokens {json.dumps(tokens)}")
-    print(json.dumps(res))
-    return 0
+    return res
 
 
 if __name__ == "__main__":
