@@ -15,19 +15,38 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      many or too few, the new token or the last key chunk left out) that the
      tolerance must tell apart; then the options off the path, for
      correctness only;
+  2b. the kernels at the widths of 4M-21 XL (D = 2048, 32 heads, SwiGLU
+     hidden 5461, the XL chain's shapes) and 4M-L (D = 1024, hidden 2730),
+     and the int8 mode of cross_decode_attn at 4M-B and XL shapes, as phase
+     2, with faults the tolerance must catch (ln_mlp's ragged tail chunk,
+     W2's tail columns in residual_mlp, the K scale not folded, the V scale
+     of the heads reversed); the int8 mode is also held to the bf16 kernel
+     on the dequantized K/V, within 5% of the unquantized K/V, and
+     quantize_kv_decode on the card to its CPU result, exactly;
   3. the headline chain at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_
      nobias on the 4M-21 modality sets, random bf16 weights from a seeded
      generator): FourMSampler decodes RGB -> all 14 targets of the default
      order (DEFAULTS_RGB2X: 8 image-token targets by one ROAR step with CFG
      2.0, then caption, det, human_poses, sam_instance, color_palette and
      metadata autoregressively) for 8 requests, with a stand-in for the text
-     tokenizer's layout; the launch counters are reset just before and read
-     just after a run of the public entry alone, and a further, instrumented
-     run times each sequence target; then the decode microbenchmark of
-     bench.py (B = 16, L = 256, M = 2304, 64 greedy caption tokens);
+     tokenizer's layout; after a warm-up run the launch counters are reset
+     just before and read just after a run of the public entry alone (which
+     gives samples/s), then a third, instrumented run times each sequence
+     target; then the decode
+     microbenchmark of bench.py (B = 16, L = 256, M = 2304, 64 greedy
+     caption tokens) in bf16 and in int8 mode;
   4. one forward_generation_img at batch 2, and one ar_prefill + 4
      decode_one_token steps at batch 2, on the card (kernels, bf16) against
      the same weights on the CPU in fp32 (plain twins) and in bf16;
+  3b. the same chain at 4M-21 XL (fm_xlarge_24e_24d_swiglu_qknorm_nobias,
+     full width and depth, random bf16 weights) for 4 requests, bench.py's
+     xl_full_chain batch, in bf16 and then with kv_quant="int8" (every
+     cross-attention decode step through decode_attention_int8), each with
+     exact launch counts, and the two runs' token agreement (printed, not
+     gated); 3c. the decode microbenchmark at XL (24 layers) in both modes;
+     4b. XL parity at depth cut to 2 + 2: one forward_generation_img and one
+     ar_prefill + 4 decode steps (bf16, and int8 against the CPU's int8
+     twins) at batch 2 against fp32 CPU runs;
   5. the VQ tokenization kernels (attn_block, ln_mlp with exact GELU,
      mha_short, nearest_code, nearest_code_cosine) against their twins at the
      VQ paths' shapes, as phase 2 (the codebook searches must equal their
@@ -98,12 +117,11 @@ AR_TARGETS = ["caption", "det", "human_poses", "sam_instance", "color_palette", 
 TARGETS = ROAR_TARGETS + AR_TARGETS  # the default order without tok_rgb (bench.py:433)
 REQUESTS = 8
 DEPTH = 12
-# launches of each wrapper in one forward_generation_img of a 12+12 model
-PER_STEP = {"ln_matmul": 24, "ln_mlp": 24, "flash_mha": 24, "attention": 12}
-# in one ar_prefill (the encoder) and in one decoded token (the decoder)
-PER_PREFILL = {"ln_matmul": DEPTH, "ln_mlp": DEPTH, "flash_mha": DEPTH}
-PER_TOKEN = {"self_decode": DEPTH, "cross_decode_attn": DEPTH, "decode_attention": DEPTH,
-             "residual_mlp": DEPTH}
+# 4M-21 XL (D = 2048, 32 heads, 24 + 24 layers, SwiGLU hidden 5461) for
+# bench.py's xl_full_chain batch of 4 requests (bench.py:470-501)
+XL_MODEL = "fm_xlarge_24e_24d_swiglu_qknorm_nobias"
+XL_REQUESTS = 4
+XL_DEPTH = 24
 # VQ tokenization: the RGB tokenizer of bench.py:179-183 and the CLIP-B16
 # tokenizer of cfgs/default/tokenization/vqvae/CLIP-B16/ViTB-ViTB_8k_224.yaml
 VQ_BATCH = 64
@@ -217,6 +235,8 @@ def time_cases(torch, cases, card: str):
     for name, replaces, source, c in cases:
         parts = held(torch, name, c.get("held_run", c["run"]), c.get("held_plain", c["plain"]),
                      c.get("faults"), c.get("exact", False))
+        if "oracle" in c:
+            c["oracle"]()
         err, tol = max(parts.values(), key=lambda et: et[0] / max(et[1], 1e-30))
         ms = time_ms(torch, c["run"], 10)
         plain_ms = time_ms(torch, c["plain"], 3)
@@ -229,7 +249,8 @@ def time_cases(torch, cases, card: str):
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); {card}", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "wrapper": name.split("@")[0], "path": c.get("path", "chain"),
+                        "wrapper": c.get("wrapper", name.split("@")[0]),
+                        "path": c.get("path", "chain"),
                         "max_abs_err": err, "tolerance": tol,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
@@ -392,16 +413,22 @@ def fault_check(torch, name, faults, refs, tols) -> None:
         check(seen or label not in must, f"{name}: tolerance {tol} cannot tell '{label}' ({d})")
 
 
-def decode_kernel_cases(torch, rn, key_bias, gen):
-    """The decode-step kernels at the AR part's shapes (B = 8 requests, no
-    CFG; caches L = 256; cross K/V at the encoder budget M = 2048 and at a
-    ragged whole-stream M), and their options off the path."""
+def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail_gain=1.0):
+    """Builders of the decode-step kernels' cases at batch B and width C
+    (H = C / 64 heads, 4M-21's QK-norm without biases, SwiGLU hidden HID,
+    caches of L): self_case(step), cross_case(M), attn_case(M),
+    mlp_case(rows), and the tensors the options off the path reuse.
+    w2_tail_gain scales W2's last 16 columns, so that a kernel losing the
+    ragged tail of W2's rows is told apart from the twin."""
+    import types
+
     import torch.nn.functional as F
 
     from fourm_torch.kernels import decode_step as ds
 
     dev, bf = "cuda", torch.bfloat16
-    B, C, H, Dh, L, HID = 8, 768, 12, 64, 256, 2048
+    H, Dh = C // 64, 64
+    w = f"{C}"
 
     def norm(n):
         return (torch.rand(n, generator=gen, device=dev) + 0.5).to(bf)
@@ -411,14 +438,12 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
 
     x = rn(B, C)
     g1, w_qkv, w_q = norm(C), rn(3 * C, C, std=C ** -0.5), rn(C, C, std=C ** -0.5)
-    qk = [norm(Dh), None, norm(Dh), None]  # 4M-21 B: QK-norm without biases
+    qk = [norm(Dh), None, norm(Dh), None]  # 4M-21: QK-norm without biases
     cache_k, cache_v = rn(B, H, L, Dh), rn(B, H, L, Dh)
-    sd_src = "fourm_torch/kernels/csrc/self_decode.cu"
-    da_src = "fourm_torch/kernels/csrc/decode_attn.cu"
 
-    def lib_qkv_attn(xx, w, kk, vv, bias=None):
+    def lib_qkv_attn(xx, wt, kk, vv, bias=None):
         h = F.layer_norm(xx, (C,), g1, None, 1e-6)
-        q = F.linear(h, w)[:, :C].reshape(xx.shape[0], H, 1, Dh)
+        q = F.linear(h, wt)[:, :C].reshape(xx.shape[0], H, 1, Dh)
         return F.scaled_dot_product_attention(q, kk, vv, attn_mask=bias)
 
     def self_faults(step):
@@ -464,11 +489,13 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
             library=lambda: lib_qkv_attn(x, w_qkv, ck0[:, :, kv], cv0[:, :, kv]),
             flops=2 * B * C * 3 * C + 4 * B * H * step * Dh,
             bytes=(3 * C * C + 2 * B * C) * 2 + 2 * B * H * (step + 1) * Dh * 2 + C * 2,
-            shape=f"x (B={B}, 768), w_qkv (2304, 768), caches (B, 12, L={L}, 64), "
+            shape=f"x (B={B}, {w}), w_qkv ({3 * C}, {w}), caches (B, {H}, L={L}, 64), "
                   f"step_idx {step}, QK-norm")
 
-    def cross_kv(M):
+    def cross_kv(M, gain=None):
         kv = rn(B, M, 2, H, Dh)  # head views of one KV projection, read through strides
+        if gain is not None:
+            kv = kv * gain.to(bf)
         return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
 
     def cross_case(M):
@@ -481,8 +508,66 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
             library=lambda: lib_qkv_attn(x, w_q, k, v, bias[:, None, None, :].to(bf)),
             flops=2 * B * C * C + 4 * B * H * M * Dh,
             bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh * 2 + B * M * 4 + C * 2,
-            shape=f"x (B={B}, 768), w_q (768, 768), cross K/V (B, 12, M={M}, 64) views, "
+            shape=f"x (B={B}, {w}), w_q ({w}, {w}), cross K/V (B, {H}, M={M}, 64) views, "
                   "(B, M) key bias, 1 row fully masked, QK-norm")
+
+    def int8_case(M, with_bias=True):
+        """cross_decode_attn's int8 mode over K/V whose channels differ in
+        range (a gain in [0.5, 2] per head and channel, as projected keys
+        do), quantized on the card; with the faults that a kernel missing
+        the K scale, or applying the V scale of another head, would show."""
+        gain = 0.5 + 1.5 * torch.rand(H, Dh, generator=gen, device=dev)
+        k, v = cross_kv(M, gain)
+        k8, ks, v8, vs = ds.quantize_kv_decode(k, v)
+        bias = key_bias(B, M, full_rows=1) if with_bias else None
+        args = (x, g1, None, w_q, None, qk[0], None, k8, v8, bias, H)
+
+        def plain(k_scale=ks, v_scale=vs):
+            return ds.cross_decode_attn_plain(*args, k_scale=k_scale, v_scale=v_scale)
+
+        def faults():
+            wrong = {"K scale not folded into q": plain(k_scale=torch.ones_like(ks)).float(),
+                     "V scale of the heads reversed": plain(v_scale=vs.flip(1)).float()}
+            return plain().float(), wrong, set(wrong)
+
+        def library():  # dequantize, then the bf16 yardstick
+            kd, vd = (t.to(bf) * s[:, :, None, :].to(bf) for t, s in ((k8, ks), (v8, vs)))
+            return lib_qkv_attn(x, w_q, kd, vd,
+                                None if bias is None else bias[:, None, None, :].to(bf))
+
+        def oracle():
+            """The relations JAX's tests hold the int8 mode to: the bf16
+            kernel on the dequantized K/V, the unquantized K/V within 5%,
+            and quantize_kv_decode equal to its CPU result."""
+            out = ds.cross_decode_attn(*args, k_scale=ks, v_scale=vs).float()
+            kd, vd = (t.float() * s[:, :, None, :] for t, s in ((k8, ks), (v8, vs)))
+            deq = ds.cross_decode_attn(*args[:7], kd.to(bf), vd.to(bf), bias, H).float()
+            ref = ds.cross_decode_attn(*args[:7], k, v, bias, H).float()
+            torch.cuda.synchronize()
+            tol = 2.0 ** -6 * deq.abs().max().item()
+            err = (out - deq).abs().max().item()
+            rel = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            cpu = ds.quantize_kv_decode(k.cpu(), v.cpu())
+            same = all(torch.equal(a.cpu(), b) for a, b in zip((k8, ks, v8, vs), cpu))
+            print(f"  int8 M={M}: against the bf16 kernel on the dequantized K/V max abs err "
+                  f"{err:.6g} (tol {tol:.6g}); quantization error against the unquantized K/V "
+                  f"{rel:.6g} relative (limit 0.05); quantize_kv_decode on the card equal to "
+                  f"the CPU's: {same}", flush=True)
+            check(err <= tol, f"int8 M={M}: {err} from the bf16 kernel on dequantized K/V")
+            check(rel < 0.05, f"int8 M={M}: quantization error {rel} >= 0.05")
+            check(same, f"int8 M={M}: quantize_kv_decode differs between the card and the CPU")
+
+        return dict(
+            run=lambda: ds.cross_decode_attn(*args, k_scale=ks, v_scale=vs), plain=plain,
+            faults=faults, library=library, oracle=oracle,
+            wrapper="decode_attention_int8", path="int8_chain",
+            flops=2 * B * C * C + 4 * B * H * M * Dh,
+            bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh + 2 * B * H * Dh * 4
+            + (B * M * 4 if with_bias else 0) + C * 2,
+            shape=f"int8 mode: x (B={B}, {w}), w_q ({w}, {w}), int8 cross K/V (B, {H}, "
+                  f"M={M}, 64) with fp32 (B, {H}, 64) scales, "
+                  + ("(B, M) key bias, 1 row fully masked" if with_bias else "no mask")
+                  + ", QK-norm")
 
     def attn_case(M):
         k, v = cross_kv(M)
@@ -503,12 +588,14 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, :, None, :]
                                                            .to(bf)),
             flops=4 * B * H * M * Dh, bytes=2 * B * H * M * Dh * 2 + 2 * B * H * Dh * 2 + B * M * 4,
-            shape=f"q (B={B}, 12, 1, 64), K/V (B, 12, M={M}, 64) views, (B, 1, M) bias, "
+            shape=f"q (B={B}, {H}, 1, 64), K/V (B, {H}, M={M}, 64) views, (B, 1, M) bias, "
                   "1 row fully masked, fp32 probabilities")
 
     wp, w1, w3, w2 = (rn(C, C, std=C ** -0.5), rn(HID, C, std=C ** -0.5),
                       rn(HID, C, std=C ** -0.5), rn(C, HID, std=HID ** -0.5))
+    w2[:, -16:] *= w2_tail_gain
     g2 = norm(C)
+    HID8 = HID // 8 * 8  # the hidden units a 16-byte aligned read of W2's rows covers
 
     def mlp_case(rows):
         xx, attn = rn(rows, C), rn(rows, C)
@@ -519,12 +606,42 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
             h = F.layer_norm(x1, (C,), g2, None, 1e-6)
             return x1 + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
 
+        def faults():  # W2's columns past the last multiple of 8 left out
+            cut = (xx, attn, wp, None, g2, None, w1[:HID8], None, w2[:, :HID8].contiguous(),
+                   None, w3[:HID8], None)
+            return (ds.residual_mlp_plain(*args, gated=True).float(),
+                    {"W2's tail columns left out": ds.residual_mlp_plain(*cut, gated=True)
+                     .float()}, {"W2's tail columns left out"})
+
         return dict(
             run=lambda: ds.residual_mlp(*args, gated=True),
             plain=lambda: ds.residual_mlp_plain(*args, gated=True), library=library,
+            faults=faults if HID8 < HID else None,
             flops=2 * rows * (C * C + 3 * C * HID),
             bytes=(C * C + 3 * C * HID + 3 * rows * C) * 2 + C * 2,
-            shape=f"x, attn (B={rows}, 768), Wp (768, 768), SwiGLU hidden 2048, no biases")
+            shape=f"x, attn (B={rows}, {w}), Wp ({w}, {w}), SwiGLU hidden {HID}, no biases")
+
+    return types.SimpleNamespace(
+        x=x, g1=g1, w_q=w_q, w_qkv=w_qkv, wp=wp, g2=g2, cache_k=cache_k, cache_v=cache_v,
+        norm=norm, shift=shift, cross_kv=cross_kv, self_case=self_case, cross_case=cross_case,
+        int8_case=int8_case, attn_case=attn_case, mlp_case=mlp_case)
+
+
+def decode_kernel_cases(torch, rn, key_bias, gen):
+    """The decode-step kernels at the AR part's shapes (B = 8 requests, no
+    CFG; caches L = 256; cross K/V at the encoder budget M = 2048 and at a
+    ragged whole-stream M), and their options off the path."""
+    from fourm_torch.kernels import decode_step as ds
+
+    dev = "cuda"
+    B, C, H, Dh, L = 8, 768, 12, 64, 256
+    mk = decode_makers(torch, rn, gen, key_bias, B, C, 2048, L)
+    x, g1, w_q, w_qkv, wp, g2 = mk.x, mk.g1, mk.w_q, mk.w_qkv, mk.wp, mk.g2
+    cache_k, cache_v, norm, shift, cross_kv = mk.cache_k, mk.cache_v, mk.norm, mk.shift, mk.cross_kv
+    self_case, cross_case, attn_case, mlp_case = mk.self_case, mk.cross_case, mk.attn_case, \
+        mk.mlp_case
+    sd_src = "fourm_torch/kernels/csrc/self_decode.cu"
+    da_src = "fourm_torch/kernels/csrc/decode_attn.cu"
 
     cases = [
         ("self_decode", "fourm_tpu/kernels/decode_step.py:163", sd_src, self_case(200)),
@@ -577,6 +694,135 @@ def decode_kernel_cases(torch, rn, key_bias, gen):
          lambda: ds.residual_mlp_plain(x3, a3, wp, b1, g2, b1, wg1, bg1, wg2, bg2)),
     ]
     return cases, variants
+
+
+def xl_kernel_phase(torch, card: str):
+    """Phase 2b: the kernels at the widths of 4M-21 XL (D = 2048, 32 heads,
+    SwiGLU hidden 5461) and 4M-L (D = 1024, hidden 2730) against their twins,
+    as phase 2: the XL chain's rows (4 requests, 8 with CFG, at a 2304-token
+    encoder budget; decode steps at B = 4 and 8, M = 2304), and the int8 mode
+    of cross_decode_attn at 4M-B (B = 16, M = 2304, the decode
+    microbenchmark's shape) and at XL, with and without a key bias. Faults
+    the tolerance must catch: the ragged tail chunk of ln_mlp and W2's tail
+    columns in residual_mlp left out; the K scale not folded, the V scale
+    of the heads reversed."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+    from fourm_torch.kernels import fused_mlp as fm
+
+    gen, rn, key_bias = random_makers(torch, 4)
+    dev, bf = "cuda", torch.bfloat16
+    rows, M = 8 * 2304, 2304
+    fa = "fourm_torch/kernels/csrc/attention.cu"
+    da = "fourm_torch/kernels/csrc/decode_attn.cu"
+    sd = "fourm_torch/kernels/csrc/self_decode.cu"
+    rm = "fourm_torch/kernels/csrc/residual_mlp.cu"
+
+    def ln_matmul_case(D):
+        x = rn(rows, D)
+        gamma = torch.rand(D, generator=gen, device=dev) + 0.5
+        w = rn(3 * D, D, std=D ** -0.5)
+        return dict(
+            run=lambda: fm.ln_matmul(x, gamma, None, w),
+            plain=lambda: fm.ln_matmul_plain(x, gamma, None, w),
+            library=lambda: torch.matmul(F.layer_norm(x, (D,), gamma.to(bf), None, 1e-6), w.t()),
+            flops=2 * rows * D * 3 * D, bytes=(rows * D + 3 * D * D + rows * 3 * D) * 2 + D * 4,
+            path="xl_chain", shape=f"x (8*2304, {D}) -> (8*2304, {3 * D}), no biases")
+
+    def ln_mlp_case(D, HID, chunk, path):
+        x = rn(rows, D)
+        gamma = torch.rand(D, generator=gen, device=dev) + 0.5
+        w1, w3 = rn(HID, D, std=D ** -0.5), rn(HID, D, std=D ** -0.5)
+        w2 = rn(D, HID, std=HID ** -0.5)
+        cut = HID // chunk * chunk  # the units before the kernel's last, ragged chunk
+
+        def library():
+            h = F.layer_norm(x, (D,), gamma.to(bf), None, 1e-6)
+            return x + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
+
+        def faults():
+            no_tail = fm.ln_mlp_plain(x, gamma, None, w1[:cut], None, w2[:, :cut].contiguous(),
+                                      None, w3[:cut], None, gated=True).float()
+            wrong = {f"the ragged tail chunk ({HID - cut} units) left out": no_tail}
+            return (fm.ln_mlp_plain(x, gamma, None, w1, None, w2, None, w3, None,
+                                    gated=True).float(), wrong, set(wrong))
+
+        return dict(
+            run=lambda: fm.ln_mlp(x, gamma, None, w1, None, w2, None, w3, None, gated=True),
+            plain=lambda: fm.ln_mlp_plain(x, gamma, None, w1, None, w2, None, w3, None,
+                                          gated=True),
+            library=library, faults=faults, path=path,
+            flops=3 * 2 * rows * D * HID, bytes=(2 * rows * D + 3 * D * HID) * 2 + D * 4,
+            shape=f"SwiGLU, x (8*2304, {D}), hidden {HID}, no biases")
+
+    def flash_case(B, N):
+        D, H, Dh = 2048, 32, 64
+        qkv = rn(B, N, 3 * D)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        bias = key_bias(B, N, full_rows=1)
+        g64 = [torch.rand(64, generator=gen, device=dev) + 0.5,
+               torch.randn(64, generator=gen, device=dev) * 0.1] * 2
+        args = (q, k, v, H, bias, *g64)
+        qn = F.layer_norm(q.reshape(B, N, H, Dh).float(), (Dh,), g64[0], g64[1], 1e-6)
+        kn = F.layer_norm(k.reshape(B, N, H, Dh).float(), (Dh,), g64[2], g64[3], 1e-6)
+        qn, kn = qn.to(bf).transpose(1, 2), kn.to(bf).transpose(1, 2)
+        vh, mask = v.reshape(B, N, H, Dh).transpose(1, 2), bias[:, None, None, :].to(bf)
+        return dict(
+            run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
+            library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
+            flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4, path="xl_chain",
+            shape=f"q,k,v (B={B}, N=M={N}, C=2048) slices of QKV, 32 heads, QK-norm, key bias")
+
+    def attn_case(B, N, M_):
+        H, Dh = 32, 64
+        q, k, v = rn(B, H, N, Dh), rn(B, H, M_, Dh), rn(B, H, M_, Dh)
+        bias = key_bias(B, M_)[:, None, None, :]
+        return dict(
+            run=lambda: at.attention(q, k, v, bias),
+            plain=lambda: at.attention_plain(q, k, v, bias),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf)),
+            flops=4 * B * H * N * M_ * Dh,
+            bytes=(2 * B * H * N * Dh + 2 * B * H * M_ * Dh) * 2 + B * M_ * 4, path="xl_chain",
+            shape=f"q (B={B}, 32, N={N}, 64), k/v M={M_}, (B, 1, 1, M) bias")
+
+    def xl(case):
+        return dict(case, path="xl_chain")
+
+    xl4 = decode_makers(torch, rn, gen, key_bias, 4, 2048, 5461, w2_tail_gain=8.0)
+    xl8 = decode_makers(torch, rn, gen, key_bias, 8, 2048, 5461)
+    large = decode_makers(torch, rn, gen, key_bias, 4, 1024, 2730, w2_tail_gain=8.0)
+    base16 = decode_makers(torch, rn, gen, key_bias, 16, 768, 2048)
+    cases = [
+        ("ln_matmul@XL", "fourm_tpu/kernels/fused_mlp.py:181",
+         "fourm_torch/kernels/csrc/ln_matmul.cu", ln_matmul_case(2048)),
+        ("ln_mlp@XL", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
+         ln_mlp_case(2048, 5461, 128, "xl_chain")),
+        ("ln_mlp@L", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
+         ln_mlp_case(1024, 2730, 64, "xl_chain")),
+        ("flash_mha@XL", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 2304)),
+        ("flash_mha@XL_N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 196)),
+        ("attention@XL", "fourm_tpu/kernels/attention.py:325", fa, attn_case(8, 196, 2304)),
+        ("self_decode@XL_B4", "fourm_tpu/kernels/decode_step.py:163", sd, xl(xl4.self_case(200))),
+        ("self_decode@XL_B8", "fourm_tpu/kernels/decode_step.py:163", sd, xl(xl8.self_case(200))),
+        ("cross_decode_attn@XL_B4", "fourm_tpu/kernels/decode_step.py:377", da,
+         xl(xl4.cross_case(M))),
+        ("cross_decode_attn@XL_B8", "fourm_tpu/kernels/decode_step.py:377", da,
+         xl(xl8.cross_case(M))),
+        ("decode_attention@XL_B4", "fourm_tpu/kernels/decode_step.py:594", da,
+         xl(xl4.attn_case(M))),
+        ("decode_attention@XL_B8", "fourm_tpu/kernels/decode_step.py:594", da,
+         xl(xl8.attn_case(M))),
+        ("residual_mlp@XL", "fourm_tpu/kernels/decode_step.py:752", rm, xl(xl4.mlp_case(4))),
+        ("residual_mlp@L", "fourm_tpu/kernels/decode_step.py:752", rm, xl(large.mlp_case(4))),
+        ("cross_decode_attn@int8", "fourm_tpu/kernels/decode_step.py:377", da,
+         base16.int8_case(M)),
+        ("cross_decode_attn@int8_nobias", "fourm_tpu/kernels/decode_step.py:377", da,
+         base16.int8_case(M, with_bias=False)),
+        ("cross_decode_attn@int8_XL", "fourm_tpu/kernels/decode_step.py:377", da,
+         xl4.int8_case(M)),
+    ]
+    return time_cases(torch, cases, card)
 
 
 def vq_kernel_cases(torch, rn, key_bias, gen):
@@ -757,24 +1003,46 @@ def vq_kernel_phase(torch, card: str):
     return results
 
 
-def build_model(torch, dtype: str, device: str, seed: int = 0):
+def build_model(torch, dtype: str, device: str, seed: int = 0, name: str = MODEL, **overrides):
     from fourm_torch.models import FourM, create_fourm_config, init_weights
 
-    cfg = create_fourm_config(MODEL, MOD21, MOD21_DEC, dtype=dtype)
+    cfg = create_fourm_config(name, MOD21, MOD21_DEC, dtype=dtype, **overrides)
     with torch.device(device):
         model = FourM(cfg)
     model = model.to(device=device, dtype=cfg.compute_dtype)
     return init_weights(model, seed).eval()
 
 
-def chain_phase(torch, model, card: str):
-    """Phase 3: 8 requests, RGB -> all 14 targets, at full width."""
+def chain_launches(depth: int, n_tok: int, kv_quant=None) -> dict:
+    """Launches of each wrapper in one chain of a depth + depth model: per
+    ROAR step 2 * depth ln_matmul, flash_mha and ln_mlp (encoder and
+    decoder self-attention) and depth attention (decoder cross-attention);
+    per AR prefill depth each of the encoder's three; per decoded token
+    depth of each decode-step wrapper, the int8 kernel in int8 mode."""
+    counts = {}
+    for group, n in ((dict(ln_matmul=2 * depth, ln_mlp=2 * depth, flash_mha=2 * depth,
+                           attention=depth), len(ROAR_TARGETS)),
+                     (dict(ln_matmul=depth, ln_mlp=depth, flash_mha=depth), len(AR_TARGETS)),
+                     ({"self_decode": depth, "cross_decode_attn": depth, "residual_mlp": depth,
+                       ("decode_attention_int8" if kv_quant == "int8" else "decode_attention"):
+                       depth}, n_tok)):
+        for k, v in group.items():
+            counts[k] = counts.get(k, 0) + v * n
+    return counts
+
+
+def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = DEPTH,
+                kv_quant=None, label: str = "chain"):
+    """Phase 3 (and 3b): `requests` requests, RGB -> all 14 targets, at full
+    width. A warm-up run; then the public entry alone, with the launch
+    counters reset just before and read just after it, gives samples/s; a
+    third run, instrumented, gives each sequence target's seconds."""
     from fourm_torch import kernels
     from fourm_torch.api import FourMSampler
     from fourm_torch.data.modality_info import MODALITY_INFO
 
-    sampler = FourMSampler(model, StandInTokenizer())  # the card, by default
-    rgb = np.random.RandomState(0).rand(REQUESTS, 224, 224, 3).astype(np.float32)
+    sampler = FourMSampler(model, StandInTokenizer(), kv_quant=kv_quant)  # the card, by default
+    rgb = np.random.RandomState(0).rand(requests, 224, 224, 3).astype(np.float32)
     schedule = sampler.build_schedule(["rgb@224"], TARGETS)
     check([s["target_domain"] for s in schedule] == TARGETS, "schedule order")
     check(all(s["scheme"] == "roar" and s["cfg_scale"] == 2.0 and s["temperature"] == 0.01
@@ -785,7 +1053,7 @@ def chain_phase(torch, model, card: str):
 
     def run():
         md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], TARGETS,
-                                    batch_size=REQUESTS)
+                                    batch_size=requests)
         out = sampler.generate(md, schedule, seed=0)
         torch.cuda.synchronize()
         return out
@@ -827,48 +1095,58 @@ def chain_phase(torch, model, card: str):
         check(bool(d["target_mask"].all()), f"{t}: still has targets")
         if spec.type == "img":
             check(not bool(d["input_mask"].any()), f"{t}: not fully decoded")
-            check(tok.shape == (REQUESTS, spec.resolved_max_tokens()), f"{t}: shape")
+            check(tok.shape == (requests, spec.resolved_max_tokens()), f"{t}: shape")
         else:  # decoded to the target's bound, or to EOS in every row
             bound = spec.resolved_max_tokens() - 1
             check(0 < tokens[t] <= bound, f"{t}: {tokens[t]} tokens decoded, bound {bound}")
-            check(tok.shape == (REQUESTS, (spec.resolved_max_tokens() + 1) * 2), f"{t}: shape")
+            check(tok.shape == (requests, (spec.resolved_max_tokens() + 1) * 2), f"{t}: shape")
         check(int(tok.min()) >= 0 and int(tok.max()) < spec.vocab_size,
               f"{t}: token outside [0, vocab)")
     n_tok = sum(tokens.values())
     expected = {k: 0 for k in launches}
-    for k, v in PER_STEP.items():
-        expected[k] += v * len(ROAR_TARGETS)
-    for k, v in PER_PREFILL.items():
-        expected[k] += v * len(AR_TARGETS)
-    for k, v in PER_TOKEN.items():
-        expected[k] += v * n_tok
-    check(launches == expected, f"launch counts {launches} != {expected}")
+    expected.update(chain_launches(depth, n_tok, kv_quant))
+    check(launches == expected, f"{label}: launch counts {launches} != {expected}")
     ar_s = sum(ar_seconds.values())
     img_s = seconds_inst - ar_s
-    print(f"chain: {REQUESTS} requests x {len(TARGETS)} targets, FourMSampler.generate alone: "
-          f"{seconds:.4f} s, {REQUESTS / seconds:.4f} samples/s; {card}", flush=True)
-    print(f"chain, instrumented run: {seconds_inst:.4f} s; image targets (batch "
-          f"{2 * REQUESTS} with CFG) {img_s:.4f} s, {img_s / len(ROAR_TARGETS):.4f} s/target; "
+    print(f"{label}: {requests} requests x {len(TARGETS)} targets, FourMSampler.generate alone: "
+          f"{seconds:.4f} s, {requests / seconds:.4f} samples/s; {card}", flush=True)
+    print(f"{label}, instrumented run (the third): {seconds_inst:.4f} s; image targets (batch "
+          f"{2 * requests} with CFG) {img_s:.4f} s, {img_s / len(ROAR_TARGETS):.4f} s/target; "
           f"sequence targets {ar_s:.4f} s for {n_tok} decoded tokens, "
           f"{ar_s / n_tok * 1e3:.4f} ms/token with prefill and merge", flush=True)
     for t in AR_TARGETS:
         print(f"  {t}: {tokens[t]} tokens, {ar_seconds[t]:.4f} s, "
               f"{ar_seconds[t] / tokens[t] * 1e3:.4f} ms/token, encoder budget {ar_budget[t]}",
               flush=True)
-    print(f"launches {json.dumps(launches)}", flush=True)
+    print(f"{label} launches {json.dumps(launches)}", flush=True)
     return out, launches, seconds
 
 
-def decode_bench(torch, model, out, card: str) -> float:
+def token_agreement(torch, out_a, out_b, label: str, card: str) -> None:
+    """Share of equal tokens per sequence target between two chain runs.
+    Printed, not gated: with random weights it decides nothing."""
+    shares = {t: (out_a[t]["tensor"] == out_b[t]["tensor"]).float().mean().item()
+              for t in AR_TARGETS}
+    print(f"{label}: token agreement per sequence target {json.dumps(shares)}; {card}",
+          flush=True)
+
+
+def decode_bench(torch, model, out, card: str, kv_quant=None, label: str = "") -> float:
     """The decode microbenchmark of bench.py:301-363 at B = 16, L = 256,
-    M = 2304: ar_prefill of caption, then 64 greedy tokens
+    M = 2304: ar_prefill of caption (and, in int8 mode, the cross K/V
+    quantized as the sampler does), then 64 greedy tokens
     (embed_target_token, decode_one_token, mod_logits, argmax); best of 3
     runs, each from fresh caches. Returns ms per token."""
+    from fourm_torch.kernels.decode_step import quantize_kv_decode
+
     B, L, M, steps, target = 16, 256, 2304, 64, "caption"
     md = {m: {k: torch.cat([v] * -(-B // v.shape[0]))[:B] for k, v in d.items()}
           for m, d in out.items()}
     with torch.inference_mode():
         cross_kvs, enc_mask, y_emb = model.ar_prefill(md, target, L, M)
+        if kv_quant == "int8":
+            cross_kvs = [((k, ks), (v, vs))
+                         for k, ks, v, vs in (quantize_kv_decode(*kv) for kv in cross_kvs)]
         check(enc_mask.shape == (B, M), f"decode bench: encoder stream {tuple(enc_mask.shape)}")
         best = None
         for rep in range(4):  # the first run warms up
@@ -886,17 +1164,19 @@ def decode_bench(torch, model, out, card: str) -> float:
             ms = (time.perf_counter() - t0) / steps * 1e3
             if rep:
                 best = ms if best is None else min(best, ms)
-    print(f"decode bench: ar_decode_ms_per_token {best:.4f} (B={B}, L={L}, M={M}, "
-          f"{steps} greedy caption tokens, 12 layers, best of 3); {card}", flush=True)
+    depth = len(model.decoder)
+    print(f"decode bench{label}: ar_decode_ms_per_token{'_int8kv' if kv_quant else ''} "
+          f"{best:.4f} (B={B}, L={L}, M={M}, {steps} greedy caption tokens, {depth} layers, "
+          f"width {model.config.dim}, best of 3); {card}", flush=True)
     return best
 
 
-def cpu_models(torch, model):
+def cpu_models(torch, model, name: str = MODEL, **overrides):
     """The card model's weights on the CPU, in fp32 and in bf16."""
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
     models = {}
     for dtype in ("float32", "bfloat16"):
-        models[dtype] = build_model(torch, dtype, "cpu")
+        models[dtype] = build_model(torch, dtype, "cpu", name=name, **overrides)
         models[dtype].load_state_dict(state)
     return models
 
@@ -931,7 +1211,7 @@ def _on(md, dev):
     return {m: {k: v.to(dev) for k, v in d.items()} for m, d in md.items()}
 
 
-def parity_phase(torch, model, out, cpu):
+def parity_phase(torch, model, out, cpu, label: str = "parity"):
     """Phase 4a: one forward_generation_img at batch 2 over the image
     targets, card bf16 kernels against the CPU plain twins in fp32 (and in
     bf16, to size bf16's own error)."""
@@ -950,15 +1230,18 @@ def parity_phase(torch, model, out, cpu):
         for dtype, m in cpu.items():
             logits[dtype] = m.forward_generation_img(_on(md, "cpu"), target, sa.cpu(),
                                                      budget).float()
-    gate(torch, "parity", gpu, logits["float32"], logits["bfloat16"],
+    gate(torch, label, gpu, logits["float32"], logits["bfloat16"],
          f"forward_generation_img B=2 {target}, encoder budget {budget}")
 
 
-def decode_parity_phase(torch, model, out, cpu):
+def decode_parity_phase(torch, model, out, cpu, kv_quant=None, label: str = "decode parity"):
     """Phase 4b: ar_prefill of det (conditioned on RGB, the CLIP tokens and
     the caption the chain decoded) + 4 teacher-forced decode_one_token steps
-    at batch 2, card bf16 kernels against the CPU plain twins."""
+    at batch 2, card bf16 kernels against the CPU plain twins; in int8 mode
+    each run quantizes its own cross K/V after the prefill, as the sampler
+    does, and the CPU runs take the int8 twins."""
     from fourm_torch.generate import GenerationSampler
+    from fourm_torch.kernels.decode_step import quantize_kv_decode
 
     target, L, steps = "det", 16, 4
     md = {m: {k: v[:2] for k, v in out[m].items()} for m in ("rgb@224", "tok_clip@224", "caption")}
@@ -969,6 +1252,9 @@ def decode_parity_phase(torch, model, out, cpu):
     def run(m, dev):
         with torch.inference_mode():
             kvs, mask, emb = m.ar_prefill(_on(md, dev), target, L, budget)
+            if kv_quant == "int8":
+                kvs = [((k, ks), (v, vs)) for k, ks, v, vs in (quantize_kv_decode(*kv)
+                                                               for kv in kvs)]
             caches = m.init_kv_caches(2, L)
             step = torch.zeros(1, dtype=torch.int32, device=dev)
             logits = []
@@ -981,8 +1267,40 @@ def decode_parity_phase(torch, model, out, cpu):
 
     gpu = run(model, model.device)
     ref = {dtype: run(m, "cpu") for dtype, m in cpu.items()}
-    gate(torch, "decode parity", gpu, ref["float32"], ref["bfloat16"],
-         f"ar_prefill {target} + {steps} decode steps B=2, encoder budget {budget}")
+    gate(torch, label, gpu, ref["float32"], ref["bfloat16"],
+         f"ar_prefill {target} + {steps} decode steps B=2, encoder budget {budget}"
+         + (", int8 cross K/V" if kv_quant else ""))
+
+
+def xl_phase(torch, card: str):
+    """Phases 3b, 3c (XL) and 4b: the 14-target chain at 4M-21 XL, full width
+    and depth, for 4 requests in bf16 and in int8 mode, with the token
+    agreement of the two; the decode microbenchmark at XL in both modes;
+    then, at depth cut to 2 + 2, forward and decode parity (bf16 and int8)
+    against fp32 CPU runs. Returns the two chains' launch counts."""
+    model = build_model(torch, "bfloat16", "cuda", name=XL_MODEL)
+    params = sum(p.numel() for p in model.parameters())
+    blocks = sum(p.numel() for n, p in model.named_parameters()
+                 if n.startswith(("encoder.", "decoder.")))
+    print(f"xl model {XL_MODEL}: {params} parameters, {blocks} in the 24 + 24 blocks, "
+          f"bf16, random (seed 0)", flush=True)
+    out, xl_launches, _ = chain_phase(torch, model, card, XL_REQUESTS, XL_DEPTH,
+                                      label="xl_chain")
+    out8, int8_launches, _ = chain_phase(torch, model, card, XL_REQUESTS, XL_DEPTH,
+                                         kv_quant="int8", label="int8_chain")
+    token_agreement(torch, out, out8, "xl_chain bf16 vs int8", card)
+    decode_bench(torch, model, out, card, label=" XL")
+    decode_bench(torch, model, out, card, kv_quant="int8", label=" XL")
+    del model, out8
+    torch.cuda.empty_cache()
+    cut = dict(encoder_depth=2, decoder_depth=2)  # depth cut for the CPU's fp32 runs
+    model = build_model(torch, "bfloat16", "cuda", seed=1, name=XL_MODEL, **cut)
+    cpu = cpu_models(torch, model, XL_MODEL, **cut)
+    parity_phase(torch, model, out, cpu, label="xl parity (2 + 2 layers)")
+    decode_parity_phase(torch, model, out, cpu, label="xl decode parity (2 + 2 layers)")
+    decode_parity_phase(torch, model, out, cpu, kv_quant="int8",
+                        label="xl int8 decode parity (2 + 2 layers)")
+    return xl_launches, int8_launches
 
 
 def vq_phase(torch, card: str):
@@ -1581,13 +1899,18 @@ def main() -> int:
 
     results = kernel_phase(torch, card)
     torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
+    results += xl_kernel_phase(torch, card)
+    torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
     decode_bench(torch, model, out, card)
+    decode_bench(torch, model, out, card, kv_quant="int8")
     cpu = cpu_models(torch, model)
     parity_phase(torch, model, out, cpu)
     decode_parity_phase(torch, model, out, cpu)
-    del model, cpu
+    del model, cpu, out
+    torch.cuda.empty_cache()
+    xl_launches, int8_launches = xl_phase(torch, card)
     torch.cuda.empty_cache()
     results += vq_kernel_phase(torch, card)
     torch.cuda.empty_cache()
@@ -1600,7 +1923,8 @@ def main() -> int:
     train_launches = train_phase(torch, card)
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
-    path_launches = dict(vq_launches, chain=launches, train=train_launches)
+    path_launches = dict(vq_launches, chain=launches, train=train_launches,
+                         xl_chain=xl_launches, int8_chain=int8_launches)
     for r in results:  # each wrapper's launches on the path that runs it
         path = r["path"]
         r["launches"] = path_launches[path][r.pop("wrapper")]

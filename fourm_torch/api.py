@@ -114,14 +114,16 @@ class FourMSampler:
     demo_4M_sampler.py:202-447) for a FourM model of the port."""
 
     def __init__(self, fm, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
-                 device: str = "cuda"):
+                 device: str = "cuda", kv_quant: Optional[str] = None):
         """fm: a FourM of the port, moved to `device`; text_tokenizer encodes
         text prompts given as conditioning, and its sentinel ids drive the
         span merge of sequence targets (it needs `get_vocab()` and
-        `token_to_id()`; `encode()` only for text prompts)."""
+        `token_to_id()`; `encode()` only for text prompts); kv_quant None or
+        "int8", the AR targets' cross K/V mode (GenerationSampler)."""
         self.device = resolve_device(device)
         self.model = fm.to(self.device).eval()
-        self.sampler = GenerationSampler(self.model, text_tokenizer, top_k=top_k, top_p=top_p)
+        self.sampler = GenerationSampler(self.model, text_tokenizer, top_k=top_k, top_p=top_p,
+                                         kv_quant=kv_quant)
         self.text_tokenizer = text_tokenizer
 
     def _ordered_targets(self, target_domains, order):

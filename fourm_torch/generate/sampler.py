@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.modality_info import MODALITY_INFO
+from ..kernels.decode_step import quantize_kv_decode
 from ..ops.sampling import top_k_top_p_filtering_dynamic
 from ..ops.token_select import select_tokens
 from ..utils.text_tokenizer import get_sentinel_to_id_mapping
@@ -187,13 +188,22 @@ class GenerationSampler:
 
     `text_tokenizer` (anything with `get_vocab()` and `token_to_id()`) gives
     the sentinel ids that the span merge of sequence targets needs.
+    `kv_quant="int8"` quantizes every layer's cross K/V to int8 with
+    per-(batch, head, channel) scales after each AR prefill (fourm_tpu
+    sampler.py:109-129, :393-400): the decode steps then read half the
+    bytes of the cross K/V stream, and tokens may differ from the bf16 run
+    within the quantization error.
     """
 
-    def __init__(self, model, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0):
+    def __init__(self, model, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
+                 kv_quant: Optional[str] = None):
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         self.model = model
         self.text_tokenizer = text_tokenizer
         self.top_k = top_k
         self.top_p = top_p
+        self.kv_quant = kv_quant
         # tokens decoded per sequence target in the last `generate` call
         self._ar_tokens: Dict[str, int] = {}
 
@@ -334,6 +344,9 @@ class GenerationSampler:
         md = _tree_concat([mod_dict, _empty_cond_tree(mod_dict, cond_mods)]) if use_cfg \
             else mod_dict
         cross_kvs, enc_mask, y_emb = model.ar_prefill(md, target_mod, max_len, enc_budget)
+        if self.kv_quant == "int8":
+            quantized = (quantize_kv_decode(k, v) for k, v in cross_kvs)
+            cross_kvs = [((k, ks), (v, vs)) for k, ks, v, vs in quantized]
         caches = model.init_kv_caches(y_emb.shape[0], max_len)
 
         out = torch.zeros((B, max_len), dtype=torch.int32, device=dev)

@@ -2,7 +2,8 @@
 wrappers, plain PyTorch twins and launch counters: `fused_mlp.ln_matmul`,
 `fused_mlp.ln_mlp`, `attention.flash_mha`, `attention.attention`, the
 decode step's `decode_step.self_decode`, `decode_step.cross_decode_attn`,
-`decode_step.decode_attention`, `decode_step.residual_mlp`, and VQ
+`decode_step.decode_attention`, `decode_step.decode_attention_int8` (the
+int8 cross K/V mode), `decode_step.residual_mlp`, and VQ
 tokenization's `attention.attn_block`, `attention.mha_short`,
 `vq_codebook.nearest_code`, `vq_codebook.nearest_code_cosine`, and the
 train step's `attention_train.attention_train_fwd`,
@@ -23,6 +24,7 @@ WRAPPERS = {"ln_matmul": _fused_mlp.ln_matmul, "ln_mlp": _fused_mlp.ln_mlp,
             "self_decode": _decode_step.self_decode,
             "cross_decode_attn": _decode_step.cross_decode_attn,
             "decode_attention": _decode_step.decode_attention,
+            "decode_attention_int8": _decode_step.decode_attention_int8,
             "residual_mlp": _decode_step.residual_mlp,
             "attn_block": _attention.attn_block, "mha_short": _attention.mha_short,
             "nearest_code": _vq_codebook.nearest_code,

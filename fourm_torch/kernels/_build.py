@@ -43,8 +43,8 @@ SIGNATURES = {
     "self_decode": ("self_decode", "fourm_self_decode",
                     [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
     "decode_attention": ("decode_attn", "fourm_decode_attention",
-                         [_P, _I, _I, _P, _P] + [_I] * 6 + [_P] + [_I] * 3 + [_P, _P]
-                         + [_I] * 4 + [_F, _I, _I, _P]),
+                         [_P, _I, _I, _P, _P] + [_I] * 6 + [_P, _P, _I, _P] + [_I] * 3
+                         + [_P, _P] + [_I] * 4 + [_F, _I, _I, _P]),
     "cross_decode_q": ("decode_attn", "fourm_cross_q",
                        [_P] * 6 + [_I] + [_P, _P] + [_I] * 3 + [_F, _P]),
     "residual_mlp": ("residual_mlp", "fourm_residual_mlp",

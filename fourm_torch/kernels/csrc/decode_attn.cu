@@ -6,20 +6,29 @@
 //       for one query per (batch, head) over M keys, fp32 logits and
 //       softmax. cast_p: probabilities rounded to bf16 before p V (the
 //       decode_attention semantics); 0 keeps them fp32 (the cross kernel's).
+//       Its int8 mode (K/V int8 with fp32 per-(b, h, channel) scales, from
+//       quantize_kv_decode) is the quant branch of the TPU kernel's
+//       _cross_attn_kernel (decode_step.py:292-375), in the same fold
+//       order: the K scale multiplies the fp32 q before the logits, the V
+//       scale the combined fp32 accumulator after the chunks are reduced
+//       and before the division by the softmax sum. No dequantized K/V is
+//       written; probabilities stay fp32.
 //   cross_q -- the prologue of pallas_cross_decode_attn: q = q_norm(
 //       LN_q(x) Wq^T (+b)) per head, fp32 statistics, rounded to bf16.
 //
 // What bounds them on an H100: bytes. decode_attention reads K and V once,
 // 2*B*H*M*64*2 bytes: 50.3 MB at B = 8, H = 12, M = 2048, 15.0 us at
-// 3.35 TB/s, with 4 FLOP per 2 bytes read. cross_q reads Wq (C*C bf16,
+// 3.35 TB/s, with 4 FLOP per 2 bytes read. The int8 mode reads half:
+// 2*B*H*M*64 bytes plus 2*B*H*64 fp32 scales. cross_q reads Wq (C*C bf16,
 // 1.2 MB, 0.35 us).
 //
 // Design of decode_attention: split-K flash-decoding. The TPU kernel walks M
 // in order inside one grid cell per head group, carrying the running max and
 // sum in scratch; on Hopper blocks run in parallel in no order, so a block
 // takes one (chunk of `chunk` keys, head, batch row): 768 blocks at B = 8,
-// M = 2048, chunk 256. 128 threads; 8 lanes per key or value row (one
-// 16-byte slice each, so a warp reads four 128-byte rows at once, through
+// M = 2048, chunk 256. 128 threads; 8 lanes per key or value row (8 values
+// each: a 16-byte slice of a bf16 row, an 8-byte slice of an int8 one; so
+// a warp reads four rows at once, through
 // the caller's strides: K/V may be head views of a fused KV projection),
 // with the loads of 4 such passes in flight together; the chunk's max m_c,
 // its sum l_c of exp(s - m_c) and its unnormalised p V go to an fp32
@@ -42,14 +51,32 @@ constexpr int DA_U = 4;  // passes of key / value rows whose loads are issued to
 
 struct DecodeArgs {
   const bf16* q; int sqb, sqh;
-  const bf16* k; const bf16* v; int skb, skh, skm, svb, svh, svm;
+  const void* k; const void* v; int skb, skh, skm, svb, svh, svm;  // strides in elements
+  const float* ks; const float* vs;  // int8 mode: (B, H, 64) scales; else null
   const float* bias; int sbb, sbh, sbm;
   float* part;  // per (b, h, chunk): 64 p V sums, then m_c, l_c
   bf16* out;    // (B, H, 1, 64)
   int H, M, chunk, nchunk; float scale; int zero_attn, cast_p;
 };
 
+// 8 values of a key or value row, as one load: bf16 (16 bytes) or int8 (8)
+template <typename T> struct Row8;
+template <> struct Row8<bf16> {
+  using Vec = uint4;
+  static __device__ __forceinline__ void unpack(const Vec& u, float* f) { unpack8(u, f); }
+};
+template <> struct Row8<int8_t> {
+  using Vec = uint2;
+  static __device__ __forceinline__ void unpack(const Vec& u, float* f) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = (float)e[i];
+  }
+};
+
+template <typename T>
 __global__ void __launch_bounds__(DA_THREADS) decode_partial_kernel(DecodeArgs a) {
+  using Vec = typename Row8<T>::Vec;
   extern __shared__ float ps[];  // chunk: logits, then p
   __shared__ float qs[DA_DH];
   __shared__ float red[DA_THREADS / 32];
@@ -59,15 +86,21 @@ __global__ void __launch_bounds__(DA_THREADS) decode_partial_kernel(DecodeArgs a
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = c * a.chunk;
   const int n = min(a.chunk, a.M - m0);
-  if (tid < DA_DH) qs[tid] = __bfloat162float(a.q[(size_t)b * a.sqb + (size_t)h * a.sqh + tid]);
+  if (tid < DA_DH) {
+    float qv = __bfloat162float(a.q[(size_t)b * a.sqb + (size_t)h * a.sqh + tid]);
+    if (a.ks != nullptr) qv *= a.ks[((size_t)b * a.H + h) * DA_DH + tid];  // K scale into q
+    qs[tid] = qv;
+  }
   __syncthreads();
 
-  const bf16* kb = a.k + (size_t)b * a.skb + (size_t)h * a.skh + (size_t)m0 * a.skm;
-  const bf16* vb = a.v + (size_t)b * a.svb + (size_t)h * a.svh + (size_t)m0 * a.svm;
+  const T* kb = static_cast<const T*>(a.k) + (size_t)b * a.skb + (size_t)h * a.skh +
+                (size_t)m0 * a.skm;
+  const T* vb = static_cast<const T*>(a.v) + (size_t)b * a.svb + (size_t)h * a.svh +
+                (size_t)m0 * a.svm;
   const float* bb = a.bias == nullptr ? nullptr
                                       : a.bias + (size_t)b * a.sbb + (size_t)h * a.sbh +
                                             (size_t)m0 * a.sbm;
-  // logits: 8 lanes per key row (a 16-byte slice each), 4 keys per warp, 16
+  // logits: 8 lanes per key row (8 values each), 4 keys per warp, 16
   // per pass; the loads of DA_U passes are issued together
   const int kq = lane / 8, vi = lane % 8;
   float qf[8];
@@ -75,18 +108,17 @@ __global__ void __launch_bounds__(DA_THREADS) decode_partial_kernel(DecodeArgs a
   for (int i = 0; i < 8; ++i) qf[i] = qs[vi * 8 + i];
   float lmax = -FLT_MAX;
   for (int j0 = 0; j0 < n; j0 += 16 * DA_U) {
-    uint4 ku[DA_U];
+    Vec ku[DA_U];
 #pragma unroll
     for (int u = 0; u < DA_U; ++u) {
       const int j = j0 + 16 * u + warp * 4 + kq;
-      ku[u] = j < n ? *reinterpret_cast<const uint4*>(kb + (size_t)j * a.skm + vi * 8)
-                    : make_uint4(0, 0, 0, 0);
+      ku[u] = j < n ? *reinterpret_cast<const Vec*>(kb + (size_t)j * a.skm + vi * 8) : Vec{};
     }
 #pragma unroll
     for (int u = 0; u < DA_U; ++u) {
       const int j = j0 + 16 * u + warp * 4 + kq;
       float f[8];
-      unpack8(ku[u], f);
+      Row8<T>::unpack(ku[u], f);
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) s += qf[i] * f[i];
@@ -114,19 +146,18 @@ __global__ void __launch_bounds__(DA_THREADS) decode_partial_kernel(DecodeArgs a
   // 4 warps are then summed in a fixed order
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int j0 = 0; j0 < n; j0 += 16 * DA_U) {
-    uint4 vu[DA_U];
+    Vec vu[DA_U];
     float pj[DA_U];
 #pragma unroll
     for (int u = 0; u < DA_U; ++u) {
       const int j = j0 + 16 * u + warp * 4 + kq;
-      vu[u] = j < n ? *reinterpret_cast<const uint4*>(vb + (size_t)j * a.svm + vi * 8)
-                    : make_uint4(0, 0, 0, 0);
+      vu[u] = j < n ? *reinterpret_cast<const Vec*>(vb + (size_t)j * a.svm + vi * 8) : Vec{};
       pj[u] = j < n ? ps[j] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < DA_U; ++u) {
       float f[8];
-      unpack8(vu[u], f);
+      Row8<T>::unpack(vu[u], f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[e] += pj[u] * f[e];
     }
@@ -161,6 +192,7 @@ __global__ void __launch_bounds__(DA_DH) decode_combine_kernel(DecodeArgs a) {
     o += w * pc[d];
   }
   if (a.zero_attn) l += expf(-m);  // softmax1: the implicit zero logit
+  if (a.vs != nullptr) o *= a.vs[((size_t)b * a.H + h) * DA_DH + d];  // V scale, before / l
   a.out[((size_t)b * a.H + h) * DA_DH + d] = __float2bfloat16(o / l);
 }
 
@@ -198,28 +230,32 @@ cross_q_kernel(const bf16* __restrict__ x, const void* g, const void* bt, const 
 
 }  // namespace fourm
 
+// int8: k, v are int8 and ks, vs their fp32 (B, H, 64) scales; else bf16
+// with null scales.
 extern "C" int fourm_decode_attention(const void* q, int sqb, int sqh, const void* k,
                                       const void* v, int skb, int skh, int skm, int svb,
-                                      int svh, int svm, const void* bias, int sbb, int sbh,
+                                      int svh, int svm, const void* ks, const void* vs,
+                                      int int8, const void* bias, int sbb, int sbh,
                                       int sbm, void* part, void* out, int B, int H, int M,
                                       int chunk, float scale, int zero_attn, int cast_p,
                                       void* stream) {
   using namespace fourm;
   DecodeArgs a;
   a.q = (const bf16*)q; a.sqb = sqb; a.sqh = sqh;
-  a.k = (const bf16*)k; a.v = (const bf16*)v;
+  a.k = k; a.v = v;
+  a.ks = (const float*)ks; a.vs = (const float*)vs;
   a.skb = skb; a.skh = skh; a.skm = skm; a.svb = svb; a.svh = svh; a.svm = svm;
   a.bias = (const float*)bias; a.sbb = sbb; a.sbh = sbh; a.sbm = sbm;
   a.part = (float*)part; a.out = (bf16*)out;
   a.H = H; a.M = M; a.chunk = chunk; a.nchunk = (M + chunk - 1) / chunk;
   a.scale = scale; a.zero_attn = zero_attn; a.cast_p = cast_p;
   const size_t smem = (size_t)chunk * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(decode_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  auto kern = int8 ? decode_partial_kernel<int8_t> : decode_partial_kernel<bf16>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  decode_partial_kernel<<<dim3(a.nchunk, H, B), DA_THREADS, smem, s>>>(a);
+  kern<<<dim3(a.nchunk, H, B), DA_THREADS, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<<<dim3(H, B), DA_DH, 0, s>>>(a);

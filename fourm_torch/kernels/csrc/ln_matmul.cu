@@ -9,31 +9,39 @@
 // (M*D + D*F + M*F)*2 = 205 MB, about 565 FLOP/byte, above the card's ~295
 // bf16 FLOP/byte ridge.
 //
-// Design: a block owns 64 rows. It computes their LayerNorm once, in fp32,
-// into shared memory as bf16 (64 x 768 x 2 = 96 KB, padded rows against
-// bank conflicts), so the normalised rows never go to device memory. It then
-// sweeps 128-wide column tiles of W: 8 warps, each a 32 x 32 block of WMMA
-// accumulators, A fragments from shared memory, B fragments straight from
-// W (nn.Linear layout (F, D), read as a column-major D x F operand, L2
-// resident). The epilogue stages fp32 sums in shared memory, adds the fp32
-// bias and writes bf16 in 16-byte vectors. When there are too few row
-// blocks to fill the card (decoder shapes: 16*196 rows), the column tiles
-// are split over gridDim.y and each split recomputes its rows' LN.
+// Design: a block owns BM = 64 rows (D <= 1536) or 32 (D = 2048, 4M-XL's
+// width: 64 LN rows of 2056 bf16 and the fp32 tile would need 297 KB of
+// the 227 KB a block may have). It computes their LayerNorm once, in fp32,
+// into shared memory as bf16 (64 x 768 x 2 = 96 KB; 32 x 2048 x 2 = 128
+// KB; padded rows against bank conflicts), so the normalised rows never go
+// to device memory. It then sweeps column tiles of W, 128 wide at 64 rows
+// and 256 wide at 32: 8 warps, each a 32 x 32 block of WMMA accumulators,
+// A fragments from shared memory, B fragments straight from W (nn.Linear
+// layout (F, D), read as a column-major D x F operand, L2 resident). The
+// epilogue stages fp32 sums in shared memory, adds the fp32 bias and writes
+// bf16 in 16-byte vectors. When there are too few row blocks to fill the
+// card (decoder shapes: 16*196 rows), the column tiles are split over
+// gridDim.y and each split recomputes its rows' LN.
 // A first version: no TMA, no wgmma, no pipelining.
 #include "common.cuh"
 
 namespace fourm {
 
-constexpr int LM_BM = 64;
-constexpr int LM_BN = 128;
 constexpr int LM_THREADS = 256;
-constexpr int LM_LDC = LM_BN + 4;  // fp32 staging row stride
+constexpr int LM_WIDE_D = 1536;  // widest D that 64-row blocks hold
 
+// BM rows per block; 8 warps of 32 x 32 accumulators, WR = BM / 32 of them
+// down the rows, so the column tile is LM_BN = 32 * 8 / WR wide
+template <int BM>
 __global__ void __launch_bounds__(LM_THREADS)
 ln_matmul_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const bf16* __restrict__ w,
                  const float* __restrict__ b, bf16* __restrict__ out, int M,
                  int D, int F, float eps, int tiles_per_split) {
+  constexpr int LM_BM = BM;
+  constexpr int WC = 8 / (BM / 32);  // warps across the column tile
+  constexpr int LM_BN = 32 * WC;
+  constexpr int LM_LDC = LM_BN + 4;  // fp32 staging row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = D + 8;
   bf16* xs = reinterpret_cast<bf16*>(smem);
@@ -44,8 +52,8 @@ ln_matmul_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  const int wr = warp / 4;  // rows wr*32 .. +32
-  const int wc = warp % 4;  // cols wc*32 .. +32 of the tile
+  const int wr = warp / WC;  // rows wr*32 .. +32
+  const int wc = warp % WC;  // cols wc*32 .. +32 of the tile
   const int ntiles = (F + LM_BN - 1) / LM_BN;
   const int t0 = blockIdx.y * tiles_per_split;
   const int t1 = min(ntiles, t0 + tiles_per_split);
@@ -104,26 +112,37 @@ ln_matmul_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-}  // namespace fourm
-
-extern "C" int fourm_ln_matmul(const void* x, const void* gamma, const void* beta,
-                               const void* w, const void* b, void* out, int M,
-                               int D, int F, float eps, void* stream) {
-  using namespace fourm;
-  const size_t smem = (size_t)LM_BM * (D + 8) * sizeof(bf16) +
-                      (size_t)LM_BM * LM_LDC * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int BM>
+int launch_ln_matmul(const void* x, const void* gamma, const void* beta, const void* w,
+                     const void* b, void* out, int M, int D, int F, float eps,
+                     cudaStream_t stream) {
+  constexpr int BN = 32 * 8 / (BM / 32);
+  const size_t smem = (size_t)BM * (D + 8) * sizeof(bf16) + (size_t)BM * (BN + 4) * sizeof(float);
+  auto kern = ln_matmul_kernel<BM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int row_blocks = (M + LM_BM - 1) / LM_BM;
-  const int ntiles = (F + LM_BN - 1) / LM_BN;
+  const int row_blocks = (M + BM - 1) / BM;
+  const int ntiles = (F + BN - 1) / BN;
   int splits = (2 * num_sms() + row_blocks - 1) / row_blocks;
   splits = max(1, min(splits, ntiles));
   const int per = (ntiles + splits - 1) / splits;
   splits = (ntiles + per - 1) / per;
   dim3 grid(row_blocks, splits);
-  ln_matmul_kernel<<<grid, LM_THREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<grid, LM_THREADS, smem, stream>>>(
       (const bf16*)x, (const float*)gamma, (const float*)beta, (const bf16*)w,
       (const float*)b, (bf16*)out, M, D, F, eps, per);
   return (int)cudaGetLastError();
+}
+
+}  // namespace fourm
+
+// D % 16 == 0 and D <= 2048; F % 16 == 0.
+extern "C" int fourm_ln_matmul(const void* x, const void* gamma, const void* beta,
+                               const void* w, const void* b, void* out, int M,
+                               int D, int F, float eps, void* stream) {
+  using namespace fourm;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D <= LM_WIDE_D) return launch_ln_matmul<64>(x, gamma, beta, w, b, out, M, D, F, eps, s);
+  return launch_ln_matmul<32>(x, gamma, beta, w, b, out, M, D, F, eps, s);
 }

@@ -25,6 +25,14 @@
 //   3. out: a warp per output column c of fc2 (a row of W2, HID long) -> out.
 // No partial sums cross blocks, so there are no atomics and a run is
 // reproducible; the scratch round trips are the B-row activations only.
+// The activation scratch has rows of HIDS = HID rounded up to 8, the tail
+// zero. A HID that is not a multiple of 8 (SwiGLU at 4M-L / 4M-XL: 2730,
+// 5461) leaves W2's rows unaligned (10922 bytes each at 4M-XL), so kernel 3
+// reads each row as the aligned 16-byte blocks that cover it, and pairs
+// each weight with the activation of its own hidden index, staged between
+// 8 zeros on either side, so the neighbouring rows' elements in the first
+// and last block meet a zero; an aligned row (HID % 8 == 0) is the case
+// with no shift.
 // A first version: no cp.async/TMA, CUDA-core FMAs.
 #include "common.cuh"
 
@@ -36,16 +44,16 @@ constexpr int RM_ROWS = 8;   // token rows per pass
 constexpr int RM_UNITS = 2;  // hidden units per warp in kernel 2
 constexpr int RM_U = 4;      // 16-byte slices per lane and weight row in flight
 
-// Stage token rows [r0, r0 + 8) of src (B, K) into s (8 x (K + 8)); rows
-// past B are zero.
+// Stage token rows [r0, r0 + 8) of src (B, K) into s (8 rows of stride ld);
+// rows past B are zero.
 __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int B, int K,
-                                           int r0, bf16* s) {
+                                           int r0, bf16* s, int ld) {
   const int nv = K / 8;
   for (int i = threadIdx.x; i < RM_ROWS * nv; i += blockDim.x) {
     const int r = i / nv, v = i % nv;
     uint4 u = make_uint4(0, 0, 0, 0);
     if (r0 + r < B) u = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * K)[v];
-    *reinterpret_cast<uint4*>(s + (size_t)r * (K + 8) + v * 8) = u;
+    *reinterpret_cast<uint4*>(s + (size_t)r * ld + v * 8) = u;
   }
 }
 
@@ -77,7 +85,7 @@ proj_residual_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
   const int c = blockIdx.x * RM_WARPS + threadIdx.x / 32;
   for (int r0 = 0; r0 < B; r0 += RM_ROWS) {
     __syncthreads();
-    stage_rows(attn, B, C, r0, as);
+    stage_rows(attn, B, C, r0, as, C + 8);
     __syncthreads();
     if (c < C) {
       const bf16* wr[1] = {wp + (size_t)c * C};
@@ -88,7 +96,8 @@ proj_residual_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
   }
 }
 
-// kernel 2: act = silu(LN2(x1) W1^T + b1) * (LN2(x1) W3^T + b3), or GELU
+// kernel 2: act = silu(LN2(x1) W1^T + b1) * (LN2(x1) W3^T + b3), or GELU;
+// act rows are HIDS = HID rounded up to 8 long, the tail written as zeros
 template <bool GATED>
 __global__ void __launch_bounds__(RM_THREADS)
 hidden_kernel(const bf16* __restrict__ x1, const void* g2, const void* be2,
@@ -98,6 +107,7 @@ hidden_kernel(const bf16* __restrict__ x1, const void* g2, const void* be2,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* hs = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int HIDS = (HID + 7) / 8 * 8;
   for (int r0 = 0; r0 < B; r0 += RM_ROWS) {
     __syncthreads();
     for (int r = warp; r < RM_ROWS; r += RM_WARPS)
@@ -136,13 +146,69 @@ hidden_kernel(const bf16* __restrict__ x1, const void* g2, const void* be2,
         } else {
           hv = 0.5f * gv * (1.f + erff(gv * 0.70710678118654752f));  // exact GELU
         }
-        act[(size_t)(r0 + lane) * HID + j] = __float2bfloat16(hv);
+        bf16* arow = act + (size_t)(r0 + lane) * HIDS;
+        arow[j] = __float2bfloat16(hv);
+        if (j == HID - 1)
+          for (int t = HID; t < HIDS; ++t) arow[t] = __float2bfloat16(0.f);
       }
     }
   }
 }
 
-// kernel 3: out = x1 + bf16(act W2^T + b2); a warp per output column
+// acc[r] = sum_k a[r][k] * w[e0 + k] over k < K for the RM_ROWS staged rows
+// of `a` (row stride lda; a[r][-8 .. 0) and a[r][K .. K + 8) zero) and a
+// weight row that starts at element e0 of w, at any alignment, by one warp:
+// lanes read the 16-byte aligned blocks that cover the row (elements below
+// `total`, the size of w, only), RM_U blocks per lane in flight; a block's
+// elements outside the row meet the zeros. Every lane returns the sums.
+__device__ __forceinline__ void warp_gemv_unaligned(const bf16* a, int lda,
+                                                    const bf16* __restrict__ w, size_t e0,
+                                                    int K, size_t total,
+                                                    float (&acc)[RM_ROWS]) {
+  const int lane = threadIdx.x % 32;
+  const size_t f0 = e0 & ~(size_t)7;
+  const int sh = (int)(e0 - f0);  // the row starts sh elements into its first block
+  const int nb = (sh + K + 7) / 8;
+#pragma unroll
+  for (int r = 0; r < RM_ROWS; ++r) acc[r] = 0.f;
+  for (int v0 = lane; v0 < nb; v0 += 32 * RM_U) {
+    uint4 wu[RM_U];
+#pragma unroll
+    for (int u = 0; u < RM_U; ++u) {
+      const int v = v0 + 32 * u;
+      const size_t f = f0 + 8 * (size_t)v;
+      wu[u] = make_uint4(0, 0, 0, 0);
+      if (v < nb) {
+        if (f + 8 <= total) {
+          wu[u] = __ldg(reinterpret_cast<const uint4*>(w + f));
+        } else {  // the last block of w
+          bf16* e = reinterpret_cast<bf16*>(&wu[u]);
+          for (int i = 0; i < 8; ++i)
+            if (f + i < total) e[i] = w[f + i];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RM_U; ++u) {
+      const int v = v0 + 32 * u;
+      if (v >= nb) break;
+      float wf[8];
+      unpack8(wu[u], wf);
+      const bf16* ak = a + 8 * v - sh;  // a[.][k] of this block's first element
+#pragma unroll
+      for (int r = 0; r < RM_ROWS; ++r)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[r] += __bfloat162float(ak[(size_t)r * lda + i]) * wf[i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RM_ROWS; ++r) acc[r] = warp_sum(acc[r]);
+}
+
+// kernel 3: out = x1 + bf16(act W2^T + b2); a warp per output column. act
+// rows are HIDS long (zero past HID), staged with 8 zeros ahead and behind;
+// W2's rows are read as the aligned blocks that cover them
 __global__ void __launch_bounds__(RM_THREADS)
 out_residual_kernel(const bf16* __restrict__ act, const bf16* __restrict__ x1,
                     const bf16* __restrict__ w2, const void* b2, int pbf,
@@ -150,15 +216,19 @@ out_residual_kernel(const bf16* __restrict__ act, const bf16* __restrict__ x1,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* hs = reinterpret_cast<bf16*>(smem);
   const int c = blockIdx.x * RM_WARPS + threadIdx.x / 32;
+  const int HIDS = (HID + 7) / 8 * 8;
+  const int lda = HIDS + 16;
   for (int r0 = 0; r0 < B; r0 += RM_ROWS) {
     __syncthreads();
-    stage_rows(act, B, HID, r0, hs);
+    stage_rows(act, B, HIDS, r0, hs + 8, lda);  // between 8 zeros ...
+    for (int i = threadIdx.x; i < RM_ROWS * 2; i += blockDim.x)  // ... on either side
+      *reinterpret_cast<uint4*>(hs + (size_t)(i / 2) * lda + (i % 2) * (HIDS + 8)) =
+          make_uint4(0, 0, 0, 0);
     __syncthreads();
     if (c < C) {
-      const bf16* wr[1] = {w2 + (size_t)c * HID};
-      float acc[1][RM_ROWS];
-      warp_gemv<RM_ROWS, 1, RM_U>(hs, HID + 8, wr, HID, acc);
-      residual_store(acc[0], b2, pbf, x1, out, B, C, r0, c);
+      float acc[RM_ROWS];
+      warp_gemv_unaligned(hs + 8, lda, w2, (size_t)c * HID, HID, (size_t)C * HID, acc);
+      residual_store(acc, b2, pbf, x1, out, B, C, r0, c);
     }
   }
 }
@@ -178,8 +248,9 @@ extern "C" int fourm_residual_mlp(const void* x, const void* attn, const void* w
                                   int gated, float eps, void* stream) {
   using namespace fourm;
   cudaStream_t s = (cudaStream_t)stream;
+  const int HIDS = (HID + 7) / 8 * 8;
   const size_t smem_c = (size_t)RM_ROWS * (C + 8) * sizeof(bf16);
-  const size_t smem_h = (size_t)RM_ROWS * (HID + 8) * sizeof(bf16);
+  const size_t smem_h = (size_t)RM_ROWS * (HIDS + 16) * sizeof(bf16);
   auto hid_kern = gated ? hidden_kernel<true> : hidden_kernel<false>;
   cudaError_t err;
   if ((err = allow_smem(proj_residual_kernel, smem_c)) != cudaSuccess) return (int)err;

@@ -7,15 +7,17 @@ DecoderBlock._fused_step with every kernel on (transformer.py:940-1013):
     K/V written into the cache at `step_idx`;
   * `decode_attention` is pallas_decode_attention: single-query attention
     over (B, H, M, Dh) K/V with an fp32 (B|1, 1|H, M) bias;
-  * `cross_decode_attn` is pallas_cross_decode_attn (bf16 K/V; its int8
-    mode is not ported): query_norm -> Q projection -> per-head Q-norm,
-    then the `decode_attention` kernel over the cross K/V;
+  * `cross_decode_attn` is pallas_cross_decode_attn: query_norm -> Q
+    projection -> per-head Q-norm, then the `decode_attention` kernel over
+    bf16 cross K/V, or, in its int8 mode (K/V from `quantize_kv_decode`,
+    with their per-channel scales), the `decode_attention_int8` kernel;
   * `residual_mlp` is pallas_residual_mlp: x' = x + attn Wp (+b), then
     x' + MLP(LN2 x').
-Each wrapper launches its CUDA kernels (csrc/self_decode.cu,
-csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA tensors, counting
-launches in `<wrapper>.launches`, and computes its plain PyTorch twin for
-CPU tensors.
+`quantize_kv_decode` is the JAX package's function of that name (plain
+jnp there, plain torch here). Each wrapper launches its CUDA kernels
+(csrc/self_decode.cu, csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA
+tensors, counting launches in `<wrapper>.launches`, and computes its plain
+PyTorch twin for CPU tensors.
 
 Layout: the port keeps caches and cross K/V as (B, H, L|M, Dh), each key one
 128-byte row, not the TPU's (B, H, Dh, L) lane layout. Weights use the
@@ -156,6 +158,52 @@ def _row_strides_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
+def _decode_checks(name: str, q, k, v, bias, int8: bool):
+    """Shape, dtype and stride checks of the split-K decode kernel; returns
+    the device and the bias strides (0 where it broadcasts)."""
+    dev = require_cuda(name, q, k, v, bias)
+    require_bf16(name, q)
+    kv_dtype = torch.int8 if int8 else torch.bfloat16
+    require(k.dtype == kv_dtype and v.dtype == kv_dtype,
+            lambda: f"{name}: K/V must be {kv_dtype}, got {k.dtype}/{v.dtype}")
+    B, H, N, Dh = q.shape
+    M = k.shape[2]
+    require(N == 1 and Dh == 64,
+            lambda: f"{name}: q must be (B, H, 1, 64), got {tuple(q.shape)}")
+    require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
+            lambda: f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
+    # a lane reads 8 values of a row at once: 16 bytes of bf16, 8 of int8
+    require(q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v),
+            lambda: f"{name}: k/v rows must be contiguous, strides % 8 == 0, aligned")
+    require(max(t.storage_offset() + sum((d - 1) * s for d, s in zip(t.shape, t.stride()))
+                for t in (k, v)) < 2**31 and M > 0, lambda: f"{name}: too large")
+    bs = (0, 0, 0)
+    if bias is not None:
+        require(bias.dtype == torch.float32 and bias.ndim == 3 and bias.shape[-1] == M
+                and bias.shape[0] in (1, B) and bias.shape[1] in (1, H),
+                lambda: f"{name}: bias {tuple(bias.shape)} not fp32 (B|1, 1|H, {M})")
+        bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3))
+    return dev, bs
+
+
+def _launch_decode(name: str, q, k, v, k_scale, v_scale, bias, allow_zero_attn: bool,
+                   cast_probs: bool, dev, bs) -> torch.Tensor:
+    B, H, _, Dh = q.shape
+    M = k.shape[2]
+    nchunk = -(-M // DECODE_CHUNK)
+    part = torch.empty((B * H * nchunk * (Dh + 2),), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H, 1, Dh), dtype=q.dtype, device=dev)
+    from . import _build
+
+    code = _build.entry("decode_attention")(
+        ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v), *k.stride()[:3], *v.stride()[:3],
+        ptr(k_scale), ptr(v_scale), int(k_scale is not None),
+        ptr(bias), *bs, ptr(part), ptr(out), B, H, M, DECODE_CHUNK, float(Dh) ** -0.5,
+        int(allow_zero_attn), int(cast_probs), stream(dev))
+    _build.check(name, code)
+    return out
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, allow_zero_attn: bool = False,
                      cast_probs: bool = True) -> torch.Tensor:
@@ -170,39 +218,84 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, allow_zero_attn, cast_probs)
     name = "decode_attention"
-    dev = require_cuda(name, q, k, v, bias)
-    require_bf16(name, q, k, v)
-    B, H, N, Dh = q.shape
-    M = k.shape[2]
-    require(N == 1 and Dh == 64,
-            lambda: f"{name}: q must be (B, H, 1, 64), got {tuple(q.shape)}")
-    require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
-            lambda: f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
-    require(q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v),
-            lambda: f"{name}: k/v rows must be contiguous, strides % 8 == 0, 16-byte aligned")
-    require(max(t.storage_offset() + sum((d - 1) * s for d, s in zip(t.shape, t.stride()))
-                for t in (k, v)) < 2**31 and M > 0, lambda: f"{name}: too large")
-    bs = (0, 0, 0)
-    if bias is not None:
-        require(bias.dtype == torch.float32 and bias.ndim == 3 and bias.shape[-1] == M
-                and bias.shape[0] in (1, B) and bias.shape[1] in (1, H),
-                lambda: f"{name}: bias {tuple(bias.shape)} not fp32 (B|1, 1|H, {M})")
-        bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3))
-    nchunk = -(-M // DECODE_CHUNK)
-    part = torch.empty((B * H * nchunk * (Dh + 2),), dtype=torch.float32, device=dev)
-    out = torch.empty((B, H, 1, Dh), dtype=q.dtype, device=dev)
-    from . import _build
-
-    code = _build.entry(name)(
-        ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v), *k.stride()[:3], *v.stride()[:3],
-        ptr(bias), *bs, ptr(part), ptr(out), B, H, M, DECODE_CHUNK, float(Dh) ** -0.5,
-        int(allow_zero_attn), int(cast_probs), stream(dev))
-    _build.check(name, code)
+    dev, bs = _decode_checks(name, q, k, v, bias, int8=False)
+    out = _launch_decode(name, q, k, v, None, None, bias, allow_zero_attn, cast_probs, dev, bs)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# ------------------------------------------------------ the int8 K/V mode
+
+def quantize_kv_decode(k: torch.Tensor, v: torch.Tensor):
+    """Per-(B, H, Dh)-channel symmetric int8 quantization of cross K/V
+    (B, H, M, Dh), as fourm_tpu decode_step.py:quantize_kv_decode on its
+    (B, H, Dh, M) layout: scale = max(absmax over all M, 1e-12) / 127, fp32
+    (B, H, Dh); values clamp(round(a / scale), -127, 127) as int8, with a
+    true division and round-half-to-even. Scales and int8 values equal
+    JAX's, and the card's equal the CPU's. Returns (k_i8, k_scale, v_i8,
+    v_scale); the int8 tensors are contiguous. Plain torch on any device
+    (plain jnp in the JAX package)."""
+    def q(a):
+        a32 = a.float()
+        absmax = a32.abs().amax(dim=2).clamp_min(1e-12)
+        # XLA folds JAX's `/ 127.0` into a multiply by the fp32 reciprocal:
+        # the same product here, on the CPU and on the card alike
+        s = absmax * (1.0 / 127.0)
+        i8 = torch.round(a32 / s[:, :, None, :]).clamp(-127, 127).to(torch.int8)
+        return i8.contiguous(), s.contiguous()
+
+    k_i8, ks = q(k)
+    v_i8, vs = q(v)
+    return k_i8, ks, v_i8, vs
+
+
+def decode_attention_int8_plain(q, k, v, k_scale, v_scale, bias=None,
+                                allow_zero_attn: bool = False) -> torch.Tensor:
+    """The fold order of the TPU kernel's int8 mode: the K scale multiplies
+    q before the logits, the V scale the fp32 accumulator p V after it and
+    before the division by the softmax sum; probabilities stay fp32."""
+    scale = q.shape[-1] ** -0.5
+    qk = q.float() * k_scale.float()[:, :, None, :]
+    s = torch.matmul(qk, k.float().transpose(-1, -2)) * scale  # (B, H, 1, M)
+    if bias is not None:
+        s = s + bias.float()[:, :, None, :]
+    m = s.amax(-1, keepdim=True)
+    if allow_zero_attn:
+        m = m.clamp_min(0.0)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    if allow_zero_attn:  # softmax1: the implicit zero logit
+        denom = denom + torch.exp(-m)
+    acc = torch.matmul(p, v.float()) * v_scale.float()[:, :, None, :]
+    return (acc / denom).to(q.dtype)
+
+
+def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          allow_zero_attn: bool = False) -> torch.Tensor:
+    """Single-query attention over int8 K/V (B, H, M, Dh) with fp32
+    per-channel scales (B, H, Dh) from `quantize_kv_decode`: the int8 mode
+    of pallas_cross_decode_attn's attention core, fp32 probabilities. No
+    dequantized K/V is ever written: the K scale is folded into q, the V
+    scale into the accumulator. bias as in `decode_attention`."""
+    if q.device.type == "cpu":
+        return decode_attention_int8_plain(q, k, v, k_scale, v_scale, bias, allow_zero_attn)
+    name = "decode_attention_int8"
+    dev, bs = _decode_checks(name, q, k, v, bias, int8=True)
+    B, H, _, Dh = q.shape
+    require(all(t.dtype == torch.float32 and tuple(t.shape) == (B, H, Dh) and t.is_contiguous()
+                and t.get_device() == dev.index for t in (k_scale, v_scale)),
+            lambda: f"{name}: scales must be contiguous fp32 ({B}, {H}, {Dh}) on {dev}")
+    out = _launch_decode(name, q, k, v, k_scale, v_scale, bias, allow_zero_attn, False, dev, bs)
+    decode_attention_int8.launches += 1
+    return out
+
+
+decode_attention_int8.launches = 0
 
 
 # ----------------------------------------------------------- cross_decode_attn
@@ -219,27 +312,38 @@ def _cross_q_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, num_head
 
 def cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, k, v,
                             bias, num_heads: int, eps: float = 1e-6,
-                            allow_zero_attn: bool = False) -> torch.Tensor:
+                            allow_zero_attn: bool = False, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
     q = _cross_q_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta, num_heads, eps)
     b3 = None if bias is None else bias[:, None, :]
-    out = decode_attention_plain(q, k, v, b3, allow_zero_attn, cast_probs=False)
+    if k_scale is not None:
+        out = decode_attention_int8_plain(q, k, v, k_scale, v_scale, b3, allow_zero_attn)
+    else:
+        out = decode_attention_plain(q, k, v, b3, allow_zero_attn, cast_probs=False)
     return out.reshape(x.shape).to(x.dtype)
 
 
 def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q,
                       cqn_gamma, cqn_beta, k: torch.Tensor, v: torch.Tensor,
                       bias: Optional[torch.Tensor], num_heads: int, eps: float = 1e-6,
-                      allow_zero_attn: bool = False) -> torch.Tensor:
+                      allow_zero_attn: bool = False, k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-attention core of one decode step: per-head attention of
     q_norm(LN_q(x) Wq^T (+b)) over the cross K/V (B, H, M, Dh) with an fp32
     (B, M) key bias. Returns the raw heads-concatenated output (B, C); the
     out-projection runs in `residual_mlp`. On CUDA a prologue kernel makes
-    q, then the `decode_attention` kernel (fp32 probabilities) reads K/V."""
+    q, then the `decode_attention` kernel (fp32 probabilities) reads K/V.
+    int8 mode: k, v int8 with their fp32 (B, H, Dh) scales k_scale, v_scale
+    (`quantize_kv_decode`), read by the `decode_attention_int8` kernel."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("cross_decode_attn: the int8 mode needs both k_scale and v_scale")
     if x.device.type == "cpu":
         return cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta,
-                                       k, v, bias, num_heads, eps, allow_zero_attn)
+                                       k, v, bias, num_heads, eps, allow_zero_attn, k_scale,
+                                       v_scale)
     name = "cross_decode_attn"
-    dev = require_cuda(name, x, w_q, k, v, bias, qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
+    dev = require_cuda(name, x, w_q, k, v, bias, qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta,
+                       k_scale, v_scale)
     require_bf16(name, x, w_q)
     B, C = x.shape
     H = num_heads
@@ -259,8 +363,11 @@ def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q
         stream(dev))
     _build.check(name, code)
     cross_decode_attn.launches += 1
-    out = decode_attention(q, k, v, None if bias is None else bias[:, None, :],
-                           allow_zero_attn, cast_probs=False)
+    b3 = None if bias is None else bias[:, None, :]
+    if k_scale is not None:
+        out = decode_attention_int8(q, k, v, k_scale, v_scale, b3, allow_zero_attn)
+    else:
+        out = decode_attention(q, k, v, b3, allow_zero_attn, cast_probs=False)
     return out.reshape(B, C)
 
 
@@ -281,7 +388,8 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
                  gated: bool = False) -> torch.Tensor:
     """The tail of a decode step: x' = x + attn Wp^T (+bp), returns
     x' + fc2(act(fc1(LN2 x'))), act = silu(fc1) * fc3 when gated, else exact
-    GELU. x, attn (B, C); w_proj (C, C); w1, w3 (HID, C); w2 (C, HID)."""
+    GELU. x, attn (B, C); w_proj (C, C); w1, w3 (HID, C); w2 (C, HID), any
+    HID (W2's rows need not be 16-byte aligned: 2730 and 5461 at 4M-L/XL)."""
     if x.device.type == "cpu":
         return residual_mlp_plain(x, attn, w_proj, b_proj, gamma2, beta2, w1, b1, w2, b2,
                                   w3, b3, eps, gated)
@@ -290,8 +398,9 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
     require_bf16(name, x, attn, w_proj, w1, w2, w3)
     B, C = x.shape
     HID = w1.shape[0]
-    require(C % 8 == 0 and C <= 2048 and HID % 8 == 0 and HID <= 8192,
-            lambda: f"{name}: C={C}, HID={HID} must be multiples of 8, C <= 2048, HID <= 8192")
+    require(C % 8 == 0 and C <= 2048 and 0 < HID <= 8192,
+            lambda: f"{name}: C={C}, HID={HID}: C must be a multiple of 8, C <= 2048, "
+            "HID <= 8192")
     require(tuple(attn.shape) == (B, C) and tuple(w_proj.shape) == (C, C)
             and tuple(w1.shape) == (HID, C) and tuple(w2.shape) == (C, HID),
             lambda: f"{name}: shapes attn {tuple(attn.shape)}, w_proj {tuple(w_proj.shape)}, "
@@ -303,7 +412,7 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
             lambda: f"{name}: inputs must be contiguous and 16-byte aligned")
     ps, pbf = small_params(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
     x1 = torch.empty_like(x)
-    hid = torch.empty((B, HID), dtype=torch.bfloat16, device=dev)
+    hid = torch.empty((B, -(-HID // 8) * 8), dtype=torch.bfloat16, device=dev)  # rows of 16 B
     out = torch.empty_like(x)
     from . import _build
 

@@ -61,7 +61,7 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor]
     Fo = w.shape[0]
     require(w.shape == (Fo, D), f"{name}: w must be (F, {D}), got {tuple(w.shape)}")
     require(x.is_contiguous() and w.is_contiguous(), f"{name}: x and w must be contiguous")
-    require(D % 16 == 0 and D <= 1536, f"{name}: D={D} must be a multiple of 16, <= 1536")
+    require(D % 16 == 0 and D <= 2048, f"{name}: D={D} must be a multiple of 16, <= 2048")
     require(Fo % 16 == 0, f"{name}: F={Fo} must be a multiple of 16")
     require(aligned(x, 16) and aligned(w, 32), f"{name}: x/w pointers misaligned")
     require(x.numel() < 2**31 and x.numel() // D * Fo < 2**31, f"{name}: too large")
@@ -100,7 +100,10 @@ def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
            gated: bool = False) -> torch.Tensor:
     """x + fc2(act(fc1(LN x))) over (..., D) rows. w1, w3: (HID, D); w2:
     (D, HID). act is silu(fc1) * fc3 when gated, else exact GELU. Returns
-    x.shape in x.dtype."""
+    x.shape in x.dtype. HID a multiple of the kernel's hidden chunk (64;
+    128 at D = 2048), or, gated at D = 1024 or 2048, any HID >= 16: SwiGLU's
+    ragged width at 4M-L / 4M-XL (2730, 5461) takes the kernel's predicated
+    tail, with the weights as they are."""
     if x.device.type == "cpu":
         return ln_mlp_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3, eps, gated)
     name = "ln_mlp"
@@ -108,8 +111,11 @@ def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
     require_bf16(name, x, w1, w2, w3)
     D = x.shape[-1]
     HID = w1.shape[0]
-    require(D in (256, 512, 768, 1024), f"{name}: D={D} not one of 256/512/768/1024")
-    require(HID % 64 == 0, f"{name}: hidden width {HID} must be a multiple of 64")
+    require(D in (256, 512, 768, 1024, 2048), f"{name}: D={D} not one of 256/512/768/1024/2048")
+    chunk = 128 if D == 2048 else 64
+    require(HID % chunk == 0 or (gated and D in (1024, 2048) and HID >= 16),
+            f"{name}: hidden width {HID} must be a multiple of {chunk} (any width >= 16 "
+            "only for a gated MLP at D = 1024 or 2048)")
     require(tuple(w1.shape) == (HID, D) and tuple(w2.shape) == (D, HID),
             f"{name}: w1 must be ({HID}, {D}) and w2 ({D}, {HID})")
     require(not gated or (w3 is not None and tuple(w3.shape) == (HID, D)),

@@ -361,8 +361,9 @@ class FourM(nn.Module):
     def decode_one_token(self, y_t, caches, cross_kvs, enc_mask, step_idx):
         """One KV-cached decoder step (fourm_tpu models/fourm.py:456-464).
         y_t (B, 1, D); caches per-layer (k, v) of shape (B, H, L, Dh), updated
-        in place; step_idx a one-element int32 tensor. Returns (normed output,
-        caches)."""
+        in place; cross_kvs per-layer (k, v), bf16 or int8 (values, scale)
+        tuples, passed to each block as they are; step_idx a one-element
+        int32 tensor. Returns (normed output, caches)."""
         xa_bias = _key_bias(enc_mask)  # once per token, shared by every layer
         for blk, (ck, cv), (xk, xv) in zip(self.decoder, caches, cross_kvs):
             y_t, _, _ = blk.step(y_t, ck, cv, xk, xv, xa_bias, step_idx)

@@ -15,7 +15,7 @@ in the kernel). Cross-attention is `attention`, the MLP half is `ln_mlp`.
 `Attention.forward` (a block without the pre-norm fusion, e.g. the VQ
 teachers) takes `mha_short` on the same short, unnormed, key-masked cases.
 A KV-cached decode step (`DecoderBlock.step`) goes through `self_decode`,
-`cross_decode_attn` and `residual_mlp`. On CUDA tensors those launch the
+`cross_decode_attn` (bf16 or int8 cross K/V) and `residual_mlp`. On CUDA tensors those launch the
 hand-written kernels; on CPU tensors they compute their plain twins, which
 equal the XLA path of the JAX package up to summation order. Parameters may be held in any float
 dtype; like the JAX modules, each product casts them to the compute dtype.
@@ -391,14 +391,18 @@ class DecoderBlock(nn.Module):
         return self.cross_attn.project_kv(self.context_norm(context))
 
     def step(self, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-             cross_k: torch.Tensor, cross_v: torch.Tensor,
-             xa_bias: Optional[torch.Tensor], step_idx: torch.Tensor):
+             cross_k, cross_v, xa_bias: Optional[torch.Tensor], step_idx: torch.Tensor):
         """One KV-cached decode step: the composition of the JAX package's
         DecoderBlock._fused_step with every kernel on (transformer.py:940-1013).
         x_t (B, 1, C); caches (B, H, L, Dh), updated in place at step_idx (a
-        one-element int32 tensor); cross K/V (B, H, M, Dh) from `cross_kv`;
+        one-element int32 tensor); cross K/V (B, H, M, Dh) from `cross_kv`,
+        or int8 (values, fp32 (B, H, Dh) scale) tuples from
+        `quantize_kv_decode` (the int8 mode, transformer.py:987-993);
         xa_bias the fp32 (B, M) key bias of the encoder mask (`_key_bias`).
         Returns (x_t, cache_k, cache_v)."""
+        k_scale = v_scale = None
+        if isinstance(cross_k, tuple):
+            (cross_k, k_scale), (cross_v, v_scale) = cross_k, cross_v
         sa, xa, mlp = self.self_attn, self.cross_attn, self.mlp
         dt = sa.dtype
         x2 = x_t[:, 0]
@@ -412,7 +416,8 @@ class DecoderBlock(nn.Module):
         attn_x = cross_decode_attn(x2, self.query_norm.weight, self.query_norm.bias,
                                    xa.q.weight.to(dt), xa.q.bias, *cq, cross_k, cross_v,
                                    xa_bias, xa.num_heads, eps=self.query_norm.eps,
-                                   allow_zero_attn=xa.allow_zero_attn)
+                                   allow_zero_attn=xa.allow_zero_attn, k_scale=k_scale,
+                                   v_scale=v_scale)
         gated = self.gated_mlp
         out = residual_mlp(x2, attn_x, xa.proj.weight.to(dt), xa.proj.bias, self.norm2.weight,
                            self.norm2.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias,

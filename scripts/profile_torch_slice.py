@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the port on the card, under torch.profiler.
 
-    python3 scripts/profile_torch_slice.py [--part all|chain|train] [--out out/chain_trace.json]
+    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train] [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
 ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
 batch 8), 4M-21 B at full width, random bf16 weights -- the run of
-chip_smoke.py's phase 3. Two profiled windows: the whole chain, and its
+chip_smoke.py's phase 3. `--part xl`: the same chain at 4M-21 XL
+(fm_xlarge_24e_24d_swiglu_qknorm_nobias, full width and depth) for 4
+requests -- chip_smoke.py's phase 3b. Two profiled windows: the whole chain, and its
 sequence part alone (the 6 AR targets, conditioned on the image targets the
 first window decoded). For each it prints the device time by kernel name
 and by kernel group, the device busy share (summed kernel time over the
@@ -51,6 +53,7 @@ from fourm_torch.kernels import _build  # noqa: E402
 WRAPPER_KERNELS = {"ln_matmul_kernel": "ln_matmul", "ln_mlp_kernel": "ln_mlp",
                    "attn_kernel": "flash_mha + attention", "self_decode_kernel": "self_decode",
                    "cross_q_kernel": "cross_decode_attn (q prologue)",
+                   "decode_partial_kernel<signed char>": "decode_attention_int8",
                    "decode_partial_kernel": "decode_attention",
                    "decode_combine_kernel": "decode_attention",
                    "proj_residual_kernel": "residual_mlp", "hidden_kernel": "residual_mlp",
@@ -196,7 +199,8 @@ def train_profile() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["all", "chain", "train"], default="all")
+    ap.add_argument("--part", choices=["all", "chain", "xl", "train"], default="all",
+                    help="all: chain and train (xl only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -207,6 +211,8 @@ def main() -> int:
     res = {}
     if args.part in ("all", "chain"):
         res.update(chain_profile(args.out))
+    if args.part == "xl":
+        res["xl"] = chain_profile(args.out, chip_smoke.XL_MODEL, chip_smoke.XL_REQUESTS)
     if args.part in ("all", "train"):
         torch.cuda.empty_cache()
         res["train_step"] = train_profile()
@@ -214,11 +220,11 @@ def main() -> int:
     return 0
 
 
-def chain_profile(trace) -> dict:
-    """The chain and its sequence part."""
-    model = chip_smoke.build_model(torch, "bfloat16", "cuda")
+def chain_profile(trace, name: str = chip_smoke.MODEL, requests: int = chip_smoke.REQUESTS) -> dict:
+    """The chain and its sequence part, for `requests` requests to `name`."""
+    model = chip_smoke.build_model(torch, "bfloat16", "cuda", name=name)
     sampler = FourMSampler(model, chip_smoke.StandInTokenizer())
-    rgb = np.random.RandomState(0).rand(chip_smoke.REQUESTS, 224, 224, 3).astype(np.float32)
+    rgb = np.random.RandomState(0).rand(requests, 224, 224, 3).astype(np.float32)
     targets = chip_smoke.TARGETS
     schedule = sampler.build_schedule(["rgb@224"], targets)
     n_img = len(chip_smoke.ROAR_TARGETS)
@@ -226,13 +232,13 @@ def chain_profile(trace) -> dict:
 
     def chain():
         md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], targets,
-                                    batch_size=chip_smoke.REQUESTS)
+                                    batch_size=requests)
         out.update(sampler.generate(md, schedule, seed=0))
         torch.cuda.synchronize()
 
     def ar_part():
         md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], targets,
-                                    batch_size=chip_smoke.REQUESTS)
+                                    batch_size=requests)
         for t in chip_smoke.ROAR_TARGETS:  # the image targets as the chain left them
             md[t] = {k: v.cpu().numpy() for k, v in out[t].items()}
         sampler.generate(md, schedule[n_img:], seed=0)
@@ -247,9 +253,9 @@ def chain_profile(trace) -> dict:
     chain_ms = wall_ms(chain)
     tokens = dict(sampler.sampler._ar_tokens)
     ar_ms = wall_ms(ar_part)
-    res = {"tokens": tokens,
-           "chain": profile(chain, "chain", trace, chain_ms),
-           "ar_part": profile(ar_part, "sequence targets", None, ar_ms)}
+    res = {"model": name, "requests": requests, "tokens": tokens,
+           "chain": profile(chain, f"chain, {name}", trace, chain_ms),
+           "ar_part": profile(ar_part, f"sequence targets, {name}", None, ar_ms)}
     print(f"wall without the profiler: chain {chain_ms:.3f} ms, sequence targets "
           f"{ar_ms:.3f} ms; decoded tokens {json.dumps(tokens)}")
     return res
