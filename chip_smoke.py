@@ -22,7 +22,11 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      W2's tail columns in residual_mlp, the K scale not folded, the V scale
      of the heads reversed); the int8 mode is also held to the bf16 kernel
      on the dequantized K/V, within 5% of the unquantized K/V, and
-     quantize_kv_decode on the card to its CPU result, exactly;
+     quantize_kv_decode on the card to its CPU result, exactly; ln_matmul
+     and ln_mlp also at the decoder grids (16 x 196 rows at 4M-B, 8 x 196 at
+     XL), ln_mlp with the W2 tail columns its wrapper pads as a fault;
+  2c. ln_matmul and ln_mlp at the narrow registry models' widths (D = 384:
+     GELU hidden 1536, SwiGLU 1024; D = 512: SwiGLU 1365), as phase 2b;
   3. the headline chain at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_
      nobias on the 4M-21 modality sets, random bf16 weights from a seeded
      generator): FourMSampler decodes RGB -> all 14 targets of the default
@@ -47,6 +51,15 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      4b. XL parity at depth cut to 2 + 2: one forward_generation_img and one
      ar_prefill + 4 decode steps (bf16, and int8 against the CPU's int8
      twins) at batch 2 against fp32 CPU runs;
+  3d. the narrow registry models in bf16 through the kernels: the
+     fm_tiny_6e_6d_gelu chain (8 requests, full depth) and, for it,
+     fm_tiny_6e_6d_swiglu_nobias and fm_small_8e_8d_swiglu_nobias, phase
+     4's parity at full depth, each with exact launch counts;
+  3e. a float32 4M-21 B at 2 + 2 layers: the chain for 2 requests through
+     the plain twins (the block layer's route for a model that does not
+     compute in bf16) with no kernel launched, its forward against the
+     CPU's fp32 run; a float32 mod-7 train step at 2 + 2 layers (the plain
+     autograd attention, one fused_adamw launch) against the CPU's;
   5. the VQ tokenization kernels (attn_block, ln_mlp with exact GELU,
      mha_short, nearest_code, nearest_code_cosine) against their twins at the
      VQ paths' shapes, as phase 2 (the codebook searches must equal their
@@ -64,7 +77,9 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
   7. at batch 2, the VQ encoder latents and the teacher features on the card
      against the same weights on the CPU in fp32 and in bf16, the card's
      tokens against the plain search on the card's own latents (exact), and
-     the agreement with the fp32 CPU tokens;
+     the agreement with the fp32 CPU tokens; 7b. the RGB tokenizer on
+     448 x 448 inputs (positions resized bicubically) at batch 2, exact
+     launch counts, against the CPU;
   8. the train step's kernels against their twins at its shapes, as phase
      2: attention_train forward and backward (B = 32, 12 heads, N = M =
      128) under a key and a full bias, with wrong outputs that the
@@ -86,7 +101,8 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      the AdamW twin applied on the card to the card's own gradients
      (exact), and a planted fault (the cross-attention cores' dq zeroed)
      that the per-leaf gate must catch.
-The second-to-last line is the kernels' JSON; the last line is
+A kernel wrapper never runs its plain twin on the card: a call its kernel
+does not take raises. The second-to-last line is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -245,8 +261,11 @@ def time_cases(torch, cases, card: str):
         bound_ms = max(c["flops"] / peak, c["bytes"] / PEAK_BYTES) * 1e3
         bound_by = "operations" if c["flops"] / peak >= c["bytes"] / PEAK_BYTES else "bytes"
         errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
+        # work the wrapper does beside its kernels, timed alone (inside ms)
+        within = {w: time_ms(torch, fn, 10) for w, fn in c.get("within", {}).items()}
         print(f"kernel {name}: {c['shape']}: {errs}, "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"{ms:.4f} ms" + "".join(f" (of which {w} {t:.4f} ms)" for w, t in within.items())
+              + f", plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); {card}", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": c.get("wrapper", name.split("@")[0]),
@@ -254,6 +273,8 @@ def time_cases(torch, cases, card: str):
                         "max_abs_err": err, "tolerance": tol,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
+        if within:
+            results[-1]["within_ms"] = within
         if len(parts) > 1:
             results[-1]["parts"] = {p: {"max_abs_err": e, "tolerance": t}
                                     for p, (e, t) in parts.items()}
@@ -267,6 +288,91 @@ def hold_variants(torch, variants) -> None:
         errs = "; ".join(f"{'' if p == 'out' else p + ' '}max_abs_err {e:.6g} (tol {t:.6g})"
                          for p, (e, t) in parts.items())
         print(f"variant {name}: {errs}", flush=True)
+
+
+def ln_matmul_row(torch, rn, gen, rows: int, D: int, Fo: int, biases: bool = False,
+                  path: str = "chain"):
+    """A ln_matmul row: x (rows, D) -> (rows, Fo), with LN shift and bias or
+    none; the library yardstick is F.layer_norm + F.linear."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import fused_mlp as fm
+
+    x = rn(rows, D)
+    gamma = torch.rand(D, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(D, generator=gen, device="cuda") if biases else None
+    w = rn(Fo, D, std=D ** -0.5)
+    b = torch.randn(Fo, generator=gen, device="cuda") if biases else None
+    lb = None if beta is None else beta.to(torch.bfloat16)
+    lbias = None if b is None else b.to(torch.bfloat16)
+    return dict(
+        run=lambda: fm.ln_matmul(x, gamma, beta, w, b),
+        plain=lambda: fm.ln_matmul_plain(x, gamma, beta, w, b),
+        library=lambda: F.linear(F.layer_norm(x, (D,), gamma.to(torch.bfloat16), lb, 1e-6), w,
+                                 lbias),
+        flops=2 * rows * D * Fo, bytes=(rows * D + Fo * D + rows * Fo) * 2 + D * 4, path=path,
+        shape=f"x ({rows}, {D}) -> ({rows}, {Fo}), {'LN bias + bias' if biases else 'no biases'}")
+
+
+def ln_mlp_row(torch, rn, gen, rows: int, D: int, HID: int, gated: bool, biases: bool = False,
+               path: str = "chain", w2_tail_gain: float = 1.0):
+    """A ln_mlp row: SwiGLU or exact GELU at (rows, D), hidden HID. For a
+    hidden width that is not a multiple of the GEMM's 128-unit tile, faults
+    the tolerance must catch: the ragged tail tile left out, and, when HID %
+    8 != 0, W2's tail columns (the units the wrapper's zero-padded copy of
+    W2 carries, scaled by w2_tail_gain so that they matter) left out."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import fused_mlp as fm
+
+    x = rn(rows, D)
+    gamma = torch.rand(D, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(D, generator=gen, device="cuda") if biases else None
+    w1, w3 = rn(HID, D, std=D ** -0.5), rn(HID, D, std=D ** -0.5)
+    w2 = rn(D, HID, std=HID ** -0.5)
+    tail8 = HID // 8 * 8
+    w2[:, tail8:] *= w2_tail_gain
+    b1, b3 = (torch.randn(HID, generator=gen, device="cuda") if biases else None
+              for _ in range(2))
+    b2 = torch.randn(D, generator=gen, device="cuda") if biases else None
+    if not gated:
+        w3 = b3 = None
+    args = (x, gamma, beta, w1, b1, w2, b2, w3, b3)
+
+    def library():
+        bf = torch.bfloat16
+        h = F.layer_norm(x, (D,), gamma.to(bf), None if beta is None else beta.to(bf), 1e-6)
+        c = [None if t is None else t.to(bf) for t in (b1, b2, b3)]
+        g = F.linear(h, w1, c[0])
+        act = F.silu(g) * F.linear(h, w3, c[2]) if gated else F.gelu(g)
+        return x + F.linear(act, w2, c[1])
+
+    def cut_plain(units):
+        return fm.ln_mlp_plain(x, gamma, beta, w1[:units], None if b1 is None else b1[:units],
+                               w2[:, :units].contiguous(), b2,
+                               None if w3 is None else w3[:units],
+                               None if b3 is None else b3[:units], gated=gated).float()
+
+    def faults():
+        wrong = {}
+        if HID % 128:
+            wrong[f"the ragged tail tile ({HID % 128} units) left out"] = cut_plain(HID // 128 * 128)
+        if HID % 8:
+            wrong[f"W2's tail columns ({HID - tail8} units at {w2_tail_gain}x) left out"] = \
+                cut_plain(tail8)
+        return fm.ln_mlp_plain(*args, gated=gated).float(), wrong, set(wrong)
+
+    kind = "SwiGLU" if gated else "exact GELU"
+    return dict(
+        run=lambda: fm.ln_mlp(*args, gated=gated),
+        plain=lambda: fm.ln_mlp_plain(*args, gated=gated),
+        library=library, path=path, faults=faults if HID % 128 else None,
+        # the zero-padded copy of a ragged W2 that the wrapper makes per call
+        within={"the W2 pad copy": lambda: F.pad(w2, (0, 8 - HID % 8))} if HID % 8 else {},
+        flops=(3 if gated else 2) * 2 * rows * D * HID,
+        bytes=(2 * rows * D + (3 if gated else 2) * D * HID) * 2 + D * 4,
+        shape=f"{kind}, x ({rows}, {D}), hidden {HID}, "
+              f"{'LN bias + biases' if biases else 'no biases'}")
 
 
 def kernel_phase(torch, card: str):
@@ -338,6 +444,10 @@ def kernel_phase(torch, card: str):
               library=lambda: mlp_library(ln(x)),
               flops=3 * 2 * rows * D * 2048, bytes=(2 * rows * D + 3 * D * 2048) * 2 + D * 4,
               shape="SwiGLU, x (16*2048, 768), hidden 2048, no biases")),
+        ("ln_matmul@N196", "fourm_tpu/kernels/fused_mlp.py:181",
+         "fourm_torch/kernels/csrc/ln_matmul.cu", ln_matmul_row(torch, rn, gen, 16 * 196, D, 3 * D)),
+        ("ln_mlp@N196", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
+         ln_mlp_row(torch, rn, gen, 16 * 196, D, 2048, True)),
         ("flash_mha", "fourm_tpu/kernels/attention.py:587", fa, flash_case(16, 2048)),
         ("flash_mha@N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(16, 196)),
         ("attention", "fourm_tpu/kernels/attention.py:325", fa, attn_case(16, 256, 2048)),
@@ -702,14 +812,15 @@ def xl_kernel_phase(torch, card: str):
     as phase 2: the XL chain's rows (4 requests, 8 with CFG, at a 2304-token
     encoder budget; decode steps at B = 4 and 8, M = 2304), and the int8 mode
     of cross_decode_attn at 4M-B (B = 16, M = 2304, the decode
-    microbenchmark's shape) and at XL, with and without a key bias. Faults
-    the tolerance must catch: the ragged tail chunk of ln_mlp and W2's tail
-    columns in residual_mlp left out; the K scale not folded, the V scale
-    of the heads reversed."""
+    microbenchmark's shape) and at XL, with and without a key bias; ln_matmul
+    and ln_mlp also at the XL decoder grid (8 x 196 rows). Faults the
+    tolerance must catch: ln_mlp's ragged tail tile and the W2 tail columns
+    its wrapper pads (at 8x the lecun scale), and W2's tail columns in
+    residual_mlp, left out; the K scale not folded, the V scale of the heads
+    reversed."""
     import torch.nn.functional as F
 
     from fourm_torch.kernels import attention as at
-    from fourm_torch.kernels import fused_mlp as fm
 
     gen, rn, key_bias = random_makers(torch, 4)
     dev, bf = "cuda", torch.bfloat16
@@ -718,43 +829,8 @@ def xl_kernel_phase(torch, card: str):
     da = "fourm_torch/kernels/csrc/decode_attn.cu"
     sd = "fourm_torch/kernels/csrc/self_decode.cu"
     rm = "fourm_torch/kernels/csrc/residual_mlp.cu"
-
-    def ln_matmul_case(D):
-        x = rn(rows, D)
-        gamma = torch.rand(D, generator=gen, device=dev) + 0.5
-        w = rn(3 * D, D, std=D ** -0.5)
-        return dict(
-            run=lambda: fm.ln_matmul(x, gamma, None, w),
-            plain=lambda: fm.ln_matmul_plain(x, gamma, None, w),
-            library=lambda: torch.matmul(F.layer_norm(x, (D,), gamma.to(bf), None, 1e-6), w.t()),
-            flops=2 * rows * D * 3 * D, bytes=(rows * D + 3 * D * D + rows * 3 * D) * 2 + D * 4,
-            path="xl_chain", shape=f"x (8*2304, {D}) -> (8*2304, {3 * D}), no biases")
-
-    def ln_mlp_case(D, HID, chunk, path):
-        x = rn(rows, D)
-        gamma = torch.rand(D, generator=gen, device=dev) + 0.5
-        w1, w3 = rn(HID, D, std=D ** -0.5), rn(HID, D, std=D ** -0.5)
-        w2 = rn(D, HID, std=HID ** -0.5)
-        cut = HID // chunk * chunk  # the units before the kernel's last, ragged chunk
-
-        def library():
-            h = F.layer_norm(x, (D,), gamma.to(bf), None, 1e-6)
-            return x + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
-
-        def faults():
-            no_tail = fm.ln_mlp_plain(x, gamma, None, w1[:cut], None, w2[:, :cut].contiguous(),
-                                      None, w3[:cut], None, gated=True).float()
-            wrong = {f"the ragged tail chunk ({HID - cut} units) left out": no_tail}
-            return (fm.ln_mlp_plain(x, gamma, None, w1, None, w2, None, w3, None,
-                                    gated=True).float(), wrong, set(wrong))
-
-        return dict(
-            run=lambda: fm.ln_mlp(x, gamma, None, w1, None, w2, None, w3, None, gated=True),
-            plain=lambda: fm.ln_mlp_plain(x, gamma, None, w1, None, w2, None, w3, None,
-                                          gated=True),
-            library=library, faults=faults, path=path,
-            flops=3 * 2 * rows * D * HID, bytes=(2 * rows * D + 3 * D * HID) * 2 + D * 4,
-            shape=f"SwiGLU, x (8*2304, {D}), hidden {HID}, no biases")
+    lmm, slm = "fourm_tpu/kernels/fused_mlp.py:181", "fourm_torch/kernels/csrc/ln_matmul.cu"
+    lml, sml = "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu"
 
     def flash_case(B, N):
         D, H, Dh = 2048, 32, 64
@@ -794,12 +870,16 @@ def xl_kernel_phase(torch, card: str):
     large = decode_makers(torch, rn, gen, key_bias, 4, 1024, 2730, w2_tail_gain=8.0)
     base16 = decode_makers(torch, rn, gen, key_bias, 16, 768, 2048)
     cases = [
-        ("ln_matmul@XL", "fourm_tpu/kernels/fused_mlp.py:181",
-         "fourm_torch/kernels/csrc/ln_matmul.cu", ln_matmul_case(2048)),
-        ("ln_mlp@XL", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
-         ln_mlp_case(2048, 5461, 128, "xl_chain")),
-        ("ln_mlp@L", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
-         ln_mlp_case(1024, 2730, 64, "xl_chain")),
+        ("ln_matmul@XL", lmm, slm, ln_matmul_row(torch, rn, gen, rows, 2048, 6144,
+                                                 path="xl_chain")),
+        ("ln_matmul@XL_N196", lmm, slm, ln_matmul_row(torch, rn, gen, 8 * 196, 2048, 6144,
+                                                      path="xl_chain")),
+        ("ln_mlp@XL", lml, sml, ln_mlp_row(torch, rn, gen, rows, 2048, 5461, True,
+                                           path="xl_chain", w2_tail_gain=8.0)),
+        ("ln_mlp@XL_N196", lml, sml, ln_mlp_row(torch, rn, gen, 8 * 196, 2048, 5461, True,
+                                                path="xl_chain", w2_tail_gain=8.0)),
+        ("ln_mlp@L", lml, sml, ln_mlp_row(torch, rn, gen, rows, 1024, 2730, True,
+                                          path="xl_chain", w2_tail_gain=8.0)),
         ("flash_mha@XL", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 2304)),
         ("flash_mha@XL_N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 196)),
         ("attention@XL", "fourm_tpu/kernels/attention.py:325", fa, attn_case(8, 196, 2304)),
@@ -999,7 +1079,8 @@ def vq_kernel_phase(torch, card: str):
     longest = {C: max(N for N in range(1, 1025) if at.attn_block_takes(N, C, "cuda"))
                for C in (512, 768, 1024)}
     print(f"attn_block holds N <= {longest} (by width C)", flush=True)
-    check(longest[768] == 400, f"attn_block at C=768 holds N <= {longest[768]}, not 400")
+    check(longest == ATTN_BLOCK_LONGEST, f"attn_block holds N <= {longest}, not "
+                                         f"{ATTN_BLOCK_LONGEST} (its shared-memory design)")
     return results
 
 
@@ -1031,12 +1112,79 @@ def chain_launches(depth: int, n_tok: int, kv_quant=None) -> dict:
     return counts
 
 
+class PassLengths:
+    """Records the token count of every encoder and decoder pass (a forward
+    pre-hook on the first block of each stack; KV-cached decode steps run
+    DecoderBlock.step and are not passes)."""
+
+    def __init__(self, model):
+        self.encoder, self.decoder = [], []
+        self._hooks = [model.encoder[0].register_forward_pre_hook(
+                           lambda _m, args: self.encoder.append(args[0].shape[1])),
+                       model.decoder[0].register_forward_pre_hook(
+                           lambda _m, args: self.decoder.append(args[0].shape[1]))]
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+
+
+# the longest sequence attn_block holds at each width it is built for (heads
+# of 64): 3 x roundup(N, 16) x 144 bytes of q/k/v plus its working area in
+# 227 KB of shared memory (csrc/attn_block.cu:attn_heads_smem); phase 5 holds
+# the kernel library's answer to this table
+ATTN_BLOCK_LONGEST = {512: 400, 768: 400, 1024: 352}
+
+
+def prenorm_launches(N: int, cfg) -> dict:
+    """The wrappers one pre-norm self-attention half launches over N tokens
+    under a key-only mask (ops/transformer.py:Attention.fused_prenorm),
+    from fixed facts: one attn_block for a short unnormed sequence at a
+    width and length ATTN_BLOCK_LONGEST holds (D = 384 is no attn_block
+    width), else ln_matmul + mha_short for N <= 1024 without QK-norm, else
+    ln_matmul + flash_mha."""
+    if not cfg.qk_norm and N <= 1024:
+        if N <= ATTN_BLOCK_LONGEST.get(cfg.dim, 0):
+            return {"attn_block": 1}
+        return {"ln_matmul": 1, "mha_short": 1}
+    return {"ln_matmul": 1, "flash_mha": 1}
+
+
+def pass_launches(model, lengths: PassLengths, n_tok: int, kv_quant=None) -> dict:
+    """Launches of each wrapper in the recorded passes of a depth + depth
+    model plus n_tok KV-cached decode steps: per encoder pass and block its
+    self-attention half and ln_mlp; per decoder pass and block its
+    self-attention half, attention and ln_mlp; per token and layer each
+    decode-step wrapper."""
+    cfg = model.config
+    counts = {}
+
+    def add(group, n):
+        for k, v in group.items():
+            counts[k] = counts.get(k, 0) + v * n
+
+    for N in lengths.encoder:
+        add(dict(prenorm_launches(N, cfg), ln_mlp=1), cfg.encoder_depth)
+    for N in lengths.decoder:
+        add(dict(prenorm_launches(N, cfg), attention=1, ln_mlp=1), cfg.decoder_depth)
+    add({"self_decode": 1, "cross_decode_attn": 1, "residual_mlp": 1,
+         ("decode_attention_int8" if kv_quant == "int8" else "decode_attention"): 1},
+        cfg.decoder_depth * n_tok)
+    return counts
+
+
 def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = DEPTH,
-                kv_quant=None, label: str = "chain"):
+                kv_quant=None, label: str = "chain", generic: bool = False,
+                plain: bool = False):
     """Phase 3 (and 3b): `requests` requests, RGB -> all 14 targets, at full
     width. A warm-up run; then the public entry alone, with the launch
     counters reset just before and read just after it, gives samples/s; a
-    third run, instrumented, gives each sequence target's seconds."""
+    third run, instrumented, gives each sequence target's seconds. The
+    launch counts are chain_launches' (4M-B, XL), or, `generic`, those of
+    the passes the run made (pass_launches: the narrow models, whose
+    attention halves take mha_short or flash_mha by sequence length), or,
+    `plain` (a float32 model, which the block layer sends to the plain
+    twins), no launch at all."""
     from fourm_torch import kernels
     from fourm_torch.api import FourMSampler
     from fourm_torch.data.modality_info import MODALITY_INFO
@@ -1059,11 +1207,13 @@ def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = 
         return out
 
     run()  # warm-up: cuBLAS handles, allocator
+    lengths = PassLengths(model)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = run()  # the public entry alone: samples/s and the launch counts
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    lengths.close()
     tokens = dict(sampler.sampler._ar_tokens)
 
     # a third run, instrumented: each sequence target's seconds (its
@@ -1104,7 +1254,9 @@ def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = 
               f"{t}: token outside [0, vocab)")
     n_tok = sum(tokens.values())
     expected = {k: 0 for k in launches}
-    expected.update(chain_launches(depth, n_tok, kv_quant))
+    if not plain:
+        expected.update(pass_launches(model, lengths, n_tok, kv_quant) if generic
+                        else chain_launches(depth, n_tok, kv_quant))
     check(launches == expected, f"{label}: launch counts {launches} != {expected}")
     ar_s = sum(ar_seconds.values())
     img_s = seconds_inst - ar_s
@@ -1303,6 +1455,188 @@ def xl_phase(torch, card: str):
     return xl_launches, int8_launches
 
 
+NARROW = ("fm_tiny_6e_6d_gelu", "fm_tiny_6e_6d_swiglu_nobias", "fm_small_8e_8d_swiglu_nobias")
+NARROW_PATHS = dict(zip(NARROW, ("tiny_chain", "tiny_swiglu", "small")))
+
+
+def narrow_kernel_phase(torch, card: str):
+    """Phase 2c: ln_matmul and ln_mlp at the widths of the narrow registry
+    models (D = 384: GELU hidden 1536 with biases, SwiGLU hidden 1024; D =
+    512: SwiGLU hidden 1365, ragged), at a chain's encoder rows (8 requests,
+    16 with CFG, 1024 tokens), as phase 2, with the ragged-tail and
+    W2-tail faults at hidden 1365."""
+    gen, rn, _ = random_makers(torch, 6)
+    rows = 16 * 1024
+    lmm, slm = "fourm_tpu/kernels/fused_mlp.py:181", "fourm_torch/kernels/csrc/ln_matmul.cu"
+    lml, sml = "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu"
+    cases = [
+        ("ln_matmul@tiny", lmm, slm, ln_matmul_row(torch, rn, gen, rows, 384, 1152, True,
+                                                   path="tiny_chain")),
+        ("ln_mlp@tiny_gelu", lml, sml, ln_mlp_row(torch, rn, gen, rows, 384, 1536, False, True,
+                                                  path="tiny_chain")),
+        ("ln_mlp@tiny_swiglu", lml, sml, ln_mlp_row(torch, rn, gen, rows, 384, 1024, True,
+                                                    path="tiny_swiglu")),
+        ("ln_matmul@small", lmm, slm, ln_matmul_row(torch, rn, gen, rows, 512, 1536,
+                                                    path="small")),
+        ("ln_mlp@small", lml, sml, ln_mlp_row(torch, rn, gen, rows, 512, 1365, True,
+                                              path="small", w2_tail_gain=8.0)),
+    ]
+    return time_cases(torch, cases, card)
+
+
+def narrow_phase(torch, card: str) -> dict:
+    """Phase 3d: the narrow registry models in bf16 on the card, through the
+    kernels. The fm_tiny_6e_6d_gelu chain (8 requests, 14 targets, full
+    depth 6 + 6) with exact launch counts by the passes it made (encoder
+    halves take mha_short up to 1024 tokens, flash_mha past it; D = 384 is
+    no attn_block width); then each narrow model at full depth, one
+    forward_generation_img and one ar_prefill + 4 decode steps at batch 2
+    against its weights on the CPU in fp32 and bf16 (phase 4's gates), with
+    exact launch counts. Returns each model's launches by path."""
+    from fourm_torch import kernels
+
+    counts = {}
+    out = None
+    for i, name in enumerate(NARROW):
+        model = build_model(torch, "bfloat16", "cuda", seed=10 + i, name=name)
+        if out is None:
+            out, counts[NARROW_PATHS[name]], _ = chain_phase(
+                torch, model, card, REQUESTS, model.config.encoder_depth,
+                label=f"tiny_chain ({name})", generic=True)
+        cpu = cpu_models(torch, model, name)
+        lengths = PassLengths(model)
+        kernels.reset_launch_counts()
+        parity_phase(torch, model, out, cpu, label=f"{name} parity")
+        decode_parity_phase(torch, model, out, cpu, label=f"{name} decode parity")
+        launches = kernels.launch_counts()
+        lengths.close()
+        expected = {k: 0 for k in launches}
+        expected.update(pass_launches(model, lengths, 4))
+        check(launches == expected, f"{name}: launch counts {launches} != {expected}")
+        print(f"{name}: parity passes launches {json.dumps({k: v for k, v in launches.items() if v})}"
+              f"; {card}", flush=True)
+        counts.setdefault(NARROW_PATHS[name], launches)
+        del model, cpu
+        torch.cuda.empty_cache()
+    return counts
+
+
+def fp32_phase(torch, card: str) -> None:
+    """Phase 3e: a float32 model on the card, sent to the plain twins by the
+    block layer (ops/transformer.py:_kernels; no kernel launched): 4M-21 B
+    cut to 2 + 2 layers, the 14-target chain for
+    2 requests through FourMSampler.generate, then one forward_generation_img
+    at batch 2 against the same weights on the CPU in fp32; then bench.py's
+    4M-B mod-7 train model cut to 2 + 2 layers in fp32, one train step at
+    batch 2 (the plain autograd attention, fused_adamw's fp32 kernel
+    launched once) against one on the CPU in fp32. TF32 is off for
+    matmuls and cuDNN, so the card and the CPU differ only in summation
+    order: logits within 1e-4 of the largest fp32 logit, the loss within
+    1e-5 relative and the gradient within 1e-4 relative (in norm), some
+    10x the fp32 rounding such orders give over 2 + 2 layers."""
+    from fourm_torch import kernels
+    from fourm_torch.generate import GenerationSampler
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "fp32 phase: TF32 must be off")
+    cut = dict(encoder_depth=2, decoder_depth=2)
+    model = build_model(torch, "float32", "cuda", seed=5, **cut)
+    out, _, _ = chain_phase(torch, model, card, 2, 2, label="fp32_chain (2 + 2 layers)",
+                            plain=True)
+    cpu = build_model(torch, "float32", "cpu", **cut)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    target = "tok_clip@224"
+    md = {m: {k: v[:2] for k, v in out[m].items()} for m in ("rgb@224", *ROAR_TARGETS)}
+    md[target] = dict(md[target], input_mask=torch.ones_like(md[target]["input_mask"]),
+                      target_mask=torch.zeros_like(md[target]["target_mask"]))
+    gs = GenerationSampler(model)
+    budget = gs._encoder_budget(gs._init_valid_counts(md), md)
+    sa = torch.ones(2, 196, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        gpu = model.forward_generation_img(md, target, sa, budget).float().cpu()
+        ref = cpu.forward_generation_img(_on(md, "cpu"), target, sa.cpu(), budget).float()
+    err, scale = (gpu - ref).abs().max().item(), ref.abs().max().item()
+    print(f"fp32 parity: forward_generation_img B=2 {target} (2 + 2 layers), card fp32 (plain "
+          f"twins) vs CPU fp32: max abs err {err:.6g} (tol {1e-4 * scale:.6g}, max |logit| "
+          f"{scale:.6g}); {card}", flush=True)
+    check(bool(torch.isfinite(gpu).all()) and err <= 1e-4 * scale,
+          f"fp32 parity: logits error {err} > {1e-4 * scale}")
+    del model, cpu, out
+    torch.cuda.empty_cache()
+
+    start = {k: v.cpu() for k, v in train_model(torch, "cuda", "float32", 7, **cut)
+             .state_dict().items()}
+    tmodel = train_model(torch, "cuda", "float32", None, **cut)
+    tmodel.load_state_dict(start)
+    tx = create_optimizer(tmodel, constant_schedule(1e-3), weight_decay=0.05, betas=(0.9, 0.95))
+    state = init_train_state(tmodel, tx)
+    kernels.reset_launch_counts()
+    state, metrics = build_train_step(tmodel, tx, TRAIN_TOKENS, TRAIN_TOKENS)(
+        state, train_batch(torch, 2, 1, "cuda"))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expected = {k: 0 for k in launches}
+    expected["fused_adamw"] = 1
+    check(launches == expected, f"fp32 train step: launch counts {launches} != {expected}")
+    grads = [torch.zeros_like(p).cpu() if p.grad is None else p.grad.float().cpu()
+             for p in tx.params()]
+    cm = train_model(torch, "cpu", "float32", None, **cut)
+    cm.load_state_dict(start)
+    loss, _ = cm(train_batch(torch, 2, 1, "cpu"), TRAIN_TOKENS, TRAIN_TOKENS)
+    loss.backward()
+    ref = [torch.zeros_like(p) if p.grad is None else p.grad for _, p in cm.named_parameters()]
+    card_loss = float(metrics["loss"])
+    loss_err = abs(card_loss - loss.item()) / abs(loss.item())
+    num = sum(float((g - r).square().sum()) for g, r in zip(grads, ref))
+    grad_err = (num / sum(float(r.square().sum()) for r in ref)) ** 0.5
+    print(f"fp32 train step (mod-7 4M-B, 2 + 2 layers, B=2): launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; loss {card_loss:.6g} vs CPU "
+          f"{loss.item():.6g} (relative {loss_err:.3g}, tol 1e-5); gradient relative error "
+          f"{grad_err:.3g} (tol 1e-4); {card}", flush=True)
+    check(np.isfinite(card_loss) and loss_err <= 1e-5, f"fp32 train: loss error {loss_err}")
+    check(grad_err <= 1e-4, f"fp32 train: gradient error {grad_err}")
+    del tmodel, tx, state, cm
+
+
+def vq448_phase(torch, models, card: str) -> dict:
+    """Phase 7b: the 224-trained RGB tokenizer on 448 x 448 inputs (a 28 x 28
+    grid, its positions resized bicubically) at batch 2 on the card: exact
+    launch counts (784 tokens pass attn_block's shared memory, so each block
+    runs ln_matmul + mha_short, then ln_mlp; one search), and the latents
+    and tokens against the CPU in fp32 and bf16 (phase 7's gates). Returns
+    the launches."""
+    from fourm_torch import kernels
+    from fourm_torch.vq import VQ
+
+    vq = models["rgb"]
+    x = torch.from_numpy(np.random.RandomState(448).rand(2, 448, 448, 3)
+                         .astype(np.float32)).cuda()
+    kernels.reset_launch_counts()
+    tokens = vq.tokenize(x)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expected = {k: 0 for k in launches}
+    expected.update(ln_matmul=DEPTH, mha_short=DEPTH, ln_mlp=DEPTH, nearest_code_cosine=1)
+    check(launches == expected, f"vq 448: launch counts {launches} != {expected}")
+    check(tuple(tokens.shape) == (2, 28, 28), f"vq 448: tokens {tuple(tokens.shape)}")
+    print(f"vq 448: RGB tokenizer (224-trained) on 2 images of 448 x 448: tokens "
+          f"{tuple(tokens.shape)}, launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"; {card}", flush=True)
+    state = {k: v.float().cpu() for k, v in vq.state_dict().items()}
+    cpu = {}
+    for dt in ("float32", "bfloat16"):
+        cpu[dt] = VQ(**dict(VQ_RGB, dtype=dt), device="cpu")
+        cpu[dt].load_state_dict(state)
+    lat = vq.latents(x)
+    ref = {dt: m.latents(x.cpu()).float() for dt, m in cpu.items()}
+    tol = latent_gate(torch, "RGB tokenizer latents at 448, B=2", lat.float().cpu(),
+                      ref["float32"], ref["bfloat16"])
+    token_gate(torch, "RGB tokenizer at 448", vq, lat, cpu["float32"], ref["float32"], tol)
+    return launches
+
+
 def vq_phase(torch, card: str):
     """Phase 6: one tokenize call per path with exact launch counts, then
     images/s over 10 timed calls after a warm-up (bench.py:186-198)."""
@@ -1450,13 +1784,14 @@ def vq_parity_phase(torch, models, x) -> None:
     token_gate(torch, "CLIP tokenizer", models["clip"], lat, clip["float32"], ref["float32"], tol)
 
 
-def train_model(torch, device: str, dtype: str = "bfloat16", seed=0):
+def train_model(torch, device: str, dtype: str = "bfloat16", seed=0, **overrides):
     """bench.py's train model (4M-B mod-7) with fp32 master weights from a
     seeded generator (none with seed None); `dtype` is the compute dtype."""
     from fourm_torch.models import FourM, create_fourm_config, init_weights
     from fourm_torch.utils.synthetic import MOD7_DECODER_MODALITIES, MOD7_MODALITIES
 
-    cfg = create_fourm_config(TRAIN_MODEL, MOD7_MODALITIES, MOD7_DECODER_MODALITIES, dtype=dtype)
+    cfg = create_fourm_config(TRAIN_MODEL, MOD7_MODALITIES, MOD7_DECODER_MODALITIES, dtype=dtype,
+                              **overrides)
     with torch.device(device):
         model = FourM(cfg)
     return model if seed is None else init_weights(model, seed)
@@ -1901,6 +2236,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
     results += xl_kernel_phase(torch, card)
     torch.cuda.empty_cache()
+    results += narrow_kernel_phase(torch, card)
+    torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
     decode_bench(torch, model, out, card)
@@ -1912,10 +2249,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     xl_launches, int8_launches = xl_phase(torch, card)
     torch.cuda.empty_cache()
+    narrow_launches = narrow_phase(torch, card)
+    torch.cuda.empty_cache()
+    fp32_phase(torch, card)
+    torch.cuda.empty_cache()
     results += vq_kernel_phase(torch, card)
     torch.cuda.empty_cache()
     vq_launches, vq_models, vq_x = vq_phase(torch, card)
     vq_parity_phase(torch, vq_models, vq_x)
+    vq448_phase(torch, vq_models, card)
     del vq_models, vq_x
     torch.cuda.empty_cache()
     results += train_kernel_phase(torch, card)
@@ -1924,7 +2266,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
-                         xl_chain=xl_launches, int8_chain=int8_launches)
+                         xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches)
     for r in results:  # each wrapper's launches on the path that runs it
         path = r["path"]
         r["launches"] = path_launches[path][r.pop("wrapper")]

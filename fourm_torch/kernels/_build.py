@@ -2,8 +2,10 @@
 
 Each source compiles on first use into its own shared library with a plain C
 interface, under fourm_torch/kernels/_build/ (ignored by git), named after
-the hash of the source, the shared header and the flags, so an edited source
-rebuilds and an unchanged one loads at once. All missing libraries compile
+the hash of the source, every shared header (csrc/*.cuh) and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once. No
+library links libcuda: the GEMM core (gemm_sm90.cuh) fetches libcuda's
+cuTensorMapEncodeTiled through the CUDA runtime at first use. All missing libraries compile
 in parallel, one nvcc process per source. Importing this module needs no
 nvcc; `library()` does, and raises if the toolkit is absent.
 """
@@ -34,9 +36,8 @@ _IA = ctypes.POINTER(ctypes.c_int)  # a host int array (ctypes.c_int * n)
 # each C entry point: its source, its symbol and its argtypes (restype is
 # int: cudaGetLastError(), or a *_fits answer)
 SIGNATURES = {
-    "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
-    "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _I, _F, _P]),
+    "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P] * 7 + [_I, _I, _I, _F, _P]),
+    "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P] * 12 + [_I, _I, _I, _I, _F, _P]),
     "attention": ("attention", "fourm_attention",
                   [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 4 + [_I] * 4
                   + [_F, _F, _I, _P]),
@@ -77,7 +78,9 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,10 +13,26 @@ def require(cond: bool, what) -> None:
         raise ValueError(what() if callable(what) else what)
 
 
-def require_bf16(name: str, *tensors) -> None:
-    for t in tensors:
-        if t is not None and t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
+def all_bf16(*tensors) -> bool:
+    """Whether every tensor given (None passes) is bf16: the dtype half of
+    each wrapper's `<wrapper>_takes` predicate."""
+    return all(t is None or t.dtype == torch.bfloat16 for t in tensors)
+
+
+def require_takes(name: str, takes: bool, *tensors) -> None:
+    """Raise unless the wrapper's predicate (`<name>_takes`) found that its
+    CUDA kernel takes the call: TypeError where one of `tensors` is not
+    bf16, else ValueError with their shapes, strides and alignment. A
+    wrapper never runs its plain twin on the card; a model that computes in
+    another dtype takes the twins at the block layer (ops/transformer.py)."""
+    if takes:
+        return
+    wrong = [t.dtype for t in tensors if t is not None and t.dtype != torch.bfloat16]
+    if wrong:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {wrong}")
+    raise ValueError(f"{name}: the CUDA kernel does not take " + "; ".join(
+        f"{tuple(t.shape)} strides {t.stride()} at {t.data_ptr() % 16} mod 16"
+        for t in tensors if t is not None) + f" (see {name}_takes)")
 
 
 def require_cuda(name: str, *tensors) -> torch.device:

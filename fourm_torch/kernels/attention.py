@@ -8,8 +8,10 @@ pallas_flash_mha, `mha_short` is pallas_mha_short, `attention` is
 pallas_attention and, having no size split, also its blocked form
 flash_attention; those three wrappers launch one CUDA kernel body
 (csrc/attention.cu). `attn_block` is pallas_attn_block (csrc/attn_block.cu).
-Each wrapper counts its launches in `<wrapper>.launches` and computes its
-plain PyTorch twin for CPU tensors.
+Each wrapper counts its launches in `<wrapper>.launches`, raises on a CUDA
+call its predicate (`attention_takes`, `flash_mha_takes`, `mha_short_takes`,
+`attn_block_takes`) refuses, and computes its plain PyTorch twin for CPU
+tensors.
 
 Masked logits carry the finite bias finfo(f32).min, so a row whose keys are
 all masked gets uniform weights, never NaN. The twins are the XLA path of
@@ -24,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import aligned, f32, ptr, require, require_bf16, require_cuda, stream
+from ._checks import aligned, all_bf16, f32, ptr, require, require_cuda, require_takes, stream
 from .fused_mlp import _mm, layer_norm_fp32
 
 
@@ -49,6 +51,14 @@ def _strides_ok(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) and aligned(t, 16)
 
 
+def attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether csrc/attention.cu takes attention(q, k, v), from dtypes and
+    shapes alone: bf16, head dim 64, rows read through strides that are
+    multiples of 8 with a contiguous last dim, 16-byte aligned."""
+    return (all_bf16(q, k, v) and q.shape[-1] == 64 and all(_strides_ok(t) for t in (q, k, v))
+            and max(t.numel() for t in (q, k, v)) < 2**31)
+
+
 def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, eps,
             allow_zero_attn, dev):
     from . import _build
@@ -71,21 +81,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, bias, allow_zero_attn)
     name = "attention"
     dev = require_cuda(name, q, k, v, bias)
-    require_bf16(name, q, k, v)
     B, H, N, Dh = q.shape
     M = k.shape[2]
-    require(Dh == 64, f"{name}: head dim {Dh} (the kernel is built for 64)")
     require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
             f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
-    require(all(_strides_ok(t) for t in (q, k, v)),
-            f"{name}: q/k/v need a contiguous last dim, strides % 8 == 0, 16-byte alignment")
-    require(max(t.numel() for t in (q, k, v)) < 2**31, f"{name}: too large")
     bs = (0, 0, 0, 0)
     if bias is not None:
         require(bias.dtype == torch.float32, f"{name}: bias must be fp32")
         require(bias.ndim == 4 and bias.shape[-1] == M
                 and all(bias.shape[i] in (1, (B, H, N)[i]) for i in range(3)),
                 f"{name}: bias {tuple(bias.shape)} not broadcastable to ({B}, {H}, {N}, {M})")
+    require_takes(name, attention_takes(q, k, v), q, k, v)
+    if bias is not None:
         # stride 0 on broadcast axes: (B, 1, 1, M) is never materialised
         bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(4))
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=dev)
@@ -116,27 +123,41 @@ def flash_mha_plain(q, k, v, num_heads: int, bias=None, qn_gamma=None, qn_beta=N
     return out.transpose(1, 2).reshape(B, N, C)
 
 
-def _heads_launch(name, q, k, v, num_heads, bias, norms, eps, allow_zero_attn):
-    """Checks and launch of the attention.cu kernel on heads-concatenated
-    (B, N, C) q and (B, M, C) k, v read through their strides."""
-    dev = require_cuda(name, q, k, v, bias, *norms)
-    require_bf16(name, q, k, v)
+def flash_mha_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> bool:
+    """Whether csrc/attention.cu takes heads-concatenated (B, N, C) q and
+    (B, M, C) k, v, from dtypes and shapes alone: bf16, C = 64 x num_heads,
+    strides that are multiples of 8 with a contiguous last dim, 16-byte
+    aligned."""
+    return (all_bf16(q, k, v) and q.shape[-1] == 64 * num_heads
+            and all(_strides_ok(t) for t in (q, k, v))
+            and max(t.storage_offset() + t.stride(0) * t.shape[0] for t in (q, k, v)) < 2**31)
+
+
+def _heads_checks(name, q, k, v, num_heads, bias, norms):
+    """Checks of the attention.cu kernel on heads-concatenated (B, N, C) q
+    and (B, M, C) k, v: flash_mha_takes, matching shapes, an fp32 (B, M)
+    bias, QK-norm with both gammas."""
+    require_cuda(name, q, k, v, bias, *norms)
+    require_takes(name, flash_mha_takes(q, k, v, num_heads), q, k, v)
     B, N, C = q.shape
     M = k.shape[1]
-    Dh = C // num_heads
-    require(Dh * num_heads == C and Dh == 64,
-            f"{name}: C={C} over {num_heads} heads (the kernel is built for Dh=64)")
     require(tuple(k.shape) == (B, M, C) and tuple(v.shape) == (B, M, C),
             f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
-    require(all(_strides_ok(t) for t in (q, k, v)),
-            f"{name}: q/k/v need a contiguous last dim, strides % 8 == 0, 16-byte alignment")
-    require(max(t.storage_offset() + t.stride(0) * t.shape[0] for t in (q, k, v)) < 2**31,
-            f"{name}: too large")
     require(norms[0] is None or norms[2] is not None, f"{name}: QK-norm needs both gammas")
-    bs = (0, 0, 0, 0)
     if bias is not None:
         require(bias.dtype == torch.float32 and tuple(bias.shape) == (B, M),
                 f"{name}: bias must be fp32 ({B}, {M}), got {bias.dtype} {tuple(bias.shape)}")
+
+
+def _heads_launch(name, q, k, v, num_heads, bias, norms, eps, allow_zero_attn):
+    """Launch of the attention.cu kernel on heads-concatenated (B, N, C) q and
+    (B, M, C) k, v read through their strides (checked by _heads_checks)."""
+    dev = q.device
+    B, N, C = q.shape
+    M = k.shape[1]
+    Dh = C // num_heads
+    bs = (0, 0, 0, 0)
+    if bias is not None:
         bs = (bias.stride(0), 0, 0, bias.stride(1))
     out = torch.empty((B, N, C), dtype=q.dtype, device=dev)
     _launch(name, q, k, v, out, (q.stride(0), Dh, q.stride(1)), (k.stride(0), Dh, k.stride(1)),
@@ -153,11 +174,11 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     k, v (e.g. column slices of a fused QKV output, read through their
     strides), with optional per-head QK-norm (fp32 LN over Dh, cast to the
     compute dtype) and an fp32 (B, M) additive key bias. Returns (B, N, C)."""
+    norms = (qn_gamma, qn_beta, kn_gamma, kn_beta)
     if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, num_heads, bias, qn_gamma, qn_beta,
-                               kn_gamma, kn_beta, eps, allow_zero_attn)
-    out = _heads_launch("flash_mha", q, k, v, num_heads, bias,
-                        (qn_gamma, qn_beta, kn_gamma, kn_beta), eps, allow_zero_attn)
+        return flash_mha_plain(q, k, v, num_heads, bias, *norms, eps, allow_zero_attn)
+    _heads_checks("flash_mha", q, k, v, num_heads, bias, norms)
+    out = _heads_launch("flash_mha", q, k, v, num_heads, bias, norms, eps, allow_zero_attn)
     flash_mha.launches += 1
     return out
 
@@ -168,6 +189,11 @@ flash_mha.launches = 0
 def _split3(qkv: torch.Tensor):
     C = qkv.shape[-1] // 3
     return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+
+def mha_short_takes(qkv: torch.Tensor, num_heads: int) -> bool:
+    """flash_mha_takes on the three column slices of a fused QKV output."""
+    return flash_mha_takes(*_split3(qkv), num_heads)
 
 
 def mha_short_plain(qkv, num_heads: int, bias=None, allow_zero_attn: bool = False):
@@ -182,6 +208,7 @@ def mha_short(qkv: torch.Tensor, num_heads: int, bias: Optional[torch.Tensor] = 
     slices of `qkv` to the attention.cu kernel, as flash_mha does."""
     if qkv.device.type == "cpu":
         return mha_short_plain(qkv, num_heads, bias, allow_zero_attn)
+    _heads_checks("mha_short", *_split3(qkv), num_heads, bias, (None,) * 4)
     out = _heads_launch("mha_short", *_split3(qkv), num_heads, bias, (None,) * 4, 1e-6,
                         allow_zero_attn)
     mha_short.launches += 1
@@ -191,15 +218,19 @@ def mha_short(qkv: torch.Tensor, num_heads: int, bias: Optional[torch.Tensor] = 
 mha_short.launches = 0
 
 
-def attn_block_takes(N: int, C: int, device: torch.device) -> bool:
+def attn_block_takes(N: int, C: int, device: torch.device,
+                     num_heads: Optional[int] = None) -> bool:
     """Whether attn_block holds a sequence of N tokens of width C on
     `device`: the port's counterpart of the JAX package's VMEM estimate for
-    pallas_attn_block (ops/transformer.py:474-482). On CUDA the kernel's own
-    library answers (csrc/attn_block.cu keeps q, k and v of one image and
-    head in shared memory, which bounds N: 400 at C = 768). The plain twin
-    takes any N."""
+    pallas_attn_block (ops/transformer.py:474-482). On CUDA the kernel takes
+    C in 512 / 768 / 1024 over heads of 64 (num_heads, when given), and its
+    own library answers for N (csrc/attn_block.cu keeps q, k and v of one
+    image and head in shared memory, which bounds N: 400 at C = 768). The
+    plain twin takes any N and C."""
     if torch.device(device).type == "cpu":
         return True
+    if C not in (512, 768, 1024) or (num_heads is not None and C != 64 * num_heads):
+        return False
     from . import _build
 
     return bool(_build.entry("attn_block_fits")(N, C))
@@ -229,23 +260,20 @@ def attn_block(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor
                                 bias, eps, allow_zero_attn)
     name = "attn_block"
     dev = require_cuda(name, x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, bias)
-    require_bf16(name, x, w_qkv, w_proj)
     require(x.ndim == 3, f"{name}: x must be (B, N, C), got {tuple(x.shape)}")
     B, N, C = x.shape
-    require(C in (512, 768, 1024) and C == 64 * num_heads,
-            f"{name}: C={C} over {num_heads} heads (the kernel takes Dh=64, C in 512/768/1024)")
-    require(attn_block_takes(N, C, dev), f"{name}: N={N} does not fit shared memory at C={C}")
     require(tuple(w_qkv.shape) == (3 * C, C) and tuple(w_proj.shape) == (C, C),
             f"{name}: w_qkv must be ({3 * C}, {C}) and w_proj ({C}, {C})")
-    require(all(t.is_contiguous() for t in (x, w_qkv, w_proj)), f"{name}: inputs must be contiguous")
-    require(aligned(x, 16) and aligned(w_qkv, 32) and aligned(w_proj, 32),
-            f"{name}: pointers misaligned")
-    require(x.numel() < 2**31, f"{name}: too large")
     if bias is not None:
         require(bias.dtype == torch.float32 and tuple(bias.shape) == (B, N)
                 and bias.is_contiguous(),
                 f"{name}: bias must be contiguous fp32 ({B}, {N}), got {bias.dtype} "
                 f"{tuple(bias.shape)}")
+    require_takes(name, all_bf16(x, w_qkv, w_proj)
+                  and all(t.is_contiguous() for t in (x, w_qkv, w_proj))
+                  and aligned(x, 16) and aligned(w_qkv, 32) and aligned(w_proj, 32)
+                  and x.numel() < 2**31 and attn_block_takes(N, C, dev, num_heads),
+                  x, w_qkv, w_proj)
     # fp32 copies stay referenced until the launch is queued
     g32, be32, bq32, bp32 = f32(gamma), f32(beta), f32(b_qkv), f32(b_proj)
     scratch = torch.empty_like(x)

@@ -4,9 +4,10 @@ torch.autograd.Function whose forward and backward are CUDA kernels
 
 Counterpart of fourm_tpu/kernels/attention_bwd.py: the forward is
 _train_fwd_call, the backward _train_bwd_call, the Function their
-custom_vjp `attention_train`, and `attention_train_takes` the shape gate
-fused_train_attention_eligible. The bias is a constant mask (fp32, none,
-key-only (B, 1, 1, M) or full (B, 1, N, M)); its gradient is None.
+custom_vjp `attention_train`, and `attention_train_takes` the gate
+fused_train_attention_eligible, by dtype and shape. The bias is a constant
+mask (fp32, none, key-only (B, 1, 1, M) or full (B, 1, N, M)); its gradient
+is None.
 
 The plain twins follow the TPU kernels' arithmetic (attention_bwd.py:67-139):
 logits q k^T in fp32, scale then bias, softmax (or softmax1) in fp32,
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import aligned, ptr, require, require_bf16, require_cuda, stream
+from ._checks import aligned, all_bf16, ptr, require, require_cuda, require_takes, stream
 from .attention import softmax1
 
 HEAD_DIM = 64  # TR_DH of csrc/attention_train.cu: the only head dim the kernels take
@@ -73,17 +74,18 @@ def _bias_mode(bias, B: int, N: int, M: int) -> Optional[str]:
 
 def attention_train_takes(q: torch.Tensor, k: torch.Tensor,
                           bias: Optional[torch.Tensor]) -> bool:
-    """Whether attention_train holds this problem, by shape only: the port's
-    counterpart of fused_train_attention_eligible (attention_bwd.py:282).
-    The bias must be none, key-only or full, with one head row. On CUDA the
-    head dim must be HEAD_DIM; N and M are free (csrc/attention_train.cu
-    streams K/V and query tiles through fixed shared memory, checked at
-    compile time). The twins take any shape. A refused problem takes the
-    plain autograd path."""
+    """Whether attention_train holds this problem, by dtype and shape: the
+    port's counterpart of fused_train_attention_eligible
+    (attention_bwd.py:282). The bias must be none, key-only or full, with
+    one head row. On CUDA q and k must be bf16 and the head dim HEAD_DIM; N
+    and M are free (csrc/attention_train.cu streams K/V and query tiles
+    through fixed shared memory, checked at compile time). The twins take
+    any dtype and shape. A refused problem takes the plain autograd path
+    (ops/transformer.py:dot_product_attention)."""
     B, _, N, Dh = q.shape
     if _bias_mode(bias, B, N, k.shape[2]) is None:
         return False
-    return q.device.type == "cpu" or Dh == HEAD_DIM
+    return q.device.type == "cpu" or (Dh == HEAD_DIM and all_bf16(q, k))
 
 
 def _strides_ok(t: torch.Tensor) -> bool:
@@ -119,7 +121,7 @@ def _dims(q, k, v, o, do, dq, dk, dv, bias, mode):
 
 def _checked(name, q, k, v, bias):
     dev = require_cuda(name, q, k, v, bias)
-    require_bf16(name, q, k, v)
+    require_takes(name, all_bf16(q, k, v), q, k, v)
     B, H, N, Dh = q.shape
     M = k.shape[2]
     require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
@@ -163,7 +165,7 @@ def attention_train_bwd(q, k, v, bias, o, stats, do):
     """Backward kernels: (dq, dk, dv), each of its input's shape and dtype."""
     name = "attention_train_bwd"
     dev, mode = _checked(name, q, k, v, bias)
-    require_bf16(name, o, do)
+    require_takes(name, all_bf16(o, do), o, do)
     q, k, v, o, do = (_usable(t) for t in (q, k, v, o, do))
     dq = _heads_first(q.shape, q.dtype, dev)
     dk = _heads_first(k.shape, k.dtype, dev)

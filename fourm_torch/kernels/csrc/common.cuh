@@ -1,11 +1,12 @@
 // Shared helpers for the fourm_torch Hopper kernels (sm_90a).
 //
 // Every kernel here takes bf16 activations and weights and keeps statistics
-// and sums in fp32. The many-row kernels compute their products with WMMA
-// 16x16x16 bf16 fragments (tensor cores, fp32 accumulation); the decode-step
-// kernels, one token per batch row, with fp32 FMAs. The C entry points
-// return cudaGetLastError() so the Python wrapper can raise on a refused
-// launch.
+// and sums in fp32. The many-row attention kernels compute their products
+// with WMMA 16x16x16 bf16 fragments (tensor cores, fp32 accumulation);
+// ln_matmul and ln_mlp with gemm_sm90.cuh's TMA-fed wgmma GEMM; the
+// decode-step kernels, one token per batch row, with fp32 FMAs. The C entry
+// points return cudaGetLastError() so the Python wrapper can raise on a
+// refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,9 +103,10 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
 }
 
 // LayerNorm of one bf16 row of C values (C % 8 == 0, 16-byte aligned) by
-// one warp, into `out` (shared memory) as bf16: fp32 mean, then fp32 mean of
-// squared deviations, y = (x - mean) * rsqrt(var + eps) * g (+ b), one
-// rounding -- the order of fused_mlp.py:_ln. A null x writes zeros.
+// one warp, into `out` (shared or device memory, 16-byte aligned) as bf16:
+// fp32 mean, then fp32 mean of squared deviations, y = (x - mean) *
+// rsqrt(var + eps) * g (+ b), one rounding -- the order of
+// fused_mlp.py:_ln. A null x writes zeros.
 __device__ __forceinline__ void warp_ln_row(const bf16* __restrict__ x, int C,
                                             const void* g, const void* b, int pbf,
                                             float eps, bf16* out) {

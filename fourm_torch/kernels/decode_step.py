@@ -16,8 +16,9 @@ DecoderBlock._fused_step with every kernel on (transformer.py:940-1013):
 `quantize_kv_decode` is the JAX package's function of that name (plain
 jnp there, plain torch here). Each wrapper launches its CUDA kernels
 (csrc/self_decode.cu, csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA
-tensors, counting launches in `<wrapper>.launches`, and computes its plain
-PyTorch twin for CPU tensors.
+tensors, counting launches in `<wrapper>.launches`, and raises on a call its
+predicate (`<wrapper>_takes`) refuses; it computes its plain PyTorch twin
+for CPU tensors.
 
 Layout: the port keeps caches and cross K/V as (B, H, L|M, Dh), each key one
 128-byte row, not the TPU's (B, H, Dh, L) lane layout. Weights use the
@@ -37,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from ._checks import ptr, require, require_bf16, require_cuda, small_params, stream
+from ._checks import (aligned, all_bf16, ptr, require, require_cuda, require_takes,
+                      small_params, stream)
 from .attention import softmax1
 from .fused_mlp import _mm, layer_norm_fp32, ln_mlp_plain
 
@@ -85,6 +87,17 @@ def self_decode_plain(x, gamma1, beta1, w_qkv, b_qkv, qn_gamma, qn_beta, kn_gamm
     return out.reshape(B, C).to(x.dtype)
 
 
+def self_decode_takes(x: torch.Tensor, w_qkv: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, num_heads: int) -> bool:
+    """Whether csrc/self_decode.cu takes the step, from dtypes and shapes
+    alone: bf16 x, w_qkv and caches, heads of 64, C <= 2048 and a multiple
+    of 8, contiguous tensors, a cache of at most 8192 positions."""
+    C, L = x.shape[-1], cache_k.shape[2]
+    return (all_bf16(x, w_qkv, cache_k, cache_v) and C == 64 * num_heads and C % 8 == 0
+            and C <= 2048 and all(t.is_contiguous() for t in (x, w_qkv, cache_k, cache_v))
+            and L <= 8192 and cache_k.numel() < 2**31)
+
+
 def self_decode(x: torch.Tensor, gamma1, beta1, w_qkv: torch.Tensor, b_qkv, qn_gamma,
                 qn_beta, kn_gamma, kn_beta, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 step_idx: torch.Tensor, num_heads: int, eps: float = 1e-6,
@@ -107,23 +120,20 @@ def self_decode(x: torch.Tensor, gamma1, beta1, w_qkv: torch.Tensor, b_qkv, qn_g
     name = "self_decode"
     dev = require_cuda(name, x, w_qkv, cache_k, cache_v, step_idx, gamma1, beta1, b_qkv,
                        qn_gamma, qn_beta, kn_gamma, kn_beta)
-    require_bf16(name, x, w_qkv, cache_k, cache_v)
     B, C = x.shape
     H = num_heads
     Dh = C // H
     L = cache_k.shape[2]
-    require(Dh * H == C and Dh == 64 and C % 8 == 0 and C <= 2048,
-            lambda: f"{name}: C={C} over {H} heads (Dh must be 64, C <= 2048)")
+    require(Dh * H == C, lambda: f"{name}: C={C} over {H} heads")
     require(tuple(w_qkv.shape) == (3 * C, C), lambda: f"{name}: w_qkv must be ({3 * C}, {C})")
     require(tuple(cache_k.shape) == (B, H, L, Dh) and tuple(cache_v.shape) == (B, H, L, Dh),
             lambda: f"{name}: caches must be ({B}, {H}, L, {Dh})")
-    require(all(t.is_contiguous() for t in (x, w_qkv, cache_k, cache_v)),
-            lambda: f"{name}: x, w_qkv and the caches must be contiguous")
-    require(L <= 8192 and cache_k.numel() < 2**31, lambda: f"{name}: cache too long")
     require(step_idx.dtype == torch.int32 and step_idx.numel() == 1,
             lambda: f"{name}: step_idx must be a one-element int32 tensor")
     require(qn_gamma is None or kn_gamma is not None,
             lambda: f"{name}: QK-norm needs both gammas")
+    require_takes(name, self_decode_takes(x, w_qkv, cache_k, cache_v, num_heads),
+                  x, w_qkv, cache_k, cache_v)
     ps, pbf = small_params(gamma1, beta1, b_qkv, qn_gamma, qn_beta, kn_gamma, kn_beta)
     out = torch.empty((B, C), dtype=torch.bfloat16, device=dev)
     from . import _build
@@ -158,25 +168,34 @@ def _row_strides_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _decode_checks(name: str, q, k, v, bias, int8: bool):
-    """Shape, dtype and stride checks of the split-K decode kernel; returns
-    the device and the bias strides (0 where it broadcasts)."""
-    dev = require_cuda(name, q, k, v, bias)
-    require_bf16(name, q)
+def decode_attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           int8: bool = False) -> bool:
+    """Whether the split-K kernel of csrc/decode_attn.cu takes the call, from
+    dtypes and shapes alone: bf16 q, bf16 K/V (int8 in the int8 mode), head
+    dim 64, K/V rows contiguous with strides that are multiples of 8 and
+    16-byte aligned (a lane reads 8 values of a row at once), at least one
+    key."""
     kv_dtype = torch.int8 if int8 else torch.bfloat16
-    require(k.dtype == kv_dtype and v.dtype == kv_dtype,
-            lambda: f"{name}: K/V must be {kv_dtype}, got {k.dtype}/{v.dtype}")
+    return (all_bf16(q) and k.dtype == kv_dtype and v.dtype == kv_dtype and q.shape[-1] == 64
+            and q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v)
+            and k.shape[2] > 0
+            and max(t.storage_offset() + sum((d - 1) * s for d, s in zip(t.shape, t.stride()))
+                    for t in (k, v)) < 2**31)
+
+
+def _decode_checks(name: str, q, k, v, bias, int8: bool):
+    """Checks of the split-K decode kernel (decode_attention_takes, matching
+    shapes, an fp32 (B|1, 1|H, M) bias); returns the device and the bias
+    strides (0 where it broadcasts)."""
+    dev = require_cuda(name, q, k, v, bias)
+    require(not int8 or k.dtype == v.dtype == torch.int8,
+            lambda: f"{name}: K/V must be int8, got {k.dtype}/{v.dtype}")
+    require_takes(name, decode_attention_takes(q, k, v, int8), q, *(() if int8 else (k, v)))
     B, H, N, Dh = q.shape
     M = k.shape[2]
-    require(N == 1 and Dh == 64,
-            lambda: f"{name}: q must be (B, H, 1, 64), got {tuple(q.shape)}")
+    require(N == 1, lambda: f"{name}: q must be (B, H, 1, Dh), got {tuple(q.shape)}")
     require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
             lambda: f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
-    # a lane reads 8 values of a row at once: 16 bytes of bf16, 8 of int8
-    require(q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v),
-            lambda: f"{name}: k/v rows must be contiguous, strides % 8 == 0, aligned")
-    require(max(t.storage_offset() + sum((d - 1) * s for d, s in zip(t.shape, t.stride()))
-                for t in (k, v)) < 2**31 and M > 0, lambda: f"{name}: too large")
     bs = (0, 0, 0)
     if bias is not None:
         require(bias.dtype == torch.float32 and bias.ndim == 3 and bias.shape[-1] == M
@@ -288,7 +307,7 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev, bs = _decode_checks(name, q, k, v, bias, int8=True)
     B, H, _, Dh = q.shape
     require(all(t.dtype == torch.float32 and tuple(t.shape) == (B, H, Dh) and t.is_contiguous()
-                and t.get_device() == dev.index for t in (k_scale, v_scale)),
+                and t.device == dev for t in (k_scale, v_scale)),
             lambda: f"{name}: scales must be contiguous fp32 ({B}, {H}, {Dh}) on {dev}")
     out = _launch_decode(name, q, k, v, k_scale, v_scale, bias, allow_zero_attn, False, dev, bs)
     decode_attention_int8.launches += 1
@@ -323,6 +342,16 @@ def cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def cross_decode_attn_takes(x: torch.Tensor, w_q: torch.Tensor, num_heads: int) -> bool:
+    """Whether the q prologue of csrc/decode_attn.cu takes the step, from
+    dtypes and shapes alone: bf16 x and w_q, heads of 64, C <= 2048 and a
+    multiple of 8, contiguous x and w_q. The attention core then checks
+    decode_attention_takes."""
+    C = x.shape[-1]
+    return (all_bf16(x, w_q) and C == 64 * num_heads and C % 8 == 0 and C <= 2048
+            and x.is_contiguous() and w_q.is_contiguous())
+
+
 def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q,
                       cqn_gamma, cqn_beta, k: torch.Tensor, v: torch.Tensor,
                       bias: Optional[torch.Tensor], num_heads: int, eps: float = 1e-6,
@@ -344,16 +373,13 @@ def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q
     name = "cross_decode_attn"
     dev = require_cuda(name, x, w_q, k, v, bias, qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta,
                        k_scale, v_scale)
-    require_bf16(name, x, w_q)
     B, C = x.shape
     H = num_heads
     Dh = C // H
-    require(Dh * H == C and Dh == 64 and C % 8 == 0 and C <= 2048,
-            lambda: f"{name}: C={C} over {H} heads (Dh must be 64, C <= 2048)")
+    require(Dh * H == C, lambda: f"{name}: C={C} over {H} heads")
     require(tuple(w_q.shape) == (C, C), lambda: f"{name}: w_q must be ({C}, {C})")
-    require(x.is_contiguous() and w_q.is_contiguous(),
-            lambda: f"{name}: x and w_q must be contiguous")
     require(bias is None or bias.ndim == 2, lambda: f"{name}: bias must be (B, M)")
+    require_takes(name, cross_decode_attn_takes(x, w_q, num_heads), x, w_q)
     ps, pbf = small_params(qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
     q = torch.empty((B, H, 1, Dh), dtype=torch.bfloat16, device=dev)
     from . import _build
@@ -382,6 +408,18 @@ def residual_mlp_plain(x, attn, w_proj, b_proj, gamma2, beta2, w1, b1, w2, b2, w
     return ln_mlp_plain(x1, gamma2, beta2, w1, b1, w2, b2, w3, b3, eps, gated)
 
 
+def residual_mlp_takes(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor,
+                       w1: torch.Tensor, w2: torch.Tensor,
+                       w3: Optional[torch.Tensor] = None) -> bool:
+    """Whether csrc/residual_mlp.cu takes the step, from dtypes and shapes
+    alone: bf16 tensors, C <= 2048 and a multiple of 8, any hidden width up
+    to 8192, contiguous 16-byte aligned tensors."""
+    C, HID = x.shape[-1], w1.shape[0]
+    ts = [t for t in (x, attn, w_proj, w1, w2, w3) if t is not None]
+    return (all_bf16(*ts) and C % 8 == 0 and C <= 2048 and 0 < HID <= 8192
+            and all(t.is_contiguous() and aligned(t, 16) for t in ts))
+
+
 def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_proj,
                  gamma2, beta2, w1: torch.Tensor, b1, w2: torch.Tensor, b2,
                  w3: Optional[torch.Tensor] = None, b3=None, eps: float = 1e-6,
@@ -395,21 +433,16 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
                                   w3, b3, eps, gated)
     name = "residual_mlp"
     dev = require_cuda(name, x, attn, w_proj, w1, w2, w3, b_proj, gamma2, beta2, b1, b2, b3)
-    require_bf16(name, x, attn, w_proj, w1, w2, w3)
     B, C = x.shape
     HID = w1.shape[0]
-    require(C % 8 == 0 and C <= 2048 and 0 < HID <= 8192,
-            lambda: f"{name}: C={C}, HID={HID}: C must be a multiple of 8, C <= 2048, "
-            "HID <= 8192")
     require(tuple(attn.shape) == (B, C) and tuple(w_proj.shape) == (C, C)
             and tuple(w1.shape) == (HID, C) and tuple(w2.shape) == (C, HID),
             lambda: f"{name}: shapes attn {tuple(attn.shape)}, w_proj {tuple(w_proj.shape)}, "
             f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     require(not gated or (w3 is not None and tuple(w3.shape) == (HID, C)),
             lambda: f"{name}: gated needs w3 of shape ({HID}, {C})")
-    tensors = [x, attn, w_proj, w1, w2] + ([w3] if gated else [])
-    require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors),
-            lambda: f"{name}: inputs must be contiguous and 16-byte aligned")
+    require_takes(name, residual_mlp_takes(x, attn, w_proj, w1, w2, w3 if gated else None),
+                  x, attn, w_proj, w1, w2, w3 if gated else None)
     ps, pbf = small_params(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
     x1 = torch.empty_like(x)
     hid = torch.empty((B, -(-HID // 8) * 8), dtype=torch.bfloat16, device=dev)  # rows of 16 B

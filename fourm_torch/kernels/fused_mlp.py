@@ -4,7 +4,8 @@ Counterparts of fourm_tpu/kernels/fused_mlp.py: `ln_matmul` is
 pallas_ln_matmul (the pre-norm QKV projection), `ln_mlp` is pallas_ln_mlp
 (the MLP half of a block). Each wrapper launches its CUDA kernel
 (csrc/ln_matmul.cu, csrc/ln_mlp.cu) for CUDA tensors, counting launches in
-`<wrapper>.launches`, and computes its plain PyTorch twin for CPU tensors.
+`<wrapper>.launches`, and raises on a call its predicate (`ln_matmul_takes`,
+`ln_mlp_takes`) refuses; it computes its plain PyTorch twin for CPU tensors.
 
 Weights use the nn.Linear layout (out_features, in_features), as the port's
 modules hold them. The twins follow the TPU kernels' arithmetic: LN
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._checks import aligned, f32, ptr, require, require_bf16, require_cuda, stream
+from ._checks import aligned, all_bf16, f32, ptr, require, require_cuda, require_takes, stream
 
 
 def layer_norm_fp32(x32: torch.Tensor, gamma, beta, eps: float) -> torch.Tensor:
@@ -47,6 +48,16 @@ def ln_matmul_plain(x, gamma, beta, w, b=None, eps: float = 1e-6) -> torch.Tenso
     return _mm(h, w, b).to(w.dtype)
 
 
+def ln_matmul_takes(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether csrc/ln_matmul.cu takes LN(x) @ w.T, from dtypes, shapes and
+    alignment alone: bf16 x and w, D and F multiples of 8 (TMA's 16-byte
+    row strides), contiguous 16-byte aligned x and w, at least one row."""
+    D, Fo = x.shape[-1], w.shape[0]
+    return (all_bf16(x, w) and D % 8 == 0 and Fo % 8 == 0 and x.numel() > 0
+            and x.is_contiguous() and w.is_contiguous() and aligned(x, 16) and aligned(w, 16)
+            and x.numel() // D * max(D, Fo) < 2**31)
+
+
 def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
               w: torch.Tensor, b: Optional[torch.Tensor] = None,
               eps: float = 1e-6) -> torch.Tensor:
@@ -56,22 +67,18 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor]
         return ln_matmul_plain(x, gamma, beta, w, b, eps)
     name = "ln_matmul"
     dev = require_cuda(name, x, gamma, beta, w, b)
-    require_bf16(name, x, w)
     D = x.shape[-1]
     Fo = w.shape[0]
     require(w.shape == (Fo, D), f"{name}: w must be (F, {D}), got {tuple(w.shape)}")
-    require(x.is_contiguous() and w.is_contiguous(), f"{name}: x and w must be contiguous")
-    require(D % 16 == 0 and D <= 2048, f"{name}: D={D} must be a multiple of 16, <= 2048")
-    require(Fo % 16 == 0, f"{name}: F={Fo} must be a multiple of 16")
-    require(aligned(x, 16) and aligned(w, 32), f"{name}: x/w pointers misaligned")
-    require(x.numel() < 2**31 and x.numel() // D * Fo < 2**31, f"{name}: too large")
+    require_takes(name, ln_matmul_takes(x, w), x, w)
     M = x.numel() // D
+    h = torch.empty_like(x)  # the LN prologue's output, the GEMM's A operand
     out = torch.empty(x.shape[:-1] + (Fo,), dtype=torch.bfloat16, device=dev)
     g32, b32, bias32 = f32(gamma), f32(beta), f32(b)
     from . import _build
 
-    code = _build.entry(name)(ptr(x), ptr(g32), ptr(b32), ptr(w), ptr(bias32), ptr(out),
-                              M, D, Fo, float(eps), stream(dev))
+    code = _build.entry(name)(ptr(x), ptr(g32), ptr(b32), ptr(w), ptr(bias32), ptr(h),
+                              ptr(out), M, D, Fo, float(eps), stream(dev))
     _build.check(name, code)
     ln_matmul.launches += 1
     return out
@@ -93,6 +100,20 @@ def ln_mlp_plain(x, gamma, beta, w1, b1, w2, b2, w3=None, b3=None,
     return x + out.to(x.dtype)
 
 
+def ln_mlp_takes(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                 w3: Optional[torch.Tensor] = None) -> bool:
+    """Whether csrc/ln_mlp.cu takes x + fc2(act(fc1(LN x))), from dtypes,
+    shapes and alignment alone: bf16 x, w1, w2 (and w3), D a multiple of 8,
+    any hidden width, contiguous 16-byte aligned tensors, at least one
+    row."""
+    D, HID = x.shape[-1], w1.shape[0]
+    hid8 = -(-HID // 8) * 8
+    ts = [t for t in (x, w1, w2, w3) if t is not None]
+    return (all_bf16(*ts) and D % 8 == 0 and HID >= 1 and x.numel() > 0
+            and all(t.is_contiguous() and aligned(t, 16) for t in ts)
+            and x.numel() // D * max(D, hid8) < 2**31)
+
+
 def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
            w1: torch.Tensor, b1: Optional[torch.Tensor], w2: torch.Tensor,
            b2: Optional[torch.Tensor], w3: Optional[torch.Tensor] = None,
@@ -100,32 +121,27 @@ def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
            gated: bool = False) -> torch.Tensor:
     """x + fc2(act(fc1(LN x))) over (..., D) rows. w1, w3: (HID, D); w2:
     (D, HID). act is silu(fc1) * fc3 when gated, else exact GELU. Returns
-    x.shape in x.dtype. HID a multiple of the kernel's hidden chunk (64;
-    128 at D = 2048), or, gated at D = 1024 or 2048, any HID >= 16: SwiGLU's
-    ragged width at 4M-L / 4M-XL (2730, 5461) takes the kernel's predicated
-    tail, with the weights as they are."""
+    x.shape in x.dtype. Any hidden width: when HID is not a multiple of 8
+    (SwiGLU's int(2 * 4D / 3): 1365, 2730, 5461) the kernel reads a copy of
+    w2 zero-padded to a multiple of 8, made on each call; the module's
+    parameters keep their shapes."""
     if x.device.type == "cpu":
         return ln_mlp_plain(x, gamma, beta, w1, b1, w2, b2, w3, b3, eps, gated)
     name = "ln_mlp"
     dev = require_cuda(name, x, gamma, beta, w1, b1, w2, b2, w3, b3)
-    require_bf16(name, x, w1, w2, w3)
     D = x.shape[-1]
     HID = w1.shape[0]
-    require(D in (256, 512, 768, 1024, 2048), f"{name}: D={D} not one of 256/512/768/1024/2048")
-    chunk = 128 if D == 2048 else 64
-    require(HID % chunk == 0 or (gated and D in (1024, 2048) and HID >= 16),
-            f"{name}: hidden width {HID} must be a multiple of {chunk} (any width >= 16 "
-            "only for a gated MLP at D = 1024 or 2048)")
     require(tuple(w1.shape) == (HID, D) and tuple(w2.shape) == (D, HID),
             f"{name}: w1 must be ({HID}, {D}) and w2 ({D}, {HID})")
     require(not gated or (w3 is not None and tuple(w3.shape) == (HID, D)),
             f"{name}: gated needs w3 of shape ({HID}, {D})")
-    tensors = [x, w1, w2] + ([w3] if gated else [])
-    require(all(t.is_contiguous() for t in tensors), f"{name}: inputs must be contiguous")
-    require(aligned(x, 16) and all(aligned(t, 32) for t in tensors[1:]),
-            f"{name}: pointers misaligned")
-    require(x.numel() < 2**31, f"{name}: too large")
+    require_takes(name, ln_mlp_takes(x, w1, w2, w3 if gated else None), x, w1, w2,
+                  w3 if gated else None)
     M = x.numel() // D
+    hid8 = -(-HID // 8) * 8
+    w2k = w2 if hid8 == HID else F.pad(w2, (0, hid8 - HID))  # TMA's 16-byte row stride
+    h = torch.empty_like(x)  # the LN prologue's output
+    act = torch.empty((M, hid8), dtype=torch.bfloat16, device=dev)  # the hidden activation
     out = torch.empty_like(x)
     # fp32 copies stay referenced until the launch is queued
     g32, be32, b1_32, b2_32 = f32(gamma), f32(beta), f32(b1), f32(b2)
@@ -134,8 +150,8 @@ def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
 
     code = _build.entry(name)(
         ptr(x), ptr(g32), ptr(be32), ptr(w1), ptr(b1_32),
-        ptr(w3 if gated else None), ptr(b3_32), ptr(w2),
-        ptr(b2_32), ptr(out), M, D, HID, int(gated), float(eps), stream(dev))
+        ptr(w3 if gated else None), ptr(b3_32), ptr(w2k), ptr(b2_32), ptr(h), ptr(act),
+        ptr(out), M, D, HID, int(gated), float(eps), stream(dev))
     _build.check(name, code)
     ln_mlp.launches += 1
     return out

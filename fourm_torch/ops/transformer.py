@@ -17,16 +17,20 @@ teachers) takes `mha_short` on the same short, unnormed, key-masked cases.
 A KV-cached decode step (`DecoderBlock.step`) goes through `self_decode`,
 `cross_decode_attn` (bf16 or int8 cross K/V) and `residual_mlp`. On CUDA tensors those launch the
 hand-written kernels; on CPU tensors they compute their plain twins, which
-equal the XLA path of the JAX package up to summation order. Parameters may be held in any float
+equal the XLA path of the JAX package up to summation order. The kernels
+take bf16 alone: a model that computes in another dtype calls the plain
+twins on the card too (`_kernels`), and a wrapper raises on any call its
+kernel does not take. Parameters may be held in any float
 dtype; like the JAX modules, each product casts them to the compute dtype.
 
 The training forward (`train=True`, the counterpart of JAX's
 `deterministic=False`, passed down explicitly: nn.Module.training is not
 read) is differentiable end to end: LayerNorms as plain fp32 ops, products
 as `_dense`, the MLPs as `Mlp` / `GatedMlp`, every attention core through
-`attention_train` (forward and backward kernels) unless its shape gate
-refuses the problem, and each branch through `DropPath` before its residual
-add (transformer.py:821-824, :878-885). The inference kernels have no
+`attention_train` (forward and backward kernels) unless its gate (bf16,
+the bias layout, the head dim) refuses the problem, and each branch
+through `DropPath` before its residual add (transformer.py:821-824,
+:878-885). The inference kernels have no
 backward and never run in a train step.
 """
 
@@ -38,12 +42,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import attention, attn_block, attn_block_takes, flash_mha, mha_short
+from ..kernels.attention import (attention, attention_plain, attn_block, attn_block_plain,
+                                 attn_block_takes, flash_mha, flash_mha_plain, mha_short,
+                                 mha_short_plain)
 from ..kernels.attention import softmax1  # noqa: F401  (re-exported, as in fourm_tpu)
 from ..kernels.attention_train import (attention_train, attention_train_fwd_plain,
                                        attention_train_takes)
-from ..kernels.decode_step import cross_decode_attn, residual_mlp, self_decode
-from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_mlp
+from ..kernels.decode_step import (cross_decode_attn, cross_decode_attn_plain, residual_mlp,
+                                   residual_mlp_plain, self_decode, self_decode_plain)
+from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_matmul_plain, ln_mlp, ln_mlp_plain
 
 # Finite fill for masked logits (reference masked_fill(-finfo.max), fm_utils.py:168):
 # a fully masked row gets uniform weights instead of NaN.
@@ -72,16 +79,29 @@ def _key_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return torch.where(m2, MASK_FILL_VALUE, 0.0).to(torch.float32)
 
 
+def _kernels(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """The block layer's one route, the counterpart of the JAX package's
+    _fused_eligible -> XLA (ops/transformer.py:732-754): a block that
+    computes in bf16 calls the kernel wrappers (on the card their CUDA
+    kernels, which raise on a call they do not take; on the CPU their plain
+    twins). A block that computes in another dtype, such as a float32
+    model, calls the plain twins itself on the card: the kernels are built
+    for bf16 alone."""
+    return dtype == torch.bfloat16 or x.device.type == "cpu"
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           allow_zero_attn: bool = False, train: bool = False) -> torch.Tensor:
     """Attention core. q, k, v: (B, H, N|M, Dh); bias fp32 (B, 1|H, N|1, M).
     Inference goes through the `attention` kernel (its plain twin on the
-    CPU). `train` makes it differentiable: `attention_train` where its shape
-    gate takes the problem, else the plain autograd ops (as JAX falls back
-    to XLA, ops/transformer.py:256-264)."""
+    CPU, or for a compute dtype other than bf16). `train` makes it
+    differentiable: `attention_train` where its gate takes the problem (bf16
+    on the card), else the plain autograd ops (as JAX falls back to XLA,
+    ops/transformer.py:256-264)."""
     if not train:
-        return attention(q, k, v, bias, allow_zero_attn)
+        return (attention if _kernels(q, q.dtype) else attention_plain)(
+            q, k, v, bias, allow_zero_attn)
     if attention_train_takes(q, k, bias):
         return attention_train(q, k, v, bias, allow_zero_attn)
     return attention_train_fwd_plain(q, k, v, bias, allow_zero_attn)
@@ -192,8 +212,9 @@ class Attention(nn.Module):
                                         train=True)
             return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
         if self._short(N, mask):
-            out = mha_short(_dense(x, self.qkv, self.dtype), self.num_heads, _key_bias(mask),
-                            self.allow_zero_attn)
+            out = (mha_short if _kernels(x, self.dtype) else mha_short_plain)(
+                _dense(x, self.qkv, self.dtype), self.num_heads, _key_bias(mask),
+                self.allow_zero_attn)
             return _dense(out, self.proj, self.dtype)
         q, k, v = self._split_qkv(x)
         out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
@@ -213,21 +234,25 @@ class Attention(nn.Module):
         if mask is not None and mask.ndim == 3 and mask.shape[1] != 1:
             return x + self.forward(norm(x), mask)
         w = self.qkv.weight.to(self.dtype)
-        if self._short(N, mask) and attn_block_takes(N, C, x.device):
-            return attn_block(x, norm.weight, norm.bias, w, self.qkv.bias,
-                              self.proj.weight.to(self.dtype), self.proj.bias, self.num_heads,
-                              _key_bias(mask), eps=norm.eps, allow_zero_attn=self.allow_zero_attn)
-        qkv = ln_matmul(x, norm.weight, norm.bias, w, self.qkv.bias, eps=norm.eps)
+        kern = _kernels(x, self.dtype)
+        if self._short(N, mask) and (not kern or attn_block_takes(N, C, x.device, self.num_heads)):
+            return (attn_block if kern else attn_block_plain)(
+                x, norm.weight, norm.bias, w, self.qkv.bias, self.proj.weight.to(self.dtype),
+                self.proj.bias, self.num_heads, _key_bias(mask), eps=norm.eps,
+                allow_zero_attn=self.allow_zero_attn)
+        qkv = (ln_matmul if kern else ln_matmul_plain)(x, norm.weight, norm.bias, w,
+                                                       self.qkv.bias, eps=norm.eps)
         if self._short(N, mask):
-            out = mha_short(qkv, self.num_heads, _key_bias(mask), self.allow_zero_attn)
+            out = (mha_short if kern else mha_short_plain)(qkv, self.num_heads, _key_bias(mask),
+                                                           self.allow_zero_attn)
             return x + _dense(out, self.proj, self.dtype)
         if self.qk_norm:
             qn = (self.q_norm.weight, self.q_norm.bias, self.k_norm.weight, self.k_norm.bias)
         else:
             qn = (None, None, None, None)
-        out = flash_mha(qkv[:, :, :C], qkv[:, :, C:2 * C], qkv[:, :, 2 * C:],
-                        self.num_heads, _key_bias(mask), *qn, eps=norm.eps,
-                        allow_zero_attn=self.allow_zero_attn)
+        out = (flash_mha if kern else flash_mha_plain)(
+            qkv[:, :, :C], qkv[:, :, C:2 * C], qkv[:, :, 2 * C:], self.num_heads,
+            _key_bias(mask), *qn, eps=norm.eps, allow_zero_attn=self.allow_zero_attn)
         return x + _dense(out, self.proj, self.dtype)
 
 
@@ -316,8 +341,9 @@ def _fused_ln_mlp(norm: LayerNorm, mlp: nn.Module, x: torch.Tensor, gated: bool)
     dt = mlp.dtype
     w3 = mlp.fc3.weight.to(dt) if gated else None
     b3 = mlp.fc3.bias if gated else None
-    return ln_mlp(x, norm.weight, norm.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias,
-                  mlp.fc2.weight.to(dt), mlp.fc2.bias, w3, b3, eps=norm.eps, gated=gated)
+    return (ln_mlp if _kernels(x, dt) else ln_mlp_plain)(
+        x, norm.weight, norm.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias, mlp.fc2.weight.to(dt),
+        mlp.fc2.bias, w3, b3, eps=norm.eps, gated=gated)
 
 
 class Block(nn.Module):
@@ -406,22 +432,23 @@ class DecoderBlock(nn.Module):
         sa, xa, mlp = self.self_attn, self.cross_attn, self.mlp
         dt = sa.dtype
         x2 = x_t[:, 0]
+        kern = _kernels(x2, dt)
         qk = ((sa.q_norm.weight, sa.q_norm.bias, sa.k_norm.weight, sa.k_norm.bias)
               if sa.qk_norm else (None,) * 4)
-        attn = self_decode(x2, self.norm1.weight, self.norm1.bias, sa.qkv.weight.to(dt),
-                           sa.qkv.bias, *qk, cache_k, cache_v, step_idx, sa.num_heads,
-                           eps=self.norm1.eps, allow_zero_attn=sa.allow_zero_attn)
+        attn = (self_decode if kern else self_decode_plain)(
+            x2, self.norm1.weight, self.norm1.bias, sa.qkv.weight.to(dt), sa.qkv.bias, *qk,
+            cache_k, cache_v, step_idx, sa.num_heads, eps=self.norm1.eps,
+            allow_zero_attn=sa.allow_zero_attn)
         x2 = x2 + _dense(attn, sa.proj, dt)
         cq = (xa.q_norm.weight, xa.q_norm.bias) if xa.qk_norm else (None, None)
-        attn_x = cross_decode_attn(x2, self.query_norm.weight, self.query_norm.bias,
-                                   xa.q.weight.to(dt), xa.q.bias, *cq, cross_k, cross_v,
-                                   xa_bias, xa.num_heads, eps=self.query_norm.eps,
-                                   allow_zero_attn=xa.allow_zero_attn, k_scale=k_scale,
-                                   v_scale=v_scale)
+        attn_x = (cross_decode_attn if kern else cross_decode_attn_plain)(
+            x2, self.query_norm.weight, self.query_norm.bias, xa.q.weight.to(dt), xa.q.bias,
+            *cq, cross_k, cross_v, xa_bias, xa.num_heads, eps=self.query_norm.eps,
+            allow_zero_attn=xa.allow_zero_attn, k_scale=k_scale, v_scale=v_scale)
         gated = self.gated_mlp
-        out = residual_mlp(x2, attn_x, xa.proj.weight.to(dt), xa.proj.bias, self.norm2.weight,
-                           self.norm2.bias, mlp.fc1.weight.to(dt), mlp.fc1.bias,
-                           mlp.fc2.weight.to(dt), mlp.fc2.bias,
-                           mlp.fc3.weight.to(dt) if gated else None,
-                           mlp.fc3.bias if gated else None, eps=self.norm2.eps, gated=gated)
+        out = (residual_mlp if kern else residual_mlp_plain)(
+            x2, attn_x, xa.proj.weight.to(dt), xa.proj.bias, self.norm2.weight, self.norm2.bias,
+            mlp.fc1.weight.to(dt), mlp.fc1.bias, mlp.fc2.weight.to(dt), mlp.fc2.bias,
+            mlp.fc3.weight.to(dt) if gated else None, mlp.fc3.bias if gated else None,
+            eps=self.norm2.eps, gated=gated)
         return out[:, None, :], cache_k, cache_v

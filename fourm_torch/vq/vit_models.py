@@ -4,13 +4,14 @@ Counterpart of the encoder side of fourm_tpu/vq/vit_models.py (reference
 fourm/vq/models/vit_models.py:338-501): patch projection (or a 1x1
 projection of a feature map), 2D sin-cos positions, pre-LN blocks, and the
 optional fp32 tanh post-MLP. The blocks are fourm_torch.ops.transformer's,
-so their halves run as `attn_block` and `ln_mlp`. A positional grid that
-differs from the encoder's resolution needs a bicubic resize, which is not
-ported yet.
+so their halves run as `attn_block` and `ln_mlp`. A token grid other than
+the encoder's training resolution's gets its positions resized bicubically
+(`interp_posemb`), as jax.image.resize does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -26,6 +27,45 @@ VIT_SIZES = {
     "vit_b": dict(dim_tokens=768, depth=12, num_heads=12),
     "vit_l": dict(dim_tokens=1024, depth=24, num_heads=16),
 }
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 (jax.image's; torch's
+    bicubic uses a = -0.75), at distances x >= 0."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+def resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) fp64 weights of a 1-D bicubic resize from n_in to n_out
+    samples, as jax.image.resize(..., "bicubic") builds them
+    (jax/_src/image/scale.py:compute_weight_mat): half-pixel centres; when
+    downsizing, antialiased (the kernel widened by n_in / n_out); each
+    output's weights normalised to sum 1."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def interp_posemb(pos: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """Bicubic resize of a (H0, W0, D) positional grid to (nh, nw, D): the
+    counterpart of fourm_tpu vit_models.py:_interp_posemb
+    (jax.image.resize(pos, (nh, nw, D), "bicubic")). Two separable 1-D
+    weight matrices, built on the host in fp64, applied with one einsum in
+    fp64; returned in pos.dtype."""
+    H0, W0 = pos.shape[:2]
+    if (H0, W0) == (nh, nw):
+        return pos
+    wh = torch.from_numpy(resize_weights(H0, nh)).to(pos.device)
+    ww = torch.from_numpy(resize_weights(W0, nw)).to(pos.device)
+    return torch.einsum("hwd,hi,wj->ijd", pos.double(), wh, ww).to(pos.dtype)
 
 
 class PatchProj(nn.Module):
@@ -76,21 +116,22 @@ class ViTEncoder(nn.Module):
         self._pos = {}  # (nh, nw, device) -> (1, nh*nw, dim) sin-cos table
 
     def pos_table(self, nh: int, nw: int, device) -> torch.Tensor:
+        """The sin-cos positions of the training grid (resolution /
+        patch_size; a feature map's own grid without patch_proj), resized
+        bicubically to (nh, nw) when the grid differs."""
         key = (nh, nw, str(device))
         if key not in self._pos:
-            self._pos[key] = build_2d_sincos_posemb(nh, nw, self.dim_tokens)[None].to(device)
+            n0h, n0w = ((self.resolution // self.patch_size,) * 2 if self.patch_proj
+                        else (nh, nw))
+            pos = build_2d_sincos_posemb(n0h, n0w, self.dim_tokens).reshape(n0h, n0w, -1)
+            pos = interp_posemb(pos, nh, nw).reshape(1, nh * nw, self.dim_tokens)
+            self._pos[key] = pos.to(device)
         return self._pos[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]
         x = self.proj(x, self.dtype)
         nh, nw = x.shape[1:3]
-        n0 = self.resolution // self.patch_size
-        if self.patch_proj and (nh, nw) != (n0, n0):
-            raise NotImplementedError(
-                f"a {nh}x{nw} token grid against positions for {n0}x{n0} needs the bicubic "
-                "positional-embedding resize (fourm_tpu vit_models.py:_interp_posemb), "
-                "not ported yet")
         pos = self.pos_table(nh, nw, x.device)
         x = x.reshape(B, nh * nw, self.dim_tokens) + pos.to(self.dtype)
         for blk in self.blocks:

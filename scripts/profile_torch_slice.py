@@ -49,8 +49,12 @@ import chip_smoke  # noqa: E402  (the chain's configuration and model builder)
 from fourm_torch.api import FourMSampler  # noqa: E402
 from fourm_torch.kernels import _build  # noqa: E402
 
-# kernel name (substring) -> the wrapper that launches it
-WRAPPER_KERNELS = {"ln_matmul_kernel": "ln_matmul", "ln_mlp_kernel": "ln_mlp",
+# kernel name (substring) -> the wrapper that launches it: ln_matmul's LN
+# prologue and GEMM (gemm_sm90.cuh's kernels, told apart by their template
+# arguments), ln_mlp's LN prologue and its two GEMMs (the zero-padded copy of
+# a ragged W2 runs as a PyTorch copy kernel, in "other")
+WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
+                   "ln_rows_kernel<1>": "ln_mlp", "ActEpi": "ln_mlp", "ResidualEpi": "ln_mlp",
                    "attn_kernel": "flash_mha + attention", "self_decode_kernel": "self_decode",
                    "cross_q_kernel": "cross_decode_attn (q prologue)",
                    "decode_partial_kernel<signed char>": "decode_attention_int8",

@@ -116,10 +116,12 @@ def test_shape_gate_and_fallback():
     per_head = torch.zeros(B, H, N, M)
     assert not at.attention_train_takes(tq, tk, per_head)
     # off the CPU (meta tensors stand in for the card) the gate is the
-    # kernels' head dim, by shape alone; the CPU twins take any head dim
+    # kernels' head dim and bf16; the CPU twins take any head dim and dtype
     for dh in (at.HEAD_DIM, 32, 128):
-        mq, mk = (torch.empty(2, 3, n, dh, device="meta") for n in (300, 700))
+        mq, mk = (torch.empty(2, 3, n, dh, device="meta", dtype=torch.bfloat16)
+                  for n in (300, 700))
         assert at.attention_train_takes(mq, mk, None) == (dh == at.HEAD_DIM)
+        assert not at.attention_train_takes(mq.float(), mk.float(), None)
         assert at.attention_train_takes(torch.empty(mq.shape), torch.empty(mk.shape), None)
     xs = [_t(a).requires_grad_(True) for a in (q, k, v)]
     tt.dot_product_attention(*xs, per_head, train=True).square().sum().backward()
