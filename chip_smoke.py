@@ -13,12 +13,16 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      by the port) and the least time the card could take (bound); for
      self_decode and decode_attention, wrong outputs (a cache position too
      many or too few, the new token or the last key chunk left out) that the
-     tolerance must tell apart; then the options off the path, for
-     correctness only;
+     tolerance must tell apart, and for flash_mha and attention (also with
+     a per-query-row bias) the last, ragged key tile left out, each V tile
+     read from two tiles back (a stale ring stage), K not normalised and a
+     row's bias taken from the next query row; then the options off the
+     path (ragged tile edges among them), for correctness only;
   2b. the kernels at the widths of 4M-21 XL (D = 2048, 32 heads, SwiGLU
      hidden 5461, the XL chain's shapes) and 4M-L (D = 1024, hidden 2730),
      and the int8 mode of cross_decode_attn at 4M-B and XL shapes, as phase
-     2, with faults the tolerance must catch (ln_mlp's ragged tail chunk,
+     2 (attention also at M = 2900 keys), with faults the tolerance must
+     catch (phase 2's attention faults, ln_mlp's ragged tail chunk,
      W2's tail columns in residual_mlp, the K scale not folded, the V scale
      of the heads reversed); the int8 mode is also held to the bf16 kernel
      on the dequantized K/V, within 5% of the unquantized K/V, and
@@ -414,19 +418,27 @@ def kernel_phase(torch, card: str):
         return dict(
             run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
             library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
+            faults=lambda: mha_faults(q, k, v, H, bias, g64),
             flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4,
             shape=f"q,k,v (B={B}, N=M={N}, C=768) slices of QKV, 12 heads, QK-norm, key bias")
 
-    def attn_case(B, N, M, full_rows=0):
+    def attn_case(B, N, M, full_rows=0, row_bias=False):
         q, k, v = rn(B, H, N, Dh), rn(B, H, M, Dh), rn(B, H, M, Dh)
-        bias = key_bias(B, M, full_rows=full_rows)[:, None, None, :]
+        if row_bias:  # one bias row per query, query row 3 fully masked
+            bias = torch.randn(B, 1, N, M, generator=gen, device=dev)
+            bias[:, :, 3] = torch.finfo(torch.float32).min
+        else:
+            bias = key_bias(B, M, full_rows=full_rows)[:, None, None, :]
         return dict(
             run=lambda: at.attention(q, k, v, bias),
             plain=lambda: at.attention_plain(q, k, v, bias),
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf)),
+            faults=lambda: attention_faults(q, k, v, bias),
             flops=4 * B * H * N * M * Dh,
-            bytes=(2 * B * H * N * Dh + 2 * B * H * M * Dh) * 2 + B * M * 4,
-            shape=f"q (B={B}, 12, N={N}, 64), k/v M={M}, (B, 1, 1, M) bias"
+            bytes=(2 * B * H * N * Dh + 2 * B * H * M * Dh) * 2 + bias.numel() * 4,
+            shape=f"q (B={B}, 12, N={N}, 64), k/v M={M}, "
+                  + ("(B, 1, N, M) bias, query row 3 fully masked" if row_bias else
+                     "(B, 1, 1, M) bias")
                   + (f", {full_rows} batch rows fully masked" if full_rows else ""))
 
     fa = "fourm_torch/kernels/csrc/attention.cu"
@@ -454,6 +466,8 @@ def kernel_phase(torch, card: str):
         ("attention@masked_rows", "fourm_tpu/kernels/attention.py:325", fa,
          attn_case(16, 196, 512, full_rows=8)),
         ("attention@SR448", "fourm_tpu/kernels/attention.py:127", fa, attn_case(16, 784, 1536)),
+        ("attention@row_bias", "fourm_tpu/kernels/attention.py:325", fa,
+         attn_case(16, 196, 512, row_bias=True)),
     ]
     decode_cases, decode_variants = decode_kernel_cases(torch, rn, key_bias, gen)
     results = time_cases(torch, cases + decode_cases, card)
@@ -472,6 +486,16 @@ def kernel_phase(torch, card: str):
     full = torch.randn(2, H, 100, 333, generator=gen, device=dev)
     tiny = (rn(2, 5, 3 * D)[..., :D], rn(2, 7, 3 * D)[..., D:2 * D], rn(2, 7, 3 * D)[..., 2 * D:],
             H, key_bias(2, 7), *g64)
+    qkv1 = rn(2, 1, 3 * D)
+    one = (qkv1[..., :D], qkv1[..., D:2 * D], qkv1[..., 2 * D:], H, key_bias(2, 1), *g64)
+    q127, k129, v129 = rn(2, H, 127, Dh), rn(2, H, 129, Dh), rn(2, H, 129, Dh)
+    rows127 = torch.randn(2, 1, 127, 129, generator=gen, device=dev)
+    rows127[:, :, 5] = torch.finfo(torch.float32).min
+    masked = torch.full((2, 1, 1, 127), torch.finfo(torch.float32).min, device=dev)
+    long_qkv = (rn(2, 1100, 3 * D)[..., :D], rn(2, 1300, 3 * D)[..., D:2 * D],
+                rn(2, 1300, 3 * D)[..., 2 * D:])
+    ql, kl, vl = rn(1, H, 1100, Dh), rn(1, H, 1200, Dh), rn(1, H, 1200, Dh)
+    full_l = torch.randn(1, H, 1100, 1200, generator=gen, device=dev)
     variants = [
         ("ln_matmul, LN bias + bias, 1000 rows",
          lambda: fm.ln_matmul(xr, gamma, beta, w_qkv, b_qkv),
@@ -487,6 +511,19 @@ def kernel_phase(torch, card: str):
          lambda: at.attention_plain(q, k, v, full, True)),
         ("flash_mha, QK-norm, N=5, M=7", lambda: at.flash_mha(*tiny),
          lambda: at.flash_mha_plain(*tiny)),
+        ("flash_mha, QK-norm, N=M=1", lambda: at.flash_mha(*one), lambda: at.flash_mha_plain(*one)),
+        ("attention, (B, 1, N, M) bias with query row 5 fully masked, N=127, M=129",
+         lambda: at.attention(q127, k129, v129, rows127),
+         lambda: at.attention_plain(q127, k129, v129, rows127)),
+        ("attention, softmax1, every key masked, N=129, M=127",
+         lambda: at.attention(k129, q127, q127, masked, True),
+         lambda: at.attention_plain(k129, q127, q127, masked, True)),
+        # past N = 1024 the kernel takes its long shape (128-query tiles)
+        ("flash_mha, no QK-norm, no bias, N=1100, M=1300 (long shape)",
+         lambda: at.flash_mha(*long_qkv, H), lambda: at.flash_mha_plain(*long_qkv, H)),
+        ("attention, (B, H, N, M) bias, softmax1, N=1100, M=1200 (long shape)",
+         lambda: at.attention(ql, kl, vl, full_l, True),
+         lambda: at.attention_plain(ql, kl, vl, full_l, True)),
         ("ln_matmul, 3 rows", lambda: fm.ln_matmul(x[:3], gamma, None, w_qkv),
          lambda: fm.ln_matmul_plain(x[:3], gamma, None, w_qkv)),
     ]
@@ -521,6 +558,76 @@ def fault_check(torch, name, faults, refs, tols) -> None:
         print(f"  fault {label}: {d:.6g} from the twin{where}, {d / tol:.4g} x tol "
               f"({'caught' if seen else 'not caught: below two bf16 ulps'})", flush=True)
         check(seen or label not in must, f"{name}: tolerance {tol} cannot tell '{label}' ({d})")
+
+
+def key_tile(N: int) -> int:
+    """Keys per K/V tile of csrc/attention.cu's stage ring for N queries: 64
+    in its short shape (N <= 1024), else 128."""
+    return 64 if N <= 1024 else 128
+
+
+def key_tile_faults(run, k, v, bias, axis: int, tile: int) -> dict:
+    """Wrong outputs of an attention whose M keys lie along `axis` of k and v
+    (and along the last axis of its bias), run(k, v, bias) being the twin:
+    the last key tile of csrc/attention.cu (`tile` keys, or the ragged rest)
+    left out; at M >= 4 tiles, every V tile from the third on read from two
+    tiles back, as a stage ring that wraps onto a stale tile would."""
+    M = k.shape[axis]
+    keep = (M - 1) // tile * tile
+
+    def cut(t, ax):
+        return None if t is None else t.narrow(ax, 0, keep)
+
+    wrong = {f"the last key tile ({M - keep} keys) left out":
+             run(cut(k, axis), cut(v, axis), cut(bias, -1))}
+    tiles = -(-M // tile)
+    if tiles >= 4:
+        stale = v.clone()
+        for j in range(2, tiles):
+            n = min(tile, M - j * tile)
+            stale.narrow(axis, j * tile, n).copy_(v.narrow(axis, (j - 2) * tile, n))
+        wrong["each V tile from the third on read from two tiles back (a stale ring "
+              "stage)"] = run(k, stale, bias)
+    return wrong
+
+
+def mha_faults(q, k, v, H: int, bias=None, norms=(None,) * 4):
+    """The faults of flash_mha / mha_short on (B, N|M, C) q, k, v slices with
+    an fp32 (B, M) key bias and QK-norm's LN parameters (or none):
+    key_tile_faults, and with QK-norm, K not normalised."""
+    from fourm_torch.kernels import attention as at
+    from fourm_torch.kernels.fused_mlp import layer_norm_fp32
+
+    def run(kk, vv, bb):
+        return at.flash_mha_plain(q, kk, vv, H, bb, *norms).float()
+
+    wrong = key_tile_faults(run, k, v, bias, 1, key_tile(q.shape[1]))
+    if norms[0] is not None:
+        B, N, C = q.shape
+
+        def heads(t):
+            return t.reshape(t.shape[0], t.shape[1], H, C // H).transpose(1, 2)
+
+        qn = layer_norm_fp32(heads(q).float(), norms[0], norms[1], 1e-6).to(q.dtype)
+        raw = at.attention_plain(qn, heads(k), heads(v),
+                                 None if bias is None else bias.float()[:, None, None, :])
+        wrong["K not normalised"] = raw.transpose(1, 2).reshape(B, N, C).float()
+    return run(k, v, bias), wrong, set(wrong)
+
+
+def attention_faults(q, k, v, bias):
+    """The faults of attention on (B, H, N|M, 64) q, k, v with an fp32 bias:
+    key_tile_faults, and, for a per-query-row bias, each row's bias taken
+    from the next query row."""
+    from fourm_torch.kernels import attention as at
+
+    def run(kk, vv, bb):
+        return at.attention_plain(q, kk, vv, bb).float()
+
+    wrong = key_tile_faults(run, k, v, bias, 2, key_tile(q.shape[2]))
+    if bias is not None and bias.shape[2] > 1:
+        wrong["the bias of the next query row"] = run(k, v, bias.roll(-1, dims=2))
+    return run(k, v, bias), wrong, set(wrong)
 
 
 def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail_gain=1.0):
@@ -847,6 +954,7 @@ def xl_kernel_phase(torch, card: str):
         return dict(
             run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
             library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
+            faults=lambda: mha_faults(q, k, v, H, bias, g64),
             flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4, path="xl_chain",
             shape=f"q,k,v (B={B}, N=M={N}, C=2048) slices of QKV, 32 heads, QK-norm, key bias")
 
@@ -858,6 +966,7 @@ def xl_kernel_phase(torch, card: str):
             run=lambda: at.attention(q, k, v, bias),
             plain=lambda: at.attention_plain(q, k, v, bias),
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf)),
+            faults=lambda: attention_faults(q, k, v, bias),
             flops=4 * B * H * N * M_ * Dh,
             bytes=(2 * B * H * N * Dh + 2 * B * H * M_ * Dh) * 2 + B * M_ * 4, path="xl_chain",
             shape=f"q (B={B}, 32, N={N}, 64), k/v M={M_}, (B, 1, 1, M) bias")
@@ -883,6 +992,7 @@ def xl_kernel_phase(torch, card: str):
         ("flash_mha@XL", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 2304)),
         ("flash_mha@XL_N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 196)),
         ("attention@XL", "fourm_tpu/kernels/attention.py:325", fa, attn_case(8, 196, 2304)),
+        ("attention@XL_M2900", "fourm_tpu/kernels/attention.py:325", fa, attn_case(8, 196, 2900)),
         ("self_decode@XL_B4", "fourm_tpu/kernels/decode_step.py:163", sd, xl(xl4.self_case(200))),
         ("self_decode@XL_B8", "fourm_tpu/kernels/decode_step.py:163", sd, xl(xl8.self_case(200))),
         ("cross_decode_attn@XL_B4", "fourm_tpu/kernels/decode_step.py:377", da,
@@ -973,13 +1083,10 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
         mask = None if bias is None else bias[:, None, None, :].to(bf)
 
         def faults():
-            right = at.mha_short_plain(qkv, H, bias).float()
+            right, wrong, _ = mha_faults(*qkv.split(C, dim=-1), H, bias)
             no_head = right.clone()
             no_head[..., 5 * Dh:6 * Dh] = 0
-            q, k, v = qkv.split(C, dim=-1)
-            cut = at.flash_mha_plain(q, k[:, :192], v[:, :192], H,
-                                     None if bias is None else bias[:, :192])
-            wrong = {"one head's output left out": no_head, "last key tile left out": cut.float()}
+            wrong["one head's output left out"] = no_head
             return right, wrong, set(wrong)
 
         return dict(
@@ -1040,7 +1147,8 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
     # (path B searches by cosine), on ragged N and K and on duplicate codes
     # (the first index wins), exactly
     kb = key_bias(B, N, full_rows=1)
-    x400, x7 = rn(3, 400, C), rn(5, 7, C)
+    x448, x7, x129 = rn(3, 448, C), rn(5, 7, C), rn(3, 129, C)
+    kb129 = key_bias(3, 129, full_rows=1)
     tie_e = torch.eye(32, device=dev).repeat(4, 1)
     tie_x = torch.eye(32, device=dev)
     rag = search_case("nearest_code", 1000, "", N_rows=1000)
@@ -1052,8 +1160,10 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
         ("attn_block, softmax1, key bias, no biases",
          block(at.attn_block, bias=kb, biases=False, allow_zero_attn=True),
          block(at.attn_block_plain, bias=kb, biases=False, allow_zero_attn=True)),
-        ("attn_block, N=400 (the most its shared memory holds at C=768)",
-         block(at.attn_block, xx=x400), block(at.attn_block_plain, xx=x400)),
+        ("attn_block, N=448 (the most its shared memory holds)",
+         block(at.attn_block, xx=x448), block(at.attn_block_plain, xx=x448)),
+        ("attn_block, N=129, key bias", block(at.attn_block, xx=x129, bias=kb129),
+         block(at.attn_block_plain, xx=x129, bias=kb129)),
         ("attn_block, N=7", block(at.attn_block, xx=x7), block(at.attn_block_plain, xx=x7)),
         ("nearest_code, N=12544, K=8192", k8["run"], k8["plain"], True),
         ("nearest_code, N=1000, K=1000", rag["run"], rag["plain"], True),
@@ -1130,10 +1240,10 @@ class PassLengths:
 
 
 # the longest sequence attn_block holds at each width it is built for (heads
-# of 64): 3 x roundup(N, 16) x 144 bytes of q/k/v plus its working area in
-# 227 KB of shared memory (csrc/attn_block.cu:attn_heads_smem); phase 5 holds
-# the kernel library's answer to this table
-ATTN_BLOCK_LONGEST = {512: 400, 768: 400, 1024: 352}
+# of 64): 3 x roundup(N, 64) x 128 bytes of q/k/v beside one 40 KB ring
+# stage in 227 KB of shared memory (csrc/attn_block.cu:ab_stages); phase 5
+# holds the kernel library's answer to this table
+ATTN_BLOCK_LONGEST = {512: 448, 768: 448, 1024: 448}
 
 
 def prenorm_launches(N: int, cfg) -> dict:

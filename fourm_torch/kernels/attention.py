@@ -8,6 +8,10 @@ pallas_flash_mha, `mha_short` is pallas_mha_short, `attention` is
 pallas_attention and, having no size split, also its blocked form
 flash_attention; those three wrappers launch one CUDA kernel body
 (csrc/attention.cu). `attn_block` is pallas_attn_block (csrc/attn_block.cu).
+Both sources are TMA-fed wgmma kernels built on one attention core
+(csrc/attn_sm90.cuh); a wrapper counts one launch per call, whatever number
+of CUDA kernels it runs (a QK-norm pre-pass; attn_block's LN rows, heads and
+projection kernels).
 Each wrapper counts its launches in `<wrapper>.launches`, raises on a CUDA
 call its predicate (`attention_takes`, `flash_mha_takes`, `mha_short_takes`,
 `attn_block_takes`) refuses, and computes its plain PyTorch twin for CPU
@@ -63,9 +67,14 @@ def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, 
             allow_zero_attn, dev):
     from . import _build
 
+    # QK-norm: the kernel's pre-pass writes LN(k) (B, M, H, 64) here once,
+    # and the attention kernel reads it back (it normalises its q tiles)
+    scratch = None
+    if norms[0] is not None:
+        scratch = torch.empty((B * M * H, Dh), dtype=q.dtype, device=dev)
     code = _build.entry("attention")(
         ptr(q), ptr(k), ptr(v), ptr(o), *qs, *ks, *vs, *os_, ptr(bias), *bs,
-        *[ptr(t) for t in norms], B, H, N, M, float(Dh) ** -0.5, float(eps),
+        *[ptr(t) for t in norms], ptr(scratch), B, H, N, M, float(Dh) ** -0.5, float(eps),
         int(allow_zero_attn), stream(dev))
     _build.check(name, code)
 
@@ -160,9 +169,12 @@ def _heads_launch(name, q, k, v, num_heads, bias, norms, eps, allow_zero_attn):
     if bias is not None:
         bs = (bias.stride(0), 0, 0, bias.stride(1))
     out = torch.empty((B, N, C), dtype=q.dtype, device=dev)
+    # fp32 LN parameters on 16-byte boundaries: the kernels read them as float4
+    norms = tuple(None if t is None else t if aligned(t, 16) else t.clone()
+                  for t in (f32(u) for u in norms))
     _launch(name, q, k, v, out, (q.stride(0), Dh, q.stride(1)), (k.stride(0), Dh, k.stride(1)),
             (v.stride(0), Dh, v.stride(1)), (out.stride(0), Dh, out.stride(1)), bias, bs,
-            tuple(f32(t) for t in norms), B, num_heads, N, M, Dh, eps, allow_zero_attn, dev)
+            norms, B, num_heads, N, M, Dh, eps, allow_zero_attn, dev)
     return out
 
 
@@ -225,7 +237,7 @@ def attn_block_takes(N: int, C: int, device: torch.device,
     pallas_attn_block (ops/transformer.py:474-482). On CUDA the kernel takes
     C in 512 / 768 / 1024 over heads of 64 (num_heads, when given), and its
     own library answers for N (csrc/attn_block.cu keeps q, k and v of one
-    image and head in shared memory, which bounds N: 400 at C = 768). The
+    image and head in shared memory, which bounds N: 448 at each width). The
     plain twin takes any N and C."""
     if torch.device(device).type == "cpu":
         return True
@@ -276,13 +288,14 @@ def attn_block(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor
                   x, w_qkv, w_proj)
     # fp32 copies stay referenced until the launch is queued
     g32, be32, bq32, bp32 = f32(gamma), f32(beta), f32(b_qkv), f32(b_proj)
-    scratch = torch.empty_like(x)
+    h_ln = torch.empty_like(x)  # LN(x), read by the heads kernel
+    heads = torch.empty_like(x)  # the heads' outputs, read by the projection
     out = torch.empty_like(x)
     from . import _build
 
     code = _build.entry(name)(
         ptr(x), ptr(g32), ptr(be32), ptr(w_qkv), ptr(bq32), ptr(w_proj), ptr(bp32), ptr(bias),
-        ptr(scratch), ptr(out), B, N, C, num_heads, float(eps), float(64) ** -0.5,
+        ptr(h_ln), ptr(heads), ptr(out), B, N, C, num_heads, float(eps), float(64) ** -0.5,
         int(allow_zero_attn), stream(dev))
     _build.check(name, code)
     attn_block.launches += 1

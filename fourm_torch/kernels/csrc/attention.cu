@@ -1,239 +1,392 @@
-// Attention with a blocked online softmax, read and written through strides.
-// One kernel body serves two wrappers:
+// Attention with a blocked online softmax on Hopper, read through strides.
+// One kernel body serves three wrappers:
 //   flash_mha  -- replaces fourm_tpu/kernels/attention.py:pallas_flash_mha:
 //                 q/k/v are the (B, N, C) heads-concatenated slices of the
-//                 fused QKV output, per-head QK-norm applied in-kernel, a
-//                 (B, M) additive key bias.
+//                 fused QKV output, per-head QK-norm, a (B, M) additive key
+//                 bias.
+//   mha_short  -- replaces fourm_tpu/kernels/attention.py:pallas_mha_short:
+//                 the same on the three column slices of a (B, N, 3C) QKV
+//                 output, no QK-norm.
 //   attention  -- replaces fourm_tpu/kernels/attention.py:pallas_attention
 //                 and, having no size split, its blocked hand-off
 //                 flash_attention: (B, H, N, Dh) operands, an fp32 bias
 //                 (B, 1|H, N|1, M) read with stride 0 on broadcast axes.
 //
 // What bounds it on an H100: operations. 4*N*M*Dh FLOP per (batch, head)
-// against (2N + 2M)*Dh*2 bytes: at N = M = 2048 that is ~1000 FLOP/byte.
+// against (2N + 2M)*Dh*2 bytes: at N = M = 2048 that is ~1000 FLOP/byte. At
+// Dh = 64 the exponentials weigh as much as the products: one ex2 per logit
+// on the SM's 16 MUFU lanes per clock takes about as long as the logit's
+// 256 tensor-core FLOP.
 //
-// Design: a block takes one (batch, head, 64-query tile); 4 warps own 16
-// query rows each. The block walks the keys in tiles of 64: K and V tiles
-// go to shared memory (K normalised on load when QK-norm is on: LayerNorm
-// in fp32 over Dh, eps from the block norm, cast to bf16 before the
-// product, the order of attention.py:531-560), S = Q K^T runs on WMMA
-// fragments, and each thread then owns half a row of S: scale first, then
-// add the bias (never log2(e)-folded, so a finfo.min bias stays finite),
-// a running max that starts finite (finfo.min, or 0 for softmax1), the
-// rescale of its 32 fp32 accumulators, and P cast to bf16 for P V on WMMA.
-// A row whose keys are all masked sees equal logits and gets uniform
-// weights, as the one-shot TPU kernel gives. Key positions past M take no
-// weight at all. Dh = 64 only (every 4M size).
-// A first version: no TMA, no wgmma, no pipelining of K/V loads.
-#include <float.h>
-
-#include "common.cuh"
+// Design (attn_sm90.cuh has the attention core):
+//   * a CTA owns one (batch, head, query tile): a producer warpgroup, one
+//     thread of which issues every TMA load, and consumer warpgroups of 64
+//     query rows each (setmaxnreg: 40 registers for the producer). Two
+//     shapes: past N = 1024, 128-query tiles (two consumers) and 128-key
+//     tiles at one CTA per SM; up to it, 64-query tiles and 64-key tiles at
+//     two CTAs per SM;
+//   * the producer loads the Q tile once, then streams K and V tiles of KT
+//     keys x 64 through a STAGES-deep ring (cp.async.bulk.tensor.4d into the
+//     128-byte swizzle, `full` and `empty` mbarriers). Every operand is a
+//     4-D tensor map (make_rows_map) over (batch, head, rows, 64) with the
+//     caller's strides, so a box never reads the next image's rows (TMA
+//     zero-fills rows past N or M) and q/k/v may be column slices of one
+//     QKV buffer or (B, H, N, Dh) views;
+//   * the consumers run the core: S = Q K^T by wgmma from shared memory,
+//     the softmax on the accumulators in registers, P V by wgmma with P
+//     from registers, one product in flight behind the softmax;
+//   * a key bias (stride 0 over the query rows) is staged per tile in
+//     shared memory by the producer warpgroup's other threads, clamped and
+//     in log2 units, one key each, beside the K/V stage it belongs to; a
+//     per-row bias is read by the consumers from device memory;
+//   * QK-norm, LayerNorm in fp32 over Dh (eps from the block norm), cast to
+//     bf16 -- the order of attention.py:531-560: a pre-pass (k_norm_kernel)
+//     writes LN(k) of every (batch, head) once into a bf16 scratch that the
+//     wrapper allocates and the K map then reads, so K is normalised once
+//     per (batch, head), not once per query tile; each consumer warpgroup
+//     normalises its 64 rows of the Q tile in shared memory, which it
+//     reads once anyway, two threads a row (the producer's 40-register
+//     threads doing it one row each measured slower: the LN sat on every
+//     CTA's critical path). The pre-pass lets the attention kernel start
+//     its prologue before it ends (programmatic dependent launch).
+// Dh = 64 only (every 4M size). Output rows past N are not written.
+#include "attn_sm90.cuh"
 
 namespace fourm {
 
-constexpr int AT_DH = 64;
-constexpr int AT_BQ = 64;
-constexpr int AT_BK = 64;
-constexpr int AT_THREADS = 128;
-constexpr int AT_LD = AT_DH + 8;   // bf16 tile row stride
-constexpr int AT_LDS = AT_BK + 4;  // fp32 score row stride
+// A kernel shape: CONS consumer warpgroups of 64 query rows each, key tiles
+// of KT keys, a STAGES-deep K/V ring, CTAS CTAs resident per SM (their
+// registers split the SM's 65536: setmaxnreg gives the producer warpgroup
+// 40 a thread and the consumers what is left).
+template <int CONS_, int KT_, int STAGES_>
+struct AttnShape {
+  static constexpr int CONS = CONS_, KT = KT_, STAGES = STAGES_;
+  static constexpr int BQ = 64 * CONS;  // query rows per CTA
+  static constexpr int THREADS = 128 * (CONS + 1);
+  static constexpr int CTAS = CONS == 1 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = CONS == 1 ? 216 : 232;
+  static constexpr int Q_BYTES = BQ * 128, KV_BYTES = KT * 128;  // bf16 rows of 64
+  // Q tile, STAGES x (K tile, V tile), STAGES x the key bias of a tile, then
+  // the barriers; 1 KB for the alignment of the dynamic base
+  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES +
+                                 (size_t)STAGES * KT * sizeof(float) +
+                                 (1 + 2 * STAGES) * sizeof(uint64_t);
+};
+// long sequences: 128-query CTAs of two consumer warpgroups, 128-key tiles
+using LongShape = AttnShape<2, 128, 4>;
+// short ones: 64-query CTAs, 64-key tiles, two CTAs per SM, so that one
+// CTA's start (its Q and first K/V loads) overlaps another's products, and
+// a sequence of 196 wastes no half tile of query rows. Measured on one H100
+// at every chip_smoke.py row: 8-15% faster up to N = 784, even or slower at
+// N = 2048 / 2304.
+using ShortShape = AttnShape<1, 64, 4>;
+constexpr int SHORT_N = 1024;  // the longest query sequence ShortShape takes
 
 struct AttnArgs {
-  const bf16* q; const bf16* k; const bf16* v; bf16* o;
-  int sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son;
+  bf16* o; int sob, soh, son;
   const float* bias; int sbb, sbh, sbn, sbm;
-  const float* qg; const float* qb; const float* kg; const float* kb;
+  const float* qg; const float* qb;  // QK-norm's q LN parameters, or null
   int N, M; float scale, eps; int zero_attn;
+  int ord_q, ord_k, ord_v;  // coordinate slots of each map (make_rows_map)
 };
 
-// Load a 64 x 64 bf16 tile (rows past `rows` are zero) into shared memory,
-// optionally LayerNorm-ing each row over Dh. 8 consecutive lanes share a row.
-template <bool NORM>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int stride,
-                                          int rows, bf16* dst, const float* g,
-                                          const float* bt, float eps) {
+// QK-norm of a consumer warpgroup's 64 query rows of the Q tile (128-byte
+// swizzle: 16-byte chunk j of row r at chunk j ^ (r % 8)), in place, two
+// threads a row, 32 values each: fp32 mean, fp32 mean of squared
+// deviations, (x - mean) * rsqrt(var + eps) * g (+ b), one rounding to
+// bf16. g and b (this thread's 32 columns) are read before the tile lands.
+struct QNorm {
+  float4 g[8], b[8];
+  __device__ __forceinline__ void load(const float* qg, const float* qb) {
+    const int half = threadIdx.x % 2;
 #pragma unroll
-  for (int pass = 0; pass < AT_BQ * 8 / AT_THREADS; ++pass) {
-    const int idx = pass * AT_THREADS + threadIdx.x;
-    const int r = idx / 8, vi = idx % 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r < rows) u = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + vi * 8);
-    if (NORM) {
-      bf16* e = reinterpret_cast<bf16*>(&u);
-      float f[8];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) { f[i] = __bfloat162float(e[i]); s += f[i]; }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      const float mean = s / (float)AT_DH;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) { const float d = f[i] - mean; q += d * d; }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-      const float rstd = rsqrtf(q / (float)AT_DH + eps);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float y = (f[i] - mean) * rstd * g[vi * 8 + i];
-        if (bt != nullptr) y += bt[vi * 8 + i];
-        e[i] = __float2bfloat16(y);
-      }
+    for (int i = 0; i < 8; ++i) {
+      g[i] = __ldg(reinterpret_cast<const float4*>(qg + half * 32) + i);
+      b[i] = qb != nullptr ? __ldg(reinterpret_cast<const float4*>(qb + half * 32) + i)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    *reinterpret_cast<uint4*>(dst + r * AT_LD + vi * 8) = u;
   }
-}
-
-template <bool QKNORM>
-__global__ void __launch_bounds__(AT_THREADS) attn_kernel(AttnArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + AT_BQ * AT_LD;
-  bf16* vs = ks + AT_BK * AT_LD;
-  bf16* ps = vs + AT_BK * AT_LD;  // 4 warps x 16 x AT_LD
-  float* ss = reinterpret_cast<float*>(ps + AT_BQ * AT_LD);  // 4 x 16 x AT_LDS
-
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * AT_BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qsrc = p.q + (size_t)b * p.sqb + (size_t)h * p.sqh + (size_t)n0 * p.sqn;
-  const bf16* kbase = p.k + (size_t)b * p.skb + (size_t)h * p.skh;
-  const bf16* vbase = p.v + (size_t)b * p.svb + (size_t)h * p.svh;
-
-  load_tile<QKNORM>(qsrc, p.sqn, min(AT_BQ, p.N - n0), qs, p.qg, p.qb, p.eps);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[AT_DH / 16];
+  __device__ __forceinline__ void apply(unsigned char* rows64, float eps) const {
+    const int t = threadIdx.x % 128, r = t / 2, half = t % 2;
+    unsigned char* base = rows64 + r * 128;
+    float f[32];
 #pragma unroll
-  for (int kk = 0; kk < AT_DH / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + (warp * 16) * AT_LD + kk * 16, AT_LD);
-
-  bf16* pw = ps + warp * 16 * AT_LD;
-  float* sw = ss + warp * 16 * AT_LDS;
-  const int r = lane / 2, c0 = (lane % 2) * 32;
-  const int n = n0 + warp * 16 + r;
-  const float* brow = nullptr;
-  if (p.bias != nullptr)
-    brow = p.bias + (size_t)b * p.sbb + (size_t)h * p.sbh + (size_t)min(n, p.N - 1) * p.sbn;
-
-  float m_run = p.zero_attn ? 0.f : -FLT_MAX;  // finite start: never -inf - -inf
-  float l_run = 0.f;
-  float acc[32];
+    for (int c = 0; c < 4; ++c)
+      unpack8(*reinterpret_cast<const uint4*>(base + (((half * 4 + c) ^ (r & 7)) << 4)),
+              f + 8 * c);
+    float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  for (int m0 = 0; m0 < p.M; m0 += AT_BK) {
-    const int kr = min(AT_BK, p.M - m0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<QKNORM>(kbase + (size_t)m0 * p.skn, p.skn, kr, ks, p.kg, p.kb, p.eps);
-    load_tile<false>(vbase + (size_t)m0 * p.svn, p.svn, kr, vs, nullptr, nullptr, 0.f);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
+    for (int i = 0; i < 32; ++i) s += f[i];
+    const float mean = (s + __shfl_xor_sync(0xffffffffu, s, 1)) / 64.f;
+    float q = 0.f;
 #pragma unroll
-    for (int j = 0; j < AT_BK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
+    for (int i = 0; i < 32; ++i) q += (f[i] - mean) * (f[i] - mean);
+    const float rstd = rsqrtf((q + __shfl_xor_sync(0xffffffffu, q, 1)) / 64.f + eps);
+    const float* gs = reinterpret_cast<const float*>(g);
+    const float* bs = reinterpret_cast<const float*>(b);
 #pragma unroll
-      for (int kk = 0; kk < AT_DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, ks + (j * 16) * AT_LD + kk * 16, AT_LD);
-        wmma::mma_sync(s, qa[kk], kf, s);
-      }
-      wmma::store_matrix_sync(sw + j * 16, s, AT_LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this thread's half row
-    float sv[32];
-    float mx = -FLT_MAX;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = m0 + c0 + i;
-      float s = sw[r * AT_LDS + c0 + i] * p.scale;
-      if (brow != nullptr && key < p.M) s += brow[(size_t)key * p.sbm];
-      sv[i] = s;
-      if (key < p.M) mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float lsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = m0 + c0 + i;
-      const float pv = key < p.M ? expf(sv[i] - m_new) : 0.f;
-      lsum += pv;
-      pw[r * AT_LD + c0 + i] = __float2bfloat16(pv);
-    }
-    l_run = l_run * alpha + lsum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-    __syncwarp();
-
-    // acc += P V
-#pragma unroll
-    for (int j = 0; j < AT_DH / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::fill_fragment(o, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < AT_BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, pw + kk * 16, AT_LD);
-        wmma::load_matrix_sync(vf, vs + (kk * 16) * AT_LD + j * 16, AT_LD);
-        wmma::mma_sync(o, pa, vf, o);
-      }
-      wmma::store_matrix_sync(sw + j * 16, o, AT_LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += sw[r * AT_LDS + c0 + i];
-    __syncwarp();
-  }
-
-  float l_tot = l_run + __shfl_xor_sync(0xffffffffu, l_run, 1);
-  if (p.zero_attn) l_tot += expf(-m_run);  // softmax1: the implicit zero logit
-  const float inv = 1.f / l_tot;
-  if (n < p.N) {
-    bf16* dst = p.o + (size_t)b * p.sob + (size_t)h * p.soh + (size_t)n * p.son + c0;
-#pragma unroll
-    for (int v8 = 0; v8 < 4; ++v8) {
+    for (int c = 0; c < 4; ++c) {
       uint4 u;
       bf16* e = reinterpret_cast<bf16*>(&u);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(acc[v8 * 8 + i] * inv);
-      reinterpret_cast<uint4*>(dst)[v8] = u;
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16((f[8 * c + i] - mean) * rstd * gs[8 * c + i] + bs[8 * c + i]);
+      *reinterpret_cast<uint4*>(base + (((half * 4 + c) ^ (r & 7)) << 4)) = u;
     }
+  }
+};
+
+// Ring of K/V stages, as attend() reads it.
+template <class S>
+struct KVRing {
+  unsigned char* stages;
+  const float* kbias;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ void wait(int t, uint64_t& dk, uint64_t& dv) {
+    const int s = t % S::STAGES;
+    sm90::mbar_wait(&full[s], (t / S::STAGES) & 1);
+    dk = sm90::desc_sw128(stages + s * 2 * S::KV_BYTES);
+    dv = sm90::desc_sw128_mn(stages + s * 2 * S::KV_BYTES + S::KV_BYTES);
+  }
+  __device__ __forceinline__ const float* key_bias(int t) const {
+    return kbias + (t % S::STAGES) * S::KT;
+  }
+  __device__ __forceinline__ void release(int t) { sm90::mbar_arrive(&empty[t % S::STAGES]); }
+};
+
+template <class S, int BIAS>
+__global__ void __launch_bounds__(S::THREADS, S::CTAS)
+attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, AttnArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;
+  unsigned char* stages = smem + S::Q_BYTES;
+  float* kbias = reinterpret_cast<float*>(stages + S::STAGES * 2 * S::KV_BYTES);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kbias + S::STAGES * S::KT);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S::STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * S::BQ;
+  const int n_tiles = (p.M + S::KT - 1) / S::KT;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int s = 0; s < S::STAGES; ++s) {
+      // a key bias adds one arrival from each staging thread (its key's value)
+      sm90::mbar_init(&full[s], BIAS == 1 ? 1 + S::KT : 1);
+      sm90::mbar_init(&empty[s], 128 * S::CONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  sm90::wait_prerequisites();  // the K pre-pass's scratch
+
+  const int wg = threadIdx.x / 128;
+  if (wg == S::CONS) {
+    // ---- producer warpgroup: one thread issues every TMA load; with a key
+    // bias KT threads also stage one key's bias of every tile each, clamped
+    // and in log2 units, then arrive on the tile's `full` barrier
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int i = threadIdx.x - 128 * S::CONS;
+    const float* brow = BIAS == 1 ? p.bias + (size_t)b * p.sbb + (size_t)h * p.sbh : nullptr;
+    if (i == 0) {
+      sm90::mbar_expect_tx(qbar, S::Q_BYTES);
+      sm90::tma_rows(qs, &tq, qbar, p.ord_q, n0, h, b);
+    }
+    if (i == 0 || (BIAS == 1 && i < S::KT)) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S::STAGES;
+        sm90::mbar_wait(&empty[s], ((t / S::STAGES) & 1) ^ 1);  // the first round passes
+        if (i == 0) {
+          unsigned char* st = stages + s * 2 * S::KV_BYTES;
+          sm90::mbar_expect_tx(&full[s], 2 * S::KV_BYTES);
+          sm90::tma_rows(st, &tk, &full[s], p.ord_k, t * S::KT, h, b);
+          sm90::tma_rows(st + S::KV_BYTES, &tv, &full[s], p.ord_v, t * S::KT, h, b);
+        }
+        if (BIAS == 1) {
+          const int key = t * S::KT + i;
+          kbias[s * S::KT + i] =
+              key < p.M ? sm90::key_bias_log2(__ldg(brow + (size_t)key * p.sbm)) : 0.f;
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: query rows n0 + 64 wg .. + 64
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::CONSUMER_REGS));
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = n0 + wg * 64 + warp * 16 + lane / 4;
+    sm90::BiasRows bias{{nullptr, nullptr}, p.sbm};
+    if (BIAS != 0) {
+      const float* bh = p.bias + (size_t)b * p.sbb + (size_t)h * p.sbh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) bias.row[r] = bh + (size_t)min(row0 + 8 * r, p.N - 1) * p.sbn;
+    }
+    KVRing<S> ring{stages, kbias, full, empty};
+    sm90::RowState st;
+    if (p.qg != nullptr) {
+      QNorm qn;
+      qn.load(p.qg, p.qb);
+      sm90::mbar_wait(qbar, 0);
+      qn.apply(qs + wg * 64 * 128, p.eps);
+      // the generic-proxy stores, seen by the warpgroup's wgmma (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    } else {
+      sm90::mbar_wait(qbar, 0);
+    }
+    sm90::attend<S::KT, BIAS>(ring, sm90::desc_sw128(qs + wg * 64 * 128), n_tiles, p.M, p.scale,
+                              bias, p.zero_attn, st);
+    bf16* dst[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = row0 + 8 * r;
+      dst[r] = n < p.N ? p.o + (size_t)b * p.sob + (size_t)h * p.soh + (size_t)n * p.son
+                       : nullptr;
+    }
+    sm90::store_rows(st, p.zero_attn, dst);
+  }
+}
+
+// Maps and launch of shape S.
+template <class S>
+int launch_attn(const void* q, const void* k, const void* v, const long long (&qs)[3],
+                const long long (&ks)[3], const long long (&vs)[3], int B, int H, AttnArgs p,
+                cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int err = sm90::make_rows_map(&tq, q, B, H, p.N, qs[0], qs[1], qs[2], S::BQ, &p.ord_q);
+  if (err == 0) err = sm90::make_rows_map(&tk, k, B, H, p.M, ks[0], ks[1], ks[2], S::KT, &p.ord_k);
+  if (err == 0) err = sm90::make_rows_map(&tv, v, B, H, p.M, vs[0], vs[1], vs[2], S::KT, &p.ord_v);
+  if (err != 0) return err;
+  // 0: no bias; 1: one bias row for every query (stride 0 over N); 2: per row
+  const int kind = p.bias == nullptr ? 0 : (p.sbn == 0 || p.N == 1) ? 1 : 2;
+  auto kern = kind == 0 ? attn_kernel<S, 0> : kind == 1 ? attn_kernel<S, 1> : attn_kernel<S, 2>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  return sm90::launch_dependent(kern, dim3((p.N + S::BQ - 1) / S::BQ, H, B), dim3(S::THREADS),
+                                S::SMEM, st, tq, tk, tv, p);
+}
+
+struct KNormArgs {
+  const bf16* k; bf16* out;
+  int skb, skh, skn;
+  const float* kg; const float* kb;
+  int B, H, M; float eps;
+};
+
+// LN over the 64 head dims of every row of k (B, H, M), read through
+// strides, into out (B, M, H, 64), contiguous -- the order of a
+// heads-concatenated (B, M, C) buffer, so that reads and writes both walk
+// whole token rows. 8 lanes per row, 8 values each, KN_ROWS rows per lane
+// group (their loads in flight together); fp32 mean, fp32 mean of squared
+// deviations, (x - mean) * rsqrt(var + eps) * g (+ b), one rounding to bf16.
+constexpr int KN_ROWS = 2;
+
+__global__ void __launch_bounds__(256) k_norm_kernel(KNormArgs a) {
+  sm90::allow_dependents();  // the attention kernel's prologue may start
+  const int total = a.B * a.M * a.H;
+  const int vi = threadIdx.x % 8;
+  const int first = (blockIdx.x * 32 + threadIdx.x / 8) * KN_ROWS;
+  uint4 u[KN_ROWS];
+#pragma unroll
+  for (int i = 0; i < KN_ROWS; ++i) {
+    const int row = first + i;
+    u[i] = make_uint4(0, 0, 0, 0);
+    if (row >= total) continue;
+    const int h = row % a.H, bm = row / a.H;
+    const int m = bm % a.M, b = bm / a.M;
+    u[i] = *reinterpret_cast<const uint4*>(a.k + (size_t)b * a.skb + (size_t)h * a.skh +
+                                           (size_t)m * a.skn + vi * 8);
+  }
+  const float4* g4 = reinterpret_cast<const float4*>(a.kg + vi * 8);
+  const float4 g[2] = {g4[0], g4[1]};
+  float4 bv[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  if (a.kb != nullptr) {
+    bv[0] = reinterpret_cast<const float4*>(a.kb + vi * 8)[0];
+    bv[1] = reinterpret_cast<const float4*>(a.kb + vi * 8)[1];
+  }
+  const float gg[8] = {g[0].x, g[0].y, g[0].z, g[0].w, g[1].x, g[1].y, g[1].z, g[1].w};
+  const float bb[8] = {bv[0].x, bv[0].y, bv[0].z, bv[0].w, bv[1].x, bv[1].y, bv[1].z, bv[1].w};
+#pragma unroll
+  for (int i = 0; i < KN_ROWS; ++i) {
+    const int row = first + i;
+    bf16* e = reinterpret_cast<bf16*>(&u[i]);
+    float f[8];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      f[j] = __bfloat162float(e[j]);
+      s += f[j];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / 64.f;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d = f[j] - mean;
+      q += d * d;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd = rsqrtf(q / 64.f + a.eps);
+    if (row >= total) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float y = (f[j] - mean) * rstd * gg[j];
+      if (a.kb != nullptr) y += bb[j];
+      e[j] = __float2bfloat16(y);
+    }
+    *reinterpret_cast<uint4*>(a.out + (size_t)row * 64 + vi * 8) = u[i];
   }
 }
 
 }  // namespace fourm
 
+// q (B, H, N, 64), k and v (B, H, M, 64) bf16 read through element strides
+// (s*b, s*h, s*n: multiples of 8, the last dim contiguous, 16-byte aligned
+// bases); o written through its strides. bias: fp32 through (sbb, sbh,
+// sbn, sbm), 0 on broadcast axes, or null. qg, qb, kg, kb: QK-norm's fp32
+// LN parameters, 16-byte aligned (qg null: no QK-norm; qb, kb may be null);
+// qk_scratch: bf16 (B * M * H, 64), LN(k), when qg is given.
 extern "C" int fourm_attention(
     const void* q, const void* k, const void* v, void* o,
     int sqb, int sqh, int sqn, int skb, int skh, int skn,
     int svb, int svh, int svn, int sob, int soh, int son,
     const void* bias, int sbb, int sbh, int sbn, int sbm,
-    const void* qg, const void* qb, const void* kg, const void* kb,
+    const void* qg, const void* qb, const void* kg, const void* kb, void* qk_scratch,
     int B, int H, int N, int M, float scale, float eps, int zero_attn,
     void* stream) {
   using namespace fourm;
-  AttnArgs a;
-  a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v; a.o = (bf16*)o;
-  a.sqb = sqb; a.sqh = sqh; a.sqn = sqn; a.skb = skb; a.skh = skh; a.skn = skn;
-  a.svb = svb; a.svh = svh; a.svn = svn; a.sob = sob; a.soh = soh; a.son = son;
-  a.bias = (const float*)bias; a.sbb = sbb; a.sbh = sbh; a.sbn = sbn; a.sbm = sbm;
-  a.qg = (const float*)qg; a.qb = (const float*)qb;
-  a.kg = (const float*)kg; a.kb = (const float*)kb;
-  a.N = N; a.M = M; a.scale = scale; a.eps = eps; a.zero_attn = zero_attn;
-  const size_t smem = (size_t)(AT_BQ + 2 * AT_BK + AT_BQ) * AT_LD * sizeof(bf16) +
-                      (size_t)AT_BQ * AT_LDS * sizeof(float);
-  const bool norm = qg != nullptr;
-  auto kern = norm ? attn_kernel<true> : attn_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + AT_BQ - 1) / AT_BQ, H, B);
-  kern<<<grid, AT_THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const long long qs[3] = {sqb, sqh, sqn};
+  long long ks[3] = {skb, skh, skn};
+  if (qg != nullptr) {
+    if (qk_scratch == nullptr) return (int)cudaErrorInvalidValue;
+    KNormArgs a;
+    a.k = (const bf16*)k; a.out = (bf16*)qk_scratch;
+    a.skb = skb; a.skh = skh; a.skn = skn;
+    a.kg = (const float*)kg; a.kb = (const float*)kb;
+    a.B = B; a.H = H; a.M = M; a.eps = eps;
+    const long long rows = (long long)B * H * M;
+    if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const long long per_block = 32 * KN_ROWS;
+    k_norm_kernel<<<(unsigned)((rows + per_block - 1) / per_block), 256, 0, st>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k = qk_scratch;
+    ks[0] = (long long)M * H * 64; ks[1] = 64; ks[2] = (long long)H * 64;
+  }
+  AttnArgs p;
+  p.o = (bf16*)o; p.sob = sob; p.soh = soh; p.son = son;
+  p.bias = (const float*)bias; p.sbb = sbb; p.sbh = sbh; p.sbn = sbn; p.sbm = sbm;
+  p.qg = (const float*)qg; p.qb = (const float*)qb;
+  p.N = N; p.M = M; p.scale = scale; p.eps = eps; p.zero_attn = zero_attn;
+  const long long vs[3] = {svb, svh, svn};
+  return N <= SHORT_N ? launch_attn<ShortShape>(q, k, v, qs, ks, vs, B, H, p, st)
+                      : launch_attn<LongShape>(q, k, v, qs, ks, vs, B, H, p, st);
 }

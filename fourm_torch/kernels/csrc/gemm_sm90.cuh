@@ -1,8 +1,12 @@
-// The Hopper GEMM core of ln_matmul.cu and ln_mlp.cu: C = A @ B^T with A
-// (M, K) and B (N, K) both row-major bf16 (B in nn.Linear layout, so both
-// operands are K-major), fp32 accumulation, and an epilogue functor that
-// turns each accumulator pair into the caller's output. Also the LN
-// prologue both sources run first (ln_rows_kernel).
+// The Hopper GEMM core of ln_matmul.cu, ln_mlp.cu and attn_block.cu's
+// projection: C = A @ B^T with A (M, K) and B (N, K) both row-major bf16 (B
+// in nn.Linear layout, so both operands are K-major), fp32 accumulation, and
+// an epilogue functor that turns each accumulator pair into the caller's
+// output. Also the LN prologue those sources run first (ln_rows_kernel), and
+// the primitives attn_sm90.cuh builds the attention kernels from: mbarriers,
+// 2- to 4-D TMA loads and their tensor maps, 128-byte-swizzle descriptors
+// (K-major and MN-major) and the wgmma shapes m64n128k16 / m64n64k16 (A from
+// shared memory or, m64n64k16, from registers).
 //
 // Design (raw PTX, no CUTLASS GEMM):
 //   * a CTA owns a 128 x 128 output tile and walks K in steps of 64: bf16
@@ -95,6 +99,40 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------- programmatic dependent launch
+
+// In a kernel whose output the next kernel of the stream reads: let that
+// kernel, launched with launch_dependent, start its prologue once every
+// CTA of this one is running.
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+// In a kernel launched with launch_dependent: wait until the kernels before
+// it in the stream have finished and their writes are visible (at once
+// when it was launched without the attribute).
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // -------------------------------------------------------------------- wgmma
 
 // Descriptor of a K-major operand tile in the 128-byte swizzle: rows of 128
@@ -102,6 +140,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 // Stepping 16 elements along K adds 32 bytes to the start address (2 in the
 // descriptor's 16-byte units).
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint32_t a = smem_u32(tile);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major operand tile in the 128-byte swizzle, the B
+// operand of a product whose 64 N columns are one 128-byte row (a V tile:
+// rows are keys, the K dimension): 8-row groups along K 1024 bytes apart
+// (SBO); one 64-column swizzle atom along N, so the atom stride (LBO) is not
+// read. Stepping 16 rows along K adds 2048 bytes (128 in 16-byte units).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile) {
   const uint32_t a = smem_u32(tile);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
@@ -120,13 +169,23 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundaries.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for the registers of a wgmma A fragment: they stay live, and
+// untouched, until the wait that follows the product that reads them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d[64x128 per warpgroup] += A[64x16] @ B[128x16]^T, both from shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// d[64x128 per warpgroup] (+)= A[64x16] @ B[128x16]^T, both from shared memory;
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -146,7 +205,44 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64x64 per warpgroup] (+)= A[64x16] @ B[64x16]^T, both K-major from shared memory;
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64x64 per warpgroup] += A[64x16] @ B[16x64] with A from registers (a: the
+// m64nNk16 A fragment, two bf16 per register) and B an MN-major tile in shared
+// memory (trans-b: the 64 columns contiguous, K along its rows).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 // -------------------------------------------------------------- the kernel
@@ -307,23 +403,102 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a row-major (rows, cols) bf16 matrix read in 128 x 64 boxes in
-// the 128-byte swizzle, out-of-bounds elements read as zero. cols % 8 == 0
-// and a 16-byte aligned base (TMA's stride and address rules).
-inline int make_map(CUtensorMap* map, const void* base, int rows, int cols) {
+// A bf16 tensor map of `rank` dimensions (innermost first; byte strides of
+// the outer ones) read in boxes of `box` elements in the 128-byte swizzle,
+// out-of-bounds elements read as zero. TMA's rules: a 16-byte aligned base,
+// strides that are multiples of 16 bytes, an innermost box of 64 elements.
+inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if (cols % 8 != 0 || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BM};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of a row-major (rows, cols) bf16 matrix read in box_rows x 64
+// boxes. cols % 8 == 0.
+inline int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows = BM) {
+  if (cols % 8 != 0) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  return encode_map(map, base, 2, dims, strides, box);
+}
+
+// The map of `batch` row-major (rows, cols) bf16 matrices stored one after
+// another, read in box_rows x 64 boxes of one matrix: rows past `rows` read
+// as zero, never as the next matrix's. cols % 8 == 0.
+inline int make_map_batched(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                            int box_rows = BM) {
+  if (cols % 8 != 0) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  return encode_map(map, base, 3, dims, strides, box);
+}
+
+// The map of an attention operand: (batch, heads, rows, 64) bf16 read
+// through element strides sb, sh, sr (the 64 head dims contiguous), in boxes
+// of box_rows rows x 64 of one (batch, head): rows past `rows` read as zero.
+// The three outer dimensions are ordered by stride, smallest first (a dim of
+// size 1 last), since q, k and v may be column slices of one row (heads
+// within a row) or (B, H, N, Dh) views with any order of strides. *ord gets
+// the coordinate slot (1-3) of the rows, heads and batch: bits 0-1, 2-3, 4-5;
+// tma_rows in attn_sm90.cuh places its coordinates by it.
+inline int make_rows_map(CUtensorMap* map, const void* base, int batch, int heads, int rows,
+                         long long sb, long long sh, long long sr, int box_rows, int* ord) {
+  long long size[3] = {rows, heads, batch};
+  long long stride[3] = {sr, sh, sb};
+  long long widest = 8;
+  for (int i = 0; i < 3; ++i) widest = stride[i] > widest ? stride[i] : widest;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] == 1) stride[i] = widest;  // any stride: its coordinate is always 0
+  int perm[3] = {0, 1, 2};  // insertion sort by stride, stable
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[perm[j]] < stride[perm[j - 1]]; --j) {
+      const int t = perm[j];
+      perm[j] = perm[j - 1];
+      perm[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {64, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  *ord = 0;
+  for (int slot = 1; slot <= 3; ++slot) {
+    const int d = perm[slot - 1];
+    dims[slot] = (cuuint64_t)size[d];
+    strides[slot - 1] = (cuuint64_t)stride[d] * 2;
+    if (d == 0) box[slot] = (cuuint32_t)box_rows;
+    *ord |= slot << (2 * d);
+  }
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
+// Launch kern<<<grid, block, smem, stream>>>(args...) with programmatic
+// stream serialization: it may start while the kernel before it finishes,
+// and must call wait_prerequisites() before it reads that kernel's output.
+template <class... Params, class... Args>
+int launch_dependent(void (*kern)(Params...), dim3 grid, dim3 block, size_t smem,
+                     cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // C = A (M, K) @ B (b_rows, K)^T [and A @ B2^T], tiles over (M, N), through
@@ -348,17 +523,69 @@ int launch_gemm(const void* a, const void* b, const void* b2, int M, int N, int 
 
 // ------------------------------------------------------------ LN prologue
 
-// h = bf16(LN(x)) over rows of x (M, D), one warp per row (warp_ln_row:
-// fp32 mean, fp32 mean of squared deviations, one rounding): the A operand
-// of the GEMM, read back through TMA. OWNER (0: ln_matmul, 1: ln_mlp)
-// changes only the kernel's name, so that a profile assigns its time to
-// the wrapper that launched it.
+// h = bf16(LN(x)) over rows of x (M, D), one warp per row (fp32 mean, fp32
+// mean of squared deviations, one rounding; the arithmetic and summation
+// order of warp_ln_row): the A operand of the GEMM, read back through TMA.
+// A row of up to 32 x 8 x LN_VEC values is read once and kept in
+// registers; a wider one goes through warp_ln_row. OWNER (0: ln_matmul, 1:
+// ln_mlp, 2: attn_block) changes only the kernel's name, so that a profile
+// assigns its time to the wrapper that launched it.
+constexpr int LN_VEC = 8;
+
 template <int OWNER>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, bf16* __restrict__ h, int M, int D, float eps) {
+  allow_dependents();
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  if (row < M) warp_ln_row(x + (size_t)row * D, D, gamma, beta, 0, eps, h + (size_t)row * D);
+  if (row >= M) return;
+  const int lane = threadIdx.x % 32, nv = D / 8;
+  if (nv > 32 * LN_VEC) {
+    warp_ln_row(x + (size_t)row * D, D, gamma, beta, 0, eps, h + (size_t)row * D);
+    return;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+  uint4 u[LN_VEC];
+#pragma unroll
+  for (int k = 0; k < LN_VEC; ++k)
+    u[k] = lane + 32 * k < nv ? src[lane + 32 * k] : make_uint4(0, 0, 0, 0);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < LN_VEC; ++k) {
+    if (lane + 32 * k >= nv) break;
+    float f[8];
+    unpack8(u[k], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mean = warp_sum(s) / (float)D;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < LN_VEC; ++k) {
+    if (lane + 32 * k >= nv) break;
+    float f[8];
+    unpack8(u[k], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q += (f[i] - mean) * (f[i] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(q) / (float)D + eps);
+  uint4* dst = reinterpret_cast<uint4*>(h + (size_t)row * D);
+#pragma unroll
+  for (int k = 0; k < LN_VEC; ++k) {
+    const int v = lane + 32 * k;
+    if (v >= nv) break;
+    float f[8];
+    unpack8(u[k], f);
+    uint4 o;
+    bf16* e = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float y = (f[i] - mean) * rstd * __ldg(gamma + v * 8 + i);
+      if (beta != nullptr) y += __ldg(beta + v * 8 + i);
+      e[i] = __float2bfloat16(y);
+    }
+    dst[v] = o;
+  }
 }
 
 template <int OWNER>

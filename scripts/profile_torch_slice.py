@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port on the card, under torch.profiler.
 
-    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train] [--out out/chain_trace.json]
+    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train|vq] [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
 ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
@@ -15,6 +15,12 @@ and by kernel group, the device busy share (summed kernel time over the
 wall time of the same window run without the profiler, which slows the
 host's launches; the share over the profiled wall time is printed beside
 it), and the host operators with the most self CPU time.
+
+`--part vq`: VQ path A, chip_smoke.py's phase 6 -- one tokenize call of the
+RGB tokenizer (VQ 224/16, vit_b_enc, 16384 codes, cosine) on 64 images,
+random bf16 weights -- profiled once after a warm-up, with the same
+breakdown; the busy share is over the median wall time of 5 calls without
+the profiler.
 
 The train step: chip_smoke.py's phase 9 (4M-B mod-7, B = 32, 128 + 128
 tokens, bf16 compute over fp32 master weights, one fused AdamW launch).
@@ -52,10 +58,16 @@ from fourm_torch.kernels import _build  # noqa: E402
 # kernel name (substring) -> the wrapper that launches it: ln_matmul's LN
 # prologue and GEMM (gemm_sm90.cuh's kernels, told apart by their template
 # arguments), ln_mlp's LN prologue and its two GEMMs (the zero-padded copy of
-# a ragged W2 runs as a PyTorch copy kernel, in "other")
+# a ragged W2 runs as a PyTorch copy kernel, in "other"); the attention
+# kernel and its QK-norm pre-pass over K; attn_block's LN rows, heads kernel and
+# projection GEMM
 WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
                    "ln_rows_kernel<1>": "ln_mlp", "ActEpi": "ln_mlp", "ResidualEpi": "ln_mlp",
-                   "attn_kernel": "flash_mha + attention", "self_decode_kernel": "self_decode",
+                   "attn_kernel": "flash_mha + attention",
+                   "k_norm_kernel": "flash_mha + attention",
+                   "ln_rows_kernel<2>": "attn_block", "attn_heads_kernel": "attn_block",
+                   "AttnOutEpi": "attn_block",
+                   "nearest_code": "nearest_code", "self_decode_kernel": "self_decode",
                    "cross_q_kernel": "cross_decode_attn (q prologue)",
                    "decode_partial_kernel<signed char>": "decode_attention_int8",
                    "decode_partial_kernel": "decode_attention",
@@ -203,8 +215,8 @@ def train_profile() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["all", "chain", "xl", "train"], default="all",
-                    help="all: chain and train (xl only when asked)")
+    ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq"], default="all",
+                    help="all: chain and train (xl and vq only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -220,8 +232,34 @@ def main() -> int:
     if args.part in ("all", "train"):
         torch.cuda.empty_cache()
         res["train_step"] = train_profile()
+    if args.part == "vq":
+        res["vq_a"] = vq_profile()
     print(json.dumps(res))
     return 0
+
+
+def vq_profile() -> dict:
+    """One tokenize call of VQ path A (64 images) under the profiler."""
+    from fourm_torch.vq import VQ, init_vq_weights
+
+    vq = init_vq_weights(VQ(**chip_smoke.VQ_RGB), 0)
+    x = torch.from_numpy(np.random.RandomState(0).rand(chip_smoke.VQ_BATCH, 224, 224, 3)
+                         .astype(np.float32)).cuda()
+
+    def run():
+        vq.tokenize(x)
+        torch.cuda.synchronize()
+
+    walls = []
+    for i in range(7):  # 2 warm-up calls, then 5 timed
+        t0 = time.perf_counter()
+        run()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    print(f"wall without the profiler: VQ path A {wall_ms:.3f} ms per call of "
+          f"{chip_smoke.VQ_BATCH} images (calls {', '.join(f'{w:.3f}' for w in walls)} ms)")
+    return profile(run, "VQ path A, 64 images", None, wall_ms)
 
 
 def chain_profile(trace, name: str = chip_smoke.MODEL, requests: int = chip_smoke.REQUESTS) -> dict:
