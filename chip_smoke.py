@@ -85,13 +85,18 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      448 x 448 inputs (positions resized bicubically) at batch 2, exact
      launch counts, against the CPU;
   8. the train step's kernels against their twins at its shapes, as phase
-     2: attention_train forward and backward (B = 32, 12 heads, N = M =
-     128) under a key and a full bias, with wrong outputs that the
-     tolerance must tell apart (the backward without its D term, dk
-     without its scale, the last key tile left out), and fused_adamw over
-     the 256 leaves of the 4M-B mod-7 tree, bit for bit; then the options
-     off the path (no bias, softmax1, ragged tiles, AdamW at t = 1000,
-     without decay, with the clip engaged);
+     2: attention_train forward (attention.cu's kernel with its row
+     statistics) and backward (B = 32, 12 heads, N = M = 128) under a key
+     and a full bias, with wrong outputs that the tolerance must tell apart
+     (the backward without its D term, dk without its scale, the last key
+     tile left out, the log2-unit statistics read as natural units, D of
+     the other query tile), and fused_adamw over the 256 leaves of the 4M-B
+     mod-7 tree, bit for bit; then the options off the path (no bias,
+     softmax1, ragged tiles, AdamW at t = 1000, without decay, with the
+     clip engaged); the backward at N = M = 512 and at N = 384, M = 200
+     (two key-tile CTAs) with faults (a stale Q/dO ring stage, dq of the
+     first key tile only); two backward runs bit for bit; and phase 2's
+     flash_mha / attention rows re-timed, the forward sharing their kernel;
   9. bench.py's train step (4M-B mod-7, fm_base_12e_12d_swiglu_nobias, B =
      32, 128 + 128 tokens, bf16 compute over fp32 master weights from a
      seeded generator, AdamW) through fourm_torch.parallel.build_train_step:
@@ -379,6 +384,89 @@ def ln_mlp_row(torch, rn, gen, rows: int, D: int, HID: int, gated: bool, biases:
               f"{'LN bias + biases' if biases else 'no biases'}")
 
 
+ATTENTION_CU = "fourm_torch/kernels/csrc/attention.cu"
+
+
+def flash_row(torch, rn, key_bias, g64, B: int, N: int, D: int = 768, H: int = 12):
+    """A flash_mha row: q, k, v (B, N, C) slices of one QKV buffer, QK-norm
+    (LN parameters g64), a key bias with one batch row fully masked; the
+    library yardstick is SDPA on the normalised heads."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+
+    bf, Dh = torch.bfloat16, D // H
+    qkv = rn(B, N, 3 * D)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    bias = key_bias(B, N, full_rows=1)
+    args = (q, k, v, H, bias, *g64)
+    qn = F.layer_norm(q.reshape(B, N, H, Dh).float(), (Dh,), g64[0], g64[1], 1e-6)
+    kn = F.layer_norm(k.reshape(B, N, H, Dh).float(), (Dh,), g64[2], g64[3], 1e-6)
+    qn, kn = qn.to(bf).transpose(1, 2), kn.to(bf).transpose(1, 2)
+    vh, mask = v.reshape(B, N, H, Dh).transpose(1, 2), bias[:, None, None, :].to(bf)
+    return dict(
+        run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
+        library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
+        faults=lambda: mha_faults(q, k, v, H, bias, g64),
+        flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4,
+        shape=f"q,k,v (B={B}, N=M={N}, C=768) slices of QKV, 12 heads, QK-norm, key bias")
+
+
+def attention_row(torch, rn, gen, key_bias, B: int, N: int, M: int, full_rows: int = 0,
+                  row_bias: bool = False, H: int = 12):
+    """An attention row: (B, H, N|M, 64) q, k, v and a (B, 1, 1, M) key bias
+    (`full_rows` batch rows fully masked) or a (B, 1, N, M) bias (query row 3
+    fully masked); the library yardstick is SDPA."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+
+    Dh = 64
+    q, k, v = rn(B, H, N, Dh), rn(B, H, M, Dh), rn(B, H, M, Dh)
+    if row_bias:  # one bias row per query, query row 3 fully masked
+        bias = torch.randn(B, 1, N, M, generator=gen, device="cuda")
+        bias[:, :, 3] = torch.finfo(torch.float32).min
+    else:
+        bias = key_bias(B, M, full_rows=full_rows)[:, None, None, :]
+    return dict(
+        run=lambda: at.attention(q, k, v, bias),
+        plain=lambda: at.attention_plain(q, k, v, bias),
+        library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=bias.to(torch.bfloat16)),
+        faults=lambda: attention_faults(q, k, v, bias),
+        flops=4 * B * H * N * M * Dh,
+        bytes=(2 * B * H * N * Dh + 2 * B * H * M * Dh) * 2 + bias.numel() * 4,
+        shape=f"q (B={B}, 12, N={N}, 64), k/v M={M}, "
+              + ("(B, 1, N, M) bias, query row 3 fully masked" if row_bias else
+                 "(B, 1, 1, M) bias")
+              + (f", {full_rows} batch rows fully masked" if full_rows else ""))
+
+
+def attention_rows(torch, rn, gen, key_bias, g64):
+    """Phase 2's rows of csrc/attention.cu's kernel (flash_mha, attention);
+    phase 8 re-times them beside the train step's forward."""
+
+    def flash_case(B, N):
+        return flash_row(torch, rn, key_bias, g64, B, N)
+
+    def attn_case(B, N, M, full_rows=0, row_bias=False):
+        return attention_row(torch, rn, gen, key_bias, B, N, M, full_rows, row_bias)
+
+    return [
+        ("flash_mha", "fourm_tpu/kernels/attention.py:587", ATTENTION_CU, flash_case(16, 2048)),
+        ("flash_mha@N196", "fourm_tpu/kernels/attention.py:587", ATTENTION_CU,
+         flash_case(16, 196)),
+        ("attention", "fourm_tpu/kernels/attention.py:325", ATTENTION_CU,
+         attn_case(16, 256, 2048)),
+        ("attention@masked_rows", "fourm_tpu/kernels/attention.py:325", ATTENTION_CU,
+         attn_case(16, 196, 512, full_rows=8)),
+        ("attention@SR448", "fourm_tpu/kernels/attention.py:127", ATTENTION_CU,
+         attn_case(16, 784, 1536)),
+        ("attention@row_bias", "fourm_tpu/kernels/attention.py:325", ATTENTION_CU,
+         attn_case(16, 196, 512, row_bias=True)),
+    ]
+
+
 def kernel_phase(torch, card: str):
     """Phase 2: each kernel against its twin at the main path's shapes: the
     ROAR kernels, then the decode-step kernels."""
@@ -406,42 +494,6 @@ def kernel_phase(torch, card: str):
     def mlp_library(h):
         return x + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
 
-    def flash_case(B, N):
-        qkv = rn(B, N, 3 * D)
-        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-        bias = key_bias(B, N, full_rows=1)
-        args = (q, k, v, H, bias, *g64)
-        qn = F.layer_norm(q.reshape(B, N, H, Dh).float(), (Dh,), g64[0], g64[1], 1e-6)
-        kn = F.layer_norm(k.reshape(B, N, H, Dh).float(), (Dh,), g64[2], g64[3], 1e-6)
-        qn, kn = qn.to(bf).transpose(1, 2), kn.to(bf).transpose(1, 2)
-        vh, mask = v.reshape(B, N, H, Dh).transpose(1, 2), bias[:, None, None, :].to(bf)
-        return dict(
-            run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
-            library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
-            faults=lambda: mha_faults(q, k, v, H, bias, g64),
-            flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4,
-            shape=f"q,k,v (B={B}, N=M={N}, C=768) slices of QKV, 12 heads, QK-norm, key bias")
-
-    def attn_case(B, N, M, full_rows=0, row_bias=False):
-        q, k, v = rn(B, H, N, Dh), rn(B, H, M, Dh), rn(B, H, M, Dh)
-        if row_bias:  # one bias row per query, query row 3 fully masked
-            bias = torch.randn(B, 1, N, M, generator=gen, device=dev)
-            bias[:, :, 3] = torch.finfo(torch.float32).min
-        else:
-            bias = key_bias(B, M, full_rows=full_rows)[:, None, None, :]
-        return dict(
-            run=lambda: at.attention(q, k, v, bias),
-            plain=lambda: at.attention_plain(q, k, v, bias),
-            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(bf)),
-            faults=lambda: attention_faults(q, k, v, bias),
-            flops=4 * B * H * N * M * Dh,
-            bytes=(2 * B * H * N * Dh + 2 * B * H * M * Dh) * 2 + bias.numel() * 4,
-            shape=f"q (B={B}, 12, N={N}, 64), k/v M={M}, "
-                  + ("(B, 1, N, M) bias, query row 3 fully masked" if row_bias else
-                     "(B, 1, 1, M) bias")
-                  + (f", {full_rows} batch rows fully masked" if full_rows else ""))
-
-    fa = "fourm_torch/kernels/csrc/attention.cu"
     cases = [
         ("ln_matmul", "fourm_tpu/kernels/fused_mlp.py:181", "fourm_torch/kernels/csrc/ln_matmul.cu",
          dict(run=lambda: fm.ln_matmul(x, gamma, None, w_qkv),
@@ -460,14 +512,7 @@ def kernel_phase(torch, card: str):
          "fourm_torch/kernels/csrc/ln_matmul.cu", ln_matmul_row(torch, rn, gen, 16 * 196, D, 3 * D)),
         ("ln_mlp@N196", "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu",
          ln_mlp_row(torch, rn, gen, 16 * 196, D, 2048, True)),
-        ("flash_mha", "fourm_tpu/kernels/attention.py:587", fa, flash_case(16, 2048)),
-        ("flash_mha@N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(16, 196)),
-        ("attention", "fourm_tpu/kernels/attention.py:325", fa, attn_case(16, 256, 2048)),
-        ("attention@masked_rows", "fourm_tpu/kernels/attention.py:325", fa,
-         attn_case(16, 196, 512, full_rows=8)),
-        ("attention@SR448", "fourm_tpu/kernels/attention.py:127", fa, attn_case(16, 784, 1536)),
-        ("attention@row_bias", "fourm_tpu/kernels/attention.py:325", fa,
-         attn_case(16, 196, 512, row_bias=True)),
+        *attention_rows(torch, rn, gen, key_bias, g64),
     ]
     decode_cases, decode_variants = decode_kernel_cases(torch, rn, key_bias, gen)
     results = time_cases(torch, cases + decode_cases, card)
@@ -1919,7 +1964,10 @@ def train_kernel_cases(torch, rn, gen, model):
     backward at B = 32, 12 heads, N = M = 128 under a key bias (the encoder
     self- and the decoder cross-attention) and a full (B, 1, N, M) bias (the
     decoder self-attention); fused_adamw over the 256 leaves of `model`, the
-    4M-B mod-7 tree. Then their options off the path."""
+    4M-B mod-7 tree. Then their options off the path, and the backward at N
+    = M = 512 (the JAX gate's limit) and at N = 384, M = 200 (two key-tile
+    CTAs: the dq partials and their sum), with faults. Returns (cases,
+    variants, fault variants)."""
     import torch.nn.functional as F
 
     from fourm_torch.kernels import attention_train as at
@@ -1932,6 +1980,7 @@ def train_kernel_cases(torch, rn, gen, model):
     src = "fourm_torch/kernels/csrc/attention_train.cu"
     fwd_at = "fourm_tpu/kernels/attention_bwd.py:161"
     bwd_at = "fourm_tpu/kernels/attention_bwd.py:193"
+    qt = 64  # query rows of a backward ring stage (csrc/attention_train.cu)
 
     def bias_of(mode, B, N, M):
         if mode == "none":
@@ -1952,19 +2001,40 @@ def train_kernel_cases(torch, rn, gen, model):
     def bias_bytes(bias):
         return 0 if bias is None else bias.numel() * 4
 
-    def bwd_fp32(q, k, v, bias, o, do, cut=None, with_d=True):
+    def bwd_fp32(q, k, v, bias, o, do, cut=None, with_d=True, stats=None, d_shift=0,
+                 dq_keys=None):
         """The twin's backward in fp32 with its roundings, for the faults:
-        without the D term, or with the key tiles from `cut` on left out."""
+        without the D term, with the key tiles from `cut` on left out, with
+        p from the kernel's log2-unit `stats` read as natural units (rows
+        with an unmasked key), with D of the query tile `d_shift` tiles on,
+        or with dq from the first `dq_keys` keys only."""
         scale = Dh ** -0.5
         s = q.float() @ k.float().transpose(-1, -2) * scale
-        p = torch.softmax(s if bias is None else s + bias, -1)
+        if bias is not None:
+            s = s + bias
+        p = torch.softmax(s, -1)
+        if stats is not None:
+            live = stats[..., :1] > -1e29
+            p = torch.where(live, torch.exp(torch.where(live, s - stats[..., :1], 0.0))
+                            * stats[..., 1:], p)
         dp = do.float() @ v.float().transpose(-1, -2)
         d = (do.float() * o.float()).sum(-1, keepdim=True) if with_d else 0.0
+        if d_shift:
+            d = d.roll(-d_shift * qt, dims=2)
         ds, pb = (p * (dp - d)).to(bf).float(), p.to(bf).float()
         if cut is not None:
             ds[..., cut:], pb[..., cut:] = 0.0, 0.0
-        return {"dq": ds @ k.float() * scale, "dk": ds.transpose(-1, -2) @ q.float() * scale,
+        keys = slice(None) if dq_keys is None else slice(0, dq_keys)
+        return {"dq": ds[..., keys] @ k.float()[:, :, keys] * scale,
+                "dk": ds.transpose(-1, -2) @ q.float() * scale,
                 "dv": pb.transpose(-1, -2) @ do.float()}
+
+    def stale_stages(t, tiles=2):
+        """t (B, H, N, ...) with every query tile from the third on replaced
+        by the one `tiles` tiles back: a ring stage its TMA never refilled."""
+        out = t.clone()
+        out[:, :, tiles * qt:] = t[:, :, :t.shape[2] - tiles * qt]
+        return out
 
     def fwd_case(mode):
         q, k, v, bias, _ = problem(mode, N, N)
@@ -2002,7 +2072,10 @@ def train_kernel_cases(torch, rn, gen, model):
             right = bwd_fp32(q, k, v, bias, o, do)
             wrong = {"D term left out": bwd_fp32(q, k, v, bias, o, do, with_d=False),
                      "dk without its scale": {"dk": right["dk"] * Dh ** 0.5},
-                     "last key tile left out": bwd_fp32(q, k, v, bias, o, do, cut=64)}
+                     "last key tile left out": bwd_fp32(q, k, v, bias, o, do, cut=64),
+                     "statistics (log2 units) read as natural units":
+                         bwd_fp32(q, k, v, bias, o, do, stats=stats),
+                     "D from the other query tile": bwd_fp32(q, k, v, bias, o, do, d_shift=1)}
             return right, wrong, set(wrong)
 
         return dict(
@@ -2079,8 +2152,8 @@ def train_kernel_cases(torch, rn, gen, model):
                 flops=16 * n, peak=PEAK_FP32_FLOPS, bytes=7 * 4 * n,
                 shape=f"{len(params)} leaves, {n} fp32 parameters (4M-B mod-7), decay mask of "
                       f"the 4M rules, t = 1, one launch")
-    cases = [("attention_train_fwd", fwd_at, src, fwd_case("key")),
-             ("attention_train_fwd@full", fwd_at, src, fwd_case("full")),
+    cases = [("attention_train_fwd", fwd_at, ATTENTION_CU, fwd_case("key")),
+             ("attention_train_fwd@full", fwd_at, ATTENTION_CU, fwd_case("full")),
              ("attention_train_bwd", bwd_at, src, bwd_case("key")),
              ("attention_train_bwd@full", bwd_at, src, bwd_case("full")),
              ("fused_adamw", "fourm_tpu/kernels/fused_adamw.py:73",
@@ -2105,24 +2178,90 @@ def train_kernel_cases(torch, rn, gen, model):
 
     variants = [*attn_variant("none", N, N, B=B), *attn_variant("key", N, N, True, B=B),
                 *attn_variant("full", N, N, True, B=B), *attn_variant("full", 100, 77),
-                *attn_variant("key", 5, 200), *attn_variant("none", 200, 5, True)]
+                *attn_variant("key", 5, 200), *attn_variant("none", 200, 5, True),
+                *attn_variant("full", 63, 65), *attn_variant("key", 129, 1, True)]
+
+    # the backward past the train step's tiles, held with faults: N = M = 512
+    # (eight query tiles through the two-stage ring: a stale stage) and N =
+    # 384, M = 200 (two key-tile CTAs, whose dq partials a second pass sums)
+    def bwd_fault_variant(mode, N, M, B=8):
+        q, k, v, bias, do = problem(mode, N, M, B)
+        o, stats = at.attention_train_fwd(q, k, v, bias)
+
+        def faults():
+            right = bwd_fp32(q, k, v, bias, o, do)
+            wrong = {}
+            if N > 2 * qt:
+                rows = [stale_stages(t) for t in (q, o, do)]
+                sb = bias if mode != "full" else stale_stages(bias)
+                stale = bwd_fp32(rows[0], k, v, sb, rows[1], rows[2])
+                wrong["each query tile from the third on read from two tiles back (a stale "
+                      "Q/dO ring stage)"] = stale
+            if M > 128:
+                wrong["dq of the first key tile (128 keys) only"] = {
+                    "dq": bwd_fp32(q, k, v, bias, o, do, dq_keys=128)["dq"]}
+            return right, wrong, set(wrong)
+
+        return (f"attention_train_bwd, {mode} bias, B={B}, N={N}, M={M}",
+                lambda: dict(zip(("dq", "dk", "dv"),
+                                 at.attention_train_bwd(q, k, v, bias, o, stats, do))),
+                lambda: dict(zip(("dq", "dk", "dv"),
+                                 at.attention_train_bwd_plain(q, k, v, bias, o, do))),
+                faults)
+
+    fault_variants = [bwd_fault_variant("key", 512, 512), bwd_fault_variant("full", 384, 200)]
     for count, dec, clip, what in ((999, decay, None, "t = 1000"),
                                    (0, no_decay, None, "decay off, t = 1"),
                                    (999, no_decay, None, "decay off, t = 1000"),
                                    (0, decay, 0.5 * norm.item(), "global-norm clip engaged")):
         variants.append((f"fused_adamw, {what}", adam_held("kernel", count, dec, clip),
                          adam_held("twin", count, dec, clip), True))
-    return cases, variants
+    return cases, variants, fault_variants
+
+
+def deterministic_check(torch, rn, gen) -> None:
+    """attention_train_bwd twice on the same inputs, bit for bit: at the train
+    step's shape under both biases, and past one CTA's 128 keys (the dq
+    partials and their sum in key-tile order)."""
+    from fourm_torch.kernels import attention_train as at
+
+    neg = torch.finfo(torch.float32).min
+    for B, N, M, full in ((TRAIN_BATCH, TRAIN_TOKENS, TRAIN_TOKENS, False),
+                          (TRAIN_BATCH, TRAIN_TOKENS, TRAIN_TOKENS, True), (8, 384, 200, True)):
+        q, do, k, v = rn(B, 12, N, 64), rn(B, 12, N, 64), rn(B, 12, M, 64), rn(B, 12, M, 64)
+        bias = torch.where(torch.rand(B, 1, N if full else 1, M, generator=gen, device="cuda")
+                           < 0.3, neg, 0.0)
+        o, stats = at.attention_train_fwd(q, k, v, bias)
+        first = at.attention_train_bwd(q, k, v, bias, o, stats, do)
+        second = at.attention_train_bwd(q, k, v, bias, o, stats, do)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+        print(f"deterministic attention_train_bwd, {'full' if full else 'key'} bias, B={B}, "
+              f"N={N}, M={M}: dq, dk, dv bit-identical over two runs: {same}", flush=True)
+        check(all(same), f"attention_train_bwd is not deterministic at N={N}, M={M}")
 
 
 def train_kernel_phase(torch, card: str):
     """Phase 8: the train step's kernels against their twins, as phase 2;
-    fused_adamw exactly (bit for bit)."""
-    gen, rn, _ = random_makers(torch, 2)
+    fused_adamw exactly (bit for bit); the backward's faults past the train
+    step's tiles and its determinism; then phase 2's rows of the attention.cu
+    kernel, whose body the forward shares, re-timed beside it."""
+    gen, rn, key_bias = random_makers(torch, 2)
     model = train_model(torch, "cuda")
-    cases, variants = train_kernel_cases(torch, rn, gen, model)
+    cases, variants, fault_variants = train_kernel_cases(torch, rn, gen, model)
     results = time_cases(torch, cases, card)
     hold_variants(torch, variants)
+    for name, run, plain, faults in fault_variants:
+        parts = held(torch, name, run, plain, faults)
+        print(f"variant {name}: " + "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})"
+                                              for p, (e, t) in parts.items()), flush=True)
+    deterministic_check(torch, rn, gen)
+    g64 = [torch.rand(64, generator=gen, device="cuda") + 0.5,
+           torch.randn(64, generator=gen, device="cuda") * 0.1] * 2
+    for name, _replaces, _source, c in attention_rows(torch, rn, gen, key_bias, g64):
+        held(torch, name, c["run"], c["plain"])
+        print(f"retime {name} (phase 2's row, beside the train step's forward): "
+              f"{time_ms(torch, c['run'], 10):.4f} ms, library "
+              f"{time_ms(torch, c['library'], 10):.4f} ms; {card}", flush=True)
     return results
 
 

@@ -41,7 +41,7 @@ SIGNATURES = {
     "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P] * 12 + [_I, _I, _I, _I, _F, _P]),
     "attention": ("attention", "fourm_attention",
                   [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 5 + [_I] * 4
-                  + [_F, _F, _I, _P]),
+                  + [_F, _F, _I, _P, _P]),
     "self_decode": ("self_decode", "fourm_self_decode",
                     [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
     "decode_attention": ("decode_attn", "fourm_decode_attention",
@@ -54,8 +54,6 @@ SIGNATURES = {
     "attn_block": ("attn_block", "fourm_attn_block", [_P] * 11 + [_I] * 4 + [_F, _F, _I, _P]),
     "attn_block_fits": ("attn_block", "fourm_attn_block_fits", [_I, _I]),
     "nearest_code": ("vq_codebook", "fourm_nearest_code", [_P] * 3 + [_I] * 4 + [_P]),
-    "attention_train_fwd": ("attention_train", "fourm_attention_train_fwd",
-                            [_P] * 6 + [_IA, _F, _I, _P]),
     "attention_train_bwd": ("attention_train", "fourm_attention_train_bwd",
                             [_P] * 11 + [_IA, _F, _P]),
     "fused_adamw": ("fused_adamw", "fourm_fused_adamw", [_P] * 3 + [_I] + [_F] * 9 + [_P, _F, _P]),

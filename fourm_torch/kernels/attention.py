@@ -64,7 +64,9 @@ def attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, eps,
-            allow_zero_attn, dev):
+            allow_zero_attn, dev, stats=None):
+    """One call of csrc/attention.cu's entry; `stats`, fp32 (B, H, N, 2)
+    contiguous or None, gets each row's statistics (attention_train_fwd)."""
     from . import _build
 
     # QK-norm: the kernel's pre-pass writes LN(k) (B, M, H, 64) here once,
@@ -75,7 +77,7 @@ def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, 
     code = _build.entry("attention")(
         ptr(q), ptr(k), ptr(v), ptr(o), *qs, *ks, *vs, *os_, ptr(bias), *bs,
         *[ptr(t) for t in norms], ptr(scratch), B, H, N, M, float(Dh) ** -0.5, float(eps),
-        int(allow_zero_attn), stream(dev))
+        int(allow_zero_attn), ptr(stats), stream(dev))
     _build.check(name, code)
 
 

@@ -11,6 +11,12 @@
 //                 and, having no size split, its blocked hand-off
 //                 flash_attention: (B, H, N, Dh) operands, an fp32 bias
 //                 (B, 1|H, N|1, M) read with stride 0 on broadcast axes.
+//   attention_train_fwd (attention_train.py) -- replaces
+//                 fourm_tpu/kernels/attention_bwd.py:_train_fwd_call: the
+//                 same as attention, and each row's statistics (its max
+//                 logit in log2 units and 1 / its softmax sum) into a (B, H,
+//                 N, 2) fp32 output, the backward's residual (a compile-time
+//                 variant of the kernel, STATS).
 //
 // What bounds it on an H100: operations. 4*N*M*Dh FLOP per (batch, head)
 // against (2N + 2M)*Dh*2 bytes: at N = M = 2048 that is ~1000 FLOP/byte. At
@@ -38,7 +44,13 @@
 //   * a key bias (stride 0 over the query rows) is staged per tile in
 //     shared memory by the producer warpgroup's other threads, clamped and
 //     in log2 units, one key each, beside the K/V stage it belongs to; a
-//     per-row bias is read by the consumers from device memory;
+//     per-row bias of the short shape whose strides TMA takes (keys
+//     contiguous, 16-byte rows) comes beside its K/V stage too, as the
+//     tile's 64 rows x 64 keys by TMA (two fp32 boxes of 32 keys, the
+//     128-byte swizzle; a three-stage ring, so that two CTAs still fit on
+//     an SM): the consumers read it from shared memory instead of waiting
+//     on device memory in the softmax; any other per-row bias is read by
+//     the consumers from device memory;
 //   * QK-norm, LayerNorm in fp32 over Dh (eps from the block norm), cast to
 //     bf16 -- the order of attention.py:531-560: a pre-pass (k_norm_kernel)
 //     writes LN(k) of every (batch, head) once into a bf16 scratch that the
@@ -57,18 +69,22 @@ namespace fourm {
 // A kernel shape: CONS consumer warpgroups of 64 query rows each, key tiles
 // of KT keys, a STAGES-deep K/V ring, CTAS CTAs resident per SM (their
 // registers split the SM's 65536: setmaxnreg gives the producer warpgroup
-// 40 a thread and the consumers what is left).
-template <int CONS_, int KT_, int STAGES_>
+// 40 a thread and the consumers what is left); ROWB: each stage also holds
+// the tile's per-row bias (BQ rows x KT keys, fp32, by TMA).
+template <int CONS_, int KT_, int STAGES_, bool ROWB_ = false>
 struct AttnShape {
   static constexpr int CONS = CONS_, KT = KT_, STAGES = STAGES_;
+  static constexpr bool ROWB = ROWB_;
   static constexpr int BQ = 64 * CONS;  // query rows per CTA
   static constexpr int THREADS = 128 * (CONS + 1);
   static constexpr int CTAS = CONS == 1 ? 2 : 1;
   static constexpr int CONSUMER_REGS = CONS == 1 ? 216 : 232;
   static constexpr int Q_BYTES = BQ * 128, KV_BYTES = KT * 128;  // bf16 rows of 64
-  // Q tile, STAGES x (K tile, V tile), STAGES x the key bias of a tile, then
-  // the barriers; 1 KB for the alignment of the dynamic base
-  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES +
+  static constexpr int ROW_BYTES = ROWB ? BQ * KT * 4 : 0;
+  // Q tile, STAGES x (K tile, V tile), STAGES x the rows' bias tile,
+  // STAGES x the key bias of a tile, then the barriers; 1 KB for the
+  // alignment of the dynamic base
+  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * (2 * KV_BYTES + ROW_BYTES) +
                                  (size_t)STAGES * KT * sizeof(float) +
                                  (1 + 2 * STAGES) * sizeof(uint64_t);
 };
@@ -80,14 +96,19 @@ using LongShape = AttnShape<2, 128, 4>;
 // at every chip_smoke.py row: 8-15% faster up to N = 784, even or slower at
 // N = 2048 / 2304.
 using ShortShape = AttnShape<1, 64, 4>;
+// the short shape with a per-row bias staged by TMA: three stages of K, V
+// and the rows' bias (16 KB a stage), 106 KB, still two CTAs per SM
+using ShortRowShape = AttnShape<1, 64, 3, true>;
 constexpr int SHORT_N = 1024;  // the longest query sequence ShortShape takes
 
 struct AttnArgs {
   bf16* o; int sob, soh, son;
   const float* bias; int sbb, sbh, sbn, sbm;
   const float* qg; const float* qb;  // QK-norm's q LN parameters, or null
+  float2* stats;  // STATS: (B, H, N) x (max in log2 units, 1 / sum)
   int N, M; float scale, eps; int zero_attn;
   int ord_q, ord_k, ord_v;  // coordinate slots of each map (make_rows_map)
+  int bias_flags;           // make_bias_map's flags (BIAS 3)
 };
 
 // QK-norm of a consumer warpgroup's 64 query rows of the Q tile (128-byte
@@ -140,6 +161,7 @@ struct QNorm {
 template <class S>
 struct KVRing {
   unsigned char* stages;
+  const unsigned char* rbias;
   const float* kbias;
   uint64_t* full;
   uint64_t* empty;
@@ -152,19 +174,27 @@ struct KVRing {
   __device__ __forceinline__ const float* key_bias(int t) const {
     return kbias + (t % S::STAGES) * S::KT;
   }
+  __device__ __forceinline__ const float* row_bias(int t) const {
+    return reinterpret_cast<const float*>(rbias + (t % S::STAGES) * S::ROW_BYTES);
+  }
   __device__ __forceinline__ void release(int t) { sm90::mbar_arrive(&empty[t % S::STAGES]); }
 };
 
-template <class S, int BIAS>
+// BIAS: 0 none, 1 a key bias, 2 a per-row bias read from device memory, 3
+// a per-row bias staged by TMA (S::ROWB). STATS: write the row statistics.
+template <class S, int BIAS, bool STATS>
 __global__ void __launch_bounds__(S::THREADS, S::CTAS)
 attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv, AttnArgs p) {
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tb,
+            AttnArgs p) {
+  static_assert(BIAS != 3 || (S::ROWB && S::CONS == 1), "a staged row bias needs ROWB, BQ 64");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* qs = smem;
   unsigned char* stages = smem + S::Q_BYTES;
-  float* kbias = reinterpret_cast<float*>(stages + S::STAGES * 2 * S::KV_BYTES);
+  unsigned char* rbias = stages + S::STAGES * 2 * S::KV_BYTES;  // S::ROWB
+  float* kbias = reinterpret_cast<float*>(rbias + S::STAGES * S::ROW_BYTES);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(kbias + S::STAGES * S::KT);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + S::STAGES;
@@ -201,9 +231,13 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         sm90::mbar_wait(&empty[s], ((t / S::STAGES) & 1) ^ 1);  // the first round passes
         if (i == 0) {
           unsigned char* st = stages + s * 2 * S::KV_BYTES;
-          sm90::mbar_expect_tx(&full[s], 2 * S::KV_BYTES);
+          sm90::mbar_expect_tx(&full[s], 2 * S::KV_BYTES + (BIAS == 3 ? S::ROW_BYTES : 0));
           sm90::tma_rows(st, &tk, &full[s], p.ord_k, t * S::KT, h, b);
           sm90::tma_rows(st + S::KV_BYTES, &tv, &full[s], p.ord_v, t * S::KT, h, b);
+          if (BIAS == 3)
+            for (int j = 0; j < S::KT / 32; ++j)
+              sm90::tma_bias(rbias + s * S::ROW_BYTES + j * S::BQ * 128, &tb, &full[s],
+                             p.bias_flags, t * S::KT + 32 * j, n0, h, b);
         }
         if (BIAS == 1) {
           const int key = t * S::KT + i;
@@ -219,12 +253,12 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int row0 = n0 + wg * 64 + warp * 16 + lane / 4;
     sm90::BiasRows bias{{nullptr, nullptr}, p.sbm};
-    if (BIAS != 0) {
+    if (BIAS == 1 || BIAS == 2) {
       const float* bh = p.bias + (size_t)b * p.sbb + (size_t)h * p.sbh;
 #pragma unroll
       for (int r = 0; r < 2; ++r) bias.row[r] = bh + (size_t)min(row0 + 8 * r, p.N - 1) * p.sbn;
     }
-    KVRing<S> ring{stages, kbias, full, empty};
+    KVRing<S> ring{stages, rbias, kbias, full, empty};
     sm90::RowState st;
     if (p.qg != nullptr) {
       QNorm qn;
@@ -240,34 +274,56 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     sm90::attend<S::KT, BIAS>(ring, sm90::desc_sw128(qs + wg * 64 * 128), n_tiles, p.M, p.scale,
                               bias, p.zero_attn, st);
     bf16* dst[2];
+    float2* stats[2] = {nullptr, nullptr};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int n = row0 + 8 * r;
       dst[r] = n < p.N ? p.o + (size_t)b * p.sob + (size_t)h * p.soh + (size_t)n * p.son
                        : nullptr;
+      if (STATS && n < p.N) stats[r] = p.stats + ((size_t)b * gridDim.y + h) * p.N + n;
     }
-    sm90::store_rows(st, p.zero_attn, dst);
+    sm90::store_rows(st, p.zero_attn, dst, stats);
   }
 }
 
-// Maps and launch of shape S.
-template <class S>
+// Maps and launch of shape S with bias kind BIAS (tb: its map, BIAS 3).
+template <class S, int BIAS>
 int launch_attn(const void* q, const void* k, const void* v, const long long (&qs)[3],
                 const long long (&ks)[3], const long long (&vs)[3], int B, int H, AttnArgs p,
-                cudaStream_t st) {
+                const CUtensorMap& tb, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   int err = sm90::make_rows_map(&tq, q, B, H, p.N, qs[0], qs[1], qs[2], S::BQ, &p.ord_q);
   if (err == 0) err = sm90::make_rows_map(&tk, k, B, H, p.M, ks[0], ks[1], ks[2], S::KT, &p.ord_k);
   if (err == 0) err = sm90::make_rows_map(&tv, v, B, H, p.M, vs[0], vs[1], vs[2], S::KT, &p.ord_v);
   if (err != 0) return err;
-  // 0: no bias; 1: one bias row for every query (stride 0 over N); 2: per row
-  const int kind = p.bias == nullptr ? 0 : (p.sbn == 0 || p.N == 1) ? 1 : 2;
-  auto kern = kind == 0 ? attn_kernel<S, 0> : kind == 1 ? attn_kernel<S, 1> : attn_kernel<S, 2>;
+  auto kern = p.stats != nullptr ? attn_kernel<S, BIAS, true> : attn_kernel<S, BIAS, false>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (e != cudaSuccess) return (int)e;
   return sm90::launch_dependent(kern, dim3((p.N + S::BQ - 1) / S::BQ, H, B), dim3(S::THREADS),
-                                S::SMEM, st, tq, tk, tv, p);
+                                S::SMEM, st, tq, tk, tv, tb, p);
+}
+
+// The shape and bias kind: 0 no bias; 1 one bias row for every query
+// (stride 0 over N); a per-row bias staged by TMA (3) in the short shape
+// where make_bias_map takes it, else read from device memory (2).
+int launch_attention(const void* q, const void* k, const void* v, const long long (&qs)[3],
+                     const long long (&ks)[3], const long long (&vs)[3], int B, int H, AttnArgs p,
+                     cudaStream_t st) {
+  CUtensorMap tb{};
+  const bool short_ = p.N <= SHORT_N;
+  if (p.bias == nullptr)
+    return short_ ? launch_attn<ShortShape, 0>(q, k, v, qs, ks, vs, B, H, p, tb, st)
+                  : launch_attn<LongShape, 0>(q, k, v, qs, ks, vs, B, H, p, tb, st);
+  if (p.sbn == 0 || p.N == 1)
+    return short_ ? launch_attn<ShortShape, 1>(q, k, v, qs, ks, vs, B, H, p, tb, st)
+                  : launch_attn<LongShape, 1>(q, k, v, qs, ks, vs, B, H, p, tb, st);
+  if (short_ && p.sbm == 1 &&
+      sm90::make_bias_map(&tb, p.bias, B, H, p.N, p.M, p.sbb, p.sbh, p.sbn, ShortRowShape::BQ,
+                          &p.bias_flags) == 0)
+    return launch_attn<ShortRowShape, 3>(q, k, v, qs, ks, vs, B, H, p, tb, st);
+  return short_ ? launch_attn<ShortShape, 2>(q, k, v, qs, ks, vs, B, H, p, tb, st)
+                : launch_attn<LongShape, 2>(q, k, v, qs, ks, vs, B, H, p, tb, st);
 }
 
 struct KNormArgs {
@@ -351,14 +407,16 @@ __global__ void __launch_bounds__(256) k_norm_kernel(KNormArgs a) {
 // bases); o written through its strides. bias: fp32 through (sbb, sbh,
 // sbn, sbm), 0 on broadcast axes, or null. qg, qb, kg, kb: QK-norm's fp32
 // LN parameters, 16-byte aligned (qg null: no QK-norm; qb, kb may be null);
-// qk_scratch: bf16 (B * M * H, 64), LN(k), when qg is given.
+// qk_scratch: bf16 (B * M * H, 64), LN(k), when qg is given. stats: null,
+// or fp32 (B, H, N, 2), contiguous, for each row its max logit in log2
+// units and 1 / its softmax sum.
 extern "C" int fourm_attention(
     const void* q, const void* k, const void* v, void* o,
     int sqb, int sqh, int sqn, int skb, int skh, int skn,
     int svb, int svh, int svn, int sob, int soh, int son,
     const void* bias, int sbb, int sbh, int sbn, int sbm,
     const void* qg, const void* qb, const void* kg, const void* kb, void* qk_scratch,
-    int B, int H, int N, int M, float scale, float eps, int zero_attn,
+    int B, int H, int N, int M, float scale, float eps, int zero_attn, void* stats,
     void* stream) {
   using namespace fourm;
   cudaStream_t st = (cudaStream_t)stream;
@@ -385,8 +443,9 @@ extern "C" int fourm_attention(
   p.o = (bf16*)o; p.sob = sob; p.soh = soh; p.son = son;
   p.bias = (const float*)bias; p.sbb = sbb; p.sbh = sbh; p.sbn = sbn; p.sbm = sbm;
   p.qg = (const float*)qg; p.qb = (const float*)qb;
+  p.stats = (float2*)stats;
   p.N = N; p.M = M; p.scale = scale; p.eps = eps; p.zero_attn = zero_attn;
+  p.bias_flags = 0;
   const long long vs[3] = {svb, svh, svn};
-  return N <= SHORT_N ? launch_attn<ShortShape>(q, k, v, qs, ks, vs, B, H, p, st)
-                      : launch_attn<LongShape>(q, k, v, qs, ks, vs, B, H, p, st);
+  return launch_attention(q, k, v, qs, ks, vs, B, H, p, st);
 }

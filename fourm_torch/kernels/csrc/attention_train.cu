@@ -1,493 +1,441 @@
-// Differentiable attention of the training step: a forward kernel and a
-// three-kernel backward.
-//   forward  -- replaces fourm_tpu/kernels/attention_bwd.py:_train_fwd_call
-//               (pallas_call :177): o = softmax(q k^T * scale + bias) v, or
-//               softmax1, and per row the running max m and the inverse
-//               sum 1/l (fp32) as the backward's residual (the TPU kernel
-//               recomputes the row statistics instead). Not one log-sum-exp:
-//               m + log(l) rounds log(l) away when m is the finfo.min of a
-//               fully masked row.
-//   backward -- replaces _train_bwd_call (pallas_call :212):
-//                 D  = rowsum(do * o)            (dsum pre-pass, fp32)
-//                 p  = exp(s - m) / l            (s recomputed from q, k)
-//                 dv = p^T do, p cast to bf16    (dkdv kernel)
-//                 ds = p * (do v^T - D), cast to bf16
-//                 dk = (ds^T q) * scale          (dkdv kernel)
-//                 dq = (ds k) * scale            (dq kernel)
-//               the roundings of attention_bwd.py:107-139. softmax1 needs
-//               no case of its own: its l holds the implicit zero logit.
+// The backward of the training step's attention, on Hopper.
+//   replaces fourm_tpu/kernels/attention_bwd.py:_train_bwd_call (pallas_call
+//   :212), with the roundings of attention_bwd.py:107-139:
+//     p  = exp2(s * scale * log2(e) + bias * log2(e) - m2) / l
+//                                   (s = q k^T recomputed; m2 and 1/l the
+//                                    forward's row statistics, log2 units)
+//     dv = p^T do,  p cast to bf16
+//     D  = rowsum(do * o)           (fp32, from the bf16 o)
+//     ds = p (do v^T - D), cast to bf16
+//     dk = (ds^T q) * scale,  dq = (ds k) * scale
+//   softmax1 needs no case of its own: its 1/l holds the implicit zero
+//   logit. The forward (_train_fwd_call, pallas_call :177) is attention.cu's
+//   kernel with its STATS output (attention_train.py:attention_train_fwd).
 // q/k/v/o/do and the outputs are (B, H, N|M, 64) bf16 read and written
 // through (batch, head, row) strides; the bias is fp32 (B, 1, 1|N, M) read
-// through (batch, row, key) strides (row stride 0 for a key-only bias), or
-// absent.
+// through (batch, row, key) strides (row stride 0 for a key bias), or absent.
 //
-// What bounds it on an H100: bytes at the training shapes (N = M = 128):
-// 4*N*M*Dh FLOP per (batch, head) forward against (2N + 2M)*Dh*2 bytes is
-// ~64 FLOP/byte, below the card's ~295. The design keeps every (N, M) score,
-// probability and ds tile in shared memory and registers: nothing of size
-// N*M reaches device memory (the TPU kernel's reason to exist, too).
+// What bounds it on an H100: bytes at the training shapes. At N = M = 128
+// the five products do 10*N*M*Dh FLOP per (batch, head) against (4N + 4M)*Dh
+// bf16 values read and written (q, o, do, k, v in; dq, dk, dv out): 80 FLOP
+// per byte (the forward: 64), below the card's ~295. So every operand is
+// read once and nothing of size N*M reaches device memory (the TPU kernel's
+// reason to exist too); past that, the time is each CTA's latency: load K
+// and V, stream the query tiles, write dk, dv.
 //
-// Design: a block takes one (batch, head, 64-row tile); 4 warps own 16 rows
-// each; products on WMMA 16x16x16 bf16 fragments with fp32 accumulation.
-// The forward is attention.cu's online softmax plus the row statistics. The backward
-// is deterministic, with no float atomics: the dkdv kernel takes a 64-key
-// tile and walks the query tiles, accumulating dk and dv in registers; the
-// dq kernel takes a 64-query tile and walks the key tiles. Both recompute s
-// and dp = do v^T from q, k, v (two products more than one fused pass with
-// atomics). Masked logits carry the finite finfo(f32).min, so a fully
-// masked row gets uniform weights, never NaN. Rows and keys past N and M
-// take no weight. A first version: no TMA, no wgmma, no pipelining.
-#include <float.h>
-
-#include "common.cuh"
+// Design (one kernel; attn_sm90.cuh's primitives):
+//   * key-tile-major: a CTA owns (batch, head, 128 keys) -- two consumer
+//     warpgroups of 64 keys each and a producer warpgroup. At the train
+//     step's M = 128 one CTA holds every key of its (batch, head);
+//   * the producer's thread 0 loads K and V once by TMA, then streams each
+//     query tile's Q, dO and O (64 rows each, 4-D maps over the caller's
+//     strides, rows past N zero-filled) and, with a full bias, the tile's 64
+//     x 128 bias through a two-stage mbarrier ring. The producer's 128
+//     threads stage the tile's row statistics beside it and compute D =
+//     rowsum(dO o) from the O and dO tiles in shared memory, two threads a
+//     row, so D needs no pre-pass;
+//   * per query tile each consumer computes, with rows its keys: S^T = K Q^T
+//     and dP^T = V dO^T by wgmma into registers; P^T = exp2(logit2 - m2) *
+//     (1/l) from the saved statistics; dS^T = P^T (dP^T - D); then dV += P^T
+//     dO and dK += dS^T Q by wgmma with P^T and dS^T, rounded to bf16, as the
+//     register A operand (the accumulator layout is the A fragment layout,
+//     as in the forward's P V), and dQ over its 64 keys = dS K with dS^T,
+//     stored in shared memory in the 128-byte swizzle, as an MN-major A
+//     operand. Five products per query tile; none recomputed;
+//   * deterministic, no float atomics: the two consumers' dQ partials meet
+//     in shared memory (one adds the other's, the roles alternating by tile)
+//     and are written once as bf16 when one CTA holds every key; past M =
+//     128 each key-tile CTA writes an fp32 partial and dq_reduce_kernel sums
+//     them in key-tile order. One launch per backward at M <= 128, two past;
+//   * a key bias is per key, so each consumer thread keeps its two keys'
+//     values in registers; a full bias comes by TMA in fp32 boxes of 32 keys
+//     in the 128-byte swizzle, which a consumer reads (8 keys x 4 queries a
+//     warp) without bank conflicts. The logits are clamped at BIAS_FLOOR and
+//     taken in log2 units as in the forward, so a fully masked row gets
+//     uniform weights, never NaN; keys past M get -inf, rows past N 1/l = 0:
+//     they take no weight.
+#include "attn_sm90.cuh"
 
 namespace fourm {
 
-constexpr int TR_DH = 64;
-constexpr int TR_T = 64;            // rows of a query or key tile
-constexpr int TR_THREADS = 128;
-constexpr int TR_LD = TR_DH + 8;    // bf16 tile row stride (elements)
-constexpr int TR_LDS = TR_T + 4;    // fp32 score row stride
+constexpr int BW_CONS = 2;                    // consumer warpgroups, 64 keys each
+constexpr int BW_KEYS = 64 * BW_CONS;         // keys per CTA
+constexpr int BW_THREADS = 128 * (BW_CONS + 1);
+constexpr int BW_STAGES = 2;
+constexpr int BW_TILE = 64 * 128;             // 64 bf16 rows of 64 (8 KB)
+constexpr int BW_BIAS_BYTES = 64 * BW_KEYS * 4;  // a query tile's full bias (fp32)
 
-struct TrainArgs {
-  const bf16 *q, *k, *v, *o, *dout;
-  bf16 *out, *dq, *dk, *dv;
-  float *stats;  // (B, H, N, 2) contiguous: row max, inverse row sum
-  float *dsum;   // (B, H, N) contiguous
-  const float* bias;
-  int B, H, N, M;
-  // (batch, head, row) strides of q, k, v, o, do, dq, dk, dv; then the
-  // bias's (batch, row, key) strides
-  int s[8][3];
-  int sbb, sbn, sbm;
-  float scale;
-  int zero_attn;
-};
-
-enum { SQ = 0, SK, SV, SO, SDO, SDQ, SDK, SDV };
-
-__device__ __forceinline__ size_t off(const TrainArgs& a, int t, int b, int h, int row) {
-  return (size_t)b * a.s[t][0] + (size_t)h * a.s[t][1] + (size_t)row * a.s[t][2];
-}
-
-// Copy a 64 x 64 bf16 tile (rows past `rows` zero) into shared memory.
-__device__ __forceinline__ void tile_to_smem(const bf16* __restrict__ src, int stride, int rows,
-                                             bf16* dst) {
-#pragma unroll
-  for (int pass = 0; pass < TR_T * 8 / TR_THREADS; ++pass) {
-    const int idx = pass * TR_THREADS + threadIdx.x;
-    const int r = idx / 8, vi = idx % 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r < rows) u = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + vi * 8);
-    *reinterpret_cast<uint4*>(dst + r * TR_LD + vi * 8) = u;
-  }
-}
-
-// out[16 x 64] (fp32, row stride TR_LDS) = A[16 x 64] B^T for the 16 rows
-// of `a` (row-major, stride TR_LD) against the 64 rows of `b` (row-major,
-// stride TR_LD): S = Q K^T, dP = dO V^T.
-__device__ __forceinline__ void rows_times_t(const bf16* a, const bf16* b, float* out) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[TR_DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < TR_DH / 16; ++kk) wmma::load_matrix_sync(af[kk], a + kk * 16, TR_LD);
-#pragma unroll
-  for (int j = 0; j < TR_T / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < TR_DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, b + (j * 16) * TR_LD + kk * 16, TR_LD);
-      wmma::mma_sync(acc, af[kk], bf, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, TR_LDS, wmma::mem_row_major);
-  }
-}
-
-// ---------------------------------------------------------------- forward
-
-__global__ void __launch_bounds__(TR_THREADS) attn_train_fwd_kernel(TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + TR_T * TR_LD;
-  bf16* vs = ks + TR_T * TR_LD;
-  bf16* ps = vs + TR_T * TR_LD;                                // 4 warps x 16 rows
-  float* ss = reinterpret_cast<float*>(ps + TR_T * TR_LD);    // 4 warps x 16 x TR_LDS
-
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * TR_T;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  tile_to_smem(a.q + off(a, SQ, b, h, n0), a.s[SQ][2], min(TR_T, a.N - n0), qs);
-
-  bf16* pw = ps + warp * 16 * TR_LD;
-  float* sw = ss + warp * 16 * TR_LDS;
-  const int r = lane / 2, c0 = (lane % 2) * 32;
-  const int n = n0 + warp * 16 + r;
-  const float* brow = nullptr;
-  if (a.bias != nullptr)
-    brow = a.bias + (size_t)b * a.sbb + (size_t)min(n, a.N - 1) * a.sbn;
-
-  float m_run = a.zero_attn ? 0.f : -FLT_MAX;  // finite start: never -inf - -inf
-  float l_run = 0.f;
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  for (int m0 = 0; m0 < a.M; m0 += TR_T) {
-    const int kr = min(TR_T, a.M - m0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    tile_to_smem(a.k + off(a, SK, b, h, m0), a.s[SK][2], kr, ks);
-    tile_to_smem(a.v + off(a, SV, b, h, m0), a.s[SV][2], kr, vs);
-    __syncthreads();
-    rows_times_t(qs + warp * 16 * TR_LD, ks, sw);
-    __syncwarp();
-
-    float sv[32];
-    float mx = -FLT_MAX;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = m0 + c0 + i;
-      float s = sw[r * TR_LDS + c0 + i] * a.scale;
-      if (brow != nullptr && key < a.M) s += brow[(size_t)key * a.sbm];
-      sv[i] = s;
-      if (key < a.M) mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float lsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float pv = m0 + c0 + i < a.M ? expf(sv[i] - m_new) : 0.f;
-      lsum += pv;
-      pw[r * TR_LD + c0 + i] = __float2bfloat16(pv);
-    }
-    l_run = l_run * alpha + lsum;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-    __syncwarp();
-
-    // acc += P V
-#pragma unroll
-    for (int j = 0; j < TR_DH / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::fill_fragment(o, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < TR_T / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, pw + kk * 16, TR_LD);
-        wmma::load_matrix_sync(vf, vs + (kk * 16) * TR_LD + j * 16, TR_LD);
-        wmma::mma_sync(o, pa, vf, o);
-      }
-      wmma::store_matrix_sync(sw + j * 16, o, TR_LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += sw[r * TR_LDS + c0 + i];
-    __syncwarp();
-  }
-
-  float l_tot = l_run + __shfl_xor_sync(0xffffffffu, l_run, 1);
-  if (a.zero_attn) l_tot += expf(-m_run);  // softmax1: the implicit zero logit
-  const float inv = 1.f / l_tot;
-  if (n < a.N) {
-    bf16* dst = a.out + off(a, SO, b, h, n) + c0;
-#pragma unroll
-    for (int v8 = 0; v8 < 4; ++v8) {
-      uint4 u;
-      bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(acc[v8 * 8 + i] * inv);
-      reinterpret_cast<uint4*>(dst)[v8] = u;
-    }
-    if (c0 == 0) {
-      float* st = a.stats + 2 * (((size_t)b * a.H + h) * a.N + n);
-      st[0] = m_run;
-      st[1] = inv;
-    }
-  }
-}
-
-// --------------------------------------------------------------- backward
-
-// D[b, h, n] = sum_d do * o in fp32, one thread per row, d in order.
-__global__ void __launch_bounds__(TR_THREADS) attn_train_dsum_kernel(TrainArgs a) {
-  const size_t row = (size_t)blockIdx.x * TR_THREADS + threadIdx.x;
-  if (row >= (size_t)a.B * a.H * a.N) return;
-  const int n = (int)(row % a.N), h = (int)((row / a.N) % a.H), b = (int)(row / ((size_t)a.N * a.H));
-  const uint4* dov = reinterpret_cast<const uint4*>(a.dout + off(a, SDO, b, h, n));
-  const uint4* ov = reinterpret_cast<const uint4*>(a.o + off(a, SO, b, h, n));
-  float d = 0.f;
-#pragma unroll
-  for (int v8 = 0; v8 < TR_DH / 8; ++v8) {
-    float x[8], y[8];
-    unpack8(dov[v8], x);
-    unpack8(ov[v8], y);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d += x[i] * y[i];
-  }
-  a.dsum[row] = d;
-}
-
-// For the 16 query rows at `row0` of the query tile at n0 (q rows in qs, do
-// rows in dos) against the key tile at m0 (ks, vs): s and dp on WMMA into
-// sw / dpw, then p = exp(s - m) / l and ds = p (dp - D), both rounded to
-// bf16 into pt / dt (row-major [query][key], stride TR_LD; pt only if
-// WRITE_P). m, 1/l and D of the tile's rows are in st_t (pairs) and d_t.
-template <bool WRITE_P>
-__device__ __forceinline__ void p_and_ds(const TrainArgs& a, int b, int n0, int row0, int m0,
-                                         const bf16* qs, const bf16* dos, const bf16* ks,
-                                         const bf16* vs, float* sw, float* dpw, bf16* pt,
-                                         bf16* dt, const float* st_t, const float* d_t) {
-  const int lane = threadIdx.x % 32;
-  rows_times_t(qs + row0 * TR_LD, ks, sw);
-  rows_times_t(dos + row0 * TR_LD, vs, dpw);
-  __syncwarp();
-  const int r = lane / 2, c0 = (lane % 2) * 32;
-  const int n = n0 + row0 + r;
-  const bool row_ok = n < a.N;
-  const float* brow = nullptr;
-  if (a.bias != nullptr)
-    brow = a.bias + (size_t)b * a.sbb + (size_t)min(n, a.N - 1) * a.sbn;
-  const float mrow = st_t[2 * (row0 + r)], inv = st_t[2 * (row0 + r) + 1];
-  const float dd = d_t[row0 + r];
-#pragma unroll 8
-  for (int i = 0; i < 32; ++i) {
-    const int key = m0 + c0 + i;
-    float p = 0.f;
-    if (row_ok && key < a.M) {
-      float s = sw[r * TR_LDS + c0 + i] * a.scale;
-      if (brow != nullptr) s += brow[(size_t)key * a.sbm];
-      p = expf(s - mrow) * inv;
-    }
-    const float ds = p * (dpw[r * TR_LDS + c0 + i] - dd);
-    if (WRITE_P) pt[(row0 + r) * TR_LD + c0 + i] = __float2bfloat16(p);
-    dt[(row0 + r) * TR_LD + c0 + i] = __float2bfloat16(ds);
-  }
-}
-
-// Write 16 rows x 64 of fp32 accumulators (times `scale`) as bf16 rows of
-// (B, H, rows, 64) at row0; rows at or past `limit` are not written. sw is
-// the warp's fp32 scratch.
-__device__ __forceinline__ void store_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[TR_DH / 16], float* sw,
-    float scale, bf16* dst_row0, int stride, int row0, int limit) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < TR_DH / 16; ++j)
-    wmma::store_matrix_sync(sw + j * 16, acc[j], TR_LDS, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane / 2, c0 = (lane % 2) * 32;
-  if (row0 + r < limit) {
-    bf16* dst = dst_row0 + (size_t)r * stride + c0;
-#pragma unroll
-    for (int v8 = 0; v8 < 4; ++v8) {
-      uint4 u;
-      bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(sw[r * TR_LDS + c0 + v8 * 8 + i] * scale);
-      reinterpret_cast<uint4*>(dst)[v8] = u;
-    }
-  }
-  __syncwarp();
-}
-
+// Shared memory (from a 1024-byte aligned base): K, V (BW_KEYS rows each);
+// the consumers' dS^T tiles; two fp32 64 x 64 dQ exchange buffers; then
+// BW_STAGES stages of Q, dO, O (and the full bias); then per stage the
+// rows' statistics (64 x 2) and D (64); then the barriers.
+template <int BIAS>
 struct BwdSmem {
-  bf16 *qs, *dos, *ks, *vs, *pt, *dt;
-  float *sw, *dpw, *st_t, *d_t;
+  static constexpr int K = 0, V = K + BW_KEYS * 128, DS = V + BW_KEYS * 128,
+                       X = DS + BW_CONS * BW_TILE, STAGES = X + 2 * 64 * 64 * 4;
+  static constexpr int STAGE = 3 * BW_TILE + (BIAS == 2 ? BW_BIAS_BYTES : 0);
+  static constexpr int ROWS = STAGES + BW_STAGES * STAGE;  // 192 floats a stage
+  static constexpr int BARS = ROWS + BW_STAGES * 192 * 4;
+  static constexpr size_t BYTES = 1024 + BARS + (1 + 3 * BW_STAGES) * sizeof(uint64_t);
+};
+static_assert(BwdSmem<2>::BYTES <= 227 * 1024, "the backward's tiles exceed sm_90's shared memory");
+
+struct BwdArgs {
+  bf16 *dq, *dk, *dv;
+  float* dq_part;       // fp32 (T, B, H, N, 64) partials when T = gridDim.x > 1
+  const float* stats;   // (B, H, N, 2): max logit in log2 units, 1 / sum
+  const float* bias;    // a key bias, read by the consumers (BIAS 1)
+  int sbb, sbm;
+  int B, H, N, M;
+  int sdq[3], sdk[3], sdv[3];
+  float scale;
+  int ord_q, ord_k, ord_v, ord_o, ord_do, bias_flags;
 };
 
-__device__ __forceinline__ BwdSmem carve(unsigned char* smem) {
-  BwdSmem s;
-  s.qs = reinterpret_cast<bf16*>(smem);
-  s.dos = s.qs + TR_T * TR_LD;
-  s.ks = s.dos + TR_T * TR_LD;
-  s.vs = s.ks + TR_T * TR_LD;
-  s.pt = s.vs + TR_T * TR_LD;
-  s.dt = s.pt + TR_T * TR_LD;
-  s.sw = reinterpret_cast<float*>(s.dt + TR_T * TR_LD);
-  s.dpw = s.sw + TR_T * TR_LDS;
-  s.st_t = s.dpw + TR_T * TR_LDS;
-  s.d_t = s.st_t + 2 * TR_T;
-  return s;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-constexpr size_t BWD_SMEM = (size_t)6 * TR_T * TR_LD * sizeof(bf16) +
-                            (size_t)2 * TR_T * TR_LDS * sizeof(float) + 3 * TR_T * sizeof(float);
-// The tiles are fixed, whatever N and M: they must fit sm_90's opt-in block
-// limit, so the kernels take any N and M at Dh = TR_DH.
-static_assert(BWD_SMEM <= 227 * 1024, "the backward's tiles exceed sm_90's shared memory");
+// BIAS: 0 none, 1 a key bias (B, 1, 1, M), 2 a full bias (B, 1, N, M) through
+// its TMA map tb.
+template <int BIAS>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+attn_train_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                      const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tb,
+                      BwdArgs p) {
+  using L = BwdSmem<BIAS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* tile = kvbar + 1;           // the TMA bytes of a stage
+  uint64_t* full = tile + BW_STAGES;    // + its statistics and D (the producer's 128 threads)
+  uint64_t* empty = full + BW_STAGES;   // released by the 256 consumer threads
 
-__device__ __forceinline__ void load_row_stats(const TrainArgs& a, int b, int h, int n0,
-                                               float* st_t, float* d_t) {
-  for (int i = threadIdx.x; i < TR_T; i += TR_THREADS) {
-    const int n = n0 + i;
-    const size_t idx = ((size_t)b * a.H + h) * a.N + n;
-    st_t[2 * i] = n < a.N ? a.stats[2 * idx] : 0.f;
-    st_t[2 * i + 1] = n < a.N ? a.stats[2 * idx + 1] : 0.f;
-    d_t[i] = n < a.N ? a.dsum[idx] : 0.f;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * BW_KEYS;
+  const int n_qt = (p.N + 63) / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kvbar, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      sm90::mbar_init(&tile[s], 1);
+      sm90::mbar_init(&full[s], 128);
+      sm90::mbar_init(&empty[s], 128 * BW_CONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
+  __syncthreads();
 
-// One block per (batch, head, 64-key tile): dv and dk of those keys, summed
-// over every query tile in order.
-__global__ void __launch_bounds__(TR_THREADS) attn_train_dkdv_kernel(TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem s = carve(smem);
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * TR_T;
-  const int warp = threadIdx.x / 32;
-  tile_to_smem(a.k + off(a, SK, b, h, m0), a.s[SK][2], min(TR_T, a.M - m0), s.ks);
-  tile_to_smem(a.v + off(a, SV, b, h, m0), a.s[SV][2], min(TR_T, a.M - m0), s.vs);
+  const int wg = threadIdx.x / 128;
+  if (wg == BW_CONS) {
+    // ---- producer warpgroup: thread 0 issues every TMA load; all 128
+    // threads stage the statistics and compute D of each query tile
+    const int i = threadIdx.x - 128 * BW_CONS;
+    if (i == 0) {
+      sm90::mbar_expect_tx(kvbar, 2 * BW_KEYS * 128);
+      sm90::tma_rows(smem + L::K, &tk, kvbar, p.ord_k, m0, h, b);
+      sm90::tma_rows(smem + L::V, &tv, kvbar, p.ord_v, m0, h, b);
+    }
+    const float2* stats = reinterpret_cast<const float2*>(p.stats) + ((size_t)b * p.H + h) * p.N;
+    const int row = i >> 1, half = i & 1;
+    for (int t = 0; t < n_qt; ++t) {
+      const int s = t % BW_STAGES, n0 = t * 64;
+      const uint32_t ph = (t / BW_STAGES) & 1;
+      unsigned char* st = smem + L::STAGES + s * L::STAGE;
+      float* rs = reinterpret_cast<float*>(smem + L::ROWS) + s * 192;
+      sm90::mbar_wait(&empty[s], ph ^ 1);  // the first round passes at once
+      if (i == 0) {
+        sm90::mbar_expect_tx(&tile[s], L::STAGE);
+        sm90::tma_rows(st, &tq, &tile[s], p.ord_q, n0, h, b);
+        sm90::tma_rows(st + BW_TILE, &tdo, &tile[s], p.ord_do, n0, h, b);
+        sm90::tma_rows(st + 2 * BW_TILE, &to, &tile[s], p.ord_o, n0, h, b);
+        if (BIAS == 2)
+          for (int j = 0; j < BW_KEYS / 32; ++j)
+            sm90::tma_bias(st + 3 * BW_TILE + j * 64 * 128, &tb, &tile[s], p.bias_flags,
+                           m0 + 32 * j, n0, h, b);
+      }
+      if (i < 64) {  // rows past N: 1/l = 0, so they take no weight
+        const float2 v = n0 + i < p.N ? __ldg(stats + n0 + i) : make_float2(0.f, 0.f);
+        reinterpret_cast<float2*>(rs)[i] = v;
+      }
+      sm90::mbar_wait(&tile[s], ph);
+      // D of `row`: 32 head dims per thread from the swizzled dO and O rows
+      const unsigned char* dor = st + BW_TILE + row * 128;
+      const unsigned char* orow = st + 2 * BW_TILE + row * 128;
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int at = ((half * 4 + c) ^ (row & 7)) << 4;
+        float x[8], y[8];
+        unpack8(*reinterpret_cast<const uint4*>(dor + at), x);
+        unpack8(*reinterpret_cast<const uint4*>(orow + at), y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      if (half == 0) rs[128 + row] = d;
+      sm90::mbar_arrive(&full[s]);
+    }
+  } else {
+    // ---- consumer warpgroup c: keys m0 + 64c .. + 64, as accumulator rows
+    const int c = wg;
+    const int t128 = threadIdx.x % 128, warp = t128 / 32, lane = threadIdx.x % 32, quad = lane % 4;
+    const int krow = 16 * warp + lane / 4;  // + 8r: the thread's key rows in the warpgroup's 64
+    const float scale2 = p.scale * sm90::LOG2E;
+    const float neg_inf = __int_as_float(0xff800000);
+    float kb2[2];  // per key row: its key bias in log2 units (0 without), -inf past M
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = m0 + 64 * c + krow + 8 * r;
+      float v = 0.f;
+      if (BIAS == 1 && key < p.M)
+        v = sm90::key_bias_log2(__ldg(p.bias + (size_t)b * p.sbb + (size_t)key * p.sbm));
+      kb2[r] = key < p.M ? v : neg_inf;
+    }
+    float dk[32], dv[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+    unsigned char* kc = smem + L::K + c * BW_TILE;
+    const uint64_t desc_k = sm90::desc_sw128(kc);
+    const uint64_t desc_v = sm90::desc_sw128(smem + L::V + c * BW_TILE);
+    unsigned char* dst = smem + L::DS + c * BW_TILE;  // dS^T: rows keys, columns queries
+    float* xbuf = reinterpret_cast<float*>(smem + L::X);
+    sm90::mbar_wait(kvbar, 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[TR_DH / 16], dv[TR_DH / 16];
-#pragma unroll
-  for (int j = 0; j < TR_DH / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-  float* sw = s.sw + warp * 16 * TR_LDS;
-  float* dpw = s.dpw + warp * 16 * TR_LDS;
-  const int kr0 = warp * 16;  // this warp's key rows in the tile
+    for (int t = 0; t < n_qt; ++t) {
+      const int s = t % BW_STAGES, n0 = t * 64;
+      const uint32_t ph = (t / BW_STAGES) & 1;
+      const unsigned char* st = smem + L::STAGES + s * L::STAGE;
+      const float* rs = reinterpret_cast<const float*>(smem + L::ROWS) + s * 192;
+      sm90::mbar_wait(&tile[s], ph);
+      sm90::mbar_wait(&full[s], ph);
 
-  for (int n0 = 0; n0 < a.N; n0 += TR_T) {
-    const int rows = min(TR_T, a.N - n0);
-    __syncthreads();  // every warp is done with the previous query tile
-    tile_to_smem(a.q + off(a, SQ, b, h, n0), a.s[SQ][2], rows, s.qs);
-    tile_to_smem(a.dout + off(a, SDO, b, h, n0), a.s[SDO][2], rows, s.dos);
-    load_row_stats(a, b, h, n0, s.st_t, s.d_t);
-    __syncthreads();
-    p_and_ds<true>(a, b, n0, warp * 16, m0, s.qs, s.dos, s.ks, s.vs, sw, dpw, s.pt, s.dt,
-                   s.st_t, s.d_t);
-    __syncthreads();  // p and ds of all 64 query rows
-    // dv[keys] += p^T do, dk[keys] += ds^T q over the tile's 64 queries
+      // S^T = K_c Q^T and dP^T = V_c dO^T (all K-major), rows keys
+      float sa[32], dp[32];
+      sm90::wgmma_fence();
+      sm90::qk_tile<64>(sa, desc_k, sm90::desc_sw128(st));
+      sm90::qk_tile<64>(dp, desc_v, sm90::desc_sw128(st + BW_TILE));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sa);
+      sm90::fence_acc(dp);
+
+      // P^T and dS^T: accumulator 4j + 2r + e is key row krow + 8r, query
+      // 8j + 2 quad + e; register 2j + r of a packed pair holds e = 0, 1
+      uint32_t pp[16], dsp[16];
 #pragma unroll
-    for (int kk = 0; kk < TR_T / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, da;
-      wmma::load_matrix_sync(pa, s.pt + (kk * 16) * TR_LD + kr0, TR_LD);
-      wmma::load_matrix_sync(da, s.dt + (kk * 16) * TR_LD + kr0, TR_LD);
+      for (int j = 0; j < 8; ++j) {
+        const int q0 = 8 * j + 2 * quad;
+        const float4 mi = sm90::lds_f4(rs + 2 * q0);  // m2, 1/l of q0 and q0 + 1
+        const float2 dd = sm90::lds_f2(rs + 128 + q0);
 #pragma unroll
-      for (int j = 0; j < TR_DH / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> dof, qf;
-        wmma::load_matrix_sync(dof, s.dos + (kk * 16) * TR_LD + j * 16, TR_LD);
-        wmma::load_matrix_sync(qf, s.qs + (kk * 16) * TR_LD + j * 16, TR_LD);
-        wmma::mma_sync(dv[j], pa, dof, dv[j]);
-        wmma::mma_sync(dk[j], da, qf, dk[j]);
+        for (int r = 0; r < 2; ++r) {
+          float b0 = kb2[r], b1 = kb2[r];
+          if (BIAS == 2) {
+            const unsigned char* bt = st + 3 * BW_TILE;
+            const int key = 64 * c + krow + 8 * r;
+            b0 += sm90::key_bias_log2(*sm90::bias_at(bt, 64, q0, key));
+            b1 += sm90::key_bias_log2(*sm90::bias_at(bt, 64, q0 + 1, key));
+          }
+          const int a = 4 * j + 2 * r;
+          const float p0 = sm90::ex2(fmaf(sa[a], scale2, b0) - mi.x) * mi.y;
+          const float p1 = sm90::ex2(fmaf(sa[a + 1], scale2, b1) - mi.z) * mi.w;
+          const float ds0 = p0 * (dp[a] - dd.x), ds1 = p1 * (dp[a + 1] - dd.y);
+          const __nv_bfloat162 hp = __floats2bfloat162_rn(p0, p1);
+          const __nv_bfloat162 hd = __floats2bfloat162_rn(ds0, ds1);
+          pp[2 * j + r] = *reinterpret_cast<const uint32_t*>(&hp);
+          dsp[2 * j + r] = *reinterpret_cast<const uint32_t*>(&hd);
+          // dS^T into the 128-byte swizzle: chunk j of key row kr at j ^ (kr % 8)
+          const int kr = krow + 8 * r;
+          *reinterpret_cast<uint32_t*>(dst + kr * 128 + ((j ^ (kr & 7)) << 4) + 4 * quad) =
+              dsp[2 * j + r];
+        }
+      }
+      // the generic-proxy stores of dS^T, seen by the warpgroup's wgmma
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bar_sync(1 + c, 128);
+
+      // dV += P^T dO, dK += dS^T Q (A from registers, B MN-major), and
+      // dQ_c = dS K_c over the warpgroup's 64 keys (A = dS^T MN-major)
+      float dq[32];
+      sm90::fence_acc(dk);
+      sm90::fence_acc(dv);
+      sm90::fence_regs(pp);
+      sm90::fence_regs(dsp);
+      sm90::wgmma_fence();
+      sm90::pv_tile<64>(dv, pp, sm90::desc_sw128_mn(st + BW_TILE));
+      sm90::pv_tile<64>(dk, dsp, sm90::desc_sw128_mn(st));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_m64n64k16_ss_mn(dq, sm90::desc_sw128_mn(dst) + kk * (2048 >> 4),
+                                    sm90::desc_sw128_mn(kc) + kk * (2048 >> 4), kk);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dk);
+      sm90::fence_acc(dv);
+      sm90::fence_acc(dq);
+      sm90::fence_regs(pp);
+      sm90::fence_regs(dsp);
+      sm90::mbar_arrive(&empty[s]);  // Q, dO, statistics, D and bias read
+
+      // dQ of the tile: the partial of consumer 1 - t % 2 goes through
+      // xbuf[t % 2] to consumer t % 2, which adds it to its own (both
+      // orders give the same fp32 sum) and writes the tile's rows
+      float4* xb = reinterpret_cast<float4*>(xbuf + (t & 1) * 64 * 64);
+      const int bar = 3 + (t & 1);
+      if (c != (t & 1)) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          xb[e * 128 + t128] = make_float4(dq[4 * e], dq[4 * e + 1], dq[4 * e + 2], dq[4 * e + 3]);
+        bar_arrive(bar, 256);
+      } else {
+        bar_sync(bar, 256);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float4 o = xb[e * 128 + t128];
+          dq[4 * e] += o.x;
+          dq[4 * e + 1] += o.y;
+          dq[4 * e + 2] += o.z;
+          dq[4 * e + 3] += o.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int n = n0 + krow + 8 * r;  // accumulator rows: queries
+          if (n >= p.N) continue;
+          if (gridDim.x == 1) {
+            bf16* out = p.dq + (size_t)b * p.sdq[0] + (size_t)h * p.sdq[1] + (size_t)n * p.sdq[2];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * quad) = __floats2bfloat162_rn(
+                  dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+          } else {
+            float* out = p.dq_part +
+                         ((((size_t)blockIdx.x * p.B + b) * p.H + h) * p.N + n) * 64;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              *reinterpret_cast<float2*>(out + 8 * j + 2 * quad) =
+                  make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+          }
+        }
+      }
+    }
+
+    // dK (times the scale) and dV of the warpgroup's keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = m0 + 64 * c + krow + 8 * r;
+      if (key >= p.M) continue;
+      bf16* ok = p.dk + (size_t)b * p.sdk[0] + (size_t)h * p.sdk[1] + (size_t)key * p.sdk[2];
+      bf16* ov = p.dv + (size_t)b * p.sdv[0] + (size_t)h * p.sdv[1] + (size_t)key * p.sdv[2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int a = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(ok + 8 * j + 2 * quad) =
+            __floats2bfloat162_rn(dk[a] * p.scale, dk[a + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(ov + 8 * j + 2 * quad) =
+            __floats2bfloat162_rn(dv[a], dv[a + 1]);
       }
     }
   }
-  const int key0 = m0 + kr0;
-  const int lim = a.M - m0;
-  store_rows(dv, sw, 1.f, a.dv + off(a, SDV, b, h, min(key0, a.M - 1)), a.s[SDV][2], kr0, lim);
-  store_rows(dk, sw, a.scale, a.dk + off(a, SDK, b, h, min(key0, a.M - 1)), a.s[SDK][2], kr0,
-             lim);
 }
 
-// One block per (batch, head, 64-query tile): dq of those rows, summed over
-// every key tile in order.
-__global__ void __launch_bounds__(TR_THREADS) attn_train_dq_kernel(TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem s = carve(smem);
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * TR_T;
-  const int warp = threadIdx.x / 32;
-  const int rows = min(TR_T, a.N - n0);
-  tile_to_smem(a.q + off(a, SQ, b, h, n0), a.s[SQ][2], rows, s.qs);
-  tile_to_smem(a.dout + off(a, SDO, b, h, n0), a.s[SDO][2], rows, s.dos);
-  load_row_stats(a, b, h, n0, s.st_t, s.d_t);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[TR_DH / 16];
-#pragma unroll
-  for (int j = 0; j < TR_DH / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
-  float* sw = s.sw + warp * 16 * TR_LDS;
-  float* dpw = s.dpw + warp * 16 * TR_LDS;
-  const int row0 = warp * 16;
-
-  for (int m0 = 0; m0 < a.M; m0 += TR_T) {
-    const int kr = min(TR_T, a.M - m0);
-    __syncthreads();  // every warp is done with the previous key tile
-    tile_to_smem(a.k + off(a, SK, b, h, m0), a.s[SK][2], kr, s.ks);
-    tile_to_smem(a.v + off(a, SV, b, h, m0), a.s[SV][2], kr, s.vs);
-    __syncthreads();
-    p_and_ds<false>(a, b, n0, row0, m0, s.qs, s.dos, s.ks, s.vs, sw, dpw, nullptr, s.dt,
-                    s.st_t, s.d_t);
-    __syncwarp();
-    // dq[rows] += ds k over the tile's 64 keys
-#pragma unroll
-    for (int kk = 0; kk < TR_T / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> da;
-      wmma::load_matrix_sync(da, s.dt + row0 * TR_LD + kk * 16, TR_LD);
-#pragma unroll
-      for (int j = 0; j < TR_DH / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
-        wmma::load_matrix_sync(kf, s.ks + (kk * 16) * TR_LD + j * 16, TR_LD);
-        wmma::mma_sync(dq[j], da, kf, dq[j]);
-      }
-    }
+// dq = bf16(scale * sum of the T key tiles' fp32 partials), summed in
+// key-tile order: four head dims a thread.
+__global__ void __launch_bounds__(256)
+dq_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dq, int T, int B, int H,
+                 int N, int s0, int s1, int s2, float scale) {
+  const size_t rows = (size_t)B * H * N;
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= rows * 16) return;
+  const size_t row = idx / 16;
+  const int c4 = (int)(idx % 16);
+  const float4* src = reinterpret_cast<const float4*>(part) + idx;
+  float4 acc = src[0];
+  for (int kt = 1; kt < T; ++kt) {
+    const float4 v = src[(size_t)kt * rows * 16];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
   }
-  store_rows(dq, sw, a.scale, a.dq + off(a, SDQ, b, h, min(n0 + row0, a.N - 1)), a.s[SDQ][2],
-             row0, rows);
+  const int n = (int)(row % N), h = (int)((row / N) % H), b = (int)(row / ((size_t)N * H));
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+      dq + (size_t)b * s0 + (size_t)h * s1 + (size_t)n * s2 + 4 * c4);
+  out[0] = __floats2bfloat162_rn(acc.x * scale, acc.y * scale);
+  out[1] = __floats2bfloat162_rn(acc.z * scale, acc.w * scale);
 }
 
-constexpr size_t FWD_SMEM = (size_t)4 * TR_T * TR_LD * sizeof(bf16) +
-                            (size_t)TR_T * TR_LDS * sizeof(float);
-
-// dims: B, H, N, M, then the (batch, head, row) strides of q, k, v, o, do,
-// dq, dk, dv (24 ints), then the bias's (batch, row, key) strides.
-TrainArgs make_args(const int* dims, float scale, int zero_attn) {
-  TrainArgs a{};
-  a.B = dims[0]; a.H = dims[1]; a.N = dims[2]; a.M = dims[3];
-  for (int t = 0; t < 8; ++t)
-    for (int i = 0; i < 3; ++i) a.s[t][i] = dims[4 + 3 * t + i];
-  a.sbb = dims[28]; a.sbn = dims[29]; a.sbm = dims[30];
-  a.scale = scale;
-  a.zero_attn = zero_attn;
-  return a;
+template <int BIAS>
+int launch_bwd(const CUtensorMap (&maps)[6], const BwdArgs& a, dim3 grid, cudaStream_t st) {
+  auto kern = attn_train_bwd_kernel<BIAS>;
+  constexpr size_t smem = BwdSmem<BIAS>::BYTES;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, BW_THREADS, smem, st>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fourm
 
-extern "C" int fourm_attention_train_fwd(const void* q, const void* k, const void* v, void* o,
-                                         void* stats, const void* bias, const int* dims,
-                                         float scale, int zero_attn, void* stream) {
-  using namespace fourm;
-  TrainArgs a = make_args(dims, scale, zero_attn);
-  a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
-  a.out = (bf16*)o; a.stats = (float*)stats; a.bias = (const float*)bias;
-  cudaError_t err = cudaFuncSetAttribute(attn_train_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.N + TR_T - 1) / TR_T, a.H, a.B);
-  attn_train_fwd_kernel<<<grid, TR_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
+// dims: B, H, N, M, then the (batch, head, row) element strides of q, k, v,
+// o, do, dq, dk, dv (24 ints: multiples of 8, the last dim contiguous,
+// 16-byte aligned bases), then the bias's (batch, row, key) strides (row
+// stride 0: a key bias; a full bias needs contiguous keys and rows of a
+// multiple of 4 keys, as TMA reads it). stats: the forward's (B, H, N, 2).
+// dq_part: fp32 (ceil(M / 128), B, H, N, 64) when M > 128, else unused.
 extern "C" int fourm_attention_train_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* stats,
                                          const void* bias, void* dq, void* dk, void* dv,
-                                         void* dsum, const int* dims, float scale, void* stream) {
+                                         void* dq_part, const int* dims, float scale,
+                                         void* stream) {
   using namespace fourm;
-  TrainArgs a = make_args(dims, scale, 0);
-  a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v; a.o = (const bf16*)o;
-  a.dout = (const bf16*)dout; a.stats = (float*)stats; a.bias = (const float*)bias;
-  a.dq = (bf16*)dq; a.dk = (bf16*)dk; a.dv = (bf16*)dv; a.dsum = (float*)dsum;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(attn_train_dkdv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)BWD_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_train_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)a.B * a.H * a.N;
-  attn_train_dsum_kernel<<<(unsigned)((rows + TR_THREADS - 1) / TR_THREADS), TR_THREADS, 0, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 gk((a.M + TR_T - 1) / TR_T, a.H, a.B);
-  attn_train_dkdv_kernel<<<gk, TR_THREADS, BWD_SMEM, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 gq((a.N + TR_T - 1) / TR_T, a.H, a.B);
-  attn_train_dq_kernel<<<gq, TR_THREADS, BWD_SMEM, st>>>(a);
+  const int B = dims[0], H = dims[1], N = dims[2], M = dims[3];
+  const int* s = dims + 4;  // s[3 t + i]: operand t (q, k, v, o, do, dq, dk, dv)
+  const int sbb = dims[28], sbn = dims[29], sbm = dims[30];
+  if (N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const int T = (M + BW_KEYS - 1) / BW_KEYS;
+  if (T > 1 && dq_part == nullptr) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.dq = (bf16*)dq; a.dk = (bf16*)dk; a.dv = (bf16*)dv;
+  a.dq_part = (float*)dq_part; a.stats = (const float*)stats; a.bias = (const float*)bias;
+  a.sbb = sbb; a.sbm = sbm;
+  a.B = B; a.H = H; a.N = N; a.M = M;
+  for (int i = 0; i < 3; ++i) {
+    a.sdq[i] = s[15 + i];
+    a.sdk[i] = s[18 + i];
+    a.sdv[i] = s[21 + i];
+  }
+  a.scale = scale;
+  a.bias_flags = 0;
+  // the kernel's tq, tk, tv, to, tdo and (a full bias) tb
+  CUtensorMap maps[6] = {};
+  const void* ptrs[5] = {q, k, v, o, dout};
+  int* ords[5] = {&a.ord_q, &a.ord_k, &a.ord_v, &a.ord_o, &a.ord_do};
+  for (int t = 0; t < 5; ++t) {
+    const bool keys = t == 1 || t == 2;
+    const int err = sm90::make_rows_map(&maps[t], ptrs[t], B, H, keys ? M : N, s[3 * t],
+                                        s[3 * t + 1], s[3 * t + 2], keys ? BW_KEYS : 64, ords[t]);
+    if (err != 0) return err;
+  }
+  const int kind = bias == nullptr ? 0 : (sbn == 0 || N == 1) ? 1 : 2;
+  if (kind == 2) {
+    if (sbm != 1) return (int)cudaErrorInvalidValue;
+    const int err = sm90::make_bias_map(&maps[5], bias, B, H, N, M, sbb, 0, sbn, 64,
+                                        &a.bias_flags);
+    if (err != 0) return err;
+  }
+  const dim3 grid(T, H, B);
+  int err = kind == 0   ? launch_bwd<0>(maps, a, grid, st)
+            : kind == 1 ? launch_bwd<1>(maps, a, grid, st)
+                        : launch_bwd<2>(maps, a, grid, st);
+  if (err != 0 || T == 1) return err;
+  const size_t n4 = (size_t)B * H * N * 16;
+  dq_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+      (const float*)dq_part, (bf16*)dq, T, B, H, N, s[15], s[16], s[17], scale);
   return (int)cudaGetLastError();
 }

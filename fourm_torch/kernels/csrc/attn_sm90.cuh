@@ -1,7 +1,10 @@
 // The Hopper attention core of attention.cu (flash_mha, mha_short,
-// attention) and attn_block.cu: one consumer warpgroup attends a block of
-// 64 query rows (head dim 64) to key tiles of KT = 64 or 128 keys held in
-// shared memory in the 128-byte swizzle, with an online softmax.
+// attention, attention_train's forward) and attn_block.cu: one consumer
+// warpgroup attends a block of 64 query rows (head dim 64) to key tiles of
+// KT = 64 or 128 keys held in shared memory in the 128-byte swizzle, with
+// an online softmax; optionally it leaves each row's statistics (the max
+// in log2 units, 1 / sum) for attention_train.cu's backward, which builds
+// on the same primitives and the fp32 bias maps (make_bias_map) here.
 //
 //   * S = Q K^T: wgmma m64nKTk16 with Q and the K tile both K-major shared
 //     memory operands (4 steps over the 64 head dims). S stays in
@@ -57,9 +60,50 @@ __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint
   tma_load_4d(dst, map, bar, 0, c1, c2, c3);
 }
 
+// The map of an fp32 additive bias (batch, heads, rows, keys) whose keys are
+// contiguous, read through element strides sbb, sbh, sbn (0 on a broadcast
+// batch or head axis; sbn not 0) in boxes of 32 keys x box_rows rows in the
+// 128-byte swizzle (bias_at reads them): keys past M and rows past N read as
+// zero. *flags gets bit 0 when the head coordinate indexes the map, bit 1
+// for the batch's (a broadcast axis is a dimension of size 1, coordinate 0).
+// Fails (not 0) unless TMA takes it: a 16-byte aligned base, strides that
+// are multiples of 4 elements.
+inline int make_bias_map(CUtensorMap* map, const void* base, int B, int H, int N, int M,
+                         long long sbb, long long sbh, long long sbn, int box_rows, int* flags) {
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || sbn <= 0 || sbn % 4 != 0 ||
+      sbh % 4 != 0 || sbb % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)M, (cuuint64_t)N, (cuuint64_t)(sbh != 0 ? H : 1),
+                              (cuuint64_t)(sbb != 0 ? B : 1)};
+  cuuint64_t strides[3];
+  strides[0] = (cuuint64_t)sbn * 4;
+  strides[1] = sbh != 0 ? (cuuint64_t)sbh * 4 : strides[0] * dims[1];
+  strides[2] = sbb != 0 ? (cuuint64_t)sbb * 4 : strides[1] * dims[2];
+  const cuuint32_t box[4] = {32, (cuuint32_t)box_rows, 1, 1};
+  *flags = (sbh != 0 ? 1 : 0) | (sbb != 0 ? 2 : 0);
+  return encode_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// The bias box at (key, row) of (head h, batch b) of a make_bias_map map.
+__device__ __forceinline__ void tma_bias(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int flags, int key, int row, int h, int b) {
+  tma_load_4d(dst, map, bar, key, row, (flags & 1) ? h : 0, (flags & 2) ? b : 0);
+}
+
+// The bias of (row, key) in a tile of make_bias_map boxes laid side by side
+// (box j holds keys 32j .. 32j + 31 of `rows` rows, 128 bytes a row): 16-byte
+// chunk c of row r at chunk c ^ (r % 8). With key even, key + 1 is the
+// next float (bias_at2 reads both).
+__device__ __forceinline__ const float* bias_at(const unsigned char* tile, int rows, int row,
+                                                int key) {
+  return reinterpret_cast<const float*>(tile + (key >> 5) * rows * 128 + row * 128 +
+                                        ((((key & 31) >> 2) ^ (row & 7)) << 4) + ((key & 3) << 2));
+}
+
 // The fp32 additive bias of the thread's two query rows: row[r] points at
 // the bias of row r (key 0), keys `sbm` apart. BIAS: 0 none, 1 the same for
-// every query row (a key bias: row[1] is not read), 2 per row.
+// every query row (a key bias: row[1] is not read), 2 per row, 3 per row,
+// staged per tile in shared memory by TMA (make_bias_map boxes).
 struct BiasRows {
   const float* row[2];
   int sbm;
@@ -103,22 +147,39 @@ __device__ __forceinline__ float2 lds_f2(const float* p) {
   return v;
 }
 
+__device__ __forceinline__ float4 lds_f4(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+
 // Logits of one tile (keys key0 + [0, KT)) in log2 units from the raw
 // products in s (scale2 = scale * log2(e)), the new running max, and s
 // turned into p = exp2(logit - max) (0 past M); alpha[r] rescales row r's
 // earlier sums. BIAS 1 takes the tile's key bias from shared memory (kbs:
-// KT values, key_bias_log2 of each), BIAS 2 reads each row's from bias.
+// KT values, key_bias_log2 of each), BIAS 2 reads each row's from bias,
+// BIAS 3 from the tile's staged rows (kbs: the bias_at tile of the
+// warpgroup's 64 rows, raw values).
 template <int KT, int BIAS, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], RowState& st, float (&alpha)[2],
                                              const float* kbs, const BiasRows& bias, int key0,
                                              int M, float scale2) {
   const int quad = threadIdx.x % 4;
+  const int row0 = (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4;  // BIAS 3
   const float neg_inf = __int_as_float(0xff800000);
   float mx[2] = {neg_inf, neg_inf};
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
-    float2 kb = make_float2(0.f, 0.f);
+    float2 kb = make_float2(0.f, 0.f), rb[2];
     if (BIAS == 1) kb = lds_f2(kbs + 8 * j + 2 * quad);
+    if (BIAS == 3) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        rb[r] = lds_f2(bias_at(reinterpret_cast<const unsigned char*>(kbs), 64, row0 + 8 * r,
+                               8 * j + 2 * quad));
+    }
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int key = key0 + 8 * j + 2 * quad + c;
@@ -128,6 +189,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], RowState& st, f
         float b = 0.f;
         if (BIAS == 1) b = c ? kb.y : kb.x;
         if (BIAS == 2 && in) b = key_bias_log2(__ldg(bias.row[r] + (size_t)key * bias.sbm));
+        if (BIAS == 3) b = key_bias_log2(c ? rb[r].y : rb[r].x);
         float v = fmaf(s[4 * j + 2 * r + c], scale2, b);
         if (!in) v = neg_inf;
         s[4 * j + 2 * r + c] = v;
@@ -168,8 +230,9 @@ __device__ __forceinline__ void pack_p(const float (&s)[KT / 2], uint32_t (&p)[K
 // tiles of KT keys, M keys in all. src.wait(t, dk, dv) blocks until tile t
 // is in shared memory and gives its K descriptor (K-major) and V descriptor
 // (MN-major); src.key_bias(t) points at its key bias in shared memory
-// (BIAS 1); src.release(t) hands tile t's buffers back once P V of tile t
-// is done. The running max in st.m is in log2 units.
+// (BIAS 1), src.row_bias(t) at its rows' bias tile (BIAS 3);
+// src.release(t) hands tile t's buffers back once P V of tile t is done.
+// The running max in st.m is in log2 units.
 template <int KT, int BIAS, class Src>
 __device__ __forceinline__ void attend(Src& src, uint64_t dq, int n_tiles, int M, float scale,
                                        const BiasRows& bias, int zero_attn, RowState& st) {
@@ -185,7 +248,9 @@ __device__ __forceinline__ void attend(Src& src, uint64_t dq, int n_tiles, int M
     st.l[r] = 0.f;
   }
   auto softmax = [&](int t) {
-    const float* kbs = BIAS == 1 ? src.key_bias(t) : nullptr;
+    const float* kbs = nullptr;
+    if constexpr (BIAS == 1) kbs = src.key_bias(t);
+    if constexpr (BIAS == 3) kbs = src.row_bias(t);
     if (t * KT + KT <= M)
       softmax_tile<KT, BIAS, false>(s, st, alpha, kbs, bias, t * KT, M, scale2);
     else
@@ -235,9 +300,12 @@ __device__ __forceinline__ void attend(Src& src, uint64_t dq, int n_tiles, int M
 }
 
 // O / l of the thread's two rows, as bf16, into dst[r] (64 columns of
-// row r; null: a row past the sequence, not written). Softmax1 adds its
-// implicit zero logit, exp(-max), to the sum.
-__device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf16* const (&dst)[2]) {
+// row r; null: a row past the sequence, not written), and where stats[r]
+// is not null the row's statistics there: (max, 1 / l), the max in log2
+// units (the logit's, times log2(e)). Softmax1 adds its implicit zero
+// logit, exp(-max), to the sum.
+__device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf16* const (&dst)[2],
+                                           float2* const (&stats)[2]) {
   const int quad = threadIdx.x % 4;
   float inv[2];
 #pragma unroll
@@ -246,6 +314,7 @@ __device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (zero_attn) l += ex2(-st.m[r]);  // st.m in log2 units
     inv[r] = 1.f / l;
+    if (stats[r] != nullptr && quad == 0) *stats[r] = make_float2(st.m[r], inv[r]);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -255,6 +324,11 @@ __device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf
       *reinterpret_cast<__nv_bfloat162*>(dst[r] + 8 * j + 2 * quad) =
           __floats2bfloat162_rn(st.o[4 * j + 2 * r] * inv[r], st.o[4 * j + 2 * r + 1] * inv[r]);
   }
+}
+
+__device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf16* const (&dst)[2]) {
+  float2* const none[2] = {nullptr, nullptr};
+  store_rows(st, zero_attn, dst, none);
 }
 
 }  // namespace sm90

@@ -1,9 +1,8 @@
 // Shared helpers for the fourm_torch Hopper kernels (sm_90a).
 //
 // Every kernel here takes bf16 activations and weights and keeps statistics
-// and sums in fp32. The many-row attention kernels compute their products
-// with WMMA 16x16x16 bf16 fragments (tensor cores, fp32 accumulation);
-// ln_matmul and ln_mlp with gemm_sm90.cuh's TMA-fed wgmma GEMM; the
+// and sums in fp32. The many-row kernels compute their products by wgmma
+// (gemm_sm90.cuh's TMA-fed GEMM; the attention core of attn_sm90.cuh); the
 // decode-step kernels, one token per batch row, with fp32 FMAs. The C entry
 // points return cudaGetLastError() so the Python wrapper can raise on a
 // refused launch.
@@ -11,13 +10,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace fourm {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

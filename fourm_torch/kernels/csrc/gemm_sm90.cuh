@@ -6,7 +6,7 @@
 // the primitives attn_sm90.cuh builds the attention kernels from: mbarriers,
 // 2- to 4-D TMA loads and their tensor maps, 128-byte-swizzle descriptors
 // (K-major and MN-major) and the wgmma shapes m64n128k16 / m64n64k16 (A from
-// shared memory or, m64n64k16, from registers).
+// shared memory, K- or MN-major, or, m64n64k16, from registers).
 //
 // Design (raw PTX, no CUTLASS GEMM):
 //   * a CTA owns a 128 x 128 output tile and walks K in steps of 64: bf16
@@ -245,6 +245,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d[64x64 per warpgroup] (+)= A[64x16] @ B[16x64] with A and B both MN-major
+// tiles in shared memory (trans-a, trans-b: each tile's 64 M or N columns
+// contiguous, K along its rows, as a V tile is); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float (&d)[32], uint64_t da, uint64_t db,
+                                                    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // -------------------------------------------------------------- the kernel
 
 // Shared memory: STAGES x (A tile, B tile[, B2 tile]), 1024-byte aligned,
@@ -403,19 +422,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; byte strides of
-// the outer ones) read in boxes of `box` elements in the 128-byte swizzle,
-// out-of-bounds elements read as zero. TMA's rules: a 16-byte aligned base,
-// strides that are multiples of 16 bytes, an innermost box of 64 elements.
+// A tensor map of `rank` dimensions (innermost first; byte strides of the
+// outer ones) read in boxes of `box` elements in the 128-byte swizzle,
+// out-of-bounds elements read as zero; bf16 unless `type` says otherwise.
+// TMA's rules: a 16-byte aligned base, strides that are multiples of 16
+// bytes, an innermost box of 128 bytes (64 bf16, 32 fp32).
 inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i + 1 < rank; ++i)
     if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base),
                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -29,7 +29,8 @@ windows fenced by synchronizations -- forward, backward, optimizer -- and
 its device time is given by kernel group: attention_train forward and
 backward, fused_adamw, cuBLAS GEMMs of each window, and the other ops of
 each window (plain LayerNorm, cross-entropy, casts of the fp32 masters to
-bf16, residual adds, the global norm). The busy share is the summed kernel
+bf16, residual adds, the global norm), and the sum of attention_train's
+two groups. The busy share is the summed kernel
 time over the median wall time of 5 unfenced steps run without the
 profiler.
 
@@ -74,11 +75,13 @@ WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
                    "decode_combine_kernel": "decode_attention",
                    "proj_residual_kernel": "residual_mlp", "hidden_kernel": "residual_mlp",
                    "out_residual_kernel": "residual_mlp"}
-# the train step's kernels (substring) -> group; cuBLAS GEMMs by name marks
-TRAIN_KERNELS = {"attn_train_fwd_kernel": "attention_train forward",
-                 "attn_train_dsum_kernel": "attention_train backward",
-                 "attn_train_dkdv_kernel": "attention_train backward",
-                 "attn_train_dq_kernel": "attention_train backward",
+# the train step's kernels (substring) -> group; cuBLAS GEMMs by name marks.
+# attention_train's forward is attention.cu's kernel (its STATS variant; the
+# train forward runs no other attention), its backward attention_train.cu's
+# kernel and, past 128 keys, the pass that sums the dq partials
+TRAIN_KERNELS = {"attn_kernel": "attention_train forward",
+                 "attn_train_bwd_kernel": "attention_train backward",
+                 "dq_reduce_kernel": "attention_train backward",
                  "adamw_kernel": "fused_adamw"}
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
 
@@ -204,12 +207,15 @@ def train_profile() -> dict:
         print(f"  window {w}: {ms:.3f} ms ({ms / device_ms:.4f})")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    attn_ms = sum(ms for g, ms in groups.items() if g.startswith("attention_train"))
+    print(f"  attention_train (forward + backward): {attn_ms:.3f} ms ({attn_ms / device_ms:.4f})")
     top = sorted(names.items(), key=lambda kv: -kv[1][1])[:20]
     for name, (count, ms) in top:
         print(f"  device {ms:10.3f} ms {count:7d}x  {name[:100]}")
     return {"wall_ms_unprofiled": wall_ms, "wall_ms_steps": walls,
             "wall_ms_fenced_profiled": wall_fenced, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "by_window_ms": windows, "by_group_ms": groups,
+            "attention_train_ms": attn_ms,
             "top_device": [{"ms": ms, "count": c, "name": n[:200]} for n, (c, ms) in top]}
 
 
