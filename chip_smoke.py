@@ -10,10 +10,18 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
   2. every kernel of the port against its plain PyTorch twin on the card, in
      bf16 at the main path's shapes: max abs error against the stated
      tolerance, kernel ms, twin ms, a PyTorch library yardstick (never used
-     by the port) and the least time the card could take (bound); for
+     by the port) and the least time the card could take (bound); for the
+     decode-step rows also cold (kernel and yardstick over copies of the
+     weights and caches above 100 MB taken in turn, time_rotating_ms); for
      self_decode and decode_attention, wrong outputs (a cache position too
-     many or too few, the new token or the last key chunk left out) that the
-     tolerance must tell apart, and for flash_mha and attention (also with
+     many or too few, the new token or the last key chunk left out; for
+     self_decode also the new k/v row not written, a 32-position cache tile
+     left out, a split-K partial of Wqkv left out, a stale Wqkv ring stage,
+     and, past 64 rows, the token rows of the second N tile left out; for
+     residual_mlp a split-K partial of W2, a stale W2 stage, the second N
+     tile's rows) that the tolerance must tell apart; self_decode and
+     residual_mlp at B = 1, 17 and 65 with those faults, self_decode at L =
+     32, 33 and 1100; and for flash_mha and attention (also with
      a per-query-row bias) the last, ragged key tile left out, each V tile
      read from two tiles back (a stale ring stage), K not normalised and a
      row's bias taken from the next query row; then the options off the
@@ -24,7 +32,9 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      2 (attention also at M = 2900 keys), with faults the tolerance must
      catch (phase 2's attention faults, ln_mlp's ragged tail chunk,
      W2's tail columns in residual_mlp, the K scale not folded, the V scale
-     of the heads reversed); the int8 mode is also held to the bf16 kernel
+     of the heads reversed, and phase 2's decode faults), with cold times
+     beside the decode rows and two runs of self_decode and residual_mlp at
+     XL shapes held bit for bit; the int8 mode is also held to the bf16 kernel
      on the dequantized K/V, within 5% of the unquantized K/V, and
      quantize_kv_decode on the card to its CPU result, exactly; ln_matmul
      and ln_mlp also at the decoder grids (16 x 196 rows at 4M-B, 8 x 196 at
@@ -209,6 +219,37 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the weights and caches a cold row's copies hold together: twice the 50 MB L2
+COLD_BYTES = 100 * 2**20
+
+
+def cold_copies(nbytes: int) -> int:
+    """Copies of a row's weights and caches (nbytes each) that hold more
+    than COLD_BYTES together."""
+    return max(2, COLD_BYTES // nbytes + 1)
+
+
+def time_rotating_ms(torch, fns, iters: int) -> float:
+    """Mean device time of the calls in `fns` taken in turn, as time_ms. Each
+    call reads its own copy of the weights and caches, the copies together
+    above COLD_BYTES, so that a call finds its weights and caches out of the
+    50 MB L2 (cold), as on the decode chain, where each token sweeps every
+    layer's weights; the token's activations are shared, warm, as the
+    chain's were just written by the kernel before."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 1e6))
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def random_makers(torch, seed: int):
     """A seeded generator on the card, and from it makers of bf16 normal
     tensors and of fp32 (B, M) key biases (a fraction `frac` of the keys
@@ -266,22 +307,32 @@ def time_cases(torch, cases, card: str):
         ms = time_ms(torch, c["run"], 10)
         plain_ms = time_ms(torch, c["plain"], 3)
         library_ms = time_ms(torch, c["library"], 10)
+        cold = {}
+        if "cold" in c:  # (kernel calls, library calls) over copies of the weights and caches
+            runs, libs = c["cold"]()
+            cold = {"cold_ms": time_rotating_ms(torch, runs, 2 * len(runs)),
+                    "cold_library_ms": time_rotating_ms(torch, libs, 2 * len(libs))}
+            del runs, libs
+            torch.cuda.empty_cache()
         peak = c.get("peak", PEAK_BF16_FLOPS)
         bound_ms = max(c["flops"] / peak, c["bytes"] / PEAK_BYTES) * 1e3
         bound_by = "operations" if c["flops"] / peak >= c["bytes"] / PEAK_BYTES else "bytes"
         errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
         # work the wrapper does beside its kernels, timed alone (inside ms)
         within = {w: time_ms(torch, fn, 10) for w, fn in c.get("within", {}).items()}
+        cold_txt = (f", cold {cold['cold_ms']:.4f} ms (library {cold['cold_library_ms']:.4f} ms)"
+                    if cold else "")
         print(f"kernel {name}: {c['shape']}: {errs}, "
               f"{ms:.4f} ms" + "".join(f" (of which {w} {t:.4f} ms)" for w, t in within.items())
-              + f", plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              + f", plain {plain_ms:.4f} ms, library {library_ms:.4f} ms{cold_txt}, "
               f"bound {bound_ms:.4f} ms ({bound_by}); {card}", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": c.get("wrapper", name.split("@")[0]),
                         "path": c.get("path", "chain"),
                         "max_abs_err": err, "tolerance": tol,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms, "shape": c["shape"]})
+                        "bound_by": bound_by, "library_ms": library_ms, **cold,
+                        "shape": c["shape"]})
         if within:
             results[-1]["within_ms"] = within
         if len(parts) > 1:
@@ -573,7 +624,33 @@ def kernel_phase(torch, card: str):
          lambda: fm.ln_matmul_plain(x[:3], gamma, None, w_qkv)),
     ]
     hold_variants(torch, variants + decode_variants)
+    decode_edge_variants(torch, rn, gen, key_bias)
     return results
+
+
+def decode_edge_variants(torch, rn, gen, key_bias) -> None:
+    """self_decode and residual_mlp at the edges of their tile plans, at 4M-B
+    width, with their planted faults: B = 1, 17 and 65 (one past the largest
+    N tile: a second pass over the weights); then, for correctness only,
+    self_decode at L = 32 and 33 (one attention warp, then two) and 1100
+    (sixteen warps of two or three 32-position chunks)."""
+    def hold(name, c, faults=True):
+        parts = held(torch, name, c.get("held_run", c["run"]), c.get("held_plain", c["plain"]),
+                     c.get("faults") if faults else None)
+        print(f"variant {name}: " + "; ".join(
+            f"{'' if p == 'out' else p + ' '}max_abs_err {e:.6g} (tol {t:.6g})"
+            for p, (e, t) in parts.items()), flush=True)
+
+    for B in (1, 17, 65):
+        mk = decode_makers(torch, rn, gen, key_bias, B, 768, 2048, 256)
+        hold(f"self_decode, B={B}, step 200", mk.self_case(200))
+        hold(f"residual_mlp, B={B}", mk.mlp_case(B))
+        del mk
+    for L in (32, 33, 1100):
+        mk = decode_makers(torch, rn, gen, key_bias, 3, 768, 2048, L)
+        hold(f"self_decode, B=3, L={L}, step {L - 1}", mk.self_case(L - 1), faults=False)
+        del mk
+    torch.cuda.empty_cache()
 
 
 def fault_check(torch, name, faults, refs, tols) -> None:
@@ -708,28 +785,92 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
         q = F.linear(h, wt)[:, :C].reshape(xx.shape[0], H, 1, Dh)
         return F.scaled_dot_product_attention(q, kk, vv, attn_mask=bias)
 
-    def self_faults(step):
-        """self_decode's output recomputed from the untouched caches, and
-        wrong versions of it: the new token left out, one cache position
-        too many or too few read, q not rounded to bf16 before the logits."""
-        h = F.layer_norm(x.float(), (C,), g1.float(), None, 1e-6).to(bf).float()
-        q, k, v = (h @ w_qkv.float().t()).reshape(B, 3, H, Dh).unbind(1)
-        q = F.layer_norm(q, (Dh,), qk[0].float(), None, 1e-6)
-        k = F.layer_norm(k, (Dh,), qk[2].float(), None, 1e-6)
-        qb, k, v = (t.to(bf).float() for t in (q, k, v))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sd_plan = ds.self_decode_plan(B, C, L, sms)["qkv"]
 
-        def attend(qq, n, new=True):
-            keys = torch.cat([cache_k[:, :, :n].float()] + [k[:, :, None]] * new, 2)
-            vals = torch.cat([cache_v[:, :, :n].float()] + [v[:, :, None]] * new, 2)
-            p = torch.softmax(torch.einsum("bhd,bhld->bhl", qq, keys) * Dh ** -0.5, -1)
+    def stale_stage(wt, plan):
+        """wt (rows, K) of a single product as a ring that wraps onto a
+        stale stage reads it: each CTA's K block i from its ring's stage
+        count on is block i - stages of its range (None where no CTA has
+        more blocks than stages)."""
+        stages = min(plan["kpb"], ds.GEMV_RING)
+        if plan["kpb"] <= stages:
+            return None
+        out, tk = wt.clone(), ds.GEMV_TK
+        for r in range(plan["split"]):
+            for i in range(stages, plan["kpb"]):
+                blk = r * plan["kpb"] + i
+                if blk * tk >= wt.shape[1]:
+                    break
+                hi = min((blk + 1) * tk, wt.shape[1])
+                out[:, blk * tk:hi] = wt[:, (blk - stages) * tk:hi - stages * tk]
+        return out
+
+    def last_rank_cut(wt, plan):
+        """wt (rows, K) with the K blocks of the last rank of each cluster
+        zeroed: a split-K partial left out."""
+        out = wt.clone()
+        out[:, (plan["split"] - 1) * plan["kpb"] * ds.GEMV_TK:] = 0
+        return out
+
+    def self_faults(step):
+        """self_decode's output and the cache rows it writes, recomputed
+        from the untouched caches, and wrong versions of them: the new token
+        left out, one cache position too many or too few read, q not rounded
+        to bf16 before the logits, the new k/v row not written, the keys of
+        a cache tile (a warp's chunk of 32 positions) left out, a split-K
+        partial of the projection left out, a stale weight stage."""
+        h = F.layer_norm(x.float(), (C,), g1.float(), None, 1e-6).to(bf).float()
+        krow, vrow = f"k row {step}", f"v row {step}"
+
+        def project(wt):
+            q, k, v = (h @ wt.float().t()).reshape(B, 3, H, Dh).unbind(1)
+            q = F.layer_norm(q, (Dh,), qk[0].float(), None, 1e-6)
+            k = F.layer_norm(k, (Dh,), qk[2].float(), None, 1e-6)
+            return q, *(t.to(bf).float() for t in (q, k, v))
+
+        q, qb, k, v = project(w_qkv)
+
+        def attend(qq, n, new=True, kk=k, vv=v, skip=None):
+            keys = torch.cat([cache_k[:, :, :n].float()] + [kk[:, :, None]] * new, 2)
+            vals = torch.cat([cache_v[:, :, :n].float()] + [vv[:, :, None]] * new, 2)
+            s_ = torch.einsum("bhd,bhld->bhl", qq, keys) * Dh ** -0.5
+            if skip is not None:
+                s_[:, :, skip] = float("-inf")
+            p = torch.softmax(s_, -1)
             return torch.einsum("bhl,bhld->bhd", p, vals).reshape(B, C)
+
+        def with_rows(out, kk=k, vv=v):
+            return {"out": out, krow: kk, vrow: vv}
 
         wrong = {"one cache position too many read": attend(qb, step + 1)}
         if step:  # at step 0 the output is the new v, whatever q is
             wrong["new token left out"] = attend(qb, step, new=False)
             wrong["one cache position too few read"] = attend(qb, step - 1)
             wrong["q not rounded to bf16"] = attend(q, step)
-        return attend(qb, step), wrong, set(wrong) - {"q not rounded to bf16"}
+        right = attend(qb, step)
+        if step < L:
+            wrong["the new k/v row not written"] = with_rows(
+                right, cache_k[:, :, step].float(), cache_v[:, :, step].float())
+        if step > 2 * ds.CACHE_CHUNK:
+            wrong["the keys of cache tile 1 left out"] = attend(
+                qb, step, skip=slice(ds.CACHE_CHUNK, 2 * ds.CACHE_CHUNK))
+        if sd_plan["split"] > 1:
+            _, qc, kc, vc = project(last_rank_cut(w_qkv, sd_plan))
+            wrong["a split-K partial of Wqkv left out"] = with_rows(attend(qc, step, kk=kc, vv=vc),
+                                                                   kc, vc)
+        stale = stale_stage(w_qkv, sd_plan)
+        if stale is not None:
+            _, qs, ks, vs = project(stale)
+            wrong["a stale Wqkv stage"] = with_rows(attend(qs, step, kk=ks, vv=vs), ks, vs)
+        if B > ds.GEMV_N_TILES[-1]:  # the rows of the projection's second pass
+            n1 = ds.GEMV_N_TILES[-1]
+            cut = [t.clone() for t in (right, cache_k[:, :, min(step, L - 1)].float(),
+                                       cache_v[:, :, min(step, L - 1)].float())]
+            cut[0][n1:] = 0
+            wrong["token rows past the first N tile left out"] = with_rows(
+                cut[0], torch.cat([k[:n1], cut[1][n1:]]), torch.cat([v[:n1], cut[2][n1:]]))
+        return right, wrong, set(wrong) - {"q not rounded to bf16"}
 
     def self_case(step):
         caches = [(cache_k.clone(), cache_v.clone()) for _ in range(2)]
@@ -740,6 +881,16 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
             out = fn(x, g1, None, w_qkv, None, *qk, ck, cv, st, H)
             return {"out": out, f"k row {step}": ck[:, :, step], f"v row {step}": cv[:, :, step]}
 
+        def cold():  # copies of Wqkv and the caches
+            runs, libs = [], []
+            for _ in range(cold_copies((3 * C * C + 2 * cache_k.numel()) * 2)):
+                wc, kc, vc = w_qkv.clone(), cache_k.clone(), cache_v.clone()
+                runs.append(lambda wc=wc, kc=kc, vc=vc: ds.self_decode(
+                    x, g1, None, wc, None, *qk, kc, vc, st, H))
+                libs.append(lambda wc=wc, kc=kc, vc=vc: lib_qkv_attn(x, wc, kc[:, :, kv],
+                                                                     vc[:, :, kv]))
+            return runs, libs
+
         ck0, cv0 = caches[0]
         kv = slice(0, step + 1)
         return dict(
@@ -747,7 +898,7 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
             plain=lambda: ds.self_decode_plain(x, g1, None, w_qkv, None, *qk, *caches[1], st, H),
             held_run=lambda: call(ds.self_decode, 0),
             held_plain=lambda: call(ds.self_decode_plain, 1),
-            faults=lambda: self_faults(step),
+            faults=lambda: self_faults(step), cold=cold,
             library=lambda: lib_qkv_attn(x, w_qkv, ck0[:, :, kv], cv0[:, :, kv]),
             flops=2 * B * C * 3 * C + 4 * B * H * step * Dh,
             bytes=(3 * C * C + 2 * B * C) * 2 + 2 * B * H * (step + 1) * Dh * 2 + C * 2,
@@ -760,14 +911,30 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
             kv = kv * gain.to(bf)
         return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
 
+    def kv_copy(k, v):
+        """Copies of the cross K/V views k, v (of one (B, M, 2, H, 64) tensor)."""
+        kv = torch.stack((k.transpose(1, 2), v.transpose(1, 2)), 2).contiguous()
+        return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+
     def cross_case(M):
         k, v = cross_kv(M)
         bias = key_bias(B, M, full_rows=1)
         args = (x, g1, None, w_q, None, qk[0], None, k, v, bias, H)
+        mask = bias[:, None, None, :].to(bf)
+
+        def cold():  # copies of w_q and the cross K/V
+            runs, libs = [], []
+            for _ in range(cold_copies((C * C + 2 * k.numel()) * 2)):
+                wc, (kc, vc) = w_q.clone(), kv_copy(k, v)
+                runs.append(lambda wc=wc, kc=kc, vc=vc: ds.cross_decode_attn(
+                    x, g1, None, wc, None, qk[0], None, kc, vc, bias, H))
+                libs.append(lambda wc=wc, kc=kc, vc=vc: lib_qkv_attn(x, wc, kc, vc, mask))
+            return runs, libs
+
         return dict(
             run=lambda: ds.cross_decode_attn(*args),
-            plain=lambda: ds.cross_decode_attn_plain(*args),
-            library=lambda: lib_qkv_attn(x, w_q, k, v, bias[:, None, None, :].to(bf)),
+            plain=lambda: ds.cross_decode_attn_plain(*args), cold=cold,
+            library=lambda: lib_qkv_attn(x, w_q, k, v, mask),
             flops=2 * B * C * C + 4 * B * H * M * Dh,
             bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh * 2 + B * M * 4 + C * 2,
             shape=f"x (B={B}, {w}), w_q ({w}, {w}), cross K/V (B, {H}, M={M}, 64) views, "
@@ -792,9 +959,9 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
                      "V scale of the heads reversed": plain(v_scale=vs.flip(1)).float()}
             return plain().float(), wrong, set(wrong)
 
-        def library():  # dequantize, then the bf16 yardstick
-            kd, vd = (t.to(bf) * s[:, :, None, :].to(bf) for t, s in ((k8, ks), (v8, vs)))
-            return lib_qkv_attn(x, w_q, kd, vd,
+        def library(wq=w_q, kq=k8, vq=v8):  # dequantize, then the bf16 yardstick
+            kd, vd = (t.to(bf) * s[:, :, None, :].to(bf) for t, s in ((kq, ks), (vq, vs)))
+            return lib_qkv_attn(x, wq, kd, vd,
                                 None if bias is None else bias[:, None, None, :].to(bf))
 
         def oracle():
@@ -819,9 +986,18 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
             check(rel < 0.05, f"int8 M={M}: quantization error {rel} >= 0.05")
             check(same, f"int8 M={M}: quantize_kv_decode differs between the card and the CPU")
 
+        def cold():  # copies of w_q and the int8 cross K/V
+            runs, libs = [], []
+            for _ in range(cold_copies(C * C * 2 + 2 * k8.numel())):
+                wc, kc, vc = w_q.clone(), k8.clone(), v8.clone()
+                runs.append(lambda wc=wc, kc=kc, vc=vc: ds.cross_decode_attn(
+                    x, g1, None, wc, None, qk[0], None, kc, vc, bias, H, k_scale=ks, v_scale=vs))
+                libs.append(lambda wc=wc, kc=kc, vc=vc: library(wc, kc, vc))
+            return runs, libs
+
         return dict(
             run=lambda: ds.cross_decode_attn(*args, k_scale=ks, v_scale=vs), plain=plain,
-            faults=faults, library=library, oracle=oracle,
+            faults=faults, library=library, oracle=oracle, cold=cold,
             wrapper="decode_attention_int8", path="int8_chain",
             flops=2 * B * C * C + 4 * B * H * M * Dh,
             bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh + 2 * B * H * Dh * 4
@@ -844,9 +1020,18 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
                     {"last chunk left out": ds.decode_attention_plain(*cut).float()},
                     {"last chunk left out"})
 
+        def cold():  # copies of the cross K/V
+            runs, libs = [], []
+            for _ in range(cold_copies(2 * k.numel() * 2)):
+                kc, vc = kv_copy(k, v)
+                runs.append(lambda kc=kc, vc=vc: ds.decode_attention(q, kc, vc, bias, False, False))
+                libs.append(lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=bias[:, :, None, :].to(bf)))
+            return runs, libs
+
         return dict(
             run=lambda: ds.decode_attention(*args), plain=lambda: ds.decode_attention_plain(*args),
-            faults=faults,
+            faults=faults, cold=cold,
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, :, None, :]
                                                            .to(bf)),
             flops=4 * B * H * M * Dh, bytes=2 * B * H * M * Dh * 2 + 2 * B * H * Dh * 2 + B * M * 4,
@@ -862,23 +1047,52 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
     def mlp_case(rows):
         xx, attn = rn(rows, C), rn(rows, C)
         args = (xx, attn, wp, None, g2, None, w1, None, w2, None, w3, None)
+        out_plan = ds.residual_mlp_plan(rows, C, HID, True, sms)["out"]
 
-        def library():
+        def library(wp=wp, w1=w1, w3=w3, w2=w2):
             x1 = xx + F.linear(attn, wp)
             h = F.layer_norm(x1, (C,), g2, None, 1e-6)
             return x1 + F.linear(F.silu(F.linear(h, w1)) * F.linear(h, w3), w2)
 
-        def faults():  # W2's columns past the last multiple of 8 left out
-            cut = (xx, attn, wp, None, g2, None, w1[:HID8], None, w2[:, :HID8].contiguous(),
-                   None, w3[:HID8], None)
-            return (ds.residual_mlp_plain(*args, gated=True).float(),
-                    {"W2's tail columns left out": ds.residual_mlp_plain(*cut, gated=True)
-                     .float()}, {"W2's tail columns left out"})
+        def plain_with(w2x):
+            return ds.residual_mlp_plain(xx, attn, wp, None, g2, None, w1, None, w2x, None, w3,
+                                         None, gated=True).float()
+
+        def faults():
+            """Wrong outputs: W2's columns past the last multiple of 8 left
+            out; the partial of the last rank of each cluster of fc2 left
+            out; a stale W2 stage."""
+            wrong = {}
+            if HID8 < HID:
+                cut = (xx, attn, wp, None, g2, None, w1[:HID8], None, w2[:, :HID8].contiguous(),
+                       None, w3[:HID8], None)
+                wrong["W2's tail columns left out"] = ds.residual_mlp_plain(
+                    *cut, gated=True).float()
+            if out_plan["split"] > 1:
+                wrong["a split-K partial of W2 left out"] = plain_with(last_rank_cut(w2, out_plan))
+            stale = stale_stage(w2, out_plan)
+            if stale is not None:
+                wrong["a stale W2 stage"] = plain_with(stale)
+            right = ds.residual_mlp_plain(*args, gated=True).float()
+            if rows > ds.GEMV_N_TILES[-1]:  # the rows of the second pass
+                wrong["token rows past the first N tile left out"] = right.clone()
+                wrong["token rows past the first N tile left out"][ds.GEMV_N_TILES[-1]:] = 0
+            return right, wrong, set(wrong)
+
+        def cold():  # copies of the four weights
+            runs, libs = [], []
+            for _ in range(cold_copies((C * C + 3 * C * HID) * 2)):
+                ws = [t.clone() for t in (wp, w1, w3, w2)]
+                runs.append(lambda ws=ws: ds.residual_mlp(xx, attn, ws[0], None, g2, None, ws[1],
+                                                          None, ws[3], None, ws[2], None,
+                                                          gated=True))
+                libs.append(lambda ws=ws: library(*ws))
+            return runs, libs
 
         return dict(
             run=lambda: ds.residual_mlp(*args, gated=True),
             plain=lambda: ds.residual_mlp_plain(*args, gated=True), library=library,
-            faults=faults if HID8 < HID else None,
+            faults=faults, cold=cold,
             flops=2 * rows * (C * C + 3 * C * HID),
             bytes=(C * C + 3 * C * HID + 3 * rows * C) * 2 + C * 2,
             shape=f"x, attn (B={rows}, {w}), Wp ({w}, {w}), SwiGLU hidden {HID}, no biases")
@@ -1057,7 +1271,15 @@ def xl_kernel_phase(torch, card: str):
         ("cross_decode_attn@int8_XL", "fourm_tpu/kernels/decode_step.py:377", da,
          xl4.int8_case(M)),
     ]
-    return time_cases(torch, cases, card)
+    results = time_cases(torch, cases, card)
+    for name, _r, _s, c in cases:  # the redesigned decode kernels: two runs, bit for bit
+        if name.split("@")[0] in ("self_decode", "residual_mlp"):
+            a, b = c["run"](), c["run"]()
+            torch.cuda.synchronize()
+            print(f"bit-identical {name}: two runs {'equal' if torch.equal(a, b) else 'DIFFER'}",
+                  flush=True)
+            check(torch.equal(a, b), f"{name}: two runs differ")
+    return results
 
 
 def vq_kernel_cases(torch, rn, key_bias, gen):

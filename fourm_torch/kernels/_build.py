@@ -4,8 +4,8 @@ Each source compiles on first use into its own shared library with a plain C
 interface, under fourm_torch/kernels/_build/ (ignored by git), named after
 the hash of the source, every shared header (csrc/*.cuh) and the flags, so
 an edited source or header rebuilds and an unchanged one loads at once. No
-library links libcuda: gemm_sm90.cuh, whose TMA tensor maps the GEMMs and
-the attention kernels use, fetches libcuda's cuTensorMapEncodeTiled through
+library links libcuda: gemm_sm90.cuh, whose TMA tensor maps the GEMMs, the
+attention kernels and the decode-step weight streams (gemv_sm90.cuh) use, fetches libcuda's cuTensorMapEncodeTiled through
 the CUDA runtime at first use. All missing libraries compile
 in parallel, one nvcc process per source. Importing this module needs no
 nvcc; `library()` does, and raises if the toolkit is absent.
@@ -43,14 +43,14 @@ SIGNATURES = {
                   [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 5 + [_I] * 4
                   + [_F, _F, _I, _P, _P]),
     "self_decode": ("self_decode", "fourm_self_decode",
-                    [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
+                    [_P] * 8 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _IA, _P]),
     "decode_attention": ("decode_attn", "fourm_decode_attention",
                          [_P, _I, _I, _P, _P] + [_I] * 6 + [_P, _P, _I, _P] + [_I] * 3
                          + [_P, _P] + [_I] * 4 + [_F, _I, _I, _P]),
     "cross_decode_q": ("decode_attn", "fourm_cross_q",
                        [_P] * 6 + [_I] + [_P, _P] + [_I] * 3 + [_F, _P]),
     "residual_mlp": ("residual_mlp", "fourm_residual_mlp",
-                     [_P] * 12 + [_I] + [_P] * 3 + [_I] * 4 + [_F, _P]),
+                     [_P] * 12 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _IA, _P]),
     "attn_block": ("attn_block", "fourm_attn_block", [_P] * 11 + [_I] * 4 + [_F, _F, _I, _P]),
     "attn_block_fits": ("attn_block", "fourm_attn_block_fits", [_I, _I]),
     "nearest_code": ("vq_codebook", "fourm_nearest_code", [_P] * 3 + [_I] * 4 + [_P]),

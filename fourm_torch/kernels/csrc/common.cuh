@@ -2,10 +2,11 @@
 //
 // Every kernel here takes bf16 activations and weights and keeps statistics
 // and sums in fp32. The many-row kernels compute their products by wgmma
-// (gemm_sm90.cuh's TMA-fed GEMM; the attention core of attn_sm90.cuh); the
-// decode-step kernels, one token per batch row, with fp32 FMAs. The C entry
-// points return cudaGetLastError() so the Python wrapper can raise on a
-// refused launch.
+// (gemm_sm90.cuh's TMA-fed GEMM; the attention core of attn_sm90.cuh), and
+// so do self_decode and residual_mlp (gemv_sm90.cuh's weight streaming);
+// the cross-attention decode kernels (decode_attn.cu) with fp32 FMAs. The C
+// entry points return cudaGetLastError() so the Python wrapper can raise on
+// a refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,9 +79,9 @@ __device__ __forceinline__ void ln_rows_to_smem(
   }
 }
 
-// ---- helpers of the decode-step kernels (self_decode, decode_attn,
-// residual_mlp): one token per batch row, so their products are GEMVs on
-// CUDA cores, fp32 sums of bf16 products.
+// ---- helpers of the decode-step kernels: one token per batch row
+// (decode_attn.cu's products are GEMVs on CUDA cores, fp32 sums of bf16
+// products).
 
 // Element i of a small parameter vector (LN scale or shift, bias) held in
 // fp32 or in bf16 (is_bf16), so the wrapper needs no copy kernel.

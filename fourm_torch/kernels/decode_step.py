@@ -18,7 +18,10 @@ jnp there, plain torch here). Each wrapper launches its CUDA kernels
 (csrc/self_decode.cu, csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA
 tensors, counting launches in `<wrapper>.launches`, and raises on a call its
 predicate (`<wrapper>_takes`) refuses; it computes its plain PyTorch twin
-for CPU tensors.
+for CPU tensors. `self_decode` and `residual_mlp` stream their weights on
+the core of csrc/gemv_sm90.cuh; their tile plans (`gemv_plan`,
+`self_decode_plan`, `residual_mlp_plan`) are made here and passed to the
+kernels as plain ints.
 
 Layout: the port keeps caches and cross K/V as (B, H, L|M, Dh), each key one
 128-byte row, not the TPU's (B, H, Dh, L) lane layout. Weights use the
@@ -34,11 +37,13 @@ XLA's decode_attention and pallas_decode_attention do): `cast_probs`.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from ._checks import (aligned, all_bf16, ptr, require, require_cuda, require_takes,
+from ._checks import (aligned, all_bf16, f32, ptr, require, require_cuda, require_takes,
                       small_params, stream)
 from .attention import softmax1
 from .fused_mlp import _mm, layer_norm_fp32, ln_mlp_plain
@@ -47,6 +52,133 @@ from .fused_mlp import _mm, layer_norm_fp32, ln_mlp_plain
 # an argument and sizes its shared memory from it
 DECODE_CHUNK = 256
 _NEG = torch.finfo(torch.float32).min
+
+
+# ------------------------------------------------- the weight-streaming plans
+
+# csrc/gemv_sm90.cuh: 64-row weight tiles, 64-column K blocks, a ring of up
+# to 8 weight boxes, token N tiles of 8 to 64, sums of 64 rows of nt + 2
+# floats; its smem_bytes() is gemv_smem() below
+GEMV_TM = 64
+GEMV_TK = 64
+GEMV_RING = 8  # weight boxes in the ring: up to 8 stages, or 4 of two (a dual product)
+GEMV_N_TILES = (8, 16, 32, 64)
+GEMV_MAX_SPLIT = 16  # CTAs of a split-K cluster (past 8: a non-portable cluster)
+# K blocks a CTA takes at least (where K has them): a split past that sends
+# more partials through the cluster than streaming the blocks costs
+GEMV_MIN_KPB = 4
+MAX_SMEM = 232448 - 1024  # dynamic shared memory of a block on an H100, beside static
+SM_SMEM = 233472   # shared memory of an SM (each resident block also takes 1 KB)
+GEMV_CTAS_PER_SM = 2  # the kernel's launch bound: its registers allow two
+SMS = 132  # the H100's SMs: the plans fill at least one wave of them where they can
+# csrc/self_decode.cu kernel 2: a warp per 32-position chunk of the cache,
+# at most CACHE_MAX_WARPS warps to a (batch row, head)
+CACHE_CHUNK = 32
+CACHE_MAX_WARPS = 16
+
+
+def gemv_smem(nt: int, kpb: int, dual: bool, ln: bool, split: int) -> int:
+    """Dynamic shared memory of gemv_sm90.cuh's kernel (its smem_bytes()):
+    the work area (the ring, sized for the CTA's K blocks, the tokens and the
+    LN parameters; rank 0's full sums at the end), then rank 0's gather
+    buffer of the other ranks' partials."""
+    nw = 2 if dual else 1
+    ring = min(kpb, GEMV_RING // nw) * nw  # weight boxes
+    work = ring * GEMV_TM * GEMV_TK * 2 + kpb * nt * 128 + ln * kpb * GEMV_TK * 2 * 4
+    part = nw * GEMV_TM * (nt + 2) * 4  # one rank's partial sums
+    return 1024 + max(work, part) + (split - 1) * part
+
+
+def gemv_plan(rows: int, K: int, B: int, dual: bool = False, sms: int = SMS,
+              ln: bool = False):
+    """The tile plan of out^T = W (rows, K) act^T for B token rows on
+    csrc/gemv_sm90.cuh (`ln`: its tokens are LayerNormed): the N tile `nt`
+    (B rounded up to 8, 16, 32 or 64, or a smaller tile where no split of
+    that one fits in shared memory) and the `passes` over B; the 64-row
+    weight `tiles`; K in `nkb` blocks of 64, `kpb` to a CTA, over a cluster
+    of `split` CTAs. Of the splits whose staged tokens and gathered
+    partials fit in shared memory, it takes the smallest that fills `sms`
+    SMs (tiles * split * passes >= sms) in one wave (the grid resident at
+    once, two CTAs an SM at most), else the largest in one wave, else the
+    largest. Returns a dict, or None when nothing fits."""
+    tiles = -(-rows // GEMV_TM)
+    nkb = -(-K // GEMV_TK)
+    covering = next(n for n in GEMV_N_TILES if n >= min(B, GEMV_N_TILES[-1]))
+    for nt in sorted((n for n in GEMV_N_TILES if n <= covering), reverse=True):
+        passes = -(-B // nt)
+        fits = []  # (split, kpb, whether the grid is resident at once)
+        for split in range(1, max(1, min(nkb // GEMV_MIN_KPB, GEMV_MAX_SPLIT)) + 1):
+            kpb = -(-nkb // split)
+            smem = gemv_smem(nt, kpb, dual, ln, split)
+            if -(-nkb // kpb) < split or smem > MAX_SMEM:
+                continue  # a rank without K blocks, or too much to hold
+            per_sm = min(GEMV_CTAS_PER_SM, SM_SMEM // (smem + 1024))
+            fits.append((split, kpb, tiles * split * passes <= sms * per_sm))
+        if fits:
+            full = [f for f in fits if f[2] and tiles * f[0] * passes >= sms]
+            one_wave = [f for f in fits if f[2]]
+            split, kpb, _ = full[0] if full else one_wave[-1] if one_wave else fits[-1]
+            return dict(nt=nt, passes=passes, tiles=tiles, nkb=nkb, split=split, kpb=kpb)
+    return None
+
+
+def _plan_ints(*plans):
+    return [v for p in plans for v in (p["nt"], p["passes"], p["split"], p["kpb"])]
+
+
+# the plans as the kernels take them, one computation per shape: a decode
+# step calls each wrapper once per layer and token, and the plan search is
+# Python
+@functools.lru_cache(maxsize=256)
+def _self_decode_ints(B: int, C: int, L: int, sms: int) -> tuple:
+    plan = self_decode_plan(B, C, L, sms)
+    return (*_plan_ints(plan["qkv"]), plan["warps"])
+
+
+@functools.lru_cache(maxsize=256)
+def _residual_mlp_ints(B: int, C: int, HID: int, gated: bool, sms: int) -> tuple:
+    plan = residual_mlp_plan(B, C, HID, gated, sms)
+    return tuple(_plan_ints(plan["proj"], plan["hidden"], plan["out"]))
+
+
+def self_decode_plan(B: int, C: int, L: int, sms: int = SMS):
+    """self_decode's plan: `qkv`, the projection's gemv_plan over Wqkv (3C
+    rows, LN1 tokens); `warps`, the attention's warps per (batch row, head),
+    one per 32-position chunk of the cache up to 16 (warp w takes chunks w,
+    w + warps, ...)."""
+    qkv = gemv_plan(3 * C, C, B, sms=sms, ln=True)
+    warps = min(CACHE_MAX_WARPS, -(-L // CACHE_CHUNK))
+    return None if qkv is None else dict(qkv=qkv, warps=warps)
+
+
+def residual_mlp_plan(B: int, C: int, HID: int, gated: bool, sms: int = SMS):
+    """residual_mlp's plans of its three products: `proj` Wp (C, C), `hidden`
+    W1 [and W3] (HID, C), `out` W2 (C, HIDS) with HIDS = HID rounded up to
+    8; None when one does not fit."""
+    hids = -(-HID // 8) * 8
+    plans = dict(proj=gemv_plan(C, C, B, sms=sms), hidden=gemv_plan(HID, C, B, gated, sms, True),
+                 out=gemv_plan(C, hids, B, sms=sms))
+    return None if None in plans.values() else plans
+
+
+def _params16(*tensors):
+    """small_params, 16-byte aligned: the weight-streaming kernels read LN
+    parameters 8 at a time. A vector that is not aligned (a view into a
+    larger tensor) goes, with the others, to fp32 copies."""
+    ps, pbf = small_params(*tensors)
+    if all(t is None or aligned(t, 16) for t in ps):
+        return ps, pbf
+    return [f32(t) for t in tensors], 0
+
+
+def _ints(*vals):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    """The SMs of a card, for the tile plans."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---------------------------------------------------------------- self_decode
@@ -91,11 +223,13 @@ def self_decode_takes(x: torch.Tensor, w_qkv: torch.Tensor, cache_k: torch.Tenso
                       cache_v: torch.Tensor, num_heads: int) -> bool:
     """Whether csrc/self_decode.cu takes the step, from dtypes and shapes
     alone: bf16 x, w_qkv and caches, heads of 64, C <= 2048 and a multiple
-    of 8, contiguous tensors, a cache of at most 8192 positions."""
+    of 8, contiguous 16-byte aligned tensors (TMA reads Wqkv and the
+    caches), a cache of at most 8192 positions."""
     C, L = x.shape[-1], cache_k.shape[2]
-    return (all_bf16(x, w_qkv, cache_k, cache_v) and C == 64 * num_heads and C % 8 == 0
-            and C <= 2048 and all(t.is_contiguous() for t in (x, w_qkv, cache_k, cache_v))
-            and L <= 8192 and cache_k.numel() < 2**31)
+    ts = (x, w_qkv, cache_k, cache_v)
+    return (all_bf16(*ts) and C == 64 * num_heads and C % 8 == 0 and C <= 2048
+            and all(t.is_contiguous() and aligned(t, 16) for t in ts)
+            and 0 < L <= 8192 and cache_k.numel() < 2**31)
 
 
 def self_decode(x: torch.Tensor, gamma1, beta1, w_qkv: torch.Tensor, b_qkv, qn_gamma,
@@ -134,13 +268,15 @@ def self_decode(x: torch.Tensor, gamma1, beta1, w_qkv: torch.Tensor, b_qkv, qn_g
             lambda: f"{name}: QK-norm needs both gammas")
     require_takes(name, self_decode_takes(x, w_qkv, cache_k, cache_v, num_heads),
                   x, w_qkv, cache_k, cache_v)
-    ps, pbf = small_params(gamma1, beta1, b_qkv, qn_gamma, qn_beta, kn_gamma, kn_beta)
+    ps, pbf = _params16(gamma1, beta1, b_qkv, qn_gamma, qn_beta, kn_gamma, kn_beta)
+    qkv = torch.empty((B, 3, H, Dh), dtype=torch.bfloat16, device=dev)  # q, k, v of the token
     out = torch.empty((B, C), dtype=torch.bfloat16, device=dev)
     from . import _build
 
     code = _build.entry(name)(
         ptr(x), *[ptr(t) for t in ps], pbf, ptr(w_qkv), ptr(cache_k), ptr(cache_v),
-        ptr(step_idx), ptr(out), B, H, L, C, float(eps), int(allow_zero_attn), stream(dev))
+        ptr(step_idx), ptr(qkv), ptr(out), B, H, L, C, float(eps), int(allow_zero_attn),
+        _ints(*_self_decode_ints(B, C, L, _sms(dev))), stream(dev))
     _build.check(name, code)
     self_decode.launches += 1
     return out
@@ -413,11 +549,40 @@ def residual_mlp_takes(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor
                        w3: Optional[torch.Tensor] = None) -> bool:
     """Whether csrc/residual_mlp.cu takes the step, from dtypes and shapes
     alone: bf16 tensors, C <= 2048 and a multiple of 8, any hidden width up
-    to 8192, contiguous 16-byte aligned tensors."""
+    to 8192, contiguous 16-byte aligned tensors (W2's rows need not be:
+    `_w2_for_tma`)."""
     C, HID = x.shape[-1], w1.shape[0]
     ts = [t for t in (x, attn, w_proj, w1, w2, w3) if t is not None]
-    return (all_bf16(*ts) and C % 8 == 0 and C <= 2048 and 0 < HID <= 8192
+    return (all_bf16(*ts) and C % 8 == 0 and 0 < C <= 2048 and 0 < HID <= 8192
             and all(t.is_contiguous() and aligned(t, 16) for t in ts))
+
+
+def _w2_for_tma(w2: torch.Tensor) -> torch.Tensor:
+    """fc2's weight (C, HID) as TMA reads it: itself where its rows are
+    16-byte aligned (HID % 8 == 0), else a zero-padded (C, HID rounded up to
+    8) copy. The copy is made once for each version of the weight and held
+    on the weight tensor itself, so it lives as long as the parameter (at
+    4M-21 XL 2048 x 5464 bf16, 22.4 MB a layer, 537 MB over 24 layers) and
+    the parameter keeps its (C, HID) shape; an in-place update of the weight
+    (an optimizer step, load_state_dict) bumps its version, and the next call
+    makes a new copy. Never a pad per call: at XL that would move twice
+    fc2's own bytes on every decode step."""
+    C, HID = w2.shape
+    if HID % 8 == 0:
+        return w2
+    try:
+        version = w2._version
+    except RuntimeError:  # an inference tensor keeps no version counter
+        version = None
+    key = (w2.data_ptr(), version, C, HID)
+    held = getattr(w2, "_fourm_tma_copy", None)
+    if held is not None and held[0] == key:
+        return held[1]
+    with torch.no_grad():
+        padded = torch.zeros((C, -(-HID // 8) * 8), dtype=w2.dtype, device=w2.device)
+        padded[:, :HID].copy_(w2)
+    w2._fourm_tma_copy = (key, padded)
+    return padded
 
 
 def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_proj,
@@ -443,16 +608,18 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
             lambda: f"{name}: gated needs w3 of shape ({HID}, {C})")
     require_takes(name, residual_mlp_takes(x, attn, w_proj, w1, w2, w3 if gated else None),
                   x, attn, w_proj, w1, w2, w3 if gated else None)
-    ps, pbf = small_params(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
+    ps, pbf = _params16(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
+    hids = -(-HID // 8) * 8
     x1 = torch.empty_like(x)
-    hid = torch.empty((B, -(-HID // 8) * 8), dtype=torch.bfloat16, device=dev)  # rows of 16 B
+    hid = torch.empty((B, hids), dtype=torch.bfloat16, device=dev)  # rows of 16 B
     out = torch.empty_like(x)
     from . import _build
 
     code = _build.entry(name)(
-        ptr(x), ptr(attn), ptr(w_proj), ptr(w1), ptr(w3 if gated else None), ptr(w2),
-        *[ptr(t) for t in ps], pbf, ptr(x1), ptr(hid), ptr(out), B, C, HID, int(gated),
-        float(eps), stream(dev))
+        ptr(x), ptr(attn), ptr(w_proj), ptr(w1), ptr(w3 if gated else None),
+        ptr(_w2_for_tma(w2)), *[ptr(t) for t in ps], pbf, ptr(x1), ptr(hid), ptr(out), B, C,
+        HID, hids, int(gated), float(eps),
+        _ints(*_residual_mlp_ints(B, C, HID, bool(gated), _sms(dev))), stream(dev))
     _build.check(name, code)
     residual_mlp.launches += 1
     return out

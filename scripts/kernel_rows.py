@@ -8,8 +8,9 @@ Imports chip_smoke and fourm_torch from DIR (default: this checkout), builds
 its kernels and runs the chosen kernel phases of its chip_smoke.py (2: the
 chain's kernels, 2b: the XL widths, 2c: the narrow widths, 5: VQ, 8: the
 train step); each phase holds every kernel to its twin and times it, kernel
-and library yardstick, as chip_smoke.py does. The last line is one JSON
-object: the card, and {row name: {"ms", "library_ms"}}. To compare versions,
+and library yardstick (cold too, where the checkout's chip_smoke.py times
+it), as chip_smoke.py does. The last line is one JSON object: the card, and
+{row name: {"ms", "library_ms"[, "cold_ms", "cold_library_ms"]}}. To compare versions,
 run parent, change, change, parent one after another on the same card (a
 `git archive` of the parent unpacked in a directory .gitignore lists).
 Needs one CUDA card and nvcc.
@@ -50,7 +51,8 @@ def main() -> int:
     rows = {}
     for phase in args.phases.split(","):
         for r in getattr(chip_smoke, PHASES[phase])(torch, card):
-            rows[r["name"]] = {"ms": r["ms"], "library_ms": r["library_ms"]}
+            rows[r["name"]] = {k: r[k] for k in ("ms", "library_ms", "cold_ms", "cold_library_ms")
+                               if k in r}
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": card, "rows": rows}), flush=True)
     return 0

@@ -61,20 +61,25 @@ from fourm_torch.kernels import _build  # noqa: E402
 # arguments), ln_mlp's LN prologue and its two GEMMs (the zero-padded copy of
 # a ragged W2 runs as a PyTorch copy kernel, in "other"); the attention
 # kernel and its QK-norm pre-pass over K; attn_block's LN rows, heads kernel and
-# projection GEMM
+# projection GEMM; self_decode's projection (gemv_sm90.cuh's kernel with its
+# SelfDecodeQkv operation) and attention over the cache; residual_mlp's three
+# products (gemv_sm90.cuh's kernel with ResidualProj, ResidualHidden,
+# ResidualOut: the zero-padded copy of a ragged W2 is made once per version of
+# the weight, at the first call, a PyTorch copy kernel outside the window)
 WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
                    "ln_rows_kernel<1>": "ln_mlp", "ActEpi": "ln_mlp", "ResidualEpi": "ln_mlp",
                    "attn_kernel": "flash_mha + attention",
                    "k_norm_kernel": "flash_mha + attention",
                    "ln_rows_kernel<2>": "attn_block", "attn_heads_kernel": "attn_block",
                    "AttnOutEpi": "attn_block",
-                   "nearest_code": "nearest_code", "self_decode_kernel": "self_decode",
+                   "nearest_code": "nearest_code", "SelfDecodeQkv": "self_decode",
+                   "self_decode_cache_kernel": "self_decode",
                    "cross_q_kernel": "cross_decode_attn (q prologue)",
                    "decode_partial_kernel<signed char>": "decode_attention_int8",
                    "decode_partial_kernel": "decode_attention",
                    "decode_combine_kernel": "decode_attention",
-                   "proj_residual_kernel": "residual_mlp", "hidden_kernel": "residual_mlp",
-                   "out_residual_kernel": "residual_mlp"}
+                   "ResidualProj": "residual_mlp", "ResidualHidden": "residual_mlp",
+                   "ResidualOut": "residual_mlp"}
 # the train step's kernels (substring) -> group; cuBLAS GEMMs by name marks.
 # attention_train's forward is attention.cu's kernel (its STATS variant; the
 # train forward runs no other attention), its backward attention_train.cu's
