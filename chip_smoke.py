@@ -13,9 +13,13 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      by the port) and the least time the card could take (bound); for the
      decode-step rows also cold (kernel and yardstick over copies of the
      weights and caches above 100 MB taken in turn, time_rotating_ms); for
-     self_decode and decode_attention, wrong outputs (a cache position too
-     many or too few, the new token or the last key chunk left out; for
-     self_decode also the new k/v row not written, a 32-position cache tile
+     self_decode, cross_decode_attn and decode_attention, wrong outputs (a
+     cache position too many or too few, the new token left out; for the
+     cross-attention the last split of decode_attention_plan left out, the
+     first split's last 64-key tile left out, a stale V ring stage, and for
+     cross_decode_attn q taken from the previous call's token, as a q read
+     before the PDL wait would be, with the kernel held after a call on
+     another token; for self_decode also the new k/v row not written, a 32-position cache tile
      left out, a split-K partial of Wqkv left out, a stale Wqkv ring stage,
      and, past 64 rows, the token rows of the second N tile left out; for
      residual_mlp a split-K partial of W2, a stale W2 stage, the second N
@@ -32,9 +36,10 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      2 (attention also at M = 2900 keys), with faults the tolerance must
      catch (phase 2's attention faults, ln_mlp's ragged tail chunk,
      W2's tail columns in residual_mlp, the K scale not folded, the V scale
-     of the heads reversed, and phase 2's decode faults), with cold times
-     beside the decode rows and two runs of self_decode and residual_mlp at
-     XL shapes held bit for bit; the int8 mode is also held to the bf16 kernel
+     of the heads reversed, and phase 2's decode faults, the split plan's
+     in the int8 mode too), with cold times beside the decode rows and two
+     runs of self_decode, cross_decode_attn, decode_attention and
+     residual_mlp at XL shapes held bit for bit; the int8 mode is also held to the bf16 kernel
      on the dequantized K/V, within 5% of the unquantized K/V, and
      quantize_kv_decode on the card to its CPU result, exactly; ln_matmul
      and ln_mlp also at the decoder grids (16 x 196 rows at 4M-B, 8 x 196 at
@@ -916,11 +921,64 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
         kv = torch.stack((k.transpose(1, 2), v.transpose(1, 2)), 2).contiguous()
         return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
 
+    def split_faults(run, k, v, bias, int8=False):
+        """Wrong outputs of csrc/decode_attn.cu's split plan
+        (decode_attention_plan) on (B, H, M, 64) K/V and a (B, M) bias,
+        run(k, v, bias) being the twin: the last split's keys left out; the
+        last 64-key tile of the first split left out; every V tile of a split
+        from its ring's stage count on read from that many tiles back (a stale
+        stage), where a split has more tiles than stages."""
+        M, tile = k.shape[2], ds.DECODE_TILE
+        plan = ds.decode_attention_plan(B, H, M, int8, sms)
+        keys, split, stages = plan["keys"], plan["split"], plan["stages"]
+
+        def without(lo, hi):
+            keep = torch.cat([torch.arange(0, lo), torch.arange(hi, M)]).to(dev)
+            return run(k[:, :, keep], v[:, :, keep], None if bias is None else bias[:, keep])
+
+        wrong = {}
+        if split > 1:
+            wrong[f"the last split (keys {(split - 1) * keys}-{M}) left out"] = without(
+                (split - 1) * keys, M)
+        last = min(keys, M)
+        wrong[f"the first split's last 64-key tile (keys {(last - 1) // tile * tile}-{last}) "
+              "left out"] = without((last - 1) // tile * tile, last)
+        if keys // tile > stages:
+            stale = v.clone()
+            for r in range(split):
+                for i in range(stages, keys // tile):
+                    lo = r * keys + i * tile
+                    if lo >= M:
+                        break
+                    n = min(tile, M - lo)
+                    stale[:, :, lo:lo + n] = v[:, :, lo - stages * tile:lo - stages * tile + n]
+            wrong[f"a stale V stage ({stages} stages, {keys // tile} tiles a split)"] = run(
+                k, stale, bias)
+        return wrong
+
     def cross_case(M):
         k, v = cross_kv(M)
         bias = key_bias(B, M, full_rows=1)
         args = (x, g1, None, w_q, None, qk[0], None, k, v, bias, H)
         mask = bias[:, None, None, :].to(bf)
+        x_prev = rn(B, C)  # the token of the call before
+
+        def faults():
+            """The split plan's faults, and q taken from the previous call's
+            token (a q read before the PDL wait)."""
+            def run(kk, vv, bb):
+                return ds.cross_decode_attn_plain(*args[:7], kk, vv, bb, H).float()
+
+            wrong = split_faults(run, k, v, bias)
+            wrong["q taken from the previous call"] = ds.cross_decode_attn_plain(
+                x_prev, *args[1:]).float()
+            return run(k, v, bias), wrong, set(wrong)
+
+        def back_to_back():
+            """The call right after one on another token: the attention
+            kernel, launched under PDL, must read the q of its own call."""
+            ds.cross_decode_attn(x_prev, *args[1:])
+            return ds.cross_decode_attn(*args)
 
         def cold():  # copies of w_q and the cross K/V
             runs, libs = [], []
@@ -934,6 +992,7 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
         return dict(
             run=lambda: ds.cross_decode_attn(*args),
             plain=lambda: ds.cross_decode_attn_plain(*args), cold=cold,
+            held_run=back_to_back, faults=faults,
             library=lambda: lib_qkv_attn(x, w_q, k, v, mask),
             flops=2 * B * C * C + 4 * B * H * M * Dh,
             bytes=(C * C + 2 * B * C) * 2 + 2 * B * H * M * Dh * 2 + B * M * 4 + C * 2,
@@ -955,8 +1014,13 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
             return ds.cross_decode_attn_plain(*args, k_scale=k_scale, v_scale=v_scale)
 
         def faults():
+            def run(kk, vv, bb):
+                return ds.cross_decode_attn_plain(*args[:7], kk, vv, bb, H, k_scale=ks,
+                                                  v_scale=vs).float()
+
             wrong = {"K scale not folded into q": plain(k_scale=torch.ones_like(ks)).float(),
-                     "V scale of the heads reversed": plain(v_scale=vs.flip(1)).float()}
+                     "V scale of the heads reversed": plain(v_scale=vs.flip(1)).float(),
+                     **split_faults(run, k8, v8, bias, int8=True)}
             return plain().float(), wrong, set(wrong)
 
         def library(wq=w_q, kq=k8, vq=v8):  # dequantize, then the bf16 yardstick
@@ -1012,13 +1076,13 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
         q = rn(B, H, 1, Dh)
         bias = key_bias(B, M, full_rows=1)[:, None, :]
         args = (q, k, v, bias, False, False)  # the cross path: fp32 probabilities
-        tail = (M - 1) // ds.DECODE_CHUNK * ds.DECODE_CHUNK  # keys before the last chunk
 
         def faults():
-            cut = (q, k[:, :, :tail], v[:, :, :tail], bias[..., :tail], False, False)
-            return (ds.decode_attention_plain(*args).float(),
-                    {"last chunk left out": ds.decode_attention_plain(*cut).float()},
-                    {"last chunk left out"})
+            def run(kk, vv, bb):
+                return ds.decode_attention_plain(q, kk, vv, bb[:, None], False, False).float()
+
+            wrong = split_faults(run, k, v, bias[:, 0])
+            return ds.decode_attention_plain(*args).float(), wrong, set(wrong)
 
         def cold():  # copies of the cross K/V
             runs, libs = [], []
@@ -1273,7 +1337,8 @@ def xl_kernel_phase(torch, card: str):
     ]
     results = time_cases(torch, cases, card)
     for name, _r, _s, c in cases:  # the redesigned decode kernels: two runs, bit for bit
-        if name.split("@")[0] in ("self_decode", "residual_mlp"):
+        if name.split("@")[0] in ("self_decode", "residual_mlp", "cross_decode_attn",
+                                  "decode_attention"):
             a, b = c["run"](), c["run"]()
             torch.cuda.synchronize()
             print(f"bit-identical {name}: two runs {'equal' if torch.equal(a, b) else 'DIFFER'}",

@@ -46,9 +46,9 @@ SIGNATURES = {
                     [_P] * 8 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _IA, _P]),
     "decode_attention": ("decode_attn", "fourm_decode_attention",
                          [_P, _I, _I, _P, _P] + [_I] * 6 + [_P, _P, _I, _P] + [_I] * 3
-                         + [_P, _P] + [_I] * 4 + [_F, _I, _I, _P]),
+                         + [_P] + [_I] * 3 + [_F, _I, _I, _I, _IA, _P]),
     "cross_decode_q": ("decode_attn", "fourm_cross_q",
-                       [_P] * 6 + [_I] + [_P, _P] + [_I] * 3 + [_F, _P]),
+                       [_P] * 6 + [_I] + [_P, _P] + [_I] * 2 + [_F, _IA, _P]),
     "residual_mlp": ("residual_mlp", "fourm_residual_mlp",
                      [_P] * 12 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _IA, _P]),
     "attn_block": ("attn_block", "fourm_attn_block", [_P] * 11 + [_I] * 4 + [_F, _F, _I, _P]),

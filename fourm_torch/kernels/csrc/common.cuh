@@ -3,8 +3,8 @@
 // Every kernel here takes bf16 activations and weights and keeps statistics
 // and sums in fp32. The many-row kernels compute their products by wgmma
 // (gemm_sm90.cuh's TMA-fed GEMM; the attention core of attn_sm90.cuh), and
-// so do self_decode and residual_mlp (gemv_sm90.cuh's weight streaming);
-// the cross-attention decode kernels (decode_attn.cu) with fp32 FMAs. The C
+// so do the decode step's projections (gemv_sm90.cuh's weight streaming);
+// the single-query decode attention (decode_attn.cu) with fp32 FMAs. The C
 // entry points return cudaGetLastError() so the Python wrapper can raise on
 // a refused launch.
 #pragma once
@@ -79,9 +79,7 @@ __device__ __forceinline__ void ln_rows_to_smem(
   }
 }
 
-// ---- helpers of the decode-step kernels: one token per batch row
-// (decode_attn.cu's products are GEMVs on CUDA cores, fp32 sums of bf16
-// products).
+// ---- helpers of the decode-step kernels: one token per batch row.
 
 // Element i of a small parameter vector (LN scale or shift, bias) held in
 // fp32 or in bf16 (is_bf16), so the wrapper needs no copy kernel.
@@ -145,105 +143,6 @@ __device__ __forceinline__ void warp_ln_row(const bf16* __restrict__ x, int C,
     }
     dst[v] = u;
   }
-}
-
-// acc[i][r] = sum_k a[r][k] * w[i][k] for the R bf16 rows of `a` (shared
-// memory, row stride lda elements, lda % 8 == 0) and NW bf16 weight rows
-// w[i] of K values in device memory (K % 8 == 0, 16-byte aligned), by one
-// warp: each lane takes 16-byte slices, and issues the loads of U slices of
-// every weight row before it uses any, so U * NW loads per lane are in
-// flight (a GEMV at a few token rows is bound by the latency of its weight
-// loads); products summed in fp32. Every lane returns the sums.
-template <int R, int NW, int U>
-__device__ __forceinline__ void warp_gemv(const bf16* a, int lda, const bf16* const (&w)[NW],
-                                          int K, float (&acc)[NW][R]) {
-  const int lane = threadIdx.x % 32, nv = K / 8;
-#pragma unroll
-  for (int i = 0; i < NW; ++i)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[i][r] = 0.f;
-  for (int v0 = lane; v0 < nv; v0 += 32 * U) {
-    uint4 wu[U][NW];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int i = 0; i < NW; ++i)
-        wu[u][i] = v0 + 32 * u < nv
-                       ? __ldg(reinterpret_cast<const uint4*>(w[i]) + v0 + 32 * u)
-                       : make_uint4(0, 0, 0, 0);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int v = v0 + 32 * u;
-      if (v >= nv) break;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float af[8];
-        unpack8(*reinterpret_cast<const uint4*>(a + (size_t)r * lda + v * 8), af);
-#pragma unroll
-        for (int i = 0; i < NW; ++i) {
-          float wf[8];
-          unpack8(wu[u][i], wf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[i][r] += af[e] * wf[e];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NW; ++i)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[i][r] = warp_sum(acc[i][r]);
-}
-
-// LayerNorm over the 64 values v[0..63] (shared memory, fp32) by one warp,
-// two per lane, in place, in fp32 (per-head QK-norm: fp32 statistics on the
-// fp32 projection; the caller then rounds to bf16, as decode_step.py:126-134).
-__device__ __forceinline__ void warp_head_norm64(float* v, const void* g, const void* b,
-                                                 int pbf, float eps) {
-  const int lane = threadIdx.x % 32;
-  const float a0 = v[lane], a1 = v[lane + 32];
-  const float mean = warp_sum(a0 + a1) / 64.f;
-  const float d0 = a0 - mean, d1 = a1 - mean;
-  const float rstd = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / 64.f + eps);
-  float y0 = d0 * rstd * ld_param(g, lane, pbf);
-  float y1 = d1 * rstd * ld_param(g, lane + 32, pbf);
-  if (b != nullptr) {
-    y0 += ld_param(b, lane, pbf);
-    y1 += ld_param(b, lane + 32, pbf);
-  }
-  __syncwarp();
-  v[lane] = y0;
-  v[lane + 32] = y1;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum / max of one value per thread (blockDim.x % 32 == 0,
-// red holds one float per warp). Every thread returns the result.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < nw; ++i) t += red[i];
-  return t;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int i = 1; i < nw; ++i) t = fmaxf(t, red[i]);
-  return t;
 }
 
 inline int num_sms() {

@@ -423,13 +423,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of `rank` dimensions (innermost first; byte strides of the
-// outer ones) read in boxes of `box` elements in the 128-byte swizzle,
-// out-of-bounds elements read as zero; bf16 unless `type` says otherwise.
-// TMA's rules: a 16-byte aligned base, strides that are multiples of 16
-// bytes, an innermost box of 128 bytes (64 bf16, 32 fp32).
+// outer ones) read in boxes of `box` elements in the 128-byte swizzle (or
+// `swizzle`), out-of-bounds elements read as zero; bf16 unless `type` says
+// otherwise. TMA's rules: a 16-byte aligned base, strides that are
+// multiples of 16 bytes, an innermost box of 128 bytes (64 bf16, 32 fp32)
+// when swizzled, a multiple of 16 bytes when not.
 inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                       const cuuint64_t* strides, const cuuint32_t* box,
-                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return (int)cudaErrorInvalidValue;
@@ -437,8 +439,8 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint
     if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, rank, const_cast<void*>(base),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -472,9 +474,14 @@ inline int make_map_batched(CUtensorMap* map, const void* base, int batch, int r
 // size 1 last), since q, k and v may be column slices of one row (heads
 // within a row) or (B, H, N, Dh) views with any order of strides. *ord gets
 // the coordinate slot (1-3) of the rows, heads and batch: bits 0-1, 2-3, 4-5;
-// tma_rows in attn_sm90.cuh places its coordinates by it.
+// tma_rows in attn_sm90.cuh places its coordinates by it. `int8`: an int8
+// operand (64-byte rows), read unswizzled (decode_attn.cu's CUDA-core
+// reads need no swizzle; a 64-byte row is no 128-byte swizzle row).
 inline int make_rows_map(CUtensorMap* map, const void* base, int batch, int heads, int rows,
-                         long long sb, long long sh, long long sr, int box_rows, int* ord) {
+                         long long sb, long long sh, long long sr, int box_rows, int* ord,
+                         bool int8 = false,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const int esize = int8 ? 1 : 2;
   long long size[3] = {rows, heads, batch};
   long long stride[3] = {sr, sh, sb};
   long long widest = 8;
@@ -495,11 +502,13 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int batch, int head
   for (int slot = 1; slot <= 3; ++slot) {
     const int d = perm[slot - 1];
     dims[slot] = (cuuint64_t)size[d];
-    strides[slot - 1] = (cuuint64_t)stride[d] * 2;
+    strides[slot - 1] = (cuuint64_t)stride[d] * esize;
     if (d == 0) box[slot] = (cuuint32_t)box_rows;
     *ord |= slot << (2 * d);
   }
-  return encode_map(map, base, 4, dims, strides, box);
+  return encode_map(map, base, 4, dims, strides, box,
+                    int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : swizzle);
 }
 
 // Launch kern<<<grid, block, smem, stream>>>(args...) with programmatic

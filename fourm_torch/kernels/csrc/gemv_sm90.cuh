@@ -1,4 +1,5 @@
-// The Hopper weight-streaming core of self_decode.cu and residual_mlp.cu: a
+// The Hopper weight-streaming core of self_decode.cu, residual_mlp.cu and
+// decode_attn.cu's q product (CrossQ): a
 // skinny product at a few token rows, out^T (rows x B) = W (rows x K) act^T,
 // with A and B swapped against gemm_sm90.cuh's GEMM so that the weight, not
 // the handful of tokens, fills the 64-row wgmma M dimension. Built from
@@ -360,6 +361,24 @@ __device__ __forceinline__ void stage_copy(unsigned char* act, int kb0, int nkb,
   stage_tokens(act, kb0, nkb, nt, n0, B, Kv, [&](int b, int k) {
     return *reinterpret_cast<const uint4*>(src + (size_t)b * ld + k);
   });
+}
+
+// Per-head QK-norm of a 64-value head held by one warp, two values a lane
+// (dims lane, lane + 32): LayerNorm in fp32 (the fp32 projection's
+// statistics, decode_step.py:126-134), scale g and shift b (or none), fp32
+// or bf16 by pbf. The callers then round to bf16.
+__device__ __forceinline__ void head_norm(float& a0, float& a1, const void* g, const void* b,
+                                          int pbf, float eps) {
+  const int lane = threadIdx.x % 32;
+  const float mean = warp_sum(a0 + a1) / 64.f;
+  const float d0 = a0 - mean, d1 = a1 - mean;
+  const float rstd = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / 64.f + eps);
+  a0 = d0 * rstd * ld_param(g, lane, pbf);
+  a1 = d1 * rstd * ld_param(g, lane + 32, pbf);
+  if (b != nullptr) {
+    a0 += ld_param(b, lane, pbf);
+    a1 += ld_param(b, lane + 32, pbf);
+  }
 }
 
 // ------------------------------------------------------------------ the kernel

@@ -80,17 +80,7 @@ struct SelfDecodeQkv {
         a0 += ld_param(bqkv, m0 + lane, pbf);
         a1 += ld_param(bqkv, m0 + lane + 32, pbf);
       }
-      if (norm) {
-        const float mean = warp_sum(a0 + a1) / 64.f;
-        const float d0 = a0 - mean, d1 = a1 - mean;
-        const float rstd = rsqrtf(warp_sum(d0 * d0 + d1 * d1) / 64.f + eps);
-        a0 = d0 * rstd * ld_param(ng, lane, pbf);
-        a1 = d1 * rstd * ld_param(ng, lane + 32, pbf);
-        if (nb != nullptr) {
-          a0 += ld_param(nb, lane, pbf);
-          a1 += ld_param(nb, lane + 32, pbf);
-        }
-      }
+      if (norm) gemv::head_norm(a0, a1, ng, nb, pbf, eps);
       const bf16 y0 = __float2bfloat16(a0), y1 = __float2bfloat16(a1);
       bf16* dst = qkv + (((size_t)b * 3 + part) * H + h) * SD_DH;
       dst[lane] = y0;

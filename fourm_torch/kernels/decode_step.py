@@ -18,10 +18,12 @@ jnp there, plain torch here). Each wrapper launches its CUDA kernels
 (csrc/self_decode.cu, csrc/decode_attn.cu, csrc/residual_mlp.cu) for CUDA
 tensors, counting launches in `<wrapper>.launches`, and raises on a call its
 predicate (`<wrapper>_takes`) refuses; it computes its plain PyTorch twin
-for CPU tensors. `self_decode` and `residual_mlp` stream their weights on
-the core of csrc/gemv_sm90.cuh; their tile plans (`gemv_plan`,
-`self_decode_plan`, `residual_mlp_plan`) are made here and passed to the
-kernels as plain ints.
+for CPU tensors. `self_decode`, `residual_mlp` and the q product of
+`cross_decode_attn` stream their weights on the core of csrc/gemv_sm90.cuh;
+`decode_attention` (and its int8 mode) streams K/V through a TMA ring, split
+over a thread-block cluster. Their plans (`gemv_plan`, `self_decode_plan`,
+`residual_mlp_plan`, `decode_attention_plan`) are made here and passed to
+the kernels as plain ints.
 
 Layout: the port keeps caches and cross K/V as (B, H, L|M, Dh), each key one
 128-byte row, not the TPU's (B, H, Dh, L) lane layout. Weights use the
@@ -48,9 +50,6 @@ from ._checks import (aligned, all_bf16, f32, ptr, require, require_cuda, requir
 from .attention import softmax1
 from .fused_mlp import _mm, layer_norm_fp32, ln_mlp_plain
 
-# keys per block of the split-K decode attention; decode_attn.cu takes it as
-# an argument and sizes its shared memory from it
-DECODE_CHUNK = 256
 _NEG = torch.finfo(torch.float32).min
 
 
@@ -122,6 +121,64 @@ def gemv_plan(rows: int, K: int, B: int, dual: bool = False, sms: int = SMS,
     return None
 
 
+# csrc/decode_attn.cu: 64-key tiles of K and V (and the tile's fp32 key
+# bias) through a ring of up to 8 stages, about DECODE_RING bytes; a (batch
+# row, head) split over a cluster of up to 16 CTAs, each sending rank 0 its
+# 64 + 2 fp32 partials; up to four CTAs an SM (its launch bound); its
+# smem_bytes() is decode_attention_smem() below
+DECODE_TILE = 64
+DECODE_MAX_STAGES = 8
+DECODE_MAX_SPLIT = 16
+DECODE_CTAS_PER_SM = 4
+DECODE_STATIC_SMEM = 1280  # its barriers and the four warps' softmax states
+DECODE_RING = 100 * 1024  # a CTA's ring: what cross_decode_attn buffers during its q product
+DECODE_TARGET_CTAS = {False: 1.0, True: 1.5}  # CTAs an SM the plan aims at: bf16, int8
+
+
+def decode_attention_smem(stages: int, split: int, int8: bool) -> int:
+    """Dynamic shared memory of csrc/decode_attn.cu's kernel: alignment
+    slack, the ring (a stage: a K and a V tile of 64 keys, 8 KB each in
+    bf16, 4 KB in int8, and 256 bytes of key bias), then rank 0's gather
+    buffer of the other ranks' partials."""
+    stage = 2 * DECODE_TILE * 64 * (1 if int8 else 2) + DECODE_TILE * 4
+    return 1024 + stages * stage + (split - 1) * (64 + 2) * 4
+
+
+def decode_attention_plan(B: int, H: int, M: int, int8: bool = False, sms: int = SMS):
+    """The split plan of csrc/decode_attn.cu for B x H single queries over M
+    keys: each (batch row, head) takes `split` CTAs (a cluster of at most
+    16), rank r holding keys [r * keys, min((r + 1) * keys, M)), `keys` a
+    multiple of the 64-key tile (the last rank ragged, none empty), and a
+    ring of `stages` stages, about DECODE_RING bytes (6 in bf16, 8 in int8):
+    on the decode step the ring is what a CTA streams while the q product
+    runs, and a deeper ring measured faster there (PERF.md, PR 10). A CTA's
+    consumers take about the same time for a tile of either width, so a CTA
+    streams about half the bytes a second in int8: the split is the
+    smallest whose grid B * H * split reaches DECODE_TARGET_CTAS CTAs an SM
+    (1 in bf16, 1.5 in int8), within one wave at the CTAs an SM that the
+    shared memory allows (`per_sm`, at most DECODE_CTAS_PER_SM); larger
+    grids measured slower. One split where B * H alone reach it. `tiles`:
+    the 64-key tiles of M."""
+    tiles = -(-max(M, 1) // DECODE_TILE)
+    stage = decode_attention_smem(1, 1, int8) - 1024
+    ring = min(DECODE_MAX_STAGES, DECODE_RING // stage)
+
+    def per_sm(split, stages):  # 1 KB of each CTA's shared memory is the system's
+        smem = decode_attention_smem(stages, split, int8) + DECODE_STATIC_SMEM + 1024
+        return min(DECODE_CTAS_PER_SM, SM_SMEM // smem)
+
+    target = DECODE_TARGET_CTAS[bool(int8)] * sms
+    split = 1
+    while (split < min(DECODE_MAX_SPLIT, tiles) and B * H * split < target
+           and B * H * (split + 1) <= sms * per_sm(split + 1, ring)):
+        split += 1
+    tps = -(-tiles // split)
+    split = -(-tiles // tps)  # no rank without keys
+    stages = min(tps, ring)
+    return dict(split=split, keys=tps * DECODE_TILE, stages=stages, tiles=tiles,
+                per_sm=per_sm(split, stages))
+
+
 def _plan_ints(*plans):
     return [v for p in plans for v in (p["nt"], p["passes"], p["split"], p["kpb"])]
 
@@ -133,6 +190,17 @@ def _plan_ints(*plans):
 def _self_decode_ints(B: int, C: int, L: int, sms: int) -> tuple:
     plan = self_decode_plan(B, C, L, sms)
     return (*_plan_ints(plan["qkv"]), plan["warps"])
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_attention_ints(B: int, H: int, M: int, int8: bool, sms: int) -> tuple:
+    plan = decode_attention_plan(B, H, M, int8, sms)
+    return plan["split"], plan["keys"], plan["stages"]
+
+
+@functools.lru_cache(maxsize=256)
+def _cross_q_ints(B: int, C: int, sms: int) -> tuple:
+    return tuple(_plan_ints(gemv_plan(C, C, B, sms=sms, ln=True)))
 
 
 @functools.lru_cache(maxsize=256)
@@ -309,8 +377,8 @@ def decode_attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Whether the split-K kernel of csrc/decode_attn.cu takes the call, from
     dtypes and shapes alone: bf16 q, bf16 K/V (int8 in the int8 mode), head
     dim 64, K/V rows contiguous with strides that are multiples of 8 and
-    16-byte aligned (a lane reads 8 values of a row at once), at least one
-    key."""
+    16-byte aligned (TMA reads them; int8 strides that are not multiples of
+    16 bytes are read from a contiguous copy), at least one key."""
     kv_dtype = torch.int8 if int8 else torch.bfloat16
     return (all_bf16(q) and k.dtype == kv_dtype and v.dtype == kv_dtype and q.shape[-1] == 64
             and q.stride(-1) == 1 and _row_strides_ok(k) and _row_strides_ok(v)
@@ -319,11 +387,11 @@ def decode_attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     for t in (k, v)) < 2**31)
 
 
-def _decode_checks(name: str, q, k, v, bias, int8: bool):
+def _decode_checks(name: str, q, k, v, bias, int8: bool, k_scale=None, v_scale=None):
     """Checks of the split-K decode kernel (decode_attention_takes, matching
-    shapes, an fp32 (B|1, 1|H, M) bias); returns the device and the bias
-    strides (0 where it broadcasts)."""
-    dev = require_cuda(name, q, k, v, bias)
+    shapes, an fp32 (B|1, 1|H, M) bias, in the int8 mode contiguous fp32
+    (B, H, 64) scales); returns the device."""
+    dev = require_cuda(name, q, k, v, bias, k_scale, v_scale)
     require(not int8 or k.dtype == v.dtype == torch.int8,
             lambda: f"{name}: K/V must be int8, got {k.dtype}/{v.dtype}")
     require_takes(name, decode_attention_takes(q, k, v, int8), q, *(() if int8 else (k, v)))
@@ -332,29 +400,63 @@ def _decode_checks(name: str, q, k, v, bias, int8: bool):
     require(N == 1, lambda: f"{name}: q must be (B, H, 1, Dh), got {tuple(q.shape)}")
     require(tuple(k.shape) == (B, H, M, Dh) and tuple(v.shape) == (B, H, M, Dh),
             lambda: f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q")
-    bs = (0, 0, 0)
-    if bias is not None:
-        require(bias.dtype == torch.float32 and bias.ndim == 3 and bias.shape[-1] == M
-                and bias.shape[0] in (1, B) and bias.shape[1] in (1, H),
-                lambda: f"{name}: bias {tuple(bias.shape)} not fp32 (B|1, 1|H, {M})")
-        bs = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in range(3))
-    return dev, bs
+    require(bias is None or (bias.dtype == torch.float32 and bias.ndim == 3
+                             and bias.shape[-1] == M and bias.shape[0] in (1, B)
+                             and bias.shape[1] in (1, H)),
+            lambda: f"{name}: bias {tuple(bias.shape)} not fp32 (B|1, 1|H, {M})")
+    if int8:
+        require(all(t.dtype == torch.float32 and tuple(t.shape) == (B, H, Dh)
+                    and t.is_contiguous() for t in (k_scale, v_scale)),
+                lambda: f"{name}: scales must be contiguous fp32 ({B}, {H}, {Dh}) on {dev}")
+    return dev
 
 
-def _launch_decode(name: str, q, k, v, k_scale, v_scale, bias, allow_zero_attn: bool,
-                   cast_probs: bool, dev, bs) -> torch.Tensor:
+def _tma_inputs(k, v, bias, int8: bool):
+    """K, V and the fp32 (B|1, 1|H, M) key bias as the kernel's TMA maps
+    read them, with the bias's batch and head strides (0 where it
+    broadcasts) and a pitch (a multiple of 4 elements, at least M). Each is
+    read in place where TMA can (every tensor of the chain); else from a
+    copy: int8 K/V whose strides are not multiples of 16 bytes contiguous, a
+    bias whose keys are not contiguous, whose base is not 16-byte aligned or
+    whose strides are not multiples of 4, zero-padded to (B|1, 1|H, M
+    rounded up to 4). The copies are made before any of the call's kernels
+    launches: the K/V stream of cross_decode_attn starts before its wait."""
+    if int8:
+        k, v = (t if all(s % 16 == 0 for s in t.stride()[:-1]) else t.contiguous()
+                for t in (k, v))
+    if bias is None:
+        return k, v, None, (0, 0), 0
+    M = bias.shape[-1]
+    pitch = -(-M // 4) * 4
+    bs = [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(2)]
+    if not ((bias.stride(-1) == 1 or M == 1) and aligned(bias, 16)
+            and all(s % 4 == 0 for s in bs)):
+        padded = torch.zeros((*bias.shape[:2], pitch), dtype=torch.float32, device=bias.device)
+        padded[..., :M].copy_(bias)
+        bias = padded
+        bs = [0 if bias.shape[i] == 1 else bias.stride(i) for i in range(2)]
+    return k, v, bias, bs, pitch
+
+
+def _launch_decode(name: str, q, k_scale, v_scale, inputs, allow_zero_attn: bool,
+                   cast_probs: bool, early: bool, dev) -> torch.Tensor:
+    """Launch csrc/decode_attn.cu's kernel (under PDL) on a call
+    _decode_checks passed, over `inputs` from _tma_inputs. `early`: the
+    launch of cross_decode_attn right after its q product, whose producer
+    streams K/V and the bias before its wait (the q product writes only q);
+    a standalone call's producer waits first."""
+    k, v, bias, bs, pitch = inputs
+    int8 = k_scale is not None
     B, H, _, Dh = q.shape
     M = k.shape[2]
-    nchunk = -(-M // DECODE_CHUNK)
-    part = torch.empty((B * H * nchunk * (Dh + 2),), dtype=torch.float32, device=dev)
     out = torch.empty((B, H, 1, Dh), dtype=q.dtype, device=dev)
     from . import _build
 
     code = _build.entry("decode_attention")(
         ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v), *k.stride()[:3], *v.stride()[:3],
-        ptr(k_scale), ptr(v_scale), int(k_scale is not None),
-        ptr(bias), *bs, ptr(part), ptr(out), B, H, M, DECODE_CHUNK, float(Dh) ** -0.5,
-        int(allow_zero_attn), int(cast_probs), stream(dev))
+        ptr(k_scale), ptr(v_scale), int(int8), ptr(bias), *bs, pitch, ptr(out), B, H, M,
+        float(Dh) ** -0.5, int(allow_zero_attn), int(cast_probs), int(early),
+        _ints(*_decode_attention_ints(B, H, M, int8, _sms(dev))), stream(dev))
     _build.check(name, code)
     return out
 
@@ -369,12 +471,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cast_probs: probabilities are cast to v's dtype before the product with
     V (pallas_decode_attention and XLA's decode_attention); False keeps
     them in fp32 (pallas_cross_decode_attn). A row whose keys all carry the
-    finfo(f32).min bias gets uniform weights, never NaN."""
+    finfo(f32).min bias gets uniform weights, never NaN. On CUDA the kernel
+    launches under PDL but reads nothing before its wait on the kernel
+    before it, which may have written K/V or the bias (only
+    cross_decode_attn's launch streams K/V before that wait)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, allow_zero_attn, cast_probs)
     name = "decode_attention"
-    dev, bs = _decode_checks(name, q, k, v, bias, int8=False)
-    out = _launch_decode(name, q, k, v, None, None, bias, allow_zero_attn, cast_probs, dev, bs)
+    dev = _decode_checks(name, q, k, v, bias, False)
+    out = _launch_decode(name, q, None, None, _tma_inputs(k, v, bias, False), allow_zero_attn,
+                         cast_probs, False, dev)
     decode_attention.launches += 1
     return out
 
@@ -436,16 +542,14 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-channel scales (B, H, Dh) from `quantize_kv_decode`: the int8 mode
     of pallas_cross_decode_attn's attention core, fp32 probabilities. No
     dequantized K/V is ever written: the K scale is folded into q, the V
-    scale into the accumulator. bias as in `decode_attention`."""
+    scale into the accumulator. bias and the launch as in
+    `decode_attention`."""
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k, v, k_scale, v_scale, bias, allow_zero_attn)
     name = "decode_attention_int8"
-    dev, bs = _decode_checks(name, q, k, v, bias, int8=True)
-    B, H, _, Dh = q.shape
-    require(all(t.dtype == torch.float32 and tuple(t.shape) == (B, H, Dh) and t.is_contiguous()
-                and t.device == dev for t in (k_scale, v_scale)),
-            lambda: f"{name}: scales must be contiguous fp32 ({B}, {H}, {Dh}) on {dev}")
-    out = _launch_decode(name, q, k, v, k_scale, v_scale, bias, allow_zero_attn, False, dev, bs)
+    dev = _decode_checks(name, q, k, v, bias, True, k_scale, v_scale)
+    out = _launch_decode(name, q, k_scale, v_scale, _tma_inputs(k, v, bias, True),
+                         allow_zero_attn, False, False, dev)
     decode_attention_int8.launches += 1
     return out
 
@@ -479,13 +583,14 @@ def cross_decode_attn_plain(x, qn_gamma, qn_beta, w_q, b_q, cqn_gamma, cqn_beta,
 
 
 def cross_decode_attn_takes(x: torch.Tensor, w_q: torch.Tensor, num_heads: int) -> bool:
-    """Whether the q prologue of csrc/decode_attn.cu takes the step, from
-    dtypes and shapes alone: bf16 x and w_q, heads of 64, C <= 2048 and a
-    multiple of 8, contiguous x and w_q. The attention core then checks
+    """Whether the q product of csrc/decode_attn.cu (on gemv_sm90.cuh) takes
+    the step, from dtypes and shapes alone: bf16 x and w_q, heads of 64, C
+    <= 2048 and a multiple of 8, contiguous 16-byte aligned x and w_q (TMA
+    reads Wq, 16-byte loads x). The attention core then checks
     decode_attention_takes."""
     C = x.shape[-1]
     return (all_bf16(x, w_q) and C == 64 * num_heads and C % 8 == 0 and C <= 2048
-            and x.is_contiguous() and w_q.is_contiguous())
+            and all(t.is_contiguous() and aligned(t, 16) for t in (x, w_q)))
 
 
 def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q,
@@ -496,10 +601,14 @@ def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q
     """Cross-attention core of one decode step: per-head attention of
     q_norm(LN_q(x) Wq^T (+b)) over the cross K/V (B, H, M, Dh) with an fp32
     (B, M) key bias. Returns the raw heads-concatenated output (B, C); the
-    out-projection runs in `residual_mlp`. On CUDA a prologue kernel makes
-    q, then the `decode_attention` kernel (fp32 probabilities) reads K/V.
-    int8 mode: k, v int8 with their fp32 (B, H, Dh) scales k_scale, v_scale
-    (`quantize_kv_decode`), read by the `decode_attention_int8` kernel."""
+    out-projection runs in `residual_mlp`. On CUDA the q product runs on the
+    weight-streaming core (csrc/gemv_sm90.cuh, plan `gemv_plan(C, C, B)`),
+    then the `decode_attention` kernel (fp32 probabilities), launched under
+    PDL: it streams K/V and the bias while the q product runs, and reads q
+    after its wait. int8 mode: k, v int8 with their fp32 (B, H, Dh) scales
+    k_scale, v_scale (`quantize_kv_decode`), read by the
+    `decode_attention_int8` kernel. Counts one launch of cross_decode_attn
+    and one of decode_attention (or decode_attention_int8)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("cross_decode_attn: the int8 mode needs both k_scale and v_scale")
     if x.device.type == "cpu":
@@ -516,20 +625,23 @@ def cross_decode_attn(x: torch.Tensor, qn_gamma, qn_beta, w_q: torch.Tensor, b_q
     require(tuple(w_q.shape) == (C, C), lambda: f"{name}: w_q must be ({C}, {C})")
     require(bias is None or bias.ndim == 2, lambda: f"{name}: bias must be (B, M)")
     require_takes(name, cross_decode_attn_takes(x, w_q, num_heads), x, w_q)
-    ps, pbf = small_params(qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
+    int8 = k_scale is not None
+    attn_name = "decode_attention_int8" if int8 else "decode_attention"
+    b3 = None if bias is None else bias[:, None, :]
     q = torch.empty((B, H, 1, Dh), dtype=torch.bfloat16, device=dev)
+    _decode_checks(attn_name, q, k, v, b3, int8, k_scale, v_scale)
+    inputs = _tma_inputs(k, v, b3, int8)  # any copy before the q product
+    ps, pbf = _params16(qn_gamma, qn_beta, b_q, cqn_gamma, cqn_beta)
     from . import _build
 
     code = _build.entry("cross_decode_q")(
-        ptr(x), *[ptr(t) for t in ps], pbf, ptr(w_q), ptr(q), B, H, C, float(eps),
-        stream(dev))
+        ptr(x), *[ptr(t) for t in ps], pbf, ptr(w_q), ptr(q), B, C, float(eps),
+        _ints(*_cross_q_ints(B, C, _sms(dev))), stream(dev))
     _build.check(name, code)
     cross_decode_attn.launches += 1
-    b3 = None if bias is None else bias[:, None, :]
-    if k_scale is not None:
-        out = decode_attention_int8(q, k, v, k_scale, v_scale, b3, allow_zero_attn)
-    else:
-        out = decode_attention(q, k, v, b3, allow_zero_attn, cast_probs=False)
+    out = _launch_decode(attn_name, q, k_scale, v_scale, inputs, allow_zero_attn, False, True,
+                         dev)
+    (decode_attention_int8 if int8 else decode_attention).launches += 1
     return out.reshape(B, C)
 
 

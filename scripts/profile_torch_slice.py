@@ -62,11 +62,16 @@ from fourm_torch.kernels import _build  # noqa: E402
 # a ragged W2 runs as a PyTorch copy kernel, in "other"); the attention
 # kernel and its QK-norm pre-pass over K; attn_block's LN rows, heads kernel and
 # projection GEMM; self_decode's projection (gemv_sm90.cuh's kernel with its
-# SelfDecodeQkv operation) and attention over the cache; residual_mlp's three
+# SelfDecodeQkv operation) and attention over the cache; cross_decode_attn's q
+# product (gemv_sm90.cuh's kernel with its CrossQ operation) and the split-K
+# attention kernel of decode_attn.cu (int8: its <signed char, ...> variants;
+# listed first, as its name holds "attn_kernel"); residual_mlp's three
 # products (gemv_sm90.cuh's kernel with ResidualProj, ResidualHidden,
 # ResidualOut: the zero-padded copy of a ragged W2 is made once per version of
 # the weight, at the first call, a PyTorch copy kernel outside the window)
-WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
+WRAPPER_KERNELS = {"decode_attn_kernel<signed char": "decode_attention_int8",
+                   "decode_attn_kernel": "decode_attention",
+                   "ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
                    "ln_rows_kernel<1>": "ln_mlp", "ActEpi": "ln_mlp", "ResidualEpi": "ln_mlp",
                    "attn_kernel": "flash_mha + attention",
                    "k_norm_kernel": "flash_mha + attention",
@@ -74,10 +79,7 @@ WRAPPER_KERNELS = {"ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
                    "AttnOutEpi": "attn_block",
                    "nearest_code": "nearest_code", "SelfDecodeQkv": "self_decode",
                    "self_decode_cache_kernel": "self_decode",
-                   "cross_q_kernel": "cross_decode_attn (q prologue)",
-                   "decode_partial_kernel<signed char>": "decode_attention_int8",
-                   "decode_partial_kernel": "decode_attention",
-                   "decode_combine_kernel": "decode_attention",
+                   "CrossQ": "cross_decode_attn (q product)",
                    "ResidualProj": "residual_mlp", "ResidualHidden": "residual_mlp",
                    "ResidualOut": "residual_mlp"}
 # the train step's kernels (substring) -> group; cuBLAS GEMMs by name marks.
