@@ -43,7 +43,11 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      on the dequantized K/V, within 5% of the unquantized K/V, and
      quantize_kv_decode on the card to its CPU result, exactly; ln_matmul
      and ln_mlp also at the decoder grids (16 x 196 rows at 4M-B, 8 x 196 at
-     XL), ln_mlp with the W2 tail columns its wrapper pads as a fault;
+     XL), ln_mlp with the W2 tail columns its wrapper pads as a fault; and
+     residual_mlp with the weights of an XL model built under
+     torch.inference_mode() (depth 1 + 1) against its twin, before and
+     after fc2's weight (hidden 5461, in the modules' zero-padded storage)
+     is updated in place;
   2c. ln_matmul and ln_mlp at the narrow registry models' widths (D = 384:
      GELU hidden 1536, SwiGLU 1024; D = 512: SwiGLU 1365), as phase 2b;
   3. the headline chain at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_
@@ -82,9 +86,17 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
   5. the VQ tokenization kernels (attn_block, ln_mlp with exact GELU,
      mha_short, nearest_code, nearest_code_cosine) against their twins at the
      VQ paths' shapes, as phase 2 (the codebook searches must equal their
-     twins index for index), after the chain's phases so that they cannot
-     move its figures; and the longest sequence attn_block's library says
-     its shared memory holds;
+     twins index for index; beside their fp32 bound the bound of the TF32
+     screen's own work; a codebook whose codes all tie, every code
+     rescored, timed as a row), after the chain's phases so that they cannot
+     move its figures; the searches in both forms, exactly, at N = 12544 on
+     codebooks built against the screen (codes sharing their TF32 bits, near
+     ties 1-4 ulps apart, duplicated codes, K below a tile), at D = 16, 128
+     and 7, N = 1 and K = 1, with planted faults the exact gate must catch
+     (the second-best code, the last index on ties, a code tile left out,
+     the ragged last tile dropped, a zero margin on the TF32 collisions);
+     and the longest sequence attn_block's library says its shared memory
+     holds;
   6. VQ tokenization at ViT-B width, random bf16 weights from a seeded
      generator: (A) the RGB tokenizer of bench.py (VQ 224/16, vit_b_enc,
      16384 codes of 32, cosine) on 64 images, then its Euclidean variant,
@@ -143,6 +155,7 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 CUDA-core rate (an FMA counts two)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 MODEL = "fm_base_12e_12d_swiglu_qknorm_nobias"
 # the 4M-21 modality sets (reference cfgs/default/4m/models/main/4m-b_mod21_*.yaml)
@@ -322,6 +335,9 @@ def time_cases(torch, cases, card: str):
         peak = c.get("peak", PEAK_BF16_FLOPS)
         bound_ms = max(c["flops"] / peak, c["bytes"] / PEAK_BYTES) * 1e3
         bound_by = "operations" if c["flops"] / peak >= c["bytes"] / PEAK_BYTES else "bytes"
+        design = ""
+        if "design" in c:  # the bound of the design's own work, beside the plain bound
+            design = f", design bound {c['design'][0]:.4f} ms ({c['design'][1]})"
         errs = "; ".join(f"{p} max_abs_err {e:.6g} (tol {t:.6g})" for p, (e, t) in parts.items())
         # work the wrapper does beside its kernels, timed alone (inside ms)
         within = {w: time_ms(torch, fn, 10) for w, fn in c.get("within", {}).items()}
@@ -330,7 +346,7 @@ def time_cases(torch, cases, card: str):
         print(f"kernel {name}: {c['shape']}: {errs}, "
               f"{ms:.4f} ms" + "".join(f" (of which {w} {t:.4f} ms)" for w, t in within.items())
               + f", plain {plain_ms:.4f} ms, library {library_ms:.4f} ms{cold_txt}, "
-              f"bound {bound_ms:.4f} ms ({bound_by}); {card}", flush=True)
+              f"bound {bound_ms:.4f} ms ({bound_by}){design}; {card}", flush=True)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": c.get("wrapper", name.split("@")[0]),
                         "path": c.get("path", "chain"),
@@ -340,6 +356,8 @@ def time_cases(torch, cases, card: str):
                         "shape": c["shape"]})
         if within:
             results[-1]["within_ms"] = within
+        if "design" in c:
+            results[-1]["design_bound_ms"], results[-1]["design_bound_by"] = c["design"]
         if len(parts) > 1:
             results[-1]["parts"] = {p: {"max_abs_err": e, "tolerance": t}
                                     for p, (e, t) in parts.items()}
@@ -769,6 +787,7 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
     import torch.nn.functional as F
 
     from fourm_torch.kernels import decode_step as ds
+    from fourm_torch.ops.transformer import rows_padded
 
     dev, bf = "cuda", torch.bfloat16
     H, Dh = C // 64, 64
@@ -1105,6 +1124,7 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
     wp, w1, w3, w2 = (rn(C, C, std=C ** -0.5), rn(HID, C, std=C ** -0.5),
                       rn(HID, C, std=C ** -0.5), rn(C, HID, std=HID ** -0.5))
     w2[:, -16:] *= w2_tail_gain
+    w2 = rows_padded(w2)  # the layout the MLP modules keep fc2's weight in
     g2 = norm(C)
     HID8 = HID // 8 * 8  # the hidden units a 16-byte aligned read of W2's rows covers
 
@@ -1146,7 +1166,7 @@ def decode_makers(torch, rn, gen, key_bias, B=8, C=768, HID=2048, L=256, w2_tail
         def cold():  # copies of the four weights
             runs, libs = [], []
             for _ in range(cold_copies((C * C + 3 * C * HID) * 2)):
-                ws = [t.clone() for t in (wp, w1, w3, w2)]
+                ws = [t.clone() for t in (wp, w1, w3)] + [rows_padded(w2)]
                 runs.append(lambda ws=ws: ds.residual_mlp(xx, attn, ws[0], None, g2, None, ws[1],
                                                           None, ws[3], None, ws[2], None,
                                                           gated=True))
@@ -1336,6 +1356,7 @@ def xl_kernel_phase(torch, card: str):
          xl4.int8_case(M)),
     ]
     results = time_cases(torch, cases, card)
+    w2_update_check(torch)
     for name, _r, _s, c in cases:  # the redesigned decode kernels: two runs, bit for bit
         if name.split("@")[0] in ("self_decode", "residual_mlp", "cross_decode_attn",
                                   "decode_attention"):
@@ -1345,6 +1366,149 @@ def xl_kernel_phase(torch, card: str):
                   flush=True)
             check(torch.equal(a, b), f"{name}: two runs differ")
     return results
+
+
+def adversarial_codebooks(torch, gen, N: int, D: int, dev) -> dict:
+    """Codebooks built against the search's TF32 screen, each with N query
+    rows (fp32, from `gen`): name -> (x (N, D), codebook (K, D)).
+    tf32_collisions: groups of 8 codes that share their TF32 bits (the top
+    19 of each fp32 value): the group's base with its low 13 bits zero, 5
+    with random low bits, 1 with all low bits set (the exact winner), and 1
+    with one coordinate a TF32 ulp larger and no low bits (the winner of a
+    truncating screen that keeps only its max, in cosine form; in the
+    Euclidean form the base is); each row is a group's all-ones code.
+    near_ties: groups of 5: a base and copies with one
+    coordinate 1-4 fp32 ulps larger in magnitude, in shuffled places; rows
+    are bases. duplicates: each code 4 times, in shuffled places; rows near
+    codes. small_K: 50 codes, fewer than one 128-code tile. Cosine inputs
+    are l2-normalised before the bits are set."""
+    import torch.nn.functional as F
+
+    def unit(n):
+        return F.normalize(torch.randn(n, D, generator=gen, device=dev), dim=-1)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def pick(n, k):
+        return torch.randint(0, k, (n,), generator=gen, device=dev)
+
+    out = {}
+    groups = 2048
+    base = bits(unit(groups)) & ~0x1FFF
+    low = torch.randint(0, 0x2000, (groups, 5, D), generator=gen, device=dev, dtype=torch.int32)
+    bump = base.clone()
+    j = pick(groups, D)
+    bump[torch.arange(groups, device=dev), j] += 0x2000
+    codes = torch.cat([base[:, None], base[:, None] | low, (base | 0x1FFF)[:, None],
+                       bump[:, None]], dim=1)
+    e = codes.view(torch.float32).reshape(-1, D)
+    out["tf32_collisions"] = ((base | 0x1FFF).view(torch.float32)[pick(N, groups)], e)
+
+    groups = 3000
+    base = unit(groups)
+    near = base[:, None].repeat(1, 5, 1)
+    j = pick(groups, D)
+    for k in range(1, 5):
+        b = bits(near[:, k])
+        b[torch.arange(groups, device=dev), j] += k  # k ulps larger in magnitude
+        near[:, k] = b.view(torch.float32)
+    e = near.reshape(-1, D)[torch.randperm(groups * 5, generator=gen, device=dev)]
+    out["near_ties"] = (base[pick(N, groups)], e)
+
+    base = unit(4096)
+    e = base.repeat(4, 1)[torch.randperm(4 * 4096, generator=gen, device=dev)]
+    x = F.normalize(base[pick(N, 4096)] + 0.05 * torch.randn(N, D, generator=gen, device=dev),
+                    dim=-1)
+    out["duplicates"] = (x, e)
+    out["small_K"] = (unit(N), unit(50))
+    return out
+
+
+def _search_values(torch, x, e, cosine, rows):
+    """The twins' values of rows `rows` of x against every code (fp32: the
+    dot products, or the Euclidean value), by the twins' own arithmetic."""
+    from fourm_torch.kernels import vq_codebook as vc
+
+    dots = vc._dots(x[rows], e)
+    if cosine:
+        return dots
+    return -((vc._sq_norms(x[rows])[:, None] - 2.0 * dots) + vc._sq_norms(e)[None, :])
+
+
+def _row_chunks(x, e):
+    step = max(1, (1 << 24) // e.shape[0])
+    return [slice(i, i + step) for i in range(0, x.shape[0], step)]
+
+
+def zero_margin_search(torch, x, e, cosine):
+    """The planted fault of a screen without its margin: TF32 operands
+    truncated, products summed in fp32, only the codes at the row's screen
+    max rescored (exactly; the first index on ties among them)."""
+    def tf32(t):
+        return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    from fourm_torch.kernels import vq_codebook as vc
+
+    xt, et = tf32(x), tf32(e)
+    out = []
+    for rows in _row_chunks(x, e):
+        acc = vc._dots(xt[rows], et)  # TF32 products are exact in fp32
+        if not cosine:
+            acc = 2.0 * acc - vc._sq_norms(e)[None, :]
+        keep = acc >= acc.max(dim=1, keepdim=True).values
+        vals = _search_values(torch, x, e, cosine, rows)
+        out.append(torch.where(keep, vals, torch.tensor(-float("inf"), device=x.device))
+                   .argmax(dim=1))
+    return torch.cat(out)
+
+
+def search_faults(torch, x, e, cosine, which) -> dict:
+    """Wrong indices a search could give, from the twins' values: the
+    second-best code, the last index on ties, the codes of tile 1 (128..255)
+    left out, the ragged last tile (codes past the last multiple of 128)
+    dropped; `which` names those wanted."""
+    tile = 128
+    K = e.shape[0]
+    out = {w: [] for w in which}
+    ninf = torch.tensor(-float("inf"), device=x.device)
+    for rows in _row_chunks(x, e):
+        v = _search_values(torch, x, e, cosine, rows)
+        if "second-best index" in out:
+            out["second-best index"].append(v.topk(2, dim=1).indices[:, 1])
+        if "last index on ties" in out:
+            out["last index on ties"].append(K - 1 - v.flip(1).argmax(dim=1))
+        if "one code tile left out" in out:
+            cut = v.clone()
+            cut[:, tile:2 * tile] = ninf
+            out["one code tile left out"].append(cut.argmax(dim=1))
+        if "the ragged last tile dropped" in out:
+            cut = v.clone()
+            cut[:, K // tile * tile:] = ninf
+            out["the ragged last tile dropped"].append(cut.argmax(dim=1))
+    return {w: torch.cat(parts) for w, parts in out.items()}
+
+
+def hold_searches(torch, searches) -> None:
+    """Each (name, search, x, e, faults): the search on the card equal to its
+    twin index for index, and every planted fault (a dict of wrong
+    indices, computed in torch) told apart by that exact gate: it differs
+    from the twin in some row."""
+    from fourm_torch.kernels import vq_codebook as vc
+
+    for name, fn, x, e, faults in searches:
+        got = fn(x, e)
+        want = getattr(vc, fn.__name__ + "_plain")(x, e)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        check(bad == 0, f"{name}: {bad} of {x.shape[0]} indices differ from the twin")
+        print(f"variant {name}: N={x.shape[0]}, K={e.shape[0]}, D={x.shape[1]}: equal to the "
+              f"twin index for index", flush=True)
+        for label, wrong in (faults or {}).items():
+            rows = int((wrong != want).sum())
+            print(f"  fault {label}: {rows} rows differ from the twin "
+                  f"({'caught' if rows else 'NOT caught'})", flush=True)
+            check(rows > 0, f"{name}: the exact gate cannot tell '{label}'")
 
 
 def vq_kernel_cases(torch, rn, key_bias, gen):
@@ -1430,20 +1594,36 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
             shape=f"qkv (B={B}, N={NT}, 3*768), 12 heads" + (
                 ", (B, N) key bias, 1 row fully masked" if with_bias else ", no mask"))
 
-    def search_case(name, K, path, N_rows=B * N, D=32):
+    def search_case(name, K, path, N_rows=B * N, D=32, ties=False):
+        """A search row. Its bound: the products exact on the CUDA cores
+        (fp32 peak); beside it the design's own (`design`): the larger of the
+        TF32 products (495 TFLOP/s) and the pass over the N*K screen scores
+        (1 lane-instruction a score for cosine, the max; 2 for Euclidean,
+        the FMA of 2 x.e - e2 and the max; 33.5 T lane-instructions/s), or,
+        `ties` (every code equal, so every code is rescored), the exact
+        rescoring of all N*K on the CUDA cores."""
         cosine = name.endswith("cosine")
         xl = torch.randn(N_rows, D, generator=gen, device=dev)
         e = torch.randn(K, D, generator=gen, device=dev)
+        if ties:
+            e = e[:1].repeat(K, 1)
         if cosine:
             xl, e = l2norm(xl), l2norm(e)
         fn, plain = getattr(vc, name), getattr(vc, name + "_plain")
+        tf32_ms = 2 * N_rows * K * D / PEAK_TF32_FLOPS * 1e3
+        design = ((max(tf32_ms, 2 * N_rows * K * D / PEAK_FP32_FLOPS * 1e3), "exact rescoring")
+                  if ties else
+                  max((tf32_ms, "TF32 products"),
+                      (N_rows * K * (1 if cosine else 2) / (PEAK_FP32_FLOPS / 2) * 1e3,
+                       "score pass")))
         return dict(
             run=lambda: fn(xl, e), plain=lambda: plain(xl, e), exact=True, path=path,
             library=(lambda: (xl @ e.t()).argmax(1)) if cosine
             else (lambda: torch.cdist(xl, e).argmin(1)),
-            flops=2 * N_rows * K * D, peak=PEAK_FP32_FLOPS,
+            flops=2 * N_rows * K * D, peak=PEAK_FP32_FLOPS, design=design,
             bytes=(N_rows + K) * D * 4 + N_rows * 8,
-            shape=f"x ({N_rows}, {D}) fp32 against ({K}, {D}) codes, exact fp32")
+            shape=f"x ({N_rows}, {D}) fp32 against ({K}, {D}) codes"
+                  + (", every code equal" if ties else "") + ", exact fp32")
 
     ab = "fourm_torch/kernels/csrc/attn_block.cu"
     vq = "fourm_torch/kernels/csrc/vq_codebook.cu"
@@ -1471,6 +1651,8 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
          search_case("nearest_code_cosine", 8192, "vq_b")),
         ("nearest_code", "fourm_tpu/kernels/vq_codebook.py:103", vq,
          search_case("nearest_code", 16384, "vq_a_euclid")),
+        ("nearest_code_cosine@all_ties", "fourm_tpu/kernels/vq_codebook.py:158", vq,
+         search_case("nearest_code_cosine", 16384, "vq_a", ties=True)),
     ]
 
     # options the VQ paths do not take, correctness only: a key bias (with a
@@ -1486,6 +1668,7 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
     rag = search_case("nearest_code", 1000, "", N_rows=1000)
     rag_c = search_case("nearest_code_cosine", 1000, "", N_rows=1000)
     k8 = search_case("nearest_code", 8192, "")
+    searches = search_variants(torch, gen, B * N, dev)
     variants = [
         ("attn_block, key bias with 1 image fully masked",
          block(at.attn_block, bias=kb), block(at.attn_block_plain, bias=kb)),
@@ -1505,7 +1688,52 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
         ("nearest_code_cosine, duplicate codes", lambda: vc.nearest_code_cosine(tie_x, tie_e),
          lambda: torch.arange(32, device=dev), True),
     ]
-    return cases, variants
+    return cases, variants, searches
+
+
+def search_variants(torch, gen, N: int, dev) -> list:
+    """The searches off the main path, for hold_searches: in both forms, the
+    adversarial codebooks at N rows, D = 16, 128 and 7 (padded to 8 by the
+    wrapper), N = 1 and K = 1; the planted faults each where it shows: the
+    second-best code and one code tile left out on random data, the last
+    index on ties on the duplicated codes, the ragged last tile dropped at K
+    = 1000, a zero margin on the TF32-collision codebook."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import vq_codebook as vc
+
+    adversarial = adversarial_codebooks(torch, gen, N, 32, dev)
+
+    def rand(n, k, d):
+        return (F.normalize(torch.randn(n, d, generator=gen, device=dev), dim=-1),
+                F.normalize(torch.randn(k, d, generator=gen, device=dev), dim=-1))
+
+    out = []
+    for fn in (vc.nearest_code_cosine, vc.nearest_code):
+        cosine = fn is vc.nearest_code_cosine
+        form = fn.__name__
+        x, e = rand(N, 16384, 32)
+        out.append((f"{form}, random, N={N}, K=16384", fn, x, e,
+                    search_faults(torch, x, e, cosine,
+                                  ("second-best index", "one code tile left out"))))
+        for name, (x, e) in adversarial.items():
+            faults = None
+            if name == "duplicates":
+                faults = search_faults(torch, x, e, cosine, ("last index on ties",))
+            if name == "tf32_collisions":
+                faults = {"zero margin": zero_margin_search(torch, x, e, cosine)}
+            out.append((f"{form}, {name}", fn, x, e, faults))
+        x, e = rand(N, 1000, 32)
+        out.append((f"{form}, ragged last tile", fn, x, e,
+                    search_faults(torch, x, e, cosine, ("the ragged last tile dropped",))))
+        for D in (16, 128, 7):
+            x, e = rand(N, 16384, D)
+            out.append((f"{form}, D={D}", fn, x, e, None))
+        x, e = rand(1, 16384, 32)
+        out.append((f"{form}, N=1", fn, x, e, None))
+        x, e = rand(N, 1, 32)
+        out.append((f"{form}, K=1", fn, x, e, None))
+    return out
 
 
 def vq_kernel_phase(torch, card: str):
@@ -1515,9 +1743,11 @@ def vq_kernel_phase(torch, card: str):
     from fourm_torch.kernels import attention as at
 
     gen, rn, key_bias = random_makers(torch, 1)
-    cases, variants = vq_kernel_cases(torch, rn, key_bias, gen)
+    cases, variants, searches = vq_kernel_cases(torch, rn, key_bias, gen)
     results = time_cases(torch, cases, card)
     hold_variants(torch, variants)
+    hold_searches(torch, searches)
+    del searches
     longest = {C: max(N for N in range(1, 1025) if at.attn_block_takes(N, C, "cuda"))
                for C in (512, 768, 1024)}
     print(f"attn_block holds N <= {longest} (by width C)", flush=True)
@@ -1899,6 +2129,47 @@ def xl_phase(torch, card: str):
 
 NARROW = ("fm_tiny_6e_6d_gelu", "fm_tiny_6e_6d_swiglu_nobias", "fm_small_8e_8d_swiglu_nobias")
 NARROW_PATHS = dict(zip(NARROW, ("tiny_chain", "tiny_swiglu", "small")))
+
+
+def w2_update_check(torch) -> None:
+    """4M-21 XL at depth 1 + 1, built in bf16 on the card under
+    torch.inference_mode() (its weights inference tensors, with no version
+    counter): residual_mlp with decoder block 0's weights against its twin,
+    then again after fc2's weight (hidden 5461, kept in zero-padded storage)
+    is updated in place; the kernel must read the new weight."""
+    from fourm_torch.kernels import decode_step as ds
+
+    with torch.inference_mode():
+        model = build_model(torch, "bfloat16", "cuda", seed=2, name=XL_MODEL,
+                            encoder_depth=1, decoder_depth=1)
+        blk = model.decoder[0]
+        mlp, bf = blk.mlp, torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        C, HID = mlp.fc2.weight.shape
+        x, attn = (torch.randn(4, C, generator=gen, device="cuda").to(bf) for _ in range(2))
+
+        def both():
+            args = (x, attn, blk.cross_attn.proj.weight, None, blk.norm2.weight, None,
+                    mlp.fc1.weight, None, mlp.fc2.weight, None, mlp.fc3.weight, None)
+            out = ds.residual_mlp(*args, gated=True).float()
+            ref = ds.residual_mlp_plain(*args, gated=True).float()
+            torch.cuda.synchronize()
+            err, tol = (out - ref).abs().max().item(), 2.0 ** -6 * ref.abs().max().item()
+            return out, err, tol
+
+        before, err0, tol0 = both()
+        mlp.fc2.weight.copy_(torch.randn(C, HID, generator=gen, device="cuda").to(bf)
+                             * HID ** -0.5)
+        after, err1, tol1 = both()
+        moved = (after - before).abs().max().item()
+    print(f"residual_mlp after an in-place fc2 update under inference mode (4M-21 XL, "
+          f"hidden {HID}, W2 row stride {mlp.fc2.weight.stride(0)}): max abs error {err0:.6g} "
+          f"(tol {tol0:.6g}) before, {err1:.6g} (tol {tol1:.6g}) after; the update moved the "
+          f"output by {moved:.6g}", flush=True)
+    check(err0 <= tol0 and err1 <= tol1 and moved > tol1,
+          "residual_mlp does not read fc2's weight as it is now")
+    del model
+    torch.cuda.empty_cache()
 
 
 def narrow_kernel_phase(torch, card: str):

@@ -50,10 +50,11 @@ SIGNATURES = {
     "cross_decode_q": ("decode_attn", "fourm_cross_q",
                        [_P] * 6 + [_I] + [_P, _P] + [_I] * 2 + [_F, _IA, _P]),
     "residual_mlp": ("residual_mlp", "fourm_residual_mlp",
-                     [_P] * 12 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _IA, _P]),
+                     [_P] * 12 + [_I] + [_P] * 3 + [_I] * 6 + [_F, _IA, _P]),
     "attn_block": ("attn_block", "fourm_attn_block", [_P] * 11 + [_I] * 4 + [_F, _F, _I, _P]),
     "attn_block_fits": ("attn_block", "fourm_attn_block_fits", [_I, _I]),
-    "nearest_code": ("vq_codebook", "fourm_nearest_code", [_P] * 3 + [_I] * 4 + [_P]),
+    "nearest_code": ("vq_codebook", "fourm_nearest_code",
+                     [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P]),
     "attention_train_bwd": ("attention_train", "fourm_attention_train_bwd",
                             [_P] * 11 + [_IA, _F, _P]),
     "fused_adamw": ("fused_adamw", "fourm_fused_adamw", [_P] * 3 + [_I] + [_F] * 9 + [_P, _F, _P]),

@@ -6,7 +6,8 @@
 // the primitives attn_sm90.cuh builds the attention kernels from: mbarriers,
 // 2- to 4-D TMA loads and their tensor maps, 128-byte-swizzle descriptors
 // (K-major and MN-major) and the wgmma shapes m64n128k16 / m64n64k16 (A from
-// shared memory, K- or MN-major, or, m64n64k16, from registers).
+// shared memory, K- or MN-major, or, m64n64k16, from registers), and the
+// TF32 m64n128k8 of vq_codebook.cu's screen.
 //
 // Design (raw PTX, no CUTLASS GEMM):
 //   * a CTA owns a 128 x 128 output tile and walks K in steps of 64: bf16
@@ -118,6 +119,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A plain bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into dst, completing its bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------- programmatic dependent launch
 
 // In a kernel whose output the next kernel of the stream reads: let that
@@ -194,6 +206,34 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
       " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64x128 per warpgroup] (+)= A[64x8] @ B[128x8]^T in TF32, both fp32 tiles
+// K-major from shared memory (the tensor core reads the top 19 bits of each
+// fp32 operand; TF32 takes no transpose): a k8 step is 32 bytes, so the
+// descriptors step as the bf16 k16 ones do. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -446,11 +486,14 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint
 }
 
 // The map of a row-major (rows, cols) bf16 matrix read in box_rows x 64
-// boxes. cols % 8 == 0.
-inline int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows = BM) {
-  if (cols % 8 != 0) return (int)cudaErrorInvalidValue;
+// boxes, rows `ld` elements apart (0: cols). The row stride is a multiple
+// of 8; columns past cols read as zero.
+inline int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows = BM,
+                    int ld = 0) {
+  if (ld == 0) ld = cols;
+  if (ld % 8 != 0 || ld < cols) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
   return encode_map(map, base, 2, dims, strides, box);
 }

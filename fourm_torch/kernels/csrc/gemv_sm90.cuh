@@ -634,12 +634,14 @@ struct Plan {
 };
 
 // Launch gemv_kernel<Op, NT, DUAL> for W (rows, K) [and W2] at the plan's
-// N tile. K % 8 == 0 (TMA's 16-byte row stride).
+// N tile. K % 8 == 0 (TMA's 16-byte row stride). W alone may hold fewer
+// columns, `cols`, with rows `ld` elements apart (a multiple of 8): TMA
+// reads the columns past cols as zero.
 template <class Op, bool DUAL>
 int launch_gemv(const void* w, const void* w2, int rows, int K, Plan p, Op op,
-                cudaStream_t stream) {
+                cudaStream_t stream, int cols = 0, int ld = 0) {
   CUtensorMap tw, tw2;
-  int err = sm90::make_map(&tw, w, rows, K, TM);
+  int err = sm90::make_map(&tw, w, rows, cols ? cols : K, TM, ld);
   if (err == 0) err = sm90::make_map(&tw2, DUAL ? w2 : w, rows, K, TM);
   if (err != 0) return err;
   const size_t smem = smem_bytes(p.nt, p.kpb, DUAL, Op::LN, p.split);

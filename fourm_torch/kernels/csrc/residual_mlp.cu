@@ -25,11 +25,14 @@
 //      silu(fc1 + b1) * (fc3 + b3) or GELU(fc1 + b1) -> act (B, HIDS) bf16,
 //      HIDS = HID rounded up to 8, the tail zero;
 //   3. W2: tokens = act; epilogue out = x1 + bf16(acc + b2).
-// A HID that is not a multiple of 8 (SwiGLU at 4M-L / 4M-XL: 2730, 5461)
-// leaves W2's rows unaligned for TMA, so stage 3 reads a zero-padded copy
-// (C, HIDS) that the wrapper makes once per version of the weight and keeps
-// beside it (decode_step.py:_w2_for_tma), never per call. The tile plan (N
-// tile, split and K blocks of each stage) comes from the wrapper.
+// Stage 3 reads W2's HID columns with its rows ld2 elements apart (a
+// multiple of 8: TMA's 16-byte row stride), the columns past HID as TMA's
+// zeros. A HID that is not a multiple of 8 (SwiGLU at 4M-L / 4M-XL: 2730,
+// 5461) is read in place where the weight is the (C, HID) view of
+// zero-padded storage, as the MLP modules keep a ragged bf16 fc2 weight
+// (ops/transformer.py); any other ragged W2 is padded by the wrapper on
+// that call (decode_step.py:_w2_for_tma). The tile plan (N tile, split and
+// K blocks of each stage) comes from the wrapper.
 #include "gemv_sm90.cuh"
 
 namespace fourm {
@@ -132,13 +135,13 @@ struct ResidualOut {
 }  // namespace fourm
 
 // plan: (N tile, passes over B, split, K blocks per CTA) of stages 1, 2 and
-// 3 (decode_step.py:residual_mlp_plan).
+// 3 (decode_step.py:residual_mlp_plan). ld2: W2's row stride in elements.
 extern "C" int fourm_residual_mlp(const void* x, const void* attn, const void* wp,
                                   const void* w1, const void* w3, const void* w2,
                                   const void* bp, const void* g2, const void* be2,
                                   const void* b1, const void* b3, const void* b2, int pbf,
                                   void* x1, void* act, void* out, int B, int C, int HID, int HIDS,
-                                  int gated, float eps, const int* plan, void* stream) {
+                                  int ld2, int gated, float eps, const int* plan, void* stream) {
   using namespace fourm;
   cudaStream_t s = (cudaStream_t)stream;
   const gemv::Plan p1{plan[0], plan[1], plan[2], plan[3]}, p2{plan[4], plan[5], plan[6], plan[7]},
@@ -162,5 +165,6 @@ extern "C" int fourm_residual_mlp(const void* x, const void* attn, const void* w
   if (err != 0) return err;
   return gemv::launch_gemv<ResidualOut, false>(
       w2, nullptr, C, HIDS, p3,
-      ResidualOut{(const bf16*)act, (const bf16*)x1, b2, pbf, (bf16*)out, B, C, HIDS}, s);
+      ResidualOut{(const bf16*)act, (const bf16*)x1, b2, pbf, (bf16*)out, B, C, HIDS}, s, HID,
+      ld2);
 }

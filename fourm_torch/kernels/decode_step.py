@@ -661,39 +661,37 @@ def residual_mlp_takes(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor
                        w3: Optional[torch.Tensor] = None) -> bool:
     """Whether csrc/residual_mlp.cu takes the step, from dtypes and shapes
     alone: bf16 tensors, C <= 2048 and a multiple of 8, any hidden width up
-    to 8192, contiguous 16-byte aligned tensors (W2's rows need not be:
-    `_w2_for_tma`)."""
+    to 8192, contiguous 16-byte aligned tensors; W2 may instead have rows a
+    multiple of 8 elements apart (the zero-padded storage of a ragged fc2
+    weight, `_w2_for_tma`)."""
     C, HID = x.shape[-1], w1.shape[0]
-    ts = [t for t in (x, attn, w_proj, w1, w2, w3) if t is not None]
-    return (all_bf16(*ts) and C % 8 == 0 and 0 < C <= 2048 and 0 < HID <= 8192
-            and all(t.is_contiguous() and aligned(t, 16) for t in ts))
+    ts = [t for t in (x, attn, w_proj, w1, w3) if t is not None]
+    return (all_bf16(*ts, w2) and C % 8 == 0 and 0 < C <= 2048 and 0 < HID <= 8192
+            and all(t.is_contiguous() and aligned(t, 16) for t in ts)
+            and (w2.is_contiguous() or _rows_in_place(w2)) and aligned(w2, 16))
+
+
+def _rows_in_place(w2: torch.Tensor) -> bool:
+    """W2's rows as TMA reads them in place: unit column stride, rows a
+    multiple of 8 elements (16 bytes) apart."""
+    return w2.ndim == 2 and w2.stride(1) == 1 and w2.stride(0) % 8 == 0 \
+        and w2.stride(0) >= w2.shape[1]
 
 
 def _w2_for_tma(w2: torch.Tensor) -> torch.Tensor:
-    """fc2's weight (C, HID) as TMA reads it: itself where its rows are
-    16-byte aligned (HID % 8 == 0), else a zero-padded (C, HID rounded up to
-    8) copy. The copy is made once for each version of the weight and held
-    on the weight tensor itself, so it lives as long as the parameter (at
-    4M-21 XL 2048 x 5464 bf16, 22.4 MB a layer, 537 MB over 24 layers) and
-    the parameter keeps its (C, HID) shape; an in-place update of the weight
-    (an optimizer step, load_state_dict) bumps its version, and the next call
-    makes a new copy. Never a pad per call: at XL that would move twice
-    fc2's own bytes on every decode step."""
-    C, HID = w2.shape
-    if HID % 8 == 0:
+    """fc2's weight (C, HID) as residual_mlp's W2 stream reads it: the
+    weight itself where its rows lie a multiple of 8 elements apart (HID %
+    8 == 0, or the (C, HID) view of zero-padded (C, HID rounded up to 8)
+    storage that the MLP modules keep a ragged bf16 fc2 weight in,
+    ops/transformer.py), else a zero-padded copy made on this call. The
+    kernel reads HID columns with the returned tensor's row stride, so it
+    always reads the weight as it is now: no copy outlives the call."""
+    if _rows_in_place(w2):
         return w2
-    try:
-        version = w2._version
-    except RuntimeError:  # an inference tensor keeps no version counter
-        version = None
-    key = (w2.data_ptr(), version, C, HID)
-    held = getattr(w2, "_fourm_tma_copy", None)
-    if held is not None and held[0] == key:
-        return held[1]
+    C, HID = w2.shape
     with torch.no_grad():
         padded = torch.zeros((C, -(-HID // 8) * 8), dtype=w2.dtype, device=w2.device)
         padded[:, :HID].copy_(w2)
-    w2._fourm_tma_copy = (key, padded)
     return padded
 
 
@@ -704,7 +702,8 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
     """The tail of a decode step: x' = x + attn Wp^T (+bp), returns
     x' + fc2(act(fc1(LN2 x'))), act = silu(fc1) * fc3 when gated, else exact
     GELU. x, attn (B, C); w_proj (C, C); w1, w3 (HID, C); w2 (C, HID), any
-    HID (W2's rows need not be 16-byte aligned: 2730 and 5461 at 4M-L/XL)."""
+    HID (2730 and 5461 at 4M-L/XL: W2 read in place from the MLP modules'
+    padded storage, `_w2_for_tma`)."""
     if x.device.type == "cpu":
         return residual_mlp_plain(x, attn, w_proj, b_proj, gamma2, beta2, w1, b1, w2, b2,
                                   w3, b3, eps, gated)
@@ -722,6 +721,7 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
                   x, attn, w_proj, w1, w2, w3 if gated else None)
     ps, pbf = _params16(b_proj, gamma2, beta2, b1, b3 if gated else None, b2)
     hids = -(-HID // 8) * 8
+    w2k = _w2_for_tma(w2)
     x1 = torch.empty_like(x)
     hid = torch.empty((B, hids), dtype=torch.bfloat16, device=dev)  # rows of 16 B
     out = torch.empty_like(x)
@@ -729,8 +729,8 @@ def residual_mlp(x: torch.Tensor, attn: torch.Tensor, w_proj: torch.Tensor, b_pr
 
     code = _build.entry(name)(
         ptr(x), ptr(attn), ptr(w_proj), ptr(w1), ptr(w3 if gated else None),
-        ptr(_w2_for_tma(w2)), *[ptr(t) for t in ps], pbf, ptr(x1), ptr(hid), ptr(out), B, C,
-        HID, hids, int(gated), float(eps),
+        ptr(w2k), *[ptr(t) for t in ps], pbf, ptr(x1), ptr(hid), ptr(out), B, C,
+        HID, hids, w2k.stride(0), int(gated), float(eps),
         _ints(*_residual_mlp_ints(B, C, HID, bool(gated), _sms(dev))), stream(dev))
     _build.check(name, code)
     residual_mlp.launches += 1

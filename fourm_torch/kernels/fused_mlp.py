@@ -104,13 +104,15 @@ def ln_mlp_takes(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                  w3: Optional[torch.Tensor] = None) -> bool:
     """Whether csrc/ln_mlp.cu takes x + fc2(act(fc1(LN x))), from dtypes,
     shapes and alignment alone: bf16 x, w1, w2 (and w3), D a multiple of 8,
-    any hidden width, contiguous 16-byte aligned tensors, at least one
-    row."""
+    any hidden width, contiguous 16-byte aligned tensors (w2 may be a view
+    with rows apart, as the MLP modules keep a ragged bf16 fc2 weight: the
+    wrapper copies it), at least one row."""
     D, HID = x.shape[-1], w1.shape[0]
     hid8 = -(-HID // 8) * 8
-    ts = [t for t in (x, w1, w2, w3) if t is not None]
-    return (all_bf16(*ts) and D % 8 == 0 and HID >= 1 and x.numel() > 0
+    ts = [t for t in (x, w1, w3) if t is not None]
+    return (all_bf16(*ts, w2) and D % 8 == 0 and HID >= 1 and x.numel() > 0
             and all(t.is_contiguous() and aligned(t, 16) for t in ts)
+            and w2.stride(-1) == 1 and aligned(w2, 16)
             and x.numel() // D * max(D, hid8) < 2**31)
 
 
@@ -139,7 +141,8 @@ def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: Optional[torch.Tensor],
                   w3 if gated else None)
     M = x.numel() // D
     hid8 = -(-HID // 8) * 8
-    w2k = w2 if hid8 == HID else F.pad(w2, (0, hid8 - HID))  # TMA's 16-byte row stride
+    # TMA's 16-byte row stride, over hid8 columns
+    w2k = w2.contiguous() if hid8 == HID else F.pad(w2, (0, hid8 - HID))
     h = torch.empty_like(x)  # the LN prologue's output
     act = torch.empty((M, hid8), dtype=torch.bfloat16, device=dev)  # the hidden activation
     out = torch.empty_like(x)

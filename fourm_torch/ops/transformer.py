@@ -137,7 +137,34 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"gelu": gelu_exact, "tanh": torch.tanh}
 
 
-class Mlp(nn.Module):
+def rows_padded(w: torch.Tensor) -> torch.Tensor:
+    """w (C, HID) as the (C, HID) view of zero-padded (C, HID rounded up to
+    8) storage: each row starts a multiple of 16 bytes in, so TMA
+    reads the weight in place (kernels/decode_step.py:_w2_for_tma)."""
+    C, HID = w.shape
+    buf = torch.zeros((C, -(-HID // 8) * 8), dtype=w.dtype, device=w.device)
+    buf[:, :HID].copy_(w)
+    return buf[:, :HID]
+
+
+class _PaddedFc2(nn.Module):
+    """Keeps a bf16 fc2 weight whose hidden width is not a multiple of 8
+    (SwiGLU at 4M-L / 4M-XL: 2730, 5461) in zero-padded storage after every
+    conversion (`.to()`, `.cuda()`, `.bfloat16()`), so the decode step's
+    residual_mlp kernel reads the weight itself, never a copy that an
+    in-place update (load_state_dict, `.data.copy_`, inference mode) could
+    leave stale. Updates in place keep the storage."""
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        w = self.fc2.weight
+        if w.dtype == torch.bfloat16 and w.shape[1] % 8 and w.stride(0) % 8:
+            with torch.no_grad():
+                w.data = rows_padded(w.data)
+        return self
+
+
+class Mlp(_PaddedFc2):
     """Two-layer MLP (reference fm_utils.py:114-126); `act` names the
     activation: exact-erf GELU, or tanh for the VQ encoders' post-MLP."""
 
@@ -153,7 +180,7 @@ class Mlp(nn.Module):
         return _dense(self.act(_dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
 
 
-class GatedMlp(nn.Module):
+class GatedMlp(_PaddedFc2):
     """SwiGLU MLP (reference fm_utils.py:128-144). `hidden_dim` is the
     ungated width; the actual width is int(2 * hidden_dim / 3)."""
 

@@ -16,11 +16,13 @@ wall time of the same window run without the profiler, which slows the
 host's launches; the share over the profiled wall time is printed beside
 it), and the host operators with the most self CPU time.
 
-`--part vq`: VQ path A, chip_smoke.py's phase 6 -- one tokenize call of the
-RGB tokenizer (VQ 224/16, vit_b_enc, 16384 codes, cosine) on 64 images,
-random bf16 weights -- profiled once after a warm-up, with the same
-breakdown; the busy share is over the median wall time of 5 calls without
-the profiler.
+`--part vq`: VQ paths A and A-Euclidean, chip_smoke.py's phase 6 -- one
+tokenize call of the RGB tokenizer (VQ 224/16, vit_b_enc, 16384 codes,
+cosine; then its Euclidean codebook) on 64 images, random bf16 weights --
+each profiled once after a warm-up, with the same breakdown; the busy share
+is over the median wall time of 5 calls without the profiler. `--root DIR`
+profiles the fourm_torch of another checkout (a parent unpacked by `git
+archive`) with this script, so that two trees compare in one call.
 
 The train step: chip_smoke.py's phase 9 (4M-B mod-7, B = 32, 128 + 128
 tokens, bf16 compute over fp32 master weights, one fused AdamW launch).
@@ -50,6 +52,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--root" in sys.argv[:-1]:  # before the imports below: the checkout to profile
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the chain's configuration and model builder)
@@ -67,8 +71,9 @@ from fourm_torch.kernels import _build  # noqa: E402
 # attention kernel of decode_attn.cu (int8: its <signed char, ...> variants;
 # listed first, as its name holds "attn_kernel"); residual_mlp's three
 # products (gemv_sm90.cuh's kernel with ResidualProj, ResidualHidden,
-# ResidualOut: the zero-padded copy of a ragged W2 is made once per version of
-# the weight, at the first call, a PyTorch copy kernel outside the window)
+# ResidualOut: a ragged W2 is read in place from the modules' zero-padded
+# storage); the codebook search's norms prologue and its screen-and-rescore
+# kernel (vq_codebook.cu)
 WRAPPER_KERNELS = {"decode_attn_kernel<signed char": "decode_attention_int8",
                    "decode_attn_kernel": "decode_attention",
                    "ln_rows_kernel<0>": "ln_matmul", "BiasEpi": "ln_matmul",
@@ -77,6 +82,7 @@ WRAPPER_KERNELS = {"decode_attn_kernel<signed char": "decode_attention_int8",
                    "k_norm_kernel": "flash_mha + attention",
                    "ln_rows_kernel<2>": "attn_block", "attn_heads_kernel": "attn_block",
                    "AttnOutEpi": "attn_block",
+                   "nearest_kernel": "nearest_code", "code_norms_kernel": "nearest_code",
                    "nearest_code": "nearest_code", "SelfDecodeQkv": "self_decode",
                    "self_decode_cache_kernel": "self_decode",
                    "CrossQ": "cross_decode_attn (q product)",
@@ -231,6 +237,7 @@ def main() -> int:
     ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq"], default="all",
                     help="all: chain and train (xl and vq only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
+    ap.add_argument("--root", default=ROOT, help="the checkout whose fourm_torch to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -246,16 +253,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["train_step"] = train_profile()
     if args.part == "vq":
+        res["root"] = ROOT
         res["vq_a"] = vq_profile()
+        res["vq_a_euclid"] = vq_profile(euclid=True)
     print(json.dumps(res))
     return 0
 
 
-def vq_profile() -> dict:
-    """One tokenize call of VQ path A (64 images) under the profiler."""
+def vq_profile(euclid: bool = False) -> dict:
+    """One tokenize call of VQ path A (64 images), or of its Euclidean
+    variant (chip_smoke.py's vq_a_euclid), under the profiler."""
     from fourm_torch.vq import VQ, init_vq_weights
 
-    vq = init_vq_weights(VQ(**chip_smoke.VQ_RGB), 0)
+    label = "VQ path A" + ("-Euclidean" if euclid else "")
+    vq = init_vq_weights(VQ(**dict(chip_smoke.VQ_RGB, norm_codes=not euclid)), int(euclid))
     x = torch.from_numpy(np.random.RandomState(0).rand(chip_smoke.VQ_BATCH, 224, 224, 3)
                          .astype(np.float32)).cuda()
 
@@ -270,9 +281,9 @@ def vq_profile() -> dict:
         if i >= 2:
             walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.median(walls))
-    print(f"wall without the profiler: VQ path A {wall_ms:.3f} ms per call of "
+    print(f"wall without the profiler: {label} {wall_ms:.3f} ms per call of "
           f"{chip_smoke.VQ_BATCH} images (calls {', '.join(f'{w:.3f}' for w in walls)} ms)")
-    return profile(run, "VQ path A, 64 images", None, wall_ms)
+    return profile(run, f"{label}, 64 images", None, wall_ms)
 
 
 def chain_profile(trace, name: str = chip_smoke.MODEL, requests: int = chip_smoke.REQUESTS) -> dict:
