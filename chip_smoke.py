@@ -65,6 +65,23 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
   4. one forward_generation_img at batch 2, and one ar_prefill + 4
      decode_one_token steps at batch 2, on the card (kernels, bf16) against
      the same weights on the CPU in fp32 (plain twins) and in bf16;
+  10. (after phase 4) token decoding at the 4M-21 tokenizers' full width,
+     random bf16 weights from seeded generators (every vector drawn too):
+     FourMSampler.decode over phase 3's output (8 requests, rgb@224 and
+     the 14 targets) with the ViT-B VQ-VAEs of CLIP-B16, DINOv2-B14,
+     ImageBind-H14 and COCO semseg and the UNet-P4 DiVAEs of depth,
+     normals, canny and SAM edges, 25 diffusion steps (12 for the edges),
+     to_rgb without matplotlib; the launch counts of one call, reset just
+     before and read just after it, checked exactly (48 attn_block, 48
+     ln_mlp, nothing else); the wall time per call (the median of 3 after
+     a warm-up) and each tokenizer's time from a fourth call; then the
+     UViT-B DiVAE decoding 8 token grids at 25 steps (exactly 300 attention
+     launches); then, against the same weights on the CPU in fp32 and in
+     bf16 (phase 4's gate), each ViT-B decoder's output at batch 2, one
+     denoise_step of the UNet-P4 (batch 1) and of the UViT-B (batch 2), a
+     3-step divae_decode_tokens of the UNet-P4 fed the same noise, and the
+     text, metadata, box and palette outputs of the card's decode equal to
+     the CPU's decode_dict;
   3b. the same chain at 4M-21 XL (fm_xlarge_24e_24d_swiglu_qknorm_nobias,
      full width and depth, random bf16 weights) for 4 requests, bench.py's
      xl_full_chain batch, in bf16 and then with kv_quant="int8" (every
@@ -138,7 +155,8 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      (exact), and a planted fault (the cross-attention cores' dq zeroed)
      that the per-leaf gate must catch.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
-does not take raises. The second-to-last line is the kernels' JSON; the last line is
+does not take raises. The second-to-last line is the kernels' JSON (each row
+also with its wrapper's launches on the decode paths of phase 10); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -186,6 +204,33 @@ PER_ENCODER = {"attn_block": DEPTH, "ln_mlp": DEPTH}
 PER_VQ_PATH = {"vq_a": dict(PER_ENCODER, nearest_code_cosine=1),
                "vq_a_euclid": dict(PER_ENCODER, nearest_code=1),
                "vq_b": dict(PER_ENCODER, nearest_code_cosine=1, mha_short=DEPTH)}
+# token decoding (phase 10): the 4M-21 tokenizers' decoders at full width,
+# computing in bf16 as their configs do (cfgs/default/tokenization/**)
+DECODE_STEPS = 25
+TOK_VITB = dict(image_size=224, patch_size=16, enc_type="vit_b_enc", dec_type="vit_b_dec",
+                post_mlp=True, latent_dim=32, norm_codes=True, dtype="bfloat16")
+# vqvae/{CLIP-B16,DINOv2-B14,ImageBind-H14}/ViTB-ViTB_8k_224.yaml and
+# vqvae/semseg_coco/ViTB-ViTB_4k_224.yaml
+VQVAE_TOKENIZERS = {
+    "tok_clip": dict(TOK_VITB, n_channels=512, patch_proj=False, codebook_size=8192),
+    "tok_dinov2": dict(TOK_VITB, n_channels=768, patch_proj=False, codebook_size=8192),
+    "tok_imagebind": dict(TOK_VITB, n_channels=1280, patch_proj=False, codebook_size=8192),
+    "tok_semseg": dict(TOK_VITB, n_labels=134, codebook_size=4096),
+}
+# divae/{depth,normal,canny_edge}/ViTB-UNetP4_8k_224_predx0.yaml; the canny
+# configuration stands for tok_sam_edge, which has none
+DIVAE_UNETP4 = dict(TOK_VITB, dec_type="unet_patched", codebook_size=8192,
+                    prediction_type="sample", beta_schedule="linear", zero_terminal_snr=False)
+DIVAE_TOKENIZERS = ("tok_depth", "tok_normal", "tok_canny_edge", "tok_sam_edge")
+# divae/rgb/ViTB-UViTB_1k_224_predv_frozenenc.yaml
+DIVAE_UVITB = dict(TOK_VITB, dec_type="uvit_b_p4_f16", codebook_size=1024,
+                   prediction_type="v_prediction", beta_schedule="squaredcos_cap_v2",
+                   zero_terminal_snr=True)
+# launches of one decode call (the 4 ViT-B decoders' 12 blocks; the UNets
+# launch no kernel) and of one UViT-B decode (a mid block's attention core
+# per layer and step)
+PER_DECODE = {"attn_block": 4 * DEPTH, "ln_mlp": 4 * DEPTH}
+PER_UVIT_DECODE = {"attention": 12 * DECODE_STEPS}
 # the train step of bench.py:224-279: 4M-B on the 4M-7 modality sets, B = 32,
 # 128 input and 128 target tokens, bf16 compute over fp32 master weights
 TRAIN_MODEL = "fm_base_12e_12d_swiglu_nobias"
@@ -201,17 +246,25 @@ PER_TRAIN_STEP = {"attention_train_fwd": 3 * DEPTH, "attention_train_bwd": 3 * D
 class StandInTokenizer:
     """The layout of bench.py's text tokenizer, as far as generation reads
     it: [PAD]=0, [UNK]=1, [SOS]=2, [EOS]=3, then the sentinels [S_0] ..
-    [S_19] = 4 .. 23 (the sentinel ids drive the span merge)."""
+    [S_19] = 4 .. 23 (the sentinel ids drive the span merge). Decoding
+    names every other id as one of the value tokens v0=0 .. v3=999 (in
+    turn), so that the metadata, box and palette parsers of token decoding
+    find values in random-weight sequences."""
 
     def __init__(self):
-        names = ["[PAD]", "[UNK]", "[SOS]", "[EOS]"] + [f"[S_{i}]" for i in range(20)]
-        self.vocab = {t: i for i, t in enumerate(names)}
+        self.names = ["[PAD]", "[UNK]", "[SOS]", "[EOS]"] + [f"[S_{i}]" for i in range(20)]
+        self.vocab = {t: i for i, t in enumerate(self.names)}
 
     def get_vocab(self):
         return dict(self.vocab)
 
     def token_to_id(self, token):
         return self.vocab[token]
+
+    def decode(self, ids, skip_special_tokens=False):
+        n = len(self.names)
+        return " ".join(self.names[i] if i < n else f"v{(i - n) // 1000 % 4}={(i - n) % 1000}"
+                        for i in ids)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2096,6 +2149,203 @@ def decode_parity_phase(torch, model, out, cpu, kv_quant=None, label: str = "dec
          + (", int8 cross K/V" if kv_quant else ""))
 
 
+def build_tokenizers(torch, device: str = "cuda") -> dict:
+    """Phase 10's tokenizers, {transform key: TokenizerBundle}: the ViT-B
+    VQ-VAEs of CLIP-B16, DINOv2-B14, ImageBind-H14 and COCO semseg and the
+    UNet-P4 DiVAEs of depth, normals, canny and SAM edges, at full width in
+    bf16, with seeded random weights (init_vq_weights with spread 0.1: the
+    biases, norm scales, mask tokens and layer scales drawn too, so no layer
+    the JAX modules initialise to zero passes on nothing)."""
+    from fourm_torch.utils.decoding import TokenizerBundle
+    from fourm_torch.vq import VQVAE, DiVAE, init_vq_weights
+
+    specs = [(k, VQVAE, kw) for k, kw in VQVAE_TOKENIZERS.items()]
+    specs += [(k, DiVAE, DIVAE_UNETP4) for k in DIVAE_TOKENIZERS]
+    return {k: TokenizerBundle(init_vq_weights(cls(**kw, device=device), 100 + i, spread=0.1))
+            for i, (k, cls, kw) in enumerate(specs)}
+
+
+def decode_phase(torch, model, out, bundles: dict, card: str):
+    """Phase 10a: FourMSampler.decode over phase 3's output (8 requests, RGB
+    and the 14 targets) with the 4M-21 tokenizers at full width, 25
+    diffusion steps (12 for the edges), to_rgb on. After a warm-up call, the
+    launch counters are reset just before and read just after the first of
+    three timed calls (the median is the figure); a fourth, instrumented
+    call times each tokenizer's decode. Returns (the decoded dict, the
+    launch counts)."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+    from fourm_torch.data.modality_info import MODALITY_INFO
+
+    sampler = FourMSampler(model, StandInTokenizer(), tokenizers=bundles)
+
+    def run():
+        dec = sampler.decode(out, decoding_steps=DECODE_STEPS, seed=0)
+        torch.cuda.synchronize()
+        return dec
+
+    run()  # warm-up: cuDNN plans, allocator
+    walls = []
+    for i in range(3):
+        if i == 0:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        dec = run()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = kernels.launch_counts()
+    wall = float(np.median(walls))
+    expected = {k: 0 for k in launches}
+    expected.update(PER_DECODE)
+    check(launches == expected, f"decode: launch counts {launches} != {expected}")
+
+    seconds = {}  # the instrumented call: each tokenizer's decode, fenced
+    for k, b in bundles.items():
+        def timed(*a, _inner=b.decode_tokens, _k=k, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[_k] = time.perf_counter() - t0
+            return res
+        b.decode_tokens = timed
+    run()
+    for b in bundles.values():
+        del b.decode_tokens  # the class's method again
+
+    check(set(dec) == {"rgb@224", *TARGETS}, f"decode: keys {sorted(dec)}")
+    B = REQUESTS
+    for t in ["rgb@224"] + ROAR_TARGETS + ["color_palette"]:
+        img = dec[t]
+        n = {"tok_clip@224": 14, "tok_dinov2@224": 16, "tok_imagebind@224": 16}.get(t, 224)
+        check(isinstance(img, np.ndarray) and img.shape == (B, n, n, 3), f"decode: {t} shape "
+              f"{getattr(img, 'shape', type(img))}")
+        # palette values are v0=<0..999> / 255, as the JAX package draws them
+        top = np.inf if t == "color_palette" else 1.0
+        check(bool(np.isfinite(img).all()) and img.min() >= 0 and img.max() <= top,
+              f"decode: {t} values outside [0, {top}]")
+    for t in ("caption", "det", "human_poses", "sam_instance"):
+        check(isinstance(dec[t], list) and len(dec[t]) == B and all(isinstance(x, str)
+                                                                   for x in dec[t]),
+              f"decode: {t} is not {B} strings")
+    check(isinstance(dec["metadata"], list) and len(dec["metadata"]) == B
+          and all(isinstance(x, dict) for x in dec["metadata"]), "decode: metadata")
+    check("matplotlib" not in sys.modules, "decode: to_rgb imported matplotlib")
+    n_img = len(ROAR_TARGETS)
+    print(f"decode: FourMSampler.decode of {B} requests (rgb@224 + {len(TARGETS)} targets, "
+          f"{DECODE_STEPS} diffusion steps, {max(DECODE_STEPS // 2, 1)} for the edges, to_rgb, "
+          f"without matplotlib): {wall * 1e3:.3f} ms per call (median of "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}), {B / wall:.4f} requests/s, "
+          f"{B * n_img / wall:.4f} decoded target images/s, {wall / n_img * 1e3:.3f} ms per "
+          f"image target ({B} images); {card}", flush=True)
+    for k, sec in seconds.items():
+        steps = ("" if k not in DIVAE_TOKENIZERS else
+                 f", {max(DECODE_STEPS // 2, 1) if 'edge' in k else DECODE_STEPS} steps")
+        print(f"  {k}: {sec * 1e3:.3f} ms ({B} images{steps})", flush=True)
+    print(f"decode launches {json.dumps(launches)}", flush=True)
+    for t in AR_TARGETS:
+        spec = MODALITY_INFO[t]
+        print(f"  {t} ({spec.type}): {str(dec[t][0])[:100]!r}", flush=True)
+    return dec, launches
+
+
+def uvit_decode_phase(torch, card: str):
+    """Phase 10b: 8 token grids from [0, 1024) decoded by the UViT-B DiVAE
+    of divae/rgb/ViTB-UViTB_1k_224_predv_frozenenc.yaml at 25 steps, seeded
+    random bf16 weights; exact launch counts (a mid block's attention core
+    per layer and step, 300) over one call after a warm-up, the median of
+    three calls. Returns (the launch counts, the model)."""
+    from fourm_torch import kernels
+    from fourm_torch.vq import DiVAE, divae_decode_tokens, init_vq_weights
+
+    divae = init_vq_weights(DiVAE(**DIVAE_UVITB, device="cuda"), 110, spread=0.1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 1024, (REQUESTS, 14, 14), generator=gen, device="cuda")
+
+    def run():
+        img = divae_decode_tokens(divae, tokens, gen, timesteps=DECODE_STEPS)
+        torch.cuda.synchronize()
+        return img
+
+    with torch.inference_mode():
+        run()
+        walls = []
+        for i in range(3):
+            if i == 0:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = run()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = kernels.launch_counts()
+    wall = float(np.median(walls))
+    expected = {k: 0 for k in launches}
+    expected.update(PER_UVIT_DECODE)
+    check(launches == expected, f"uvit decode: launch counts {launches} != {expected}")
+    check(tuple(img.shape) == (REQUESTS, 224, 224, 3) and img.dtype == torch.float32
+          and bool(torch.isfinite(img).all()), "uvit decode: output")
+    print(f"uvit decode: UViT-B DiVAE, {REQUESTS} grids of 14 x 14 tokens, {DECODE_STEPS} steps: "
+          f"{wall * 1e3:.3f} ms per call (median of {', '.join(f'{w * 1e3:.3f}' for w in walls)}),"
+          f" {wall / DECODE_STEPS * 1e3:.3f} ms per step, {REQUESTS / wall:.4f} images/s; {card}",
+          flush=True)
+    print(f"uvit decode launches {json.dumps(launches)}", flush=True)
+    return launches, divae
+
+
+def decode_tokens_parity_phase(torch, bundles: dict, uvit, out, dec: dict) -> None:
+    """Phase 10c: on the card in bf16 against the same weights on the CPU in
+    fp32 and in bf16 (phase 4's gate): each ViT-B decoder's output at batch
+    2, one denoise_step of the UNet-P4 at batch 1 and of the UViT-B at batch
+    2, and one divae_decode_tokens of 3 steps of the UNet-P4 at batch 1,
+    every run fed the same noise; then decode_dict's text, metadata, box and
+    palette outputs of the card's decode equal to the CPU's."""
+    from fourm_torch.utils.decoding import decode_dict
+    from fourm_torch.vq import VQVAE, DiVAE, divae_decode_tokens
+    from fourm_torch.vq.scheduling import spaced_timesteps
+
+    def gate(name, gpu, cpu_run):
+        t0 = time.perf_counter()
+        ref = {dt: cpu_run(m).float() for dt, m in cpu.items()}
+        latent_gate(torch, f"{name} ({time.perf_counter() - t0:.1f} s on the CPU)",
+                    gpu.float().cpu(), ref["float32"], ref["bfloat16"], label="decode parity")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.inference_mode():
+        for k, kw in VQVAE_TOKENIZERS.items():
+            m = bundles[k].model
+            n = 224 // (14 if k in ("tok_dinov2", "tok_imagebind") else 16)
+            toks = out[f"{k}@224"]["tensor"][:2].reshape(2, n, n)
+            cpu = cpu_copies(m, lambda dt: VQVAE(**dict(kw, dtype=dt), device="cpu"))
+            gate(f"{k} ViT-B decoder B=2", m.decode_tokens(toks),
+                 lambda c: c.decode_tokens(toks.cpu()))
+        m = bundles["tok_depth"].model
+        toks = out["tok_depth@224"]["tensor"][:1].reshape(1, 14, 14)
+        noised = torch.randn(1, 224, 224, 3, generator=gen, device="cuda")
+        cpu = cpu_copies(m, lambda dt: DiVAE(**dict(DIVAE_UNETP4, dtype=dt), device="cpu"))
+        gate("UNet-P4 denoise_step t=500 B=1", m.denoise_step(noised, 500,
+                                                             m.tokens_to_embedding(toks)),
+             lambda c: c.denoise_step(noised.cpu(), 500, c.tokens_to_embedding(toks.cpu())))
+        n_draws = 1 + len(spaced_timesteps(1000, 3, "trailing"))
+        draws = [torch.randn(1, 224, 224, 3, generator=gen, device="cuda") for _ in range(n_draws)]
+        gate("UNet-P4 divae_decode_tokens 3 steps B=1, the same noise",
+             divae_decode_tokens(m, toks, timesteps=3, noise=draws[0], step_noise=draws[1:]),
+             lambda c: divae_decode_tokens(c, toks.cpu(), timesteps=3, noise=draws[0].cpu(),
+                                           step_noise=[d.cpu() for d in draws[1:]]))
+        toks = torch.randint(0, 1024, (2, 14, 14), generator=gen, device="cuda")
+        noised = torch.randn(2, 224, 224, 3, generator=gen, device="cuda")
+        cpu = cpu_copies(uvit, lambda dt: DiVAE(**dict(DIVAE_UVITB, dtype=dt), device="cpu"))
+        gate("UViT-B denoise_step t=500 B=2", uvit.denoise_step(noised, 500,
+                                                               uvit.tokens_to_embedding(toks)),
+             lambda c: c.denoise_step(noised.cpu(), 500, c.tokens_to_embedding(toks.cpu())))
+    host = decode_dict({t: {k: v.cpu() for k, v in out[t].items()} for t in AR_TARGETS}, {},
+                       StandInTokenizer())
+    for t in AR_TARGETS:
+        same = (np.array_equal(host[t], dec[t]) if t == "color_palette" else host[t] == dec[t])
+        check(same, f"decode parity: {t} differs from the CPU's decode_dict")
+    print(f"decode parity: {', '.join(AR_TARGETS)} of the card's decode equal the CPU's "
+          f"decode_dict ({sum(len(str(host[t])) for t in AR_TARGETS)} characters)", flush=True)
+
+
 def xl_phase(torch, card: str):
     """Phases 3b, 3c (XL) and 4b: the 14-target chain at 4M-21 XL, full width
     and depth, for 4 requests in bf16 and in int8 mode, with the token
@@ -2409,13 +2659,13 @@ def vq_phase(torch, card: str):
     return counts, models, x
 
 
-def latent_gate(torch, name: str, gpu, ref, ref_bf16) -> float:
+def latent_gate(torch, name: str, gpu, ref, ref_bf16, label: str = "vq parity") -> float:
     """Card bf16 values against the fp32 CPU run: within 2 x (the plain bf16
     path's error) + 1e-3, as phase 4. Returns that tolerance."""
     err = (gpu - ref).abs().max().item()
     err_plain = (ref_bf16 - ref).abs().max().item()
     tol = 2.0 * err_plain + 1e-3
-    print(f"vq parity: {name}: max abs err {err:.6g} vs fp32 (tol {tol:.6g}; plain bf16 "
+    print(f"{label}: {name}: max abs err {err:.6g} vs fp32 (tol {tol:.6g}; plain bf16 "
           f"{err_plain:.6g}; fp32 max {ref.abs().max().item():.6g})", flush=True)
     check(bool(torch.isfinite(gpu).all()), f"{name}: non-finite values")
     check(err <= tol, f"{name}: error {err} > {tol}")
@@ -2459,20 +2709,22 @@ def token_gate(torch, name: str, vq, lat, vq32, lat32, tol: float) -> None:
     check(agree_decided >= 0.99, f"{name}: agreement {agree_decided} < 0.99 on decided rows")
 
 
+def cpu_copies(model, build) -> dict:
+    """The card model's weights in build(dtype)'s module on the CPU, for
+    dtype float32 and bfloat16."""
+    state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out[dtype] = build(dtype)
+        out[dtype].load_state_dict(state)
+    return out
+
+
 def vq_parity_phase(torch, models, x) -> None:
     """Phase 7: batch 2 on the card against the same weights on the CPU."""
     from fourm_torch.vq import TEACHER_PRESETS, VQ, ViTTeacher
 
     xb = x[:2]
-
-    def cpu_copies(model, build):
-        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
-        out = {}
-        for dtype in ("float32", "bfloat16"):
-            out[dtype] = build(dtype)
-            out[dtype].load_state_dict(state)
-        return out
-
     rgb = cpu_copies(models["rgb"], lambda dt: VQ(**dict(VQ_RGB, dtype=dt), device="cpu"))
     lat = models["rgb"].latents(xb)
     ref = {dt: m.latents(xb.cpu()).float() for dt, m in rgb.items()}
@@ -3052,7 +3304,12 @@ def main() -> int:
     cpu = cpu_models(torch, model)
     parity_phase(torch, model, out, cpu)
     decode_parity_phase(torch, model, out, cpu)
-    del model, cpu, out
+    del cpu
+    bundles = build_tokenizers(torch)
+    dec, decode_launches = decode_phase(torch, model, out, bundles, card)
+    uvit_launches, uvit = uvit_decode_phase(torch, card)
+    decode_tokens_parity_phase(torch, bundles, uvit, out, dec)
+    del model, out, bundles, uvit, dec
     torch.cuda.empty_cache()
     xl_launches, int8_launches = xl_phase(torch, card)
     torch.cuda.empty_cache()
@@ -3074,9 +3331,11 @@ def main() -> int:
     train_parity_phase(torch, card)
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
                          xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches)
+    decode_paths = {"decode": decode_launches, "uvit_decode": uvit_launches}
     for r in results:  # each wrapper's launches on the path that runs it
-        path = r["path"]
-        r["launches"] = path_launches[path][r.pop("wrapper")]
+        path, wrapper = r["path"], r.pop("wrapper")
+        r["launches"] = path_launches[path][wrapper]
+        r["decode_launches"] = {p: n[wrapper] for p, n in decode_paths.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

@@ -1,22 +1,29 @@
 """FourMSampler: the one-class generation API of the PyTorch port.
 
 Counterpart of fourm_tpu/api.py (reference fourm/demo_4M_sampler.py:29-447):
-holds a FourM model on its device, builds chained generation schedules from
-per-modality defaults, and generates: image-token targets (ROAR / MaskGIT)
-and sequence targets (KV-cached autoregressive decoding), so the whole
-RGB-to-all chain. Token decoding and super-resolution come with later
-slices and raise NotImplementedError.
+holds a FourM model on its device and the tokenizers' decoders, builds
+chained generation schedules from per-modality defaults, generates
+image-token targets (ROAR / MaskGIT) and sequence targets (KV-cached
+autoregressive decoding), so the whole RGB-to-all chain, and decodes the
+generated tokens into images, text and structured outputs
+(utils/decoding.py:decode_dict). Super-resolution (224 -> 448) comes with
+a later slice and raises NotImplementedError.
 
 Usage:
-    sampler = FourMSampler(model, text_tokenizer)  # runs on "cuda"
-    mod_dict = sampler.prepare_sample({"rgb@224": img_nhwc}, ["rgb@224"],
-                                      ["tok_clip@224", "tok_depth@224"], batch_size=8)
-    out = sampler.generate(mod_dict, sampler.build_schedule(["rgb@224"], targets), seed=0)
+    sampler = FourMSampler(model, text_tokenizer,
+                           tokenizers={"tok_depth": TokenizerBundle(divae)})  # on "cuda"
+    out = sampler(sample={"rgb@224": img_nhwc}, cond_domains=["rgb@224"],
+                  target_domains=["tok_clip@224", "tok_depth@224", "caption"], seed=0)
+    # or step by step:
+    mod_dict = sampler.prepare_sample({"rgb@224": img_nhwc}, ["rgb@224"], targets,
+                                      batch_size=8)
+    gen = sampler.generate(mod_dict, sampler.build_schedule(["rgb@224"], targets), seed=0)
+    images = sampler.decode(gen, decoding_steps=25, seed=0)
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +37,10 @@ from .generate import (
     init_empty_target_modality,
     init_full_input_modality,
 )
+from .utils.decoding import TokenizerBundle, decode_dict
+
+SR_SLICE = ("224 -> 448 super-resolution (fm_sr, the SR-448 chain) is a later slice of "
+            "the port (ROADMAP.md, queue 1)")
 
 # Default chained generation order (reference demo_4M_sampler.py:29-39)
 DEFAULT_ORDER = [
@@ -114,17 +125,22 @@ class FourMSampler:
     demo_4M_sampler.py:202-447) for a FourM model of the port."""
 
     def __init__(self, fm, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
-                 device: str = "cuda", kv_quant: Optional[str] = None):
+                 device: str = "cuda", kv_quant: Optional[str] = None,
+                 tokenizers: Optional[Dict[str, TokenizerBundle]] = None):
         """fm: a FourM of the port, moved to `device`; text_tokenizer encodes
         text prompts given as conditioning, and its sentinel ids drive the
         span merge of sequence targets (it needs `get_vocab()` and
-        `token_to_id()`; `encode()` only for text prompts); kv_quant None or
-        "int8", the AR targets' cross K/V mode (GenerationSampler)."""
+        `token_to_id()`; `encode()` only for text prompts; `decode()` for
+        decoding sequence targets); kv_quant None or "int8", the AR
+        targets' cross K/V mode (GenerationSampler); tokenizers: {transform
+        key ("tok_depth", "sam_instance", ...): TokenizerBundle}, the
+        decoders `decode` uses, each on its own device."""
         self.device = resolve_device(device)
         self.model = fm.to(self.device).eval()
         self.sampler = GenerationSampler(self.model, text_tokenizer, top_k=top_k, top_p=top_p,
                                          kv_quant=kv_quant)
         self.text_tokenizer = text_tokenizer
+        self.tokenizers = tokenizers or {}
 
     def _ordered_targets(self, target_domains, order):
         """Default order first; targets outside it are appended."""
@@ -183,10 +199,29 @@ class FourMSampler:
         return self.sampler.generate(mod_dict, schedule, seed=seed,
                                      text_tokenizer=self.text_tokenizer)
 
-    def decode(self, *args, **kwargs):
-        raise NotImplementedError("token decoding (VQ / diffusion decoders) is a later "
-                                  "slice of the port (ROADMAP.md)")
+    def decode(self, mod_dict, image_size: int = 224, decoding_steps: int = 25,
+               seed: Optional[int] = None, keys: Optional[Sequence[str]] = None):
+        """The generated mod dict (or its `keys`) decoded by decode_dict:
+        images as numpy arrays, text, metadata dicts. Diffusion decoders run
+        `decoding_steps` steps (half that for the edge tokenizers), drawing
+        from one generator seeded from `seed`, key after key."""
+        sub = {k: v for k, v in mod_dict.items() if keys is None or k in keys}
+        return decode_dict(sub, self.tokenizers, self.text_tokenizer, image_size=image_size,
+                           decoding_steps=decoding_steps, seed=seed)
+
+    def __call__(self, sample: Dict[str, Any], cond_domains: List[str],
+                 target_domains: List[str], seed: Optional[int] = None,
+                 batch_size: int = 1, decoding_steps: int = 25, perform_sr: bool = False):
+        """Condition -> chained generation -> decoded outputs (reference
+        Demo4MSampler.forward, demo_4M_sampler.py:405-447): the decoded
+        targets, by modality."""
+        if perform_sr:
+            raise NotImplementedError(SR_SLICE)
+        mod_dict = self.prepare_sample(sample, cond_domains, target_domains, batch_size)
+        out = self.generate(mod_dict, self.build_schedule(cond_domains, target_domains),
+                            seed=seed)
+        return self.decode(out, decoding_steps=decoding_steps, seed=seed,
+                           keys=[m for m in out if m in target_domains])
 
     def super_resolve(self, *args, **kwargs):
-        raise NotImplementedError("224 -> 448 super-resolution is a later slice of the "
-                                  "port (ROADMAP.md)")
+        raise NotImplementedError(SR_SLICE)

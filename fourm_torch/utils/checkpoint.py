@@ -6,16 +6,21 @@ reference-named torch state dict that the port's module takes with
 `load_state_dict(..., strict=True)`:
   * `from_jax_params(params, config)`: `variables["params"]` of a FourM, the
     port's own copy of fourm_tpu/utils/checkpoint.py:export_fourm_torch_state;
-  * `from_jax_vq_variables(variables)`: a VQ's `params` and `codebook`
-    collection, the naming of checkpoint.py:_vq_torch_name /
-    export_vq_torch_state (356-408) as far as the VQ encoder reaches;
+  * `from_jax_vq_variables(variables)`: a VQ's, VQVAE's or DiVAE's
+    `params` and `codebook` collection (the encoder, the quantizer, and the
+    ViT, MLP, UNet and UViT decoders), named as
+    checkpoint.py:_vq_torch_name / export_vq_torch_state (356-408) name
+    them;
   * `from_jax_teacher_params(params)`: a ViTTeacher's `params`;
   * `from_jax_adam_state(opt_state, config)`: optax AdamW's `count`, `mu`
     and `nu` of a FourM, as the port's FusedAdamW state (`load_state_dict`).
 Dense kernels (in, out) become nn.Linear weights (out, in), convolution
-kernels (kh, kw, in, out) the reference's (out, in, kh, kw), embedding
-tables keep their layout, modality and mask tokens take the reference
-(1, 1, D) shape. Sin-cos tables are computed, not loaded.
+kernels (kh, kw, in, out) the reference's (out, in, kh, kw), transposed
+convolution kernels (kh, kw, out, in; flax's transpose_kernel=True) the
+(in, out, kh, kw) of nn.ConvTranspose2d (the same permutation), flax
+LayerNorm / GroupNorm scales `weight`, embedding tables keep their layout,
+modality and mask tokens take the reference (1, 1, D) shape. Sin-cos
+tables are computed, not loaded.
 """
 
 from __future__ import annotations
@@ -80,38 +85,57 @@ def from_jax_params(params: Mapping, config) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
 
 
-_VQ_SEG = re.compile(r"^blocks_(\d+)$")
-
-
-def _flax_tree(out: Dict[str, np.ndarray], prefix: str, tree: Mapping) -> None:
-    """Flax names to the reference's: `blocks_<i>` -> `blocks.<i>`, `kernel`
-    and `embedding` -> `weight` (2-D kernels transposed, 4-D ones to
-    (out, in, kh, kw)), other leaves as they are."""
-    for name, sub in tree.items():
-        seg = _VQ_SEG.sub(lambda m: f"blocks.{m.group(1)}", name)
-        path = f"{prefix}.{seg}" if prefix else seg
-        if isinstance(sub, Mapping):
-            _flax_tree(out, path, sub)
-            continue
-        arr = np.asarray(sub, dtype=np.float32)
-        if name == "kernel":
-            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
-            path = f"{prefix}.weight"
-        elif name == "embedding":
-            path = f"{prefix}.weight"
-        out[path] = np.ascontiguousarray(arr)
-
-
 def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
 
 
+# flax module names -> the reference's (fourm_tpu/utils/checkpoint.py:_VQ_SEG_MAP)
+_VQ_SEG_MAP = [
+    (re.compile(r"^blocks_(\d+)$"), lambda m: f"blocks.{m.group(1)}"),
+    (re.compile(r"^mid_block_(\d+)$"), lambda m: f"mid_block.{m.group(1)}"),
+    (re.compile(r"^down_(\d+)_resnet_(\d+)$"),
+     lambda m: f"down_blocks.{m.group(1)}.resnets.{m.group(2)}"),
+    (re.compile(r"^down_(\d+)_downsample$"), lambda m: f"down_blocks.{m.group(1)}.downsamplers.0"),
+    (re.compile(r"^up_(\d+)_resnet_(\d+)$"),
+     lambda m: f"up_blocks.{m.group(1)}.resnets.{m.group(2)}"),
+    (re.compile(r"^up_(\d+)_upsample$"), lambda m: f"up_blocks.{m.group(1)}.upsamplers.0"),
+    (re.compile(r"^out_conv_(\d+)$"), lambda m: f"out_conv.{m.group(1)}"),
+    (re.compile(r"^mlp_fc(\d)$"), lambda m: f"mlp.fc{m.group(1)}"),
+    (re.compile(r"^xattn_(q|kv|proj)$"), lambda m: f"cross_attn.{m.group(1)}"),
+    (re.compile(r"^emb_proj_(\d)$"), lambda m: f"emb_proj.{m.group(1)}"),
+    (re.compile(r"^block_(\d)$"), lambda m: f"block.{m.group(1)}"),
+    (re.compile(r"^layernorms_(\d+)$"), lambda m: f"layernorms.{m.group(1)}"),
+    (re.compile(r"^layers_(\d+)$"), lambda m: f"layers.{m.group(1)}"),
+]
+_VQ_LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+
+
+def _vq_segment(seg: str) -> str:
+    for pat, repl in _VQ_SEG_MAP:
+        m = pat.match(seg)
+        if m:
+            return repl(m)
+    return seg
+
+
+def _vq_tree(out: Dict[str, np.ndarray], path: list, tree: Mapping) -> None:
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            _vq_tree(out, path + [_vq_segment(name)], sub)
+            continue
+        arr = np.asarray(sub, dtype=np.float32)
+        if name == "kernel":  # Dense (in, out) -> (out, in); conv -> (out|in, in|out, kh, kw)
+            arr = arr.T if arr.ndim == 2 else np.transpose(arr, (3, 2, 0, 1))
+        out[".".join(path + [_VQ_LEAF.get(name, name)])] = np.ascontiguousarray(arr)
+
+
 def from_jax_vq_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict of the port's VQ from a JAX VQ's variables. Of the codebook
-    collection the search needs `embed`; the EMA state (embed_avg,
-    cluster_size, initted) belongs to training and is left out."""
+    """State dict of the port's VQ, VQVAE or DiVAE from the JAX module's
+    variables. Of the codebook collection the search and the lookup need
+    `embed`; the EMA state (embed_avg, cluster_size, initted) belongs to
+    training and is left out."""
     out: Dict[str, np.ndarray] = {}
-    _flax_tree(out, "", variables["params"])
+    _vq_tree(out, [], variables["params"])
     for path, cb in _codebooks(variables.get("codebook", {}), []):
         out[f"{'.'.join(path) or 'quantize'}._codebook.embed"] = np.asarray(cb["embed"],
                                                                             np.float32)
@@ -130,7 +154,7 @@ def _codebooks(tree: Mapping, path: list):
 def from_jax_teacher_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict of the port's ViTTeacher from a JAX ViTTeacher's params."""
     out: Dict[str, np.ndarray] = {}
-    _flax_tree(out, "", params)
+    _vq_tree(out, [], params)
     return _tensors(out)
 
 

@@ -1,11 +1,14 @@
-"""ViT encoder of the VQ tokenizers, channel-last, inference.
+"""ViT encoder and decoder of the VQ tokenizers, channel-last, inference.
 
-Counterpart of the encoder side of fourm_tpu/vq/vit_models.py (reference
-fourm/vq/models/vit_models.py:338-501): patch projection (or a 1x1
-projection of a feature map), 2D sin-cos positions, pre-LN blocks, and the
-optional fp32 tanh post-MLP. The blocks are fourm_torch.ops.transformer's,
-so their halves run as `attn_block` and `ln_mlp`. A token grid other than
-the encoder's training resolution's gets its positions resized bicubically
+Counterpart of fourm_tpu/vq/vit_models.py (reference
+fourm/vq/models/vit_models.py:298-661). The encoder: patch projection (or a
+1x1 projection of a feature map), 2D sin-cos positions, pre-LN blocks, and
+the optional fp32 tanh post-MLP. The decoder: sin-cos positions, pre-LN
+blocks, the optional tanh post-MLP (in the compute dtype, as the JAX
+decoder's), an output projection depatchified channel-major, and optional
+ConvNeXt output blocks. The blocks are fourm_torch.ops.transformer's, so
+their halves run as `attn_block` and `ln_mlp`. A token grid other than the
+training resolution's gets its positions resized bicubically
 (`interp_posemb`), as jax.image.resize does.
 """
 
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.posemb import build_2d_sincos_posemb
-from ..ops.transformer import Block, LayerNorm, Mlp
+from ..ops.transformer import Block, LayerNorm, Mlp, _dense
+from .layers import Conv2d, nchw, nhwc
 
 # Size presets (reference vit_models.py:664-861; vit_t is the JAX package's
 # test size)
@@ -140,3 +144,88 @@ class ViTEncoder(nn.Module):
             x32 = x.float()
             x = (x32 + self.post_mlp(self.norm_mlp(x32))).to(self.dtype)
         return x.reshape(B, nh, nw, self.dim_tokens)
+
+
+class ConvNeXtBlock(nn.Module):
+    """ConvNeXt block (reference vit_models.py:298-336), channel-last:
+    depthwise 7x7 convolution, LayerNorm (eps 1e-6), pointwise MLP with the
+    exact GELU, fp32 layer scale `gamma`, residual. As in the JAX block, the
+    fp32 layer scale promotes the branch and the residual sum to fp32."""
+
+    def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim, dtype=dtype)
+        self.norm = LayerNorm(dim, eps=1e-6, dtype=dtype)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = (nn.Parameter(torch.full((dim,), layer_scale_init_value))
+                      if layer_scale_init_value > 0 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(nhwc(self.dwconv(nchw(x))))
+        h = F.gelu(_dense(h, self.pwconv1, self.dtype), approximate="none")
+        h = _dense(h, self.pwconv2, self.dtype)
+        if self.gamma is not None:
+            h = h * self.gamma
+        return x + h
+
+
+class ViTDecoder(nn.Module):
+    """Latent grid -> images / feature maps (reference vit_models.py:504-661).
+    Input (B, N_H, N_W, dim_tokens) in the compute dtype; output
+    (B, H, W, out_channels) with patch_proj, else (B, N_H, N_W,
+    out_channels)."""
+
+    def __init__(self, out_channels: int = 3, patch_size: int = 16, resolution: int = 256,
+                 dim_tokens: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_proj: bool = True,
+                 post_mlp: bool = False, out_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_channels, self.dim_tokens, self.dtype = out_channels, dim_tokens, dtype
+        self.n0 = resolution // patch_size
+        self.ph = patch_size if patch_proj else 1
+        self.blocks = nn.ModuleList(
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias=qkv_bias, dtype=dtype)
+            for _ in range(depth))
+        if post_mlp:
+            self.norm_mlp = LayerNorm(dim_tokens, dtype=dtype)
+            self.post_mlp = Mlp(dim_tokens, int(mlp_ratio * dim_tokens), dtype=dtype, act="tanh")
+        else:
+            self.norm_mlp = self.post_mlp = None
+        self.out_proj = nn.Linear(dim_tokens, out_channels * self.ph ** 2)
+        self.out_conv = (nn.ModuleList(ConvNeXtBlock(out_channels, dtype=dtype)
+                                       for _ in range(2)) if out_conv else None)
+        self._pos = {}  # (nh, nw, device) -> (1, nh*nw, dim) sin-cos table
+
+    def pos_table(self, nh: int, nw: int, device) -> torch.Tensor:
+        """The sin-cos positions of the training grid (resolution /
+        patch_size, with or without patch_proj), resized bicubically to
+        (nh, nw) when the grid differs."""
+        key = (nh, nw, str(device))
+        if key not in self._pos:
+            n0 = self.n0
+            pos = build_2d_sincos_posemb(n0, n0, self.dim_tokens).reshape(n0, n0, -1)
+            pos = interp_posemb(pos, nh, nw).reshape(1, nh * nw, self.dim_tokens)
+            self._pos[key] = pos.to(device)
+        return self._pos[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, nh, nw, D = x.shape
+        x = x.reshape(B, nh * nw, D) + self.pos_table(nh, nw, x.device).to(self.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        if self.post_mlp is not None:
+            x = x + self.post_mlp(self.norm_mlp(x))
+        x = _dense(x, self.out_proj, self.dtype)
+        # (B, nh*nw, c*ph*pw) -> (B, nh*ph, nw*pw, c): the reference's
+        # channel-major rearrange '... (c ph pw)' (vit_models.py:648-652)
+        ph, c = self.ph, self.out_channels
+        x = x.reshape(B, nh, nw, c, ph, ph).permute(0, 1, 4, 2, 5, 3)
+        x = x.reshape(B, nh * ph, nw * ph, c)
+        if self.out_conv is not None:
+            for blk in self.out_conv:
+                x = blk(x)
+        return x

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port on the card, under torch.profiler.
 
-    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train|vq] [--out out/chain_trace.json]
+    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train|vq|decode]
+                                           [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
 ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
@@ -35,6 +36,20 @@ bf16, residual adds, the global norm), and the sum of attention_train's
 two groups. The busy share is the summed kernel
 time over the median wall time of 5 unfenced steps run without the
 profiler.
+
+`--part decode`: chip_smoke.py's phase 10 -- FourMSampler.decode of the
+4M-B chain's output for 8 requests (rgb@224 and 14 targets; the 4M-21
+tokenizers' decoders at full width, random bf16 weights, 25 diffusion
+steps, 12 for the edges), then the UViT-B DiVAE decoding 8 token grids at
+25 steps. Each is profiled once after a warm-up with every decoder call
+and scheduler step fenced by synchronizations and named (record_function
+windows: ViT decoders, UNet, UViT, scheduler); the device time is given by
+kernel group: the port's kernels (attn_block, ln_mlp, attention),
+convolutions (cuDNN, with its layout transposes), the scheduler, and of
+each window its cuBLAS GEMMs (in the UNet: the ADM attention products and
+its dense layers) and its GroupNorm and elementwise kernels. The busy
+share is the summed kernel time over the median wall time of 3 unfenced
+calls without the profiler.
 
 The last line is one JSON object with the numbers. Needs one CUDA card and
 nvcc.
@@ -97,6 +112,8 @@ TRAIN_KERNELS = {"attn_kernel": "attention_train forward",
                  "dq_reduce_kernel": "attention_train backward",
                  "adamw_kernel": "fused_adamw"}
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
+# cuDNN's convolution kernels and the layout transposes around them
+CONV_MARKS = ("conv", "fprop", "implicit", "winograd", "nchwtonhwc", "nhwctonchw")
 
 
 def profile(run, label: str, trace: str | None, wall_plain_ms: float):
@@ -139,6 +156,29 @@ def profile(run, label: str, trace: str | None, wall_plain_ms: float):
             "top_host": [{"ms": ms, "count": c, "name": k[:200]} for ms, c, k in host_rows[:15]]}
 
 
+def by_window(events, prefix: str, group_of):
+    """Device time of the profiled kernels by group_of(name, window), by
+    window (the fenced record_function ranges named `prefix` + window that
+    a kernel started in), and by kernel name ((count, ms))."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.name[len(prefix):], e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith(prefix) and e.device_type == DeviceType.CPU]
+    groups, windows, names = {}, {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith(prefix):
+            continue
+        t = e.time_range.start
+        window = next((w for w, a, b in spans if a <= t <= b), "outside the windows")
+        ms = e.time_range.elapsed_us() / 1e3
+        group = group_of(e.name, window)
+        groups[group] = groups.get(group, 0.0) + ms
+        windows[window] = windows.get(window, 0.0) + ms
+        count, total = names.get(e.name, (0, 0.0))
+        names[e.name] = (count + 1, total + ms)
+    return groups, windows, names
+
+
 def train_group(name: str, window: str) -> str:
     for mark, group in TRAIN_KERNELS.items():
         if mark in name:
@@ -150,7 +190,6 @@ def train_group(name: str, window: str) -> str:
 
 def train_profile() -> dict:
     """The train step's device time by kernel group and window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
 
     from fourm_torch.parallel import build_train_step, init_train_state
@@ -195,21 +234,7 @@ def train_profile() -> dict:
         t0 = time.perf_counter()
         fenced()
         wall_fenced = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    spans = {e.name.split("/", 1)[1]: (e.time_range.start, e.time_range.end) for e in events
-             if e.name.startswith("train/") and e.device_type == DeviceType.CPU}
-    groups, windows, names = {}, {}, {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name.startswith("train/"):
-            continue
-        t = e.time_range.start
-        window = next((w for w, (a, b) in spans.items() if a <= t <= b), "outside the windows")
-        ms = e.time_range.elapsed_us() / 1e3
-        group = train_group(e.name, window)
-        groups[group] = groups.get(group, 0.0) + ms
-        windows[window] = windows.get(window, 0.0) + ms
-        count, total = names.get(e.name, (0, 0.0))
-        names[e.name] = (count + 1, total + ms)
+    groups, windows, names = by_window(prof.events(), "train/", train_group)
     device_ms = sum(groups.values())
     print(f"[train step] {torch.cuda.get_device_name(0)}; B={chip_smoke.TRAIN_BATCH}, {T}+{T} "
           f"tokens; device busy {device_ms:.3f} ms: {device_ms / wall_ms:.4f} of the "
@@ -234,8 +259,8 @@ def train_profile() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq"], default="all",
-                    help="all: chain and train (xl and vq only when asked)")
+    ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq", "decode"],
+                    default="all", help="all: chain and train (xl, vq, decode only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     ap.add_argument("--root", default=ROOT, help="the checkout whose fourm_torch to profile")
     args = ap.parse_args()
@@ -256,6 +281,8 @@ def main() -> int:
         res["root"] = ROOT
         res["vq_a"] = vq_profile()
         res["vq_a_euclid"] = vq_profile(euclid=True)
+    if args.part == "decode":
+        res.update(decode_profile())
     print(json.dumps(res))
     return 0
 
@@ -324,6 +351,116 @@ def chain_profile(trace, name: str = chip_smoke.MODEL, requests: int = chip_smok
            "ar_part": profile(ar_part, f"sequence targets, {name}", None, ar_ms)}
     print(f"wall without the profiler: chain {chain_ms:.3f} ms, sequence targets "
           f"{ar_ms:.3f} ms; decoded tokens {json.dumps(tokens)}")
+    return res
+
+
+def decode_group(name: str, window: str) -> str:
+    for mark, group in WRAPPER_KERNELS.items():
+        if mark in name:
+            return group
+    low = name.lower()
+    if any(m in low for m in CONV_MARKS):
+        return "convolutions"
+    if window == "scheduler":
+        return "scheduler"
+    if any(m in low for m in GEMM_MARKS):
+        return f"cuBLAS GEMM, {window}"
+    return f"GroupNorm and elementwise, {window}"
+
+
+def fenced_profile(run, label: str, wall_ms: float) -> dict:
+    """run() under the profiler with the decoders' calls and the scheduler's
+    steps fenced and named; device time by decode_group and by window."""
+    from torch.profiler import ProfilerActivity, record_function
+
+    from fourm_torch.vq import scheduling
+    from fourm_torch.vq.vqvae import VQVAE, DiVAE
+
+    def fenced(window, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            with record_function(f"decode/{window}"):
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return res
+        return call
+
+    def window_of(model):
+        return "UViT" if "uvit" in type(model.decoder).__name__.lower() else "UNet"
+
+    patches = [(scheduling.DiffusionScheduler, "step", lambda f: fenced("scheduler", f)),
+               (VQVAE, "decode_tokens", lambda f: fenced("ViT decoders", f)),
+               (DiVAE, "denoise_step",
+                lambda f: lambda self, *a, **kw: fenced(window_of(self), f)(self, *a, **kw))]
+    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in patches]
+    for cls, name, wrap in patches:
+        setattr(cls, name, wrap(getattr(cls, name)))
+    try:
+        run()  # warm-up of the fenced form
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_fenced = (time.perf_counter() - t0) * 1e3
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    groups, windows, names = by_window(prof.events(), "decode/", decode_group)
+    device_ms = sum(groups.values())
+    print(f"[{label}] {torch.cuda.get_device_name(0)}; device busy {device_ms:.3f} ms: "
+          f"{device_ms / wall_ms:.4f} of the {wall_ms:.3f} ms median call without the profiler "
+          f"(the fenced call under the profiler {wall_fenced:.3f} ms)")
+    for w, ms in sorted(windows.items(), key=lambda kv: -kv[1]):
+        print(f"  window {w}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:20]
+    for name, (count, ms) in top:
+        print(f"  device {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    return {"wall_ms_unprofiled": wall_ms, "wall_ms_fenced_profiled": wall_fenced,
+            "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "by_window_ms": windows, "by_group_ms": groups,
+            "top_device": [{"ms": ms, "count": c, "name": n[:200]} for n, (c, ms) in top]}
+
+
+def decode_profile() -> dict:
+    """Phase 10's decode of the 4M-B chain's output and its UViT-B decode."""
+    from fourm_torch.vq import DiVAE, divae_decode_tokens, init_vq_weights
+
+    model = chip_smoke.build_model(torch, "bfloat16", "cuda")
+    requests, targets = chip_smoke.REQUESTS, chip_smoke.TARGETS
+    bundles = chip_smoke.build_tokenizers(torch)
+    sampler = FourMSampler(model, chip_smoke.StandInTokenizer(), tokenizers=bundles)
+    rgb = np.random.RandomState(0).rand(requests, 224, 224, 3).astype(np.float32)
+    md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], targets, batch_size=requests)
+    out = sampler.generate(md, sampler.build_schedule(["rgb@224"], targets), seed=0)
+
+    def decode():
+        sampler.decode(out, decoding_steps=chip_smoke.DECODE_STEPS, seed=0)
+        torch.cuda.synchronize()
+
+    divae = init_vq_weights(DiVAE(**chip_smoke.DIVAE_UVITB, device="cuda"), 110, spread=0.1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 1024, (requests, 14, 14), generator=gen, device="cuda")
+
+    def uvit():
+        with torch.inference_mode():
+            divae_decode_tokens(divae, tokens, gen, timesteps=chip_smoke.DECODE_STEPS)
+        torch.cuda.synchronize()
+
+    res = {}
+    for label, run in ((f"decode, {requests} requests x {len(targets)} targets", decode),
+                       (f"UViT-B decode, {requests} grids", uvit)):
+        walls = []
+        for i in range(4):  # a warm-up call, then 3 timed
+            t0 = time.perf_counter()
+            run()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls))
+        print(f"wall without the profiler: {label} {wall_ms:.3f} ms per call (calls "
+              f"{', '.join(f'{w:.3f}' for w in walls)} ms)")
+        res["decode" if run is decode else "uvit_decode"] = fenced_profile(run, label, wall_ms)
     return res
 
 

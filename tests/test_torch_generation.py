@@ -141,13 +141,20 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
                 (f, mod)
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
-    # and at run time: importing the whole port loads no JAX module, and not
-    # the `tokenizers` package, which the machine with the card lacks
+        # PIL, cv2 and matplotlib are absent on the machine with the card:
+        # only the drawing helpers import them, inside the function
+        for node in ast.parse(text).body:
+            top = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                   [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            assert not {m.split(".")[0] for m in top} & {"PIL", "cv2", "matplotlib"}, (f, top)
+    # and at run time: importing the whole port loads no JAX module, not the
+    # `tokenizers` package and no drawing library, which the machine with
+    # the card lacks
     code = ("import sys, fourm_torch.api, fourm_torch.utils.checkpoint, fourm_torch.kernels, "
-            "fourm_torch.vq, "
+            "fourm_torch.vq, fourm_torch.utils.decoding, "
             "fourm_torch.utils.text_tokenizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'fourm_tpu', 'tokenizers')]; "
+            "('jax', 'flax', 'fourm_tpu', 'tokenizers', 'PIL', 'cv2', 'matplotlib')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -159,3 +166,42 @@ def test_entry_point_needs_the_card_unless_cpu_is_asked(pair):
     with pytest.raises(RuntimeError, match="CUDA"):
         api.FourMSampler(tm)
     assert api.FourMSampler(tm, device="cpu").device.type == "cpu"
+
+
+def test_sampler_call_generates_then_decodes(pair):
+    """FourMSampler.__call__: prepare, generate, decode, the decoded targets
+    only; the same as the three steps run by hand with the same seed, and
+    its VQ-VAE decode the JAX package's decode_dict of the same tokens."""
+    from _jax_leaves import init_variables
+    from fourm_tpu.utils import decoding as jdec
+    from fourm_tpu.vq import VQVAE as JaxVQVAE
+    from fourm_torch.utils.checkpoint import from_jax_vq_variables
+    from fourm_torch.utils.decoding import TokenizerBundle
+    from fourm_torch.vq import VQVAE, DiVAE, init_vq_weights
+
+    _, tm = pair
+    clip_kw = dict(image_size=224, patch_size=16, enc_type="vit_t_enc", dec_type="vit_t_dec",
+                   n_channels=12, patch_proj=False, latent_dim=16, codebook_size=8192)
+    jclip = JaxVQVAE(**clip_kw)
+    variables = init_variables(jclip, 60, jnp.zeros((1, 14, 14, 12)))
+    clip = VQVAE(**clip_kw, device="cpu")
+    clip.load_state_dict(from_jax_vq_variables(variables), strict=True)
+    depth = init_vq_weights(DiVAE(image_size=224, patch_size=16, enc_type="vit_t_enc",
+                                  dec_type="uvit_t_p4_f16", latent_dim=16, codebook_size=8192,
+                                  device="cpu"), 61, spread=0.1)
+    sampler = api.FourMSampler(tm, device="cpu", tokenizers={"tok_clip": TokenizerBundle(clip),
+                                                             "tok_depth": TokenizerBundle(depth)})
+    targets = ["tok_clip@224", "tok_depth@224"]
+    sample = {"rgb@224": _rgb(2, 2)}
+    out = sampler(sample, ["rgb@224"], targets, seed=4, batch_size=2, decoding_steps=2)
+    assert list(out) == targets
+    assert out["tok_clip@224"].shape == (2, 14, 14, 3)
+    assert out["tok_depth@224"].shape == (2, 224, 224, 3)
+    md = sampler.prepare_sample(sample, ["rgb@224"], targets, batch_size=2)
+    gen = sampler.generate(md, sampler.build_schedule(["rgb@224"], targets), seed=4)
+    by_hand = sampler.decode(gen, decoding_steps=2, seed=4, keys=targets)
+    for t in targets:
+        np.testing.assert_array_equal(out[t], by_hand[t])
+    ref = jdec.decode_dict({"tok_clip@224": {k: v.numpy() for k, v in gen["tok_clip@224"].items()}},
+                           {"tok_clip": jdec.TokenizerBundle(jclip, variables)}, None)
+    np.testing.assert_allclose(out["tok_clip@224"], ref["tok_clip@224"], atol=1e-4, rtol=0)

@@ -351,8 +351,13 @@ def test_vq_entry_points_need_the_card_unless_cpu_is_asked():
 
 
 def test_vq_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MLP"):
-        VQ(enc_type="BMLP1024", device="cpu")
+    with pytest.raises(NotImplementedError, match="resnet_enc"):
+        VQ(enc_type="resnet_enc", device="cpu")
+    # the MLP encoders are ported: a BottleneckMLP id builds and tokenizes
+    # its input point-wise
+    mlp = VQ(enc_type="BottleneckMLP/B_2-Wi_32", n_channels=20, latent_dim=16, codebook_size=64,
+             device="cpu")
+    assert tuple(mlp.tokenize(torch.zeros(2, 4, 4, 20)).shape) == (2, 4, 4)
     vq = VQ(**TINY, codebook_size=64, device="cpu")
     # a grid other than the training one resizes its positions bicubically
     # (tests/test_torch_posemb.py holds it to JAX)
