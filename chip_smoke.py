@@ -50,6 +50,12 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      is updated in place;
   2c. ln_matmul and ln_mlp at the narrow registry models' widths (D = 384:
      GELU hidden 1536, SwiGLU 1024; D = 512: SwiGLU 1365), as phase 2b;
+  2d. the kernels at the SR-448 chain's shapes (4M-L, 8 rows: flash_mha
+     without QK-norm over its longest stream, the cross-attention core at
+     N = 784 against it, ln_matmul and ln_mlp over its rows, mha_short over
+     the decoder grid) and the decoding at 448's (mha_short at the ViT-B
+     decoders' 784 tokens, attention at the UViT-B's N = M = 784), as phase
+     2, with phase 2's faults;
   3. the headline chain at full 4M-21 B width (fm_base_12e_12d_swiglu_qknorm_
      nobias on the 4M-21 modality sets, random bf16 weights from a seeded
      generator): FourMSampler decodes RGB -> all 14 targets of the default
@@ -82,12 +88,44 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      3-step divae_decode_tokens of the UNet-P4 fed the same noise, and the
      text, metadata, box and palette outputs of the card's decode equal to
      the CPU's decode_dict;
+  3c. (after phase 10) the SR-448 chain of bench.py:508-533 at full width:
+     4M-L (fm_large_24e_24d_swiglu_nobias, 24 + 24 layers, no QK-norm, on
+     the 4M-21 modality sets and the @448 targets, random bf16 weights), 4
+     requests conditioned on random rgb@224 pixels and tok_rgb@224 ids, the 5
+     DEFAULT_ORDER_SR targets of 784 tokens through FourMSampler.generate (8
+     MaskGIT cosine steps each, CFG 2.0): samples/s from the median of 3
+     runs after a warm-up (which counts the host syncs, torch's sync debug
+     mode), the launch counts of the first, checked exactly against the
+     route of each block (sr_launches: the encoder past 1024 tokens through
+     ln_matmul + flash_mha without QK-norm, the 784-token decoder grid
+     through ln_matmul + mha_short, the cross-attention core, ln_mlp), s
+     per target from an instrumented run; then FourMSampler(fm_sr=4M-L)
+     .super_resolve of phase 3's 4M-B chain output (8 requests, its 9 @224
+     entries -> 4 @448 targets), launch counts exact;
+  10b. decoding at 448: FourMSampler.decode of phase 3c's tok_clip@448,
+     tok_depth@448, tok_normal@448 and tok_semseg@448 through phase 10's
+     ViT-B VQ-VAEs (28 x 28 grids, 784 tokens: ln_matmul + mha_short in
+     place of attn_block) and UNet-P4 DiVAEs at 448 x 448, 25 steps, then
+     the UViT-B DiVAE decoding 4 grids of 28 x 28 at 448 (tok_rgb@448's
+     16384 ids do not fit its 1024 codes), each with exact launch counts,
+     ms per call (median of 3), the peak device memory and ms and peak per
+     tokenizer; the CLIP ViT-B decoder at batch 2, one UNet-P4 step and one
+     UViT-B step at batch 1, at 448, against the CPU (phase 10c's gates);
+  4c. one SR MaskGIT step (tok_depth@448, encoder budget 2048) at batch 2
+     with 4M-L cut to 2 + 2 layers at full width, card bf16 against CPU
+     fp32 and bf16 (phase 4's gate), launch counts exact;
+  3f. the rest of the generation API at 4M-21 B full width: generate_iter's
+     last yield bit for bit equal to generate's output (temperature 0, one
+     seed; 4 MaskGIT, 2 ROAR and an AR target); generate_multi_guided with
+     2 conditions at batch 2 (one forward of 6 rows, launch counts exact);
+     generate_sam_dense over 4 replicas of a 32-token sam_instance region
+     (the decode step's wrappers' launch counts exact);
   3b. the same chain at 4M-21 XL (fm_xlarge_24e_24d_swiglu_qknorm_nobias,
      full width and depth, random bf16 weights) for 4 requests, bench.py's
      xl_full_chain batch, in bf16 and then with kv_quant="int8" (every
      cross-attention decode step through decode_attention_int8), each with
      exact launch counts, and the two runs' token agreement (printed, not
-     gated); 3c. the decode microbenchmark at XL (24 layers) in both modes;
+     gated), then the decode microbenchmark at XL (24 layers) in both modes;
      4b. XL parity at depth cut to 2 + 2: one forward_generation_img and one
      ar_prefill + 4 decode steps (bf16, and int8 against the CPU's int8
      twins) at batch 2 against fp32 CPU runs;
@@ -156,7 +194,8 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      that the per-leaf gate must catch.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
-also with its wrapper's launches on the decode paths of phase 10); the last line is
+also with its wrapper's launches on the decode paths of phase 10 and on the
+SR paths of phases 3c and 10b); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -231,6 +270,27 @@ DIVAE_UVITB = dict(TOK_VITB, dec_type="uvit_b_p4_f16", codebook_size=1024,
 # per layer and step)
 PER_DECODE = {"attn_block": 4 * DEPTH, "ln_mlp": 4 * DEPTH}
 PER_UVIT_DECODE = {"attention": 12 * DECODE_STEPS}
+# the SR-448 chain of bench.py:508-533: 4M-L (D = 1024, 16 heads, 24 + 24
+# layers, SwiGLU hidden 2730, no QK-norm) on the 4M-21 modality sets and the
+# @448 targets (bench.py:103-106), 4 requests conditioned on rgb@224 and
+# tok_rgb@224, the 5 DEFAULT_ORDER_SR targets by DEFAULTS_SR (8 MaskGIT
+# cosine steps of the 784-token grid each, CFG 2.0: 8 rows)
+SR_MODEL = "fm_large_24e_24d_swiglu_nobias"
+SR_TARGETS = ["tok_clip@448", "tok_depth@448", "tok_normal@448", "tok_semseg@448", "tok_rgb@448"]
+SR_MODS = (MOD21 + tuple(SR_TARGETS), MOD21_DEC + tuple(SR_TARGETS))
+SR_CONDS = ["rgb@224", "tok_rgb@224"]
+SR_REQUESTS, SR_STEPS, SR_GRID = 4, 8, 784
+# the whole encoder stream at the last target: 196 + 196 condition tokens
+# and the 5 grids (its budget would be no shorter)
+SR_LONGEST = 2 * 196 + len(SR_TARGETS) * SR_GRID
+# decoding at 448 (phase 10b): the SR chain's targets whose vocabulary a
+# phase 10 tokenizer takes (tok_rgb@448's 16384 ids do not fit the UViT-B's
+# 1024 codes, so the UViT-B decodes grids of its own codes, as at 224)
+DECODE448_TARGETS = SR_TARGETS[:4]
+# launches of one such decode: each of the 2 ViT-B decoders' 12 blocks at 784
+# tokens, past attn_block's 448, ln_matmul + mha_short, then ln_mlp; the
+# UNet-P4s launch no kernel
+PER_DECODE448 = {"ln_matmul": 2 * DEPTH, "mha_short": 2 * DEPTH, "ln_mlp": 2 * DEPTH}
 # the train step of bench.py:224-279: 4M-B on the 4M-7 modality sets, B = 32,
 # 128 input and 128 target tokens, bf16 compute over fp32 master weights
 TRAIN_MODEL = "fm_base_12e_12d_swiglu_nobias"
@@ -515,9 +575,10 @@ ATTENTION_CU = "fourm_torch/kernels/csrc/attention.cu"
 
 
 def flash_row(torch, rn, key_bias, g64, B: int, N: int, D: int = 768, H: int = 12):
-    """A flash_mha row: q, k, v (B, N, C) slices of one QKV buffer, QK-norm
-    (LN parameters g64), a key bias with one batch row fully masked; the
-    library yardstick is SDPA on the normalised heads."""
+    """A flash_mha row: q, k, v (B, N, D) slices of one QKV buffer, QK-norm
+    (LN parameters g64; None: no QK-norm, as at 4M-L), a key bias with one
+    batch row fully masked; the library yardstick is SDPA on the
+    (normalised) heads."""
     import torch.nn.functional as F
 
     from fourm_torch.kernels import attention as at
@@ -526,17 +587,21 @@ def flash_row(torch, rn, key_bias, g64, B: int, N: int, D: int = 768, H: int = 1
     qkv = rn(B, N, 3 * D)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     bias = key_bias(B, N, full_rows=1)
-    args = (q, k, v, H, bias, *g64)
-    qn = F.layer_norm(q.reshape(B, N, H, Dh).float(), (Dh,), g64[0], g64[1], 1e-6)
-    kn = F.layer_norm(k.reshape(B, N, H, Dh).float(), (Dh,), g64[2], g64[3], 1e-6)
-    qn, kn = qn.to(bf).transpose(1, 2), kn.to(bf).transpose(1, 2)
+    norms = (None,) * 4 if g64 is None else tuple(g64)
+    args = (q, k, v, H, bias, *norms)
+    qn, kn = q.reshape(B, N, H, Dh), k.reshape(B, N, H, Dh)
+    if g64 is not None:
+        qn = F.layer_norm(qn.float(), (Dh,), g64[0], g64[1], 1e-6).to(bf)
+        kn = F.layer_norm(kn.float(), (Dh,), g64[2], g64[3], 1e-6).to(bf)
+    qn, kn = qn.transpose(1, 2), kn.transpose(1, 2)
     vh, mask = v.reshape(B, N, H, Dh).transpose(1, 2), bias[:, None, None, :].to(bf)
     return dict(
         run=lambda: at.flash_mha(*args), plain=lambda: at.flash_mha_plain(*args),
         library=lambda: F.scaled_dot_product_attention(qn, kn, vh, attn_mask=mask),
-        faults=lambda: mha_faults(q, k, v, H, bias, g64),
+        faults=lambda: mha_faults(q, k, v, H, bias, norms),
         flops=4 * B * H * N * N * Dh, bytes=4 * B * N * D * 2 + B * N * 4,
-        shape=f"q,k,v (B={B}, N=M={N}, C=768) slices of QKV, 12 heads, QK-norm, key bias")
+        shape=f"q,k,v (B={B}, N=M={N}, C={D}) slices of QKV, {H} heads, "
+              f"{'no QK-norm' if g64 is None else 'QK-norm'}, key bias")
 
 
 def attention_row(torch, rn, gen, key_bias, B: int, N: int, M: int, full_rows: int = 0,
@@ -563,7 +628,7 @@ def attention_row(torch, rn, gen, key_bias, B: int, N: int, M: int, full_rows: i
         faults=lambda: attention_faults(q, k, v, bias),
         flops=4 * B * H * N * M * Dh,
         bytes=(2 * B * H * N * Dh + 2 * B * H * M * Dh) * 2 + bias.numel() * 4,
-        shape=f"q (B={B}, 12, N={N}, 64), k/v M={M}, "
+        shape=f"q (B={B}, {H}, N={N}, 64), k/v M={M}, "
               + ("(B, 1, N, M) bias, query row 3 fully masked" if row_bias else
                  "(B, 1, 1, M) bias")
               + (f", {full_rows} batch rows fully masked" if full_rows else ""))
@@ -588,10 +653,43 @@ def attention_rows(torch, rn, gen, key_bias, g64):
         ("attention@masked_rows", "fourm_tpu/kernels/attention.py:325", ATTENTION_CU,
          attn_case(16, 196, 512, full_rows=8)),
         ("attention@SR448", "fourm_tpu/kernels/attention.py:127", ATTENTION_CU,
-         attn_case(16, 784, 1536)),
+         dict(attn_case(16, 784, 1536), path="sr_chain")),
         ("attention@row_bias", "fourm_tpu/kernels/attention.py:325", ATTENTION_CU,
          attn_case(16, 196, 512, row_bias=True)),
     ]
+
+
+def mha_short_row(torch, rn, key_bias, B: int, N: int, C: int, H: int, with_bias: bool,
+                  path: str):
+    """A mha_short row: packed qkv (B, N, 3C) at 3x scale (peaked attention,
+    so that a head or a key tile left out moves the output well past two
+    bf16 ulps), a (B, N) key bias with one row fully masked or no mask;
+    faults: mha_faults' and one head's output left out; the library
+    yardstick is SDPA on the heads."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+
+    Dh = C // H
+    qkv = rn(B, N, 3 * C, std=3.0)
+    bias = key_bias(B, N, full_rows=1) if with_bias else None
+    heads = [t.reshape(B, N, H, Dh).transpose(1, 2) for t in qkv.split(C, dim=-1)]
+    mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+
+    def faults():
+        right, wrong, _ = mha_faults(*qkv.split(C, dim=-1), H, bias)
+        no_head = right.clone()
+        no_head[..., 5 * Dh:6 * Dh] = 0
+        wrong["one head's output left out"] = no_head
+        return right, wrong, set(wrong)
+
+    return dict(
+        run=lambda: at.mha_short(qkv, H, bias), plain=lambda: at.mha_short_plain(qkv, H, bias),
+        faults=faults, path=path,
+        library=lambda: F.scaled_dot_product_attention(*heads, attn_mask=mask),
+        flops=4 * B * H * N * N * Dh, bytes=B * N * 4 * C * 2 + (B * N * 4 if with_bias else 0),
+        shape=f"qkv (B={B}, N={N}, 3*{C}), {H} heads, "
+              + ("(B, N) key bias, 1 row fully masked" if with_bias else "no mask"))
 
 
 def kernel_phase(torch, card: str):
@@ -1384,7 +1482,7 @@ def xl_kernel_phase(torch, card: str):
         ("ln_mlp@XL_N196", lml, sml, ln_mlp_row(torch, rn, gen, 8 * 196, 2048, 5461, True,
                                                 path="xl_chain", w2_tail_gain=8.0)),
         ("ln_mlp@L", lml, sml, ln_mlp_row(torch, rn, gen, rows, 1024, 2730, True,
-                                          path="xl_chain", w2_tail_gain=8.0)),
+                                          path="sr_chain", w2_tail_gain=8.0)),
         ("flash_mha@XL", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 2304)),
         ("flash_mha@XL_N196", "fourm_tpu/kernels/attention.py:587", fa, flash_case(8, 196)),
         ("attention@XL", "fourm_tpu/kernels/attention.py:325", fa, attn_case(8, 196, 2304)),
@@ -1626,26 +1724,7 @@ def vq_kernel_cases(torch, rn, key_bias, gen):
         return xg + F.linear(F.gelu(F.linear(hh, wg1, bg1.to(bf))), wg2, bg2.to(bf))
 
     def mha_case(with_bias):
-        qkv = rn(B, NT, 3 * C, std=3.0)  # peaked attention, as above
-        bias = key_bias(B, NT, full_rows=1) if with_bias else None
-        heads = [t.reshape(B, NT, H, Dh).transpose(1, 2) for t in qkv.split(C, dim=-1)]
-        mask = None if bias is None else bias[:, None, None, :].to(bf)
-
-        def faults():
-            right, wrong, _ = mha_faults(*qkv.split(C, dim=-1), H, bias)
-            no_head = right.clone()
-            no_head[..., 5 * Dh:6 * Dh] = 0
-            wrong["one head's output left out"] = no_head
-            return right, wrong, set(wrong)
-
-        return dict(
-            run=lambda: at.mha_short(qkv, H, bias), plain=lambda: at.mha_short_plain(qkv, H, bias),
-            faults=faults, path="vq_b",
-            library=lambda: F.scaled_dot_product_attention(*heads, attn_mask=mask),
-            flops=4 * B * H * NT * NT * Dh,
-            bytes=B * NT * 4 * C * 2 + (B * NT * 4 if with_bias else 0),
-            shape=f"qkv (B={B}, N={NT}, 3*768), 12 heads" + (
-                ", (B, N) key bias, 1 row fully masked" if with_bias else ", no mask"))
+        return mha_short_row(torch, rn, key_bias, B, NT, C, H, with_bias, "vq_b")
 
     def search_case(name, K, path, N_rows=B * N, D=32, ties=False):
         """A search row. Its bound: the products exact on the CUDA cores
@@ -1809,10 +1888,11 @@ def vq_kernel_phase(torch, card: str):
     return results
 
 
-def build_model(torch, dtype: str, device: str, seed: int = 0, name: str = MODEL, **overrides):
+def build_model(torch, dtype: str, device: str, seed: int = 0, name: str = MODEL,
+                mods=(MOD21, MOD21_DEC), **overrides):
     from fourm_torch.models import FourM, create_fourm_config, init_weights
 
-    cfg = create_fourm_config(name, MOD21, MOD21_DEC, dtype=dtype, **overrides)
+    cfg = create_fourm_config(name, *mods, dtype=dtype, **overrides)
     with torch.device(device):
         model = FourM(cfg)
     model = model.to(device=device, dtype=cfg.compute_dtype)
@@ -1838,14 +1918,18 @@ def chain_launches(depth: int, n_tok: int, kv_quant=None) -> dict:
 
 
 class PassLengths:
-    """Records the token count of every encoder and decoder pass (a forward
-    pre-hook on the first block of each stack; KV-cached decode steps run
-    DecoderBlock.step and are not passes)."""
+    """Records the token count of every encoder and decoder pass, and the
+    rows of each encoder pass (a forward pre-hook on the first block of each
+    stack; KV-cached decode steps run DecoderBlock.step and are not passes)."""
 
     def __init__(self, model):
-        self.encoder, self.decoder = [], []
-        self._hooks = [model.encoder[0].register_forward_pre_hook(
-                           lambda _m, args: self.encoder.append(args[0].shape[1])),
+        self.encoder, self.decoder, self.rows = [], [], []
+
+        def encoder_pass(_m, args):
+            self.encoder.append(args[0].shape[1])
+            self.rows.append(args[0].shape[0])
+
+        self._hooks = [model.encoder[0].register_forward_pre_hook(encoder_pass),
                        model.decoder[0].register_forward_pre_hook(
                            lambda _m, args: self.decoder.append(args[0].shape[1]))]
 
@@ -2049,7 +2133,8 @@ def decode_bench(torch, model, out, card: str, kv_quant=None, label: str = "") -
 
 
 def cpu_models(torch, model, name: str = MODEL, **overrides):
-    """The card model's weights on the CPU, in fp32 and in bf16."""
+    """The card model's weights on the CPU, in fp32 and in bf16 (overrides:
+    build_model's)."""
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
     models = {}
     for dtype in ("float32", "bfloat16"):
@@ -2250,8 +2335,8 @@ def decode_phase(torch, model, out, bundles: dict, card: str):
 
 
 def uvit_decode_phase(torch, card: str):
-    """Phase 10b: 8 token grids from [0, 1024) decoded by the UViT-B DiVAE
-    of divae/rgb/ViTB-UViTB_1k_224_predv_frozenenc.yaml at 25 steps, seeded
+    """Phase 10a, its second part: 8 token grids from [0, 1024) decoded by
+    the UViT-B DiVAE of divae/rgb/ViTB-UViTB_1k_224_predv_frozenenc.yaml at 25 steps, seeded
     random bf16 weights; exact launch counts (a mid block's attention core
     per layer and step, 300) over one call after a warm-up, the median of
     three calls. Returns (the launch counts, the model)."""
@@ -2346,8 +2431,463 @@ def decode_tokens_parity_phase(torch, bundles: dict, uvit, out, dec: dict) -> No
           f"decode_dict ({sum(len(str(host[t])) for t in AR_TARGETS)} characters)", flush=True)
 
 
+def count_syncs(torch, fn):
+    """fn() under torch.cuda's sync debug mode: its result and the number of
+    synchronizing operations it made (torch's warnings, one each)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sr_budgets(cond_tokens: int, n_targets: int) -> list:
+    """The encoder pass length of each SR target's steps, from fixed facts:
+    the valid tokens at the target's last step (the conditions' and every
+    784-token grid's so far) rounded up to 256, or the whole stream (the
+    conditions and every grid) when that is no shorter
+    (generate/sampler.py:_group_budget)."""
+    total = cond_tokens + n_targets * SR_GRID
+    out = []
+    for i in range(n_targets):
+        bucket = -(-(cond_tokens + SR_GRID * (i + 1)) // 256) * 256
+        out.append(total if bucket >= total else bucket)
+    return out
+
+
+def sr_launches(cfg, budgets) -> dict:
+    """Launches of each wrapper in one SR chain: per MaskGIT step (8 a
+    target), per encoder block its self-attention half over the target's
+    budget (prenorm_launches: past 1024 tokens ln_matmul + flash_mha without
+    QK-norm) and ln_mlp; per decoder block its self-attention half over the
+    784 grid tokens under a key-only mask (ln_matmul + mha_short: past
+    attn_block's 448), the cross-attention core and ln_mlp."""
+    counts = {}
+    for N in budgets:
+        for group, depth in ((dict(prenorm_launches(N, cfg), ln_mlp=1), cfg.encoder_depth),
+                             (dict(prenorm_launches(SR_GRID, cfg), attention=1, ln_mlp=1),
+                              cfg.decoder_depth)):
+            for k, v in group.items():
+                counts[k] = counts.get(k, 0) + v * depth * SR_STEPS
+    return counts
+
+
+def check_sr_targets(out, targets, requests: int, label: str) -> None:
+    from fourm_torch.data.modality_info import MODALITY_INFO
+
+    for t in targets:
+        d, spec = out[t], MODALITY_INFO[t]
+        check(tuple(d["tensor"].shape) == (requests, SR_GRID), f"{label}: {t} shape")
+        check(bool(d["target_mask"].all()) and not bool(d["input_mask"].any()),
+              f"{label}: {t} not fully decoded")
+        check(int(d["tensor"].min()) >= 0 and int(d["tensor"].max()) < spec.vocab_size,
+              f"{label}: {t} token outside [0, vocab)")
+
+
+def sr_phase(torch, card: str):
+    """Phase 3c: the SR-448 chain of bench.py:508-533 at full width: 4M-L
+    (SR_MODEL on SR_MODS, uncut, random bf16 weights), 4 requests
+    conditioned on random rgb@224 pixels and tok_rgb@224 ids, the 5
+    DEFAULT_ORDER_SR targets through FourMSampler.generate (8 MaskGIT steps
+    each, CFG 2.0). A warm-up run, counting the host syncs; then three timed
+    runs (samples/s from their median), the launch counters reset just
+    before and read just after the first, checked exactly against
+    sr_launches (and each pass's length against sr_budgets); a fifth run,
+    instrumented, times each target. Returns (the model, the last timed
+    run's output, the launch counts)."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+
+    model = build_model(torch, "bfloat16", "cuda", name=SR_MODEL, mods=SR_MODS)
+    print(f"sr model {SR_MODEL}: {sum(p.numel() for p in model.parameters())} parameters, "
+          f"bf16, random (seed 0); {len(SR_MODS[0])} encoder modalities", flush=True)
+    sampler = FourMSampler(model, StandInTokenizer())  # the card, by default
+    rng = np.random.RandomState(0)
+    sample = {"rgb@224": rng.rand(SR_REQUESTS, 224, 224, 3).astype(np.float32),
+              "tok_rgb@224": rng.randint(0, 16384, (SR_REQUESTS, 196)).astype(np.int32)}
+    schedule = sampler.build_schedule(SR_CONDS, SR_TARGETS)
+    check([s["target_domain"] for s in schedule] == [t for t in SR_TARGETS
+                                                     for _ in range(SR_STEPS)], "sr: schedule")
+    check(all(s["scheme"] == "maskgit" and s["cfg_scale"] == 2.0 and s["temperature"] == 1.0
+              for s in schedule), "sr: not DEFAULTS_SR's MaskGIT with CFG 2.0")
+    check(all(sum(s["num_tokens"] for s in schedule if s["target_domain"] == t) == SR_GRID
+              for t in SR_TARGETS), "sr: a target's steps do not fill its grid")
+
+    def run(seed):
+        md = sampler.prepare_sample(sample, SR_CONDS, SR_TARGETS, batch_size=SR_REQUESTS)
+        return sampler.generate(md, schedule, seed=seed)
+
+    _, syncs = count_syncs(torch, lambda: run(0))  # the warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(3):
+        if i == 0:
+            lengths = PassLengths(model)
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(1 + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = kernels.launch_counts()
+            lengths.close()
+    wall = float(np.median(walls))
+    budgets = sr_budgets(2 * 196, len(SR_TARGETS))
+    check(lengths.encoder == [b for b in budgets for _ in range(SR_STEPS)],
+          f"sr: encoder passes {lengths.encoder} != budgets {budgets}")
+    check(lengths.decoder == [SR_GRID] * (SR_STEPS * len(SR_TARGETS)) and
+          set(lengths.rows) == {2 * SR_REQUESTS}, "sr: decoder passes or rows")
+    expected = {k: 0 for k in launches}
+    expected.update(sr_launches(model.config, budgets))
+    check(launches == expected, f"sr: launch counts {launches} != {expected}")
+    for w in ("ln_matmul", "ln_mlp", "flash_mha", "attention", "mha_short"):
+        check(launches.get(w, 0) > 0, f"sr: no {w} launch on the SR path")
+    check_sr_targets(out, SR_TARGETS, SR_REQUESTS, "sr")
+
+    seconds = {}  # the instrumented run: each target's steps, fenced
+    inner = sampler.sampler._generate_img_target
+
+    def timed(mod_dict, group, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(mod_dict, group, *a, **kw)
+        torch.cuda.synchronize()
+        seconds[group[0]["target_domain"]] = time.perf_counter() - t0
+        return res
+
+    sampler.sampler._generate_img_target = timed
+    run(4)
+    del sampler.sampler._generate_img_target  # the class's method again
+    print(f"sr chain: {SR_MODEL}, {SR_REQUESTS} requests ({', '.join(SR_CONDS)}) x "
+          f"{len(SR_TARGETS)} targets of {SR_GRID} tokens ({SR_STEPS} MaskGIT steps, CFG 2.0, "
+          f"{2 * SR_REQUESTS} rows), FourMSampler.generate: {wall:.4f} s per run (median of "
+          f"{', '.join(f'{w:.4f}' for w in walls)}), {SR_REQUESTS / wall:.4f} samples/s; "
+          f"{syncs} host syncs a run (sync debug mode, the warm-up); encoder budgets "
+          f"{budgets}; {card}", flush=True)
+    for t in SR_TARGETS:
+        print(f"  {t}: {seconds[t]:.4f} s ({seconds[t] / SR_STEPS * 1e3:.3f} ms a step)",
+              flush=True)
+    print(f"sr launches {json.dumps(launches)}", flush=True)
+    return model, out, launches
+
+
+def super_resolve_phase(torch, card: str, sr_model, base, chain_out):
+    """Phase 3c, its second part: FourMSampler(base, fm_sr=sr_model)
+    .super_resolve of phase 3's 4M-B chain output (8 requests): its 9 @224
+    entries condition, 4 targets (the chain has no tok_rgb@224, so no
+    tok_rgb@448), kv_quant off; the launch counts of the call, checked
+    exactly against sr_launches. Returns the launch counts."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+    from fourm_torch.data.modality_info import MODALITY_INFO
+
+    sampler = FourMSampler(base, StandInTokenizer(), fm_sr=sr_model)
+    conds = [m for m in chain_out if m.endswith("@224")]
+    targets = [t for t in SR_TARGETS if t.replace("@448", "@224") in chain_out]
+    check(targets == SR_TARGETS[:4], f"super_resolve: targets {targets}")
+    cond_tokens = sum(196 if m.startswith("rgb") else MODALITY_INFO[m].resolved_max_tokens()
+                      for m in conds)
+    lengths = PassLengths(sr_model)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler.super_resolve(chain_out, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    lengths.close()
+    check(list(out) == conds + targets, f"super_resolve: keys {list(out)}")
+    budgets = sr_budgets(cond_tokens, len(targets))
+    check(lengths.encoder == [b for b in budgets for _ in range(SR_STEPS)],
+          f"super_resolve: encoder passes {lengths.encoder} != budgets {budgets}")
+    expected = {k: 0 for k in launches}
+    expected.update(sr_launches(sr_model.config, budgets))
+    check(launches == expected, f"super_resolve: launch counts {launches} != {expected}")
+    check_sr_targets(out, targets, REQUESTS, "super_resolve")
+    print(f"super_resolve: phase 3's 4M-B chain output, {REQUESTS} requests, {len(conds)} @224 "
+          f"conditions ({cond_tokens} tokens) -> {len(targets)} @448 targets by {SR_MODEL}: "
+          f"{wall:.4f} s (one call), {REQUESTS / wall:.4f} samples/s; encoder budgets "
+          f"{budgets}; {card}", flush=True)
+    print(f"super_resolve launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def sr_parity_phase(torch, out) -> None:
+    """Phase 4c: one SR MaskGIT step at batch 2 with 4M-L cut to 2 + 2
+    layers at full width: tok_depth@448 with every position still masked,
+    conditioned on phase 3c's rgb@224, tok_rgb@224 and tok_clip@448 (the
+    later targets empty), at the encoder budget the chain gives it (2048:
+    N x M = 784 x 2048 past 1024^2, where the JAX package hands over to
+    flash_attention); card bf16 kernels (exact launch counts) against the
+    CPU plain twins in fp32 and in bf16 (phase 4's gate)."""
+    from fourm_torch import kernels
+    from fourm_torch.generate import GenerationSampler
+
+    cut = dict(name=SR_MODEL, mods=SR_MODS, encoder_depth=2, decoder_depth=2)
+    model = build_model(torch, "bfloat16", "cuda", seed=1, **cut)
+    cpu = cpu_models(torch, model, **cut)
+    target = "tok_depth@448"
+    md = {m: {k: v[:2] for k, v in out[m].items()} for m in SR_CONDS + SR_TARGETS}
+    for t in SR_TARGETS[1:]:  # tok_depth@448 and the later targets still to decode
+        md[t] = dict(md[t], input_mask=torch.ones_like(md[t]["input_mask"]),
+                     target_mask=torch.zeros_like(md[t]["target_mask"]))
+    sampler = GenerationSampler(model)
+    budget = sampler._group_budget(sampler._init_valid_counts(md), md,
+                                   [{"target_domain": target, "num_tokens": SR_GRID}])
+    check(budget == sr_budgets(2 * 196, len(SR_TARGETS))[1], f"sr parity: budget {budget}")
+    sa = torch.ones(2, SR_GRID, dtype=torch.bool, device=model.device)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        gpu = model.forward_generation_img(md, target, sa, budget).float().cpu()
+        launches = kernels.launch_counts()
+        logits = {dt: m.forward_generation_img(_on(md, "cpu"), target, sa.cpu(), budget).float()
+                  for dt, m in cpu.items()}
+    expected = {k: 0 for k in launches}
+    expected.update({k: v // SR_STEPS for k, v in sr_launches(model.config, [budget]).items()})
+    check(launches == expected, f"sr parity: launch counts {launches} != {expected}")
+    gate(torch, "sr parity (2 + 2 layers)", gpu, logits["float32"], logits["bfloat16"],
+         f"forward_generation_img B=2 {target}, MaskGIT's first step, encoder budget {budget}, "
+         f"launches {json.dumps(launches)}")
+
+
+def decode448_phase(torch, model, out, bundles: dict, uvit, card: str):
+    """Phase 10b: FourMSampler.decode of phase 3c's tok_clip@448,
+    tok_depth@448, tok_normal@448 and tok_semseg@448 (4 requests) at 448
+    (decode_dict reads the resolution from the @448 keys) through phase 10's
+    224-trained tokenizers: the ViT-B VQ-VAEs of CLIP-B16 and COCO semseg on
+    28 x 28 grids (positions resized bicubically; 784 tokens, so ln_matmul +
+    mha_short, not attn_block), the UNet-P4 DiVAEs of depth and normals at
+    448 x 448, 25 steps; then phase 10's UViT-B DiVAE decoding 4 grids of 28
+    x 28 of its codes at 448, 25 steps. Each: a warm-up call, the launch
+    counters reset just before and read just after the first of three timed
+    calls (the median is the figure), checked exactly, the peak device
+    memory of that call; for the decode a fifth, instrumented call times
+    each tokenizer and its own peak. Then parity (phase 10c's gates): the
+    CLIP ViT-B decoder at batch 2, one UNet-P4 step at batch 1 and one UViT-B
+    step at batch 1, at 448. Returns the two calls' launch counts."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+    from fourm_torch.vq import VQVAE, DiVAE, divae_decode_tokens
+
+    toks = {k: bundles[k] for k in ("tok_clip", "tok_semseg", "tok_depth", "tok_normal")}
+    sampler = FourMSampler(model, StandInTokenizer(), tokenizers=toks)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    grids = torch.randint(0, 1024, (SR_REQUESTS, 28, 28), generator=gen, device="cuda")
+
+    def decode():
+        res = sampler.decode(out, decoding_steps=DECODE_STEPS, seed=0, keys=DECODE448_TARGETS)
+        torch.cuda.synchronize()
+        return res
+
+    def uvit_decode():
+        with torch.inference_mode():
+            img = divae_decode_tokens(uvit, grids, gen, timesteps=DECODE_STEPS, image_size=448)
+        torch.cuda.synchronize()
+        return img
+
+    def timed_calls(run):
+        """A warm-up call, then three timed: (the last result, walls, launch
+        counts and peak / held MiB of the first)."""
+        run()
+        walls = []
+        for i in range(3):
+            if i == 0:
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2**20
+            t0 = time.perf_counter()
+            res = run()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**20
+        return res, walls, launches, peak, held
+
+    dec, walls, launches, peak, held = timed_calls(decode)
+    expected = {k: 0 for k in launches}
+    expected.update(PER_DECODE448)
+    check(launches == expected, f"decode448: launch counts {launches} != {expected}")
+    seconds, peaks = {}, {}  # the instrumented call: each tokenizer, fenced
+    for k, b in toks.items():
+        def timed(*a, _inner=b.decode_tokens, _k=k, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[_k] = time.perf_counter() - t0
+            peaks[_k] = (torch.cuda.max_memory_allocated() - start) / 2**20
+            return res
+        b.decode_tokens = timed
+    decode()
+    for b in toks.values():
+        del b.decode_tokens  # the class's method again
+    check(list(dec) == DECODE448_TARGETS, f"decode448: keys {list(dec)}")
+    for t in DECODE448_TARGETS:
+        n = 28 if t == "tok_clip@448" else 448  # CLIP: a PCA image of the feature grid
+        img = dec[t]
+        check(isinstance(img, np.ndarray) and img.shape == (SR_REQUESTS, n, n, 3),
+              f"decode448: {t} shape {getattr(img, 'shape', type(img))}")
+        check(bool(np.isfinite(img).all()) and img.min() >= 0 and img.max() <= 1,
+              f"decode448: {t} values outside [0, 1]")
+    wall = float(np.median(walls))
+    n_img = len(DECODE448_TARGETS)
+    print(f"decode448: FourMSampler.decode of the SR chain's {', '.join(DECODE448_TARGETS)} for "
+          f"{SR_REQUESTS} requests at 448 ({DECODE_STEPS} diffusion steps): {wall * 1e3:.3f} ms "
+          f"per call (median of {', '.join(f'{w * 1e3:.3f}' for w in walls)}), "
+          f"{SR_REQUESTS / wall:.4f} requests/s, {SR_REQUESTS * n_img / wall:.4f} decoded target "
+          f"images/s; peak device memory {peak:.1f} MiB ({peak - held:.1f} above the "
+          f"{held:.1f} MiB held before the call); {card}", flush=True)
+    for k, sec in seconds.items():
+        print(f"  {k}: {sec * 1e3:.3f} ms ({SR_REQUESTS} images at 448"
+              f"{'' if k in ('tok_clip', 'tok_semseg') else f', {DECODE_STEPS} steps'}), peak "
+              f"{peaks[k]:.1f} MiB above its start", flush=True)
+    print(f"decode448 launches {json.dumps(launches)}", flush=True)
+
+    img, walls, uvit_launches, peak, held = timed_calls(uvit_decode)
+    expected = {k: 0 for k in uvit_launches}
+    expected.update(PER_UVIT_DECODE)
+    check(uvit_launches == expected,
+          f"uvit decode448: launch counts {uvit_launches} != {expected}")
+    check(tuple(img.shape) == (SR_REQUESTS, 448, 448, 3) and bool(torch.isfinite(img).all()),
+          "uvit decode448: output")
+    wall = float(np.median(walls))
+    print(f"uvit decode448: UViT-B DiVAE, {SR_REQUESTS} grids of 28 x 28 tokens at 448, "
+          f"{DECODE_STEPS} steps: {wall * 1e3:.3f} ms per call (median of "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}), {wall / DECODE_STEPS * 1e3:.3f} ms per "
+          f"step; peak device memory {peak:.1f} MiB ({peak - held:.1f} above the call's start); "
+          f"{card}", flush=True)
+    print(f"uvit decode448 launches {json.dumps(uvit_launches)}", flush=True)
+
+    def gate448(name, gpu, cpu, cpu_run):
+        t0 = time.perf_counter()
+        ref = {dt: cpu_run(m).float() for dt, m in cpu.items()}
+        latent_gate(torch, f"{name} ({time.perf_counter() - t0:.1f} s on the CPU)",
+                    gpu.float().cpu(), ref["float32"], ref["bfloat16"], label="decode448 parity")
+
+    with torch.inference_mode():
+        m = toks["tok_clip"].model
+        grid = out["tok_clip@448"]["tensor"][:2].reshape(2, 28, 28)
+        gate448("tok_clip ViT-B decoder B=2 at 784 tokens", m.decode_tokens(grid),
+                cpu_copies(m, lambda dt: VQVAE(**dict(VQVAE_TOKENIZERS["tok_clip"], dtype=dt),
+                                               device="cpu")),
+                lambda c: c.decode_tokens(grid.cpu()))
+        m = toks["tok_depth"].model
+        grid = out["tok_depth@448"]["tensor"][:1].reshape(1, 28, 28)
+        noised = torch.randn(1, 448, 448, 3, generator=gen, device="cuda")
+        gate448("UNet-P4 denoise_step t=500 B=1 at 448",
+                m.denoise_step(noised, 500, m.tokens_to_embedding(grid)),
+                cpu_copies(m, lambda dt: DiVAE(**dict(DIVAE_UNETP4, dtype=dt), device="cpu")),
+                lambda c: c.denoise_step(noised.cpu(), 500, c.tokens_to_embedding(grid.cpu())))
+        grid = grids[:1]
+        noised = torch.randn(1, 448, 448, 3, generator=gen, device="cuda")
+        gate448("UViT-B denoise_step t=500 B=1 at 448",
+                uvit.denoise_step(noised, 500, uvit.tokens_to_embedding(grid)),
+                cpu_copies(uvit, lambda dt: DiVAE(**dict(DIVAE_UVITB, dtype=dt), device="cpu")),
+                lambda c: c.denoise_step(noised.cpu(), 500, c.tokens_to_embedding(grid.cpu())))
+    return launches, uvit_launches
+
+
+def generate_api_phase(torch, model, card: str) -> dict:
+    """Phase 3f: the rest of the generation API at 4M-21 B full width
+    (phase 3's model): generate_iter against generate on one seed at
+    temperature 0 (tok_clip@224 by 4 MaskGIT steps and tok_depth@224 by 2
+    ROAR steps, both with CFG 2.0, then caption autoregressively; 4
+    requests), the last yield bit for bit; generate_multi_guided with 2
+    conditions (two images, the unconditional dict's image empty) at batch
+    2, one ROAR step over tok_clip@224's 196 tokens, one forward of 6 rows,
+    exact launch counts; generate_sam_dense over 4 replicas of one request,
+    sam_instance cut to a 32-token region, exact launch counts (the decode
+    step's wrappers, rows 6-9, once per layer and token). Returns
+    {path: launch counts}."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+    from fourm_torch.data.modality_info import MODALITY_INFO
+    from fourm_torch.generate import build_chained_generation_schedules, init_empty_target_modality
+
+    sampler = FourMSampler(model, StandInTokenizer())
+    gs, depth = sampler.sampler, len(model.decoder)
+    rgb = np.random.RandomState(3).rand(4, 224, 224, 3).astype(np.float32)
+    targets = ["tok_clip@224", "tok_depth@224", "caption"]
+    schedule = build_chained_generation_schedules(
+        ["rgb@224"], targets, [196, 196, 256], ["maskgit", "roar", "autoregressive"],
+        [4, 2, None], ["cosine", "linear", None], [0.0] * 3, ["constant"] * 3, [2.0, 2.0, 1.0],
+        ["constant"] * 3, cfg_grow_conditioning=True, modality_info=MODALITY_INFO)
+    md = sampler.prepare_sample({"rgb@224": rgb}, ["rgb@224"], targets, batch_size=4)
+    t0 = time.perf_counter()
+    steps = list(gs.generate_iter(md, schedule, seed=7))
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t0
+    ref = gs.generate(md, schedule, seed=7)
+    check(len(steps) == len(schedule), "generate_iter: one yield per step")
+    decoded = [int(s["tok_clip@224"]["target_mask"].sum()) for s in steps[:4]]
+    check(decoded == list(np.cumsum([4 * s["num_tokens"] for s in schedule[:4]])),
+          f"generate_iter: MaskGIT's decoded counts {decoded}")
+    same = all(torch.equal(steps[-1][m][k], ref[m][k]) for m in ref for k in ref[m])
+    check(same, "generate_iter: the last yield differs from generate's output")
+    print(f"generate_iter: {len(steps)} yields (4 MaskGIT, 2 ROAR, 1 AR target of "
+          f"{gs._ar_tokens['caption']} tokens), {iter_s:.4f} s; the last yield equals "
+          f"generate's output bit for bit (temperature 0, seed 7); {card}", flush=True)
+
+    def rgb_dict(images, empty=False):
+        d = sampler.prepare_sample({"rgb@224": images}, ["rgb@224"], ["tok_clip@224"],
+                                   batch_size=len(images))
+        if empty:
+            d["rgb@224"]["input_mask"][:] = True
+        return d
+
+    multi = [{"target_domain": "tok_clip@224", "scheme": "roar", "num_tokens": 196,
+              "temperature": 0.0, "cfg_scale": [1.5, 0.5], "cfg_cond_domains": []}]
+    lengths = PassLengths(model)
+    kernels.reset_launch_counts()
+    res = gs.generate_multi_guided(rgb_dict(rgb[:2], empty=True), [rgb_dict(rgb[:2]),
+                                                                   rgb_dict(rgb[2:])], multi)
+    torch.cuda.synchronize()
+    multi_launches = kernels.launch_counts()
+    lengths.close()
+    d = res["tok_clip@224"]
+    check(bool(d["target_mask"].all()) and not bool(d["input_mask"].any()),
+          "generate_multi_guided: not fully decoded")
+    check(lengths.rows == [6] and lengths.encoder == [392] and lengths.decoder == [196],
+          f"generate_multi_guided: passes {lengths.rows} rows, {lengths.encoder} + "
+          f"{lengths.decoder} tokens")
+    expected = {k: 0 for k in multi_launches}
+    expected.update(ln_matmul=2 * depth, flash_mha=2 * depth, ln_mlp=2 * depth, attention=depth)
+    check(multi_launches == expected,
+          f"generate_multi_guided: launch counts {multi_launches} != {expected}")
+    print(f"generate_multi_guided: 2 conditions, B=2, one ROAR step over 196 tokens, one forward "
+          f"of {lengths.rows[0]} rows; launches {json.dumps(multi_launches)}", flush=True)
+
+    one = sampler.prepare_sample({"rgb@224": rgb[:1]}, ["rgb@224"], [], batch_size=1)
+    init_empty_target_modality(one, "sam_instance", 1, 32)
+    sam = sampler.build_schedule(["rgb@224"], ["sam_instance"])
+    kernels.reset_launch_counts()
+    res = gs.generate_sam_dense(one, sam, batch_size=4, seed=0)
+    torch.cuda.synchronize()
+    sam_launches = kernels.launch_counts()
+    n_tok = gs._ar_tokens["sam_instance"]
+    check(0 < n_tok <= 31, f"generate_sam_dense: {n_tok} tokens decoded")
+    merged = res["sam_instance"]["tensor"]
+    check(merged.shape[0] == 1 and merged.device.type == "cuda", "generate_sam_dense: merged")
+    expected = {k: 0 for k in sam_launches}
+    expected.update(ln_matmul=depth, flash_mha=depth, ln_mlp=depth)
+    expected.update({w: depth * n_tok for w in ("self_decode", "cross_decode_attn",
+                                                "residual_mlp", "decode_attention")})
+    check(sam_launches == expected,
+          f"generate_sam_dense: launch counts {sam_launches} != {expected}")
+    print(f"generate_sam_dense: 4 replicas x {n_tok} tokens, merged into one row of "
+          f"{merged.shape[1]}; launches {json.dumps(sam_launches)}", flush=True)
+    return {"multi_guided": multi_launches, "sam_dense": sam_launches}
+
+
 def xl_phase(torch, card: str):
-    """Phases 3b, 3c (XL) and 4b: the 14-target chain at 4M-21 XL, full width
+    """Phases 3b and 4b: the 14-target chain at 4M-21 XL, full width
     and depth, for 4 requests in bf16 and in int8 mode, with the token
     agreement of the two; the decode microbenchmark at XL in both modes;
     then, at depth cut to 2 + 2, forward and decode parity (bf16 and int8)
@@ -2443,6 +2983,53 @@ def narrow_kernel_phase(torch, card: str):
                                                     path="small")),
         ("ln_mlp@small", lml, sml, ln_mlp_row(torch, rn, gen, rows, 512, 1365, True,
                                               path="small", w2_tail_gain=8.0)),
+    ]
+    return time_cases(torch, cases, card)
+
+
+def sr_kernel_phase(torch, card: str):
+    """Phase 2d: the kernels at the shapes of the SR-448 chain (4M-L: D =
+    1024, 16 heads, SwiGLU hidden 2730, no QK-norm; 4 requests, 8 rows with
+    CFG; its longest encoder stream SR_LONGEST tokens, the 784-token decoder
+    grid) and of the decoding at 448 (the ViT-B decoders' 784 tokens, the
+    UViT-B's N = M = 784 mid-block attention), as phase 2, with phase 2's
+    faults (the last, ragged key tile left out, a stale V stage, one head's
+    output left out; ln_mlp's ragged tail tile and W2's tail columns)."""
+    import torch.nn.functional as F
+
+    from fourm_torch.kernels import attention as at
+
+    gen, rn, key_bias = random_makers(torch, 7)
+    B, N, C, H = 2 * SR_REQUESTS, SR_LONGEST, 1024, 16
+    fa = ATTENTION_CU
+    lmm, slm = "fourm_tpu/kernels/fused_mlp.py:181", "fourm_torch/kernels/csrc/ln_matmul.cu"
+    lml, sml = "fourm_tpu/kernels/fused_mlp.py:244", "fourm_torch/kernels/csrc/ln_mlp.cu"
+
+    def uvit_case(B_, N_):
+        q, k, v = rn(B_, 12, N_, 64, std=2.0), rn(B_, 12, N_, 64), rn(B_, 12, N_, 64)
+        return dict(
+            run=lambda: at.attention(q, k, v, None),
+            plain=lambda: at.attention_plain(q, k, v, None),
+            library=lambda: F.scaled_dot_product_attention(q, k, v),
+            faults=lambda: attention_faults(q, k, v, None), path="uvit_decode448",
+            flops=4 * B_ * 12 * N_ * N_ * 64, bytes=4 * B_ * 12 * N_ * 64 * 2,
+            shape=f"q, k, v (B={B_}, 12, N=M={N_}, 64), no mask")
+
+    cases = [
+        ("flash_mha@SR", "fourm_tpu/kernels/attention.py:587", fa,
+         dict(flash_row(torch, rn, key_bias, None, B, N, C, H), path="sr_chain")),
+        ("attention@SR_cross", "fourm_tpu/kernels/attention.py:127", fa,
+         dict(attention_row(torch, rn, gen, key_bias, B, SR_GRID, N, H=H), path="sr_chain")),
+        ("ln_matmul@SR", lmm, slm, ln_matmul_row(torch, rn, gen, B * N, C, 3 * C,
+                                                 path="sr_chain")),
+        ("ln_mlp@SR", lml, sml, ln_mlp_row(torch, rn, gen, B * N, C, 2730, True,
+                                           path="sr_chain", w2_tail_gain=8.0)),
+        ("mha_short@SR_decoder", "fourm_tpu/kernels/attention.py:261", fa,
+         mha_short_row(torch, rn, key_bias, B, SR_GRID, C, H, True, "sr_chain")),
+        ("mha_short@ViTB_448", "fourm_tpu/kernels/attention.py:261", fa,
+         mha_short_row(torch, rn, key_bias, SR_REQUESTS, SR_GRID, 768, 12, False, "decode448")),
+        ("attention@UViTB_448", "fourm_tpu/kernels/attention.py:325", fa,
+         uvit_case(SR_REQUESTS, SR_GRID)),
     ]
     return time_cases(torch, cases, card)
 
@@ -3297,6 +3884,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     results += narrow_kernel_phase(torch, card)
     torch.cuda.empty_cache()
+    results += sr_kernel_phase(torch, card)
+    torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
     decode_bench(torch, model, out, card)
@@ -3309,7 +3898,15 @@ def main() -> int:
     dec, decode_launches = decode_phase(torch, model, out, bundles, card)
     uvit_launches, uvit = uvit_decode_phase(torch, card)
     decode_tokens_parity_phase(torch, bundles, uvit, out, dec)
-    del model, out, bundles, uvit, dec
+    sr_model, sr_out, sr_chain_launches = sr_phase(torch, card)
+    resolve_launches = super_resolve_phase(torch, card, sr_model, model, out)
+    del sr_model
+    torch.cuda.empty_cache()
+    decode448_launches, uvit448_launches = decode448_phase(torch, model, sr_out, bundles, uvit,
+                                                           card)
+    sr_parity_phase(torch, sr_out)
+    api_launches = generate_api_phase(torch, model, card)
+    del model, out, bundles, uvit, dec, sr_out
     torch.cuda.empty_cache()
     xl_launches, int8_launches = xl_phase(torch, card)
     torch.cuda.empty_cache()
@@ -3329,13 +3926,17 @@ def main() -> int:
     train_launches = train_phase(torch, card)
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
+    sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
+                "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
-                         xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches)
+                         xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches,
+                         **sr_paths, **api_launches)
     decode_paths = {"decode": decode_launches, "uvit_decode": uvit_launches}
     for r in results:  # each wrapper's launches on the path that runs it
         path, wrapper = r["path"], r.pop("wrapper")
         r["launches"] = path_launches[path][wrapper]
         r["decode_launches"] = {p: n[wrapper] for p, n in decode_paths.items()}
+        r["sr_launches"] = {p: n[wrapper] for p, n in sr_paths.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

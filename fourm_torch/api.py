@@ -6,8 +6,9 @@ chained generation schedules from per-modality defaults, generates
 image-token targets (ROAR / MaskGIT) and sequence targets (KV-cached
 autoregressive decoding), so the whole RGB-to-all chain, and decodes the
 generated tokens into images, text and structured outputs
-(utils/decoding.py:decode_dict). Super-resolution (224 -> 448) comes with
-a later slice and raises NotImplementedError.
+(utils/decoding.py:decode_dict). With an SR model (`fm_sr`), the 224
+tokens of a chain condition a 224 -> 448 super-resolution chain
+(`super_resolve`, `__call__(perform_sr=True)`).
 
 Usage:
     sampler = FourMSampler(model, text_tokenizer,
@@ -19,6 +20,9 @@ Usage:
                                       batch_size=8)
     gen = sampler.generate(mod_dict, sampler.build_schedule(["rgb@224"], targets), seed=0)
     images = sampler.decode(gen, decoding_steps=25, seed=0)
+    # 224 -> 448: the @224 tokens condition a second model's @448 targets
+    sampler = FourMSampler(model, text_tokenizer, fm_sr=sr_model)
+    gen448 = sampler.super_resolve(gen, seed=0)
 """
 
 from __future__ import annotations
@@ -38,9 +42,6 @@ from .generate import (
     init_full_input_modality,
 )
 from .utils.decoding import TokenizerBundle, decode_dict
-
-SR_SLICE = ("224 -> 448 super-resolution (fm_sr, the SR-448 chain) is a later slice of "
-            "the port (ROADMAP.md, queue 1)")
 
 # Default chained generation order (reference demo_4M_sampler.py:29-39)
 DEFAULT_ORDER = [
@@ -126,7 +127,8 @@ class FourMSampler:
 
     def __init__(self, fm, text_tokenizer=None, top_k: float = 0.0, top_p: float = 0.0,
                  device: str = "cuda", kv_quant: Optional[str] = None,
-                 tokenizers: Optional[Dict[str, TokenizerBundle]] = None):
+                 tokenizers: Optional[Dict[str, TokenizerBundle]] = None, fm_sr=None,
+                 mods: Optional[List[str]] = None, mods_sr: Optional[List[str]] = None):
         """fm: a FourM of the port, moved to `device`; text_tokenizer encodes
         text prompts given as conditioning, and its sentinel ids drive the
         span merge of sequence targets (it needs `get_vocab()` and
@@ -134,13 +136,23 @@ class FourMSampler:
         decoding sequence targets); kv_quant None or "int8", the AR
         targets' cross K/V mode (GenerationSampler); tokenizers: {transform
         key ("tok_depth", "sam_instance", ...): TokenizerBundle}, the
-        decoders `decode` uses, each on its own device."""
+        decoders `decode` uses, each on its own device; fm_sr: a FourM of
+        the port for 224 -> 448 super-resolution, moved to `device`, with a
+        GenerationSampler of its own (the same top_k, top_p, kv_quant);
+        mods / mods_sr: kept, as in the JAX package."""
         self.device = resolve_device(device)
         self.model = fm.to(self.device).eval()
         self.sampler = GenerationSampler(self.model, text_tokenizer, top_k=top_k, top_p=top_p,
                                          kv_quant=kv_quant)
+        if fm_sr is not None:
+            self.model_sr = fm_sr.to(self.device).eval()
+            self.sampler_sr = GenerationSampler(self.model_sr, text_tokenizer, top_k=top_k,
+                                                top_p=top_p, kv_quant=kv_quant)
+        else:
+            self.sampler_sr = None
         self.text_tokenizer = text_tokenizer
         self.tokenizers = tokenizers or {}
+        self.mods, self.mods_sr = mods, mods_sr
 
     def _ordered_targets(self, target_domains, order):
         """Default order first; targets outside it are appended."""
@@ -214,14 +226,57 @@ class FourMSampler:
                  batch_size: int = 1, decoding_steps: int = 25, perform_sr: bool = False):
         """Condition -> chained generation -> decoded outputs (reference
         Demo4MSampler.forward, demo_4M_sampler.py:405-447): the decoded
-        targets, by modality."""
-        if perform_sr:
-            raise NotImplementedError(SR_SLICE)
+        targets, by modality. With perform_sr and an SR model, the chain's
+        @224 tokens are super-resolved first and every key of that result is
+        decoded; without an SR model perform_sr skips the super-resolution
+        and decodes every key of the chain's output."""
         mod_dict = self.prepare_sample(sample, cond_domains, target_domains, batch_size)
         out = self.generate(mod_dict, self.build_schedule(cond_domains, target_domains),
                             seed=seed)
+        if perform_sr and self.sampler_sr is not None:
+            out = self.super_resolve(out, seed=seed)
         return self.decode(out, decoding_steps=decoding_steps, seed=seed,
-                           keys=[m for m in out if m in target_domains])
+                           keys=[m for m in out if m in target_domains or perform_sr])
 
-    def super_resolve(self, *args, **kwargs):
-        raise NotImplementedError(SR_SLICE)
+    def super_resolve(self, mod_dict, seed: Optional[int] = None):
+        """224 -> 448 super-resolution (fourm_tpu api.py:166-188, reference
+        demo_4M_sampler.py:426-439): every @224 entry of mod_dict conditions
+        the SR model (an entry it does not embed is skipped by its encoder),
+        whose targets are the DEFAULT_ORDER_SR keys with an @224 counterpart
+        in mod_dict, generated by DEFAULTS_SR (8 MaskGIT steps of 784 tokens,
+        cosine, CFG 2.0, growing conditioning). The conditions are copied
+        where they lie: a chain's output on the card stays on the card.
+        Returns the SR model's mod dict (the conditions and the @448
+        targets), as tensors on its device."""
+        if self.sampler_sr is None:
+            raise AttributeError("super_resolve needs an SR model: FourMSampler(..., fm_sr=...)")
+        sr_conds = [m for m in mod_dict if m.endswith("@224")]
+        sr_targets = [m for m in DEFAULT_ORDER_SR if m.replace("@448", "@224") in mod_dict]
+        sr_dict = {m: _full_input_copy(mod_dict[m], m) for m in sr_conds}
+        B = next(iter(sr_dict.values()))["tensor"].shape[0]
+        for mod in sr_targets:
+            init_empty_target_modality(sr_dict, mod, B, MODALITY_INFO[mod].resolved_max_tokens())
+        schedule = self.build_schedule(sr_conds, sr_targets, defaults=DEFAULTS_SR,
+                                       cfg_grow_conditioning=True)
+        return self.sampler_sr.generate(sr_dict, schedule, seed=seed,
+                                        text_tokenizer=self.text_tokenizer)
+
+
+def _full_input_copy(d: Dict[str, Any], mod: str) -> Dict[str, Any]:
+    """A copy of an image conditioning entry (every @224 modality is one)
+    marked as whole input, as init_full_input_modality marks it (fourm_tpu
+    api.py:172-178 copies, then marks): its tensors copied where they lie (on
+    the card for a chain's output), every position an input, none a
+    target."""
+    out = {k: v.clone() if isinstance(v, torch.Tensor) else np.array(v) for k, v in d.items()}
+    t = out["tensor"]
+    if mod.startswith("rgb"):  # NHWC pixels: one position per patch
+        ps = MODALITY_INFO[mod].patch_size
+        shape = (t.shape[0], (t.shape[1] // ps) * (t.shape[2] // ps))
+    else:
+        shape = tuple(t.shape[:2])
+    dev = t.device if isinstance(t, torch.Tensor) else None
+    out["input_mask"] = torch.zeros(shape, dtype=torch.bool, device=dev)
+    out["target_mask"] = torch.ones(shape, dtype=torch.bool, device=dev)
+    out.setdefault("decoder_attention_mask", torch.zeros(shape, dtype=torch.int32, device=dev))
+    return out

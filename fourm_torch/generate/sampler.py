@@ -14,10 +14,14 @@ fourm/models/generate.py:323-1273), in its fixed-shape form:
   * the encoder stream is compacted to a host-computed bucket of valid
     tokens (`_encoder_budget`), with counts updated analytically per step.
 The steps of one target run as one Python loop (the counterpart of the JAX
-package's fused lax.scan / while_loop). Randomness comes from one
-torch.Generator on the model's device, seeded from `seed`; its draws are not
-those of jax.random, so equality with the JAX package is tested where no
-draw matters (one step per image target, temperature 0).
+package's fused lax.scan / while_loop). Beside `generate`: `generate_iter`
+(the same steps, yielding after each), `generate_multi_guided` (weighted
+guidance by several conditions), `generate_sam_dense` (replicas merged into
+one instance list) and `merge_sequences`, the host span merge the device
+merges are held to. Randomness comes from one torch.Generator on the
+model's device, seeded from `seed`; its draws are not those of jax.random,
+so equality with the JAX package is tested where no draw matters (one ROAR
+step per image target or MaskGIT, at temperature 0).
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from ..data.modality_info import MODALITY_INFO
 from ..kernels.decode_step import quantize_kv_decode
 from ..ops.sampling import top_k_top_p_filtering_dynamic
 from ..ops.token_select import select_tokens
-from ..utils.text_tokenizer import get_sentinel_to_id_mapping
-from .init_helpers import PAD_ID, S1_ID
+from ..utils.text_tokenizer import get_sentinel_to_id_mapping, merge_span_masking
+from .init_helpers import PAD_ID, S1_ID, expand_to_batch
 
 # rows that are done only write PAD, so whether every row is done is read
 # from the device once every this many tokens, not after each token
@@ -40,6 +44,8 @@ DONE_CHECK_EVERY = 16
 
 IMG = "img"
 SEQ = ("seq", "seq_token")
+# an image step's default encoder budget: its own, from the current counts
+OWN_BUDGET = object()
 
 
 def _sample_traced_temp(gen: torch.Generator, logits: torch.Tensor, temperature: float):
@@ -60,6 +66,41 @@ def _ranks_desc(scores: torch.Tensor) -> torch.Tensor:
     score order."""
     order = torch.argsort(-scores, dim=-1, stable=True)
     return torch.argsort(order, dim=-1)
+
+
+def _use_cfg(cfg_scale, conds) -> bool:
+    """Whether a step guides: a scalar scale other than 1 and conditions to
+    empty (a list of scales is multi-condition guidance)."""
+    return not isinstance(cfg_scale, (list, tuple)) and cfg_scale != 1.0 and len(conds) > 0
+
+
+def _decoder_keys(still: torch.Tensor, scheme: str, num_select: int, gen: torch.Generator):
+    """The target positions an image step's queries may attend to: for ROAR
+    a random subset of num_select still-masked positions (the step's
+    tokens), for MaskGIT every still-masked one."""
+    if scheme != "roar":
+        return still
+    noise = torch.rand(still.shape, generator=gen, device=still.device)
+    noise = noise.masked_fill(~still, float("-inf"))
+    return (_ranks_desc(noise) < num_select) & still
+
+
+def _accept(d_t, scheme: str, still, sa_valid, logits, temperature: float, num_select: int,
+            top_k: float, top_p: float, gen: torch.Generator):
+    """Sample a step's (B, N, V) logits and accept its tokens: ROAR's chosen
+    subset, or MaskGIT's num_select most confident still-masked positions.
+    Returns the target's new (tensor, input_mask, target_mask)."""
+    if top_k or top_p:
+        logits = top_k_top_p_filtering_dynamic(logits, top_k, top_p)
+    samples, probs = _sample_traced_temp(gen, logits, temperature)
+    samples = samples.to(d_t["tensor"].dtype)
+    if scheme == "roar":
+        accept = sa_valid
+    else:
+        conf = probs.masked_fill(~still, float("-inf"))
+        accept = (_ranks_desc(conf) < num_select) & still
+    return (torch.where(accept, samples, d_t["tensor"]), d_t["input_mask"] & ~accept,
+            d_t["target_mask"] | accept)
 
 
 def _empty_cond_tree(mod_dict, cond_mods: Sequence[str]):
@@ -98,6 +139,11 @@ def _tree_concat(dicts):
 
 def _np(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _on_device(mod_dict, dev):
+    """A mod dict's arrays and tensors as tensors on `dev` (new dicts)."""
+    return {m: {k: torch.as_tensor(v).to(dev) for k, v in d.items()} for m, d in mod_dict.items()}
 
 
 def _head_sentinel(toks: torch.Tensor, is_sent: torch.Tensor, before: torch.Tensor):
@@ -254,15 +300,9 @@ class GenerationSampler:
         _img_target_fn scan). Returns the target's new (tensor, input_mask,
         target_mask)."""
         d_t = md_step[target_mod]
-        tensor, input_mask, target_mask = d_t["tensor"], d_t["input_mask"], d_t["target_mask"]
-        B = tensor.shape[0]
-        still = ~target_mask
-        if scheme == "roar":  # a random subset of the still-masked positions
-            noise = torch.rand(still.shape, generator=gen, device=still.device)
-            noise = noise.masked_fill(~still, float("-inf"))
-            sa_valid = (_ranks_desc(noise) < num_select) & still
-        else:  # maskgit: every still-masked position is a decoder token
-            sa_valid = still
+        B = d_t["tensor"].shape[0]
+        still = ~d_t["target_mask"]
+        sa_valid = _decoder_keys(still, scheme, num_select, gen)
         if use_cfg:
             md = _tree_concat([md_step, _empty_cond_tree(md_step, cond_mods)])
             sa = torch.cat([sa_valid, sa_valid], 0)
@@ -272,50 +312,70 @@ class GenerationSampler:
         if use_cfg:
             lc, lu = logits[:B], logits[B:]
             logits = lu + cfg_scale * (lc - lu)
-        if top_k or top_p:
-            logits = top_k_top_p_filtering_dynamic(logits, top_k, top_p)
-        samples, probs = _sample_traced_temp(gen, logits, temperature)
-        samples = samples.to(tensor.dtype)
-        if scheme == "roar":
-            accept = sa_valid
-        else:
-            conf = probs.masked_fill(~still, float("-inf"))
-            accept = (_ranks_desc(conf) < num_select) & still
-        return (torch.where(accept, samples, tensor), input_mask & ~accept,
-                target_mask | accept)
+        return _accept(d_t, scheme, still, sa_valid, logits, temperature, num_select, top_k,
+                       top_p, gen)
 
-    def _generate_img_target(self, mod_dict, group: List[dict], gen: torch.Generator,
-                             top_k: float, top_p: float, counts: Dict[str, int]):
-        """All steps of one image target."""
-        first = group[0]
-        target_mod = first["target_domain"]
-        scheme = first["scheme"].lower()
-        conds = tuple(first.get("cfg_cond_domains", ()))
-        scales = [s.get("cfg_scale", 1.0) for s in group]
-        # list-valued (multi-condition) guidance is not served here: like the
-        # JAX package's single-step path, such a step runs without CFG
-        use_cfg = (not any(isinstance(c, (list, tuple)) for c in scales)
-                   and any(c != 1.0 for c in scales) and len(conds) > 0)
-        num_selects = [int(s["num_tokens"]) for s in group]
-        # the budget covers the LAST step, when all of this target's
-        # accepted tokens are already encoder inputs
+    def _group_budget(self, counts: Dict[str, int], mod_dict, group: List[dict]):
+        """The encoder budget of an image target's steps: that of its LAST
+        step, when all of its accepted tokens are already encoder inputs, so
+        that every step of the target runs at one shape."""
+        target_mod = group[0]["target_domain"]
         end_counts = dict(counts)
         if target_mod in end_counts:
             cap = int(np.prod(mod_dict[target_mod]["input_mask"].shape[1:]))
-            end_counts[target_mod] = min(end_counts[target_mod] + sum(num_selects), cap)
-        enc_budget = self._encoder_budget(end_counts, mod_dict)
+            end_counts[target_mod] = min(
+                end_counts[target_mod] + sum(int(s["num_tokens"]) for s in group), cap)
+        return self._encoder_budget(end_counts, mod_dict)
 
-        d = dict(mod_dict[target_mod])
-        for step, num_select in zip(group, num_selects):
-            md_step = {**mod_dict, target_mod: d}
-            tensor, input_mask, target_mask = self._img_step(
-                md_step, target_mod, scheme, conds if use_cfg else (), use_cfg, num_select,
-                float(step["temperature"]), float(step["cfg_scale"]) if use_cfg else 1.0,
-                top_k, top_p, enc_budget, gen)
-            d = {**d, "tensor": tensor, "input_mask": input_mask, "target_mask": target_mask}
-        mod_dict[target_mod] = d
+    def _generate_one_step(self, mod_dict, step_info: dict, gen: torch.Generator,
+                           top_k: Optional[float] = None, top_p: Optional[float] = None,
+                           counts: Optional[Dict[str, int]] = None, text_tokenizer=None,
+                           enc_budget=OWN_BUDGET):
+        """One step of a schedule (fourm_tpu sampler.py:781-846): a MaskGIT /
+        ROAR step of an image target, whose num_select accepted tokens then
+        count as encoder inputs (capped at the grid size), or a whole
+        sequence target, whose count becomes its merged length. An image
+        step runs at `enc_budget` (None: the whole encoder stream), by
+        default at its own budget from `counts` (from mod_dict when None,
+        which costs a sync), as the JAX package's single step does."""
+        top_k = self.top_k if top_k is None else top_k
+        top_p = self.top_p if top_p is None else top_p
+        if counts is None:
+            counts = self._init_valid_counts(mod_dict)
+        target_mod = step_info["target_domain"]
+        kind = MODALITY_INFO[target_mod].type
+        if kind in SEQ:
+            return self._generate_seq_target(mod_dict, step_info, gen, top_k, top_p,
+                                             counts=counts, text_tokenizer=text_tokenizer)
+        if kind != IMG:
+            raise ValueError(f"invalid target modality type {kind}")
+        cfg_scale = step_info.get("cfg_scale", 1.0)
+        conds = tuple(step_info.get("cfg_cond_domains", ()))
+        # a list-valued (multi-condition) guidance step runs without CFG here,
+        # as in the JAX package: generate_multi_guided serves it
+        use_cfg = _use_cfg(cfg_scale, conds)
+        num_select = int(step_info["num_tokens"])
+        if enc_budget is OWN_BUDGET:
+            enc_budget = self._encoder_budget(counts, mod_dict)
+        d = mod_dict[target_mod]
+        tensor, input_mask, target_mask = self._img_step(
+            mod_dict, target_mod, step_info["scheme"].lower(), conds if use_cfg else (), use_cfg,
+            num_select, float(step_info["temperature"]), float(cfg_scale) if use_cfg else 1.0,
+            top_k, top_p, enc_budget, gen)
+        mod_dict[target_mod] = {**d, "tensor": tensor, "input_mask": input_mask,
+                                "target_mask": target_mask}
         if target_mod in counts:
-            counts[target_mod] = end_counts[target_mod]
+            cap = int(np.prod(input_mask.shape[1:]))
+            counts[target_mod] = min(counts[target_mod] + num_select, cap)
+        return mod_dict
+
+    def _generate_img_target(self, mod_dict, group: List[dict], gen: torch.Generator,
+                             top_k: float, top_p: float, counts: Dict[str, int]):
+        """All steps of one image target, at the group's encoder budget."""
+        budget = self._group_budget(counts, mod_dict, group)
+        for step_info in group:
+            mod_dict = self._generate_one_step(mod_dict, step_info, gen, top_k, top_p, counts,
+                                               enc_budget=budget)
         return mod_dict
 
     def _ar_decode(self, mod_dict, target_mod: str, cond_mods, use_cfg: bool, max_len: int,
@@ -408,6 +468,32 @@ class GenerationSampler:
                                                     sentinels, tok.token_to_id("[S_1]"))
         return self._set_merged(mod_dict, target_mod, tensor, input_mask, n_valid)
 
+    def merge_sequences(self, mod_dict, out_ids, target_mod: str, text_tokenizer=None) -> Dict:
+        """Span merge on the host (fourm_tpu sampler.py:643-673, reference
+        generate.py:550-626), the oracle the device merges are held to:
+        each row's generated spans spliced into its input sequence (an empty
+        input acts as [S_1]) by merge_span_masking, in the fixed
+        (max_tokens + 1) * 2 layout, as tensors on the target's device."""
+        tok = self._tokenizer(text_tokenizer, target_mod)
+        sentinel_ids = set(get_sentinel_to_id_mapping(tok).values())
+        default_sentinel = tok.token_to_id("[S_1]")
+        d = mod_dict[target_mod]
+        in_tensor, in_mask, out_ids = _np(d["tensor"]), _np(d["input_mask"]), _np(out_ids)
+        B = in_tensor.shape[0]
+        L = (MODALITY_INFO[target_mod].resolved_max_tokens() + 1) * 2
+        tensor = np.full((B, L), PAD_ID, dtype=np.int32)
+        input_mask = np.ones((B, L), dtype=bool)
+        for b in range(B):
+            inp = in_tensor[b][~in_mask[b]].tolist() or [default_sentinel]
+            preds = [int(t) for t in out_ids[b] if t != PAD_ID]
+            merged = merge_span_masking(inp, preds, sentinel_ids)[:L]
+            tensor[b, :len(merged)] = merged
+            input_mask[b, :len(merged)] = False
+        dev = d["tensor"].device if isinstance(d["tensor"], torch.Tensor) else None
+        return self._set_merged(mod_dict, target_mod, torch.from_numpy(tensor).to(dev),
+                                torch.from_numpy(input_mask).to(dev),
+                                int((~input_mask).sum(1).max()))
+
     def _tokenizer(self, text_tokenizer, target_mod: str):
         tok = text_tokenizer or self.text_tokenizer
         if tok is None:
@@ -438,8 +524,7 @@ class GenerationSampler:
         self._tokenizer(text_tokenizer, target_mod)  # fail before decoding
         cfg_scale = step_info.get("cfg_scale", 1.0)
         conds = tuple(step_info.get("cfg_cond_domains", ()))
-        use_cfg = (not isinstance(cfg_scale, (list, tuple))) and cfg_scale != 1.0 \
-            and len(conds) > 0
+        use_cfg = _use_cfg(cfg_scale, conds)
         max_len = min(MODALITY_INFO[target_mod].resolved_max_tokens(),
                       int(mod_dict[target_mod]["tensor"].shape[1]))
         out_ids, _ = self._ar_decode(
@@ -458,6 +543,15 @@ class GenerationSampler:
             counts[target_mod] = self._last_merge_valid
         return mod_dict
 
+    def _start(self, mod_dict, seed: Optional[int]):
+        """A run's generator (seeded from `seed`, 0 when None), the valid
+        counts and the mod dict as tensors on the model's device."""
+        dev = self.model.device
+        gen = torch.Generator(device=dev).manual_seed(0 if seed is None else int(seed))
+        counts = self._init_valid_counts(mod_dict)
+        self._ar_tokens = {}
+        return gen, counts, _on_device(mod_dict, dev)
+
     def generate(self, mod_dict, schedule: List[dict], seed: Optional[int] = None,
                  top_k: Optional[float] = None, top_p: Optional[float] = None,
                  text_tokenizer=None):
@@ -466,22 +560,109 @@ class GenerationSampler:
         model's device."""
         top_k = self.top_k if top_k is None else top_k
         top_p = self.top_p if top_p is None else top_p
-        dev = self.model.device
-        gen = torch.Generator(device=dev).manual_seed(0 if seed is None else int(seed))
-        counts = self._init_valid_counts(mod_dict)
-        self._ar_tokens = {}
-        mod_dict = {m: {k: torch.as_tensor(v).to(dev) for k, v in d.items()}
-                    for m, d in mod_dict.items()}
+        gen, counts, mod_dict = self._start(mod_dict, seed)
         with torch.inference_mode():
             for group in self._group_schedule(schedule):
-                kind = MODALITY_INFO[group[0]["target_domain"]].type
-                if kind == IMG:
+                if MODALITY_INFO[group[0]["target_domain"]].type == IMG:
                     mod_dict = self._generate_img_target(mod_dict, group, gen, top_k, top_p,
                                                          counts=counts)
-                elif kind in SEQ:
-                    mod_dict = self._generate_seq_target(mod_dict, group[0], gen, top_k,
-                                                         top_p, counts=counts,
-                                                         text_tokenizer=text_tokenizer)
                 else:
-                    raise ValueError(f"invalid target modality type {kind}")
+                    mod_dict = self._generate_one_step(mod_dict, group[0], gen, top_k, top_p,
+                                                       counts, text_tokenizer)
         return mod_dict
+
+    def generate_iter(self, mod_dict, schedule: List[dict], seed: Optional[int] = None,
+                      top_k: Optional[float] = None, top_p: Optional[float] = None,
+                      text_tokenizer=None):
+        """Step-by-step variant of `generate` (fourm_tpu sampler.py:766-779,
+        reference generate.py:1098-1166): yields the mod dict after each
+        step, as a new dict. The steps are generate's, in its order, drawing
+        from one generator seeded as generate's, and an image target's steps
+        run at the encoder budget generate gives them (its last step's), so
+        the last yield equals generate's result."""
+        top_k = self.top_k if top_k is None else top_k
+        top_p = self.top_p if top_p is None else top_p
+        gen, counts, mod_dict = self._start(mod_dict, seed)
+        for group in self._group_schedule(schedule):
+            budget = (self._group_budget(counts, mod_dict, group)
+                      if MODALITY_INFO[group[0]["target_domain"]].type == IMG else OWN_BUDGET)
+            for step_info in group:
+                with torch.inference_mode():
+                    mod_dict = self._generate_one_step(mod_dict, step_info, gen, top_k, top_p,
+                                                       counts, text_tokenizer, budget)
+                yield dict(mod_dict)
+
+    def generate_multi_guided(self, uncond_dict, cond_dicts: Sequence[Dict], schedule: List[dict],
+                              seed: Optional[int] = None, top_k: Optional[float] = None,
+                              top_p: Optional[float] = None):
+        """Weighted guidance by several conditions, over image targets
+        (fourm_tpu sampler.py:229-277, :882-919; reference
+        generate.py:1168-1227): each step runs the n conditioned dicts and
+        the unconditioned one in one forward of (n + 1) B rows over the whole
+        encoder stream and mixes their logits as lu + sum_i w_i (l_i - lu),
+        w the step's list of cfg_scale weights; it accepts as `generate`
+        does (ROAR's subset, or MaskGIT's most confident tokens) and updates
+        the target in every dict that holds it. Returns uncond_dict, as
+        tensors on the model's device."""
+        top_k = self.top_k if top_k is None else top_k
+        top_p = self.top_p if top_p is None else top_p
+        dev = self.model.device
+        gen = torch.Generator(device=dev).manual_seed(0 if seed is None else int(seed))
+        uncond_dict = _on_device(uncond_dict, dev)
+        cond_dicts = [_on_device(cd, dev) for cd in cond_dicts]
+        n = len(cond_dicts)
+        for step_info in schedule:
+            target_mod = step_info["target_domain"]
+            if MODALITY_INFO[target_mod].type != IMG:
+                raise ValueError("multi-guided generation currently supports img targets")
+            scheme = step_info["scheme"].lower()
+            num_select = int(step_info["num_tokens"])
+            weights = [float(w) for w in step_info["cfg_scale"]]
+            with torch.inference_mode():
+                d_t = uncond_dict[target_mod]
+                B = d_t["tensor"].shape[0]
+                still = ~d_t["target_mask"]
+                sa_valid = _decoder_keys(still, scheme, num_select, gen)
+                logits = self.model.forward_generation_img(
+                    _tree_concat(cond_dicts + [uncond_dict]), target_mod,
+                    torch.cat([sa_valid] * (n + 1), 0)).float()
+                lu = logits[n * B:]
+                guided = lu
+                for i in range(n):
+                    guided = guided + weights[i] * (logits[i * B:(i + 1) * B] - lu)
+                tensor, input_mask, target_mask = _accept(
+                    d_t, scheme, still, sa_valid, guided, float(step_info["temperature"]),
+                    num_select, top_k, top_p, gen)
+            for dd in [uncond_dict] + cond_dicts:
+                if target_mod in dd:
+                    dd[target_mod] = {**dd[target_mod], "tensor": tensor,
+                                      "input_mask": input_mask, "target_mask": target_mask}
+        return uncond_dict
+
+    def generate_sam_dense(self, mod_dict, schedule: List[dict], text_tokenizer=None,
+                           batch_size: int = 16, key: str = "sam_instance",
+                           seed: Optional[int] = None):
+        """Dense SAM instances (fourm_tpu sampler.py:848-880, reference
+        generate.py:1229-1273): the schedule's `key` steps over batch_size
+        replicas of mod_dict (each draws its own query points through the AR
+        sampler), then every replica's merged sequence, in order, as one
+        instance list of one row. Returns a copy of mod_dict whose `key` is
+        that list, as tensors on the model's device."""
+        tok = self._tokenizer(text_tokenizer, key)
+        sentinel_ids = set(get_sentinel_to_id_mapping(tok).values())
+        batch = expand_to_batch({m: {k: np.array(_np(v)) for k, v in d.items()}
+                                 for m, d in mod_dict.items()}, batch_size)
+        out = self.generate(batch, [s for s in schedule if s["target_domain"] == key],
+                            seed=seed, text_tokenizer=tok)
+        tensor, input_mask, target_mask = (_np(out[key][k])
+                                           for k in ("tensor", "input_mask", "target_mask"))
+        merged = []
+        for i in range(batch_size):
+            merged.extend(merge_span_masking(tensor[i][~input_mask[i]].tolist(),
+                                             tensor[i][~target_mask[i]].tolist(), sentinel_ids))
+        merged = torch.tensor(merged, dtype=torch.int32, device=self.model.device)[None]
+        result = {m: dict(d) for m, d in mod_dict.items()}
+        result[key] = {"tensor": merged, "input_mask": torch.zeros_like(merged, dtype=torch.bool),
+                       "target_mask": torch.ones_like(merged, dtype=torch.bool),
+                       "decoder_attention_mask": torch.zeros_like(merged)}
+        return result

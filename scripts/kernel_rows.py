@@ -2,15 +2,18 @@
 """Time the kernel rows of chip_smoke.py's kernel phases for one checkout, so
 that two checkouts compare on one card in one process each.
 
-    python3 scripts/kernel_rows.py [--root DIR] [--phases 2,2b,5,8]
+    python3 scripts/kernel_rows.py [--root DIR] [--phases 2,2b,2d,5,8]
 
 Imports chip_smoke and fourm_torch from DIR (default: this checkout), builds
 its kernels and runs the chosen kernel phases of its chip_smoke.py (2: the
-chain's kernels, 2b: the XL widths, 2c: the narrow widths, 5: VQ, 8: the
-train step); each phase holds every kernel to its twin and times it, kernel
-and library yardstick (cold too, where the checkout's chip_smoke.py times
-it), as chip_smoke.py does. The last line is one JSON object: the card, and
-{row name: {"ms", "library_ms"[, "cold_ms", "cold_library_ms"]}}. To compare versions,
+chain's kernels, 2b: the XL widths, 2c: the narrow widths, 2d: the SR-448
+chain's and the decoding at 448's shapes, 5: VQ, 8: the train step); each
+phase holds every kernel to its twin and times it, kernel, plain twin and
+library yardstick (cold too, where the checkout's chip_smoke.py times it),
+and reckons its bound, as chip_smoke.py does. A phase the checkout's
+chip_smoke.py does not have is skipped. The last line is one JSON object:
+the card, and {row name: {"ms", "plain_ms", "library_ms", "bound_ms",
+"bound_by"[, "cold_ms", "cold_library_ms"]}}. To compare versions,
 run parent, change, change, parent one after another on the same card (a
 `git archive` of the parent unpacked in a directory .gitignore lists).
 Needs one CUDA card and nvcc.
@@ -25,13 +28,13 @@ import subprocess
 import sys
 
 PHASES = {"2": "kernel_phase", "2b": "xl_kernel_phase", "2c": "narrow_kernel_phase",
-          "5": "vq_kernel_phase", "8": "train_kernel_phase"}
+          "2d": "sr_kernel_phase", "5": "vq_kernel_phase", "8": "train_kernel_phase"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--phases", default="2,2b,5,8")
+    ap.add_argument("--phases", default="2,2b,2d,5,8")
     args = ap.parse_args()
     import torch
 
@@ -50,8 +53,12 @@ def main() -> int:
     print(f"{root}: {card}; build {_build.build_all():.2f} s", flush=True)
     rows = {}
     for phase in args.phases.split(","):
+        if not hasattr(chip_smoke, PHASES[phase]):
+            print(f"{root}: no phase {phase}", flush=True)
+            continue
         for r in getattr(chip_smoke, PHASES[phase])(torch, card):
-            rows[r["name"]] = {k: r[k] for k in ("ms", "library_ms", "cold_ms", "cold_library_ms")
+            rows[r["name"]] = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "cold_ms", "cold_library_ms")
                                if k in r}
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": card, "rows": rows}), flush=True)

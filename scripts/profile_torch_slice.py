@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port on the card, under torch.profiler.
 
-    python3 scripts/profile_torch_slice.py [--part all|chain|xl|train|vq|decode]
-                                           [--out out/chain_trace.json]
+    python3 scripts/profile_torch_slice.py
+        [--part all|chain|xl|train|vq|decode|sr|decode448] [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
 ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
@@ -50,6 +50,23 @@ each window its cuBLAS GEMMs (in the UNet: the ADM attention products and
 its dense layers) and its GroupNorm and elementwise kernels. The busy
 share is the summed kernel time over the median wall time of 3 unfenced
 calls without the profiler.
+
+`--part sr`: chip_smoke.py's phase 3c -- the SR-448 chain (4M-L at full
+width, random bf16 weights, 4 requests from rgb@224 and tok_rgb@224, the 5
+@448 targets by 8 MaskGIT steps with CFG 2.0, 8 rows). After a warm-up, one
+run times every call of the block layer's kernel wrappers (ln_matmul,
+flash_mha, mha_short, attention, ln_mlp, attn_block) by CUDA events around
+it, so that the calls sharing attention.cu's kernel are told apart by
+their wrapper; one run under the profiler gives the kernels' total and
+names. The device time is given by wrapper, the rest of the kernels' time
+as "other ops" (the plain LayerNorms, the cuBLAS GEMMs of the
+cross-attention and of the projections, the embeddings, the logits,
+sampling and ranking), and the busy share is the profiled kernel time over
+the median wall time of 2 runs without the profiler. `--part decode448`: chip_smoke.py's phase 10b -- decode_dict of
+4 random grids of each of tok_clip@448, tok_depth@448, tok_normal@448 and
+tok_semseg@448 (their tokenizers' vocabularies) at 448, then the UViT-B
+decoding 4 grids of 28 x 28 at 448, both at 25 steps, broken down as
+`--part decode`.
 
 The last line is one JSON object with the numbers. Needs one CUDA card and
 nvcc.
@@ -259,8 +276,9 @@ def train_profile() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq", "decode"],
-                    default="all", help="all: chain and train (xl, vq, decode only when asked)")
+    ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq", "decode", "sr",
+                                       "decode448"],
+                    default="all", help="all: chain and train (the others only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     ap.add_argument("--root", default=ROOT, help="the checkout whose fourm_torch to profile")
     args = ap.parse_args()
@@ -283,6 +301,10 @@ def main() -> int:
         res["vq_a_euclid"] = vq_profile(euclid=True)
     if args.part == "decode":
         res.update(decode_profile())
+    if args.part == "sr":
+        res["sr"] = sr_profile()
+    if args.part == "decode448":
+        res.update(decode448_profile())
     print(json.dumps(res))
     return 0
 
@@ -461,6 +483,128 @@ def decode_profile() -> dict:
         print(f"wall without the profiler: {label} {wall_ms:.3f} ms per call (calls "
               f"{', '.join(f'{w:.3f}' for w in walls)} ms)")
         res["decode" if run is decode else "uvit_decode"] = fenced_profile(run, label, wall_ms)
+    return res
+
+
+# the block layer's kernel wrappers (fourm_torch/ops/transformer.py's names)
+SR_WRAPPERS = ("ln_matmul", "flash_mha", "mha_short", "attention", "ln_mlp", "attn_block")
+
+
+def sr_profile() -> dict:
+    """Phase 3c's SR-448 chain: its device time by the wrapper that
+    launched it, from CUDA events around each wrapper call; the kernels'
+    total and names under the profiler."""
+    from torch.profiler import ProfilerActivity
+
+    from fourm_torch.ops import transformer
+
+    cs = chip_smoke
+    model = cs.build_model(torch, "bfloat16", "cuda", name=cs.SR_MODEL, mods=cs.SR_MODS)
+    sampler = FourMSampler(model, cs.StandInTokenizer())
+    rng = np.random.RandomState(0)
+    sample = {"rgb@224": rng.rand(cs.SR_REQUESTS, 224, 224, 3).astype(np.float32),
+              "tok_rgb@224": rng.randint(0, 16384, (cs.SR_REQUESTS, 196)).astype(np.int32)}
+    schedule = sampler.build_schedule(cs.SR_CONDS, cs.SR_TARGETS)
+
+    def run():
+        md = sampler.prepare_sample(sample, cs.SR_CONDS, cs.SR_TARGETS,
+                                    batch_size=cs.SR_REQUESTS)
+        sampler.generate(md, schedule, seed=0)
+        torch.cuda.synchronize()
+
+    walls = []
+    for i in range(3):  # a warm-up run, then 2 timed
+        t0 = time.perf_counter()
+        run()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+
+    spans = {w: [] for w in SR_WRAPPERS}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return res
+        return call
+
+    saved = {w: getattr(transformer, w) for w in SR_WRAPPERS}
+    for w, fn in saved.items():
+        setattr(transformer, w, timed(w, fn))
+    try:
+        run()
+    finally:
+        for w, fn in saved.items():
+            setattr(transformer, w, fn)
+    groups = {w: sum(s.elapsed_time(e) for s, e in ev) for w, ev in spans.items() if ev}
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    dev_rows = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and getattr(e, "self_device_time_total", 0) > 0), reverse=True)
+    device_ms = sum(r[0] for r in dev_rows)
+    groups["other ops"] = device_ms - sum(groups.values())
+    print(f"[SR-448 chain, {cs.SR_MODEL}, {cs.SR_REQUESTS} requests] "
+          f"{torch.cuda.get_device_name(0)}; device busy {device_ms:.3f} ms: "
+          f"{device_ms / wall_ms:.4f} of the {wall_ms:.3f} ms median run without the profiler "
+          f"(runs {', '.join(f'{w:.3f}' for w in walls)} ms); by wrapper (CUDA events around "
+          f"each call; other ops: the rest of the kernels' time)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})"
+              + (f", {len(spans[group])} calls" if group in spans else ""))
+    for ms, count, key in dev_rows[:20]:
+        print(f"  device {ms:10.3f} ms {count:7d}x  {key[:100]}")
+    return {"wall_ms_unprofiled": wall_ms, "wall_ms_runs": walls, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "by_group_ms": groups,
+            "calls": {w: len(ev) for w, ev in spans.items()},
+            "top_device": [{"ms": ms, "count": c, "name": k[:200]} for ms, c, k in dev_rows[:20]]}
+
+
+def decode448_profile() -> dict:
+    """Phase 10b's decoding at 448 (random grids of each target's
+    vocabulary) and its UViT-B decode at 448."""
+    from fourm_torch.data.modality_info import MODALITY_INFO
+    from fourm_torch.utils.decoding import decode_dict
+    from fourm_torch.vq import DiVAE, divae_decode_tokens, init_vq_weights
+
+    cs = chip_smoke
+    B, grid = cs.SR_REQUESTS, cs.SR_GRID
+    bundles = cs.build_tokenizers(torch)
+    toks = {k: bundles[k] for k in ("tok_clip", "tok_semseg", "tok_depth", "tok_normal")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {t: {"tensor": torch.randint(0, MODALITY_INFO[t].vocab_size, (B, grid), generator=gen,
+                                       device="cuda")} for t in cs.DECODE448_TARGETS}
+    divae = init_vq_weights(DiVAE(**cs.DIVAE_UVITB, device="cuda"), 110, spread=0.1)
+    grids = torch.randint(0, 1024, (B, 28, 28), generator=gen, device="cuda")
+
+    def decode():
+        decode_dict(out, toks, cs.StandInTokenizer(), decoding_steps=cs.DECODE_STEPS, seed=0)
+        torch.cuda.synchronize()
+
+    def uvit():
+        with torch.inference_mode():
+            divae_decode_tokens(divae, grids, gen, timesteps=cs.DECODE_STEPS, image_size=448)
+        torch.cuda.synchronize()
+
+    res = {}
+    for key, label, run in (("decode448", f"decode at 448, {B} requests x "
+                                          f"{len(cs.DECODE448_TARGETS)} targets", decode),
+                            ("uvit_decode448", f"UViT-B decode at 448, {B} grids", uvit)):
+        walls = []
+        for i in range(4):  # a warm-up call, then 3 timed
+            t0 = time.perf_counter()
+            run()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls))
+        print(f"wall without the profiler: {label} {wall_ms:.3f} ms per call (calls "
+              f"{', '.join(f'{w:.3f}' for w in walls)} ms)")
+        res[key] = fenced_profile(run, label, wall_ms)
     return res
 
 

@@ -465,13 +465,27 @@ def test_colormaps_equal_matplotlib():
 
 
 def test_sampler_call_and_sr_raise(decoded):
+    """Without an SR model, super_resolve fails as the JAX package's does (no
+    sampler_sr) and __call__(perform_sr=True) skips the super-resolution
+    and decodes every key of the generated dict; decode(keys=...) decodes
+    those keys alone."""
     md, _, tb, tok, _, _ = decoded
-    sampler = api.FourMSampler.__new__(api.FourMSampler)
-    sampler.tokenizers, sampler.text_tokenizer = tb, tok
-    with pytest.raises(NotImplementedError, match="SR-448"):
+    sampler = api.FourMSampler.__new__(api.FourMSampler)  # decode needs no model
+    sampler.tokenizers, sampler.text_tokenizer, sampler.sampler_sr = tb, tok, None
+    with pytest.raises(AttributeError, match="fm_sr"):
         sampler.super_resolve(md)
-    with pytest.raises(NotImplementedError, match="SR-448"):
-        sampler({}, ["rgb@224"], ["tok_clip@224"], perform_sr=True)
+    keys = ["rgb@64", "tok_clip@64", "caption", "metadata"]
+    generated = {k: md[k] for k in keys}
+    sampler.prepare_sample = lambda sample, conds, targets, batch_size: dict(sample)
+    sampler.build_schedule = lambda conds, targets: []
+    sampler.generate = lambda mod_dict, schedule, seed=None: mod_dict
+    out = sampler(generated, ["rgb@64"], ["caption"], seed=1, perform_sr=True)
+    assert list(out) == keys
+    want = sampler.decode(generated, seed=1)
+    for k in keys:
+        np.testing.assert_array_equal(np.asarray(out[k], dtype=object),
+                                      np.asarray(want[k], dtype=object))
+    assert list(sampler(generated, ["rgb@64"], ["caption"], seed=1)) == ["caption"]
     sub = sampler.decode(md, image_size=64, keys=["caption", "metadata"])
     assert list(sub) == ["caption", "metadata"]
 
