@@ -120,6 +120,29 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      2 conditions at batch 2 (one forward of 6 rows, launch counts exact);
      generate_sam_dense over 4 replicas of a 32-token sam_instance region
      (the decode step's wrappers' launch counts exact);
+  11. (after phase 3f) checkpoints from local files and the two CLIs, in a
+     temporary directory removed afterwards: phase 3's 4M-21 B model
+     written as a release .safetensors (fp32, reference names, untied
+     logits, the reference's str(config) metadata, sin-cos pos_emb tables
+     in the reference's layouts) and load_fourm_safetensors of it to a
+     bf16 model on the card, timed, with its size, every tensor equal to
+     phase 3's; the CLIP-B16 VQ-VAE and the depth UNet-P4 DiVAE of phase 10
+     written by export_vq_safetensors and loaded by get_image_tokenizer,
+     equal to phase 10's; a tokenizer.json in the release layout (100
+     sentinels, the 4000 coordinate tokens, a small WordPiece vocabulary)
+     and a two-prompt TSV; then fourm_torch.cli.generate.main on the card
+     (--dataset prompts, the T2CR settings config with the targets
+     overridden to the chain's 13 other than caption, 8 ROAR steps per
+     image target, CFG 3.0 on every target, top_p 0.9): the saved tokens
+     equal FourMSampler.generate on phase 3's model with the same seeds,
+     the saved PNGs and texts equal byte for byte what the same saving
+     makes of FourMSampler.decode through phase 10's bundles, the launch
+     counts of the CLI run (reset just before, read just after) exact;
+     then phase 9's train step at full width and 2 + 2 layers through
+     fourm_torch.cli.train_4m.main with --finetune from that file: 4 steps
+     in one run (launch counts exact), 2 steps with a checkpoint, and a
+     second process that resumes for steps 3-4, whose losses and final
+     fp32 masters equal the one run's bit for bit;
   3b. the same chain at 4M-21 XL (fm_xlarge_24e_24d_swiglu_qknorm_nobias,
      full width and depth, random bf16 weights) for 4 requests, bench.py's
      xl_full_chain batch, in bf16 and then with kv_quant="int8" (every
@@ -194,8 +217,8 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      that the per-leaf gate must catch.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
-also with its wrapper's launches on the decode paths of phase 10 and on the
-SR paths of phases 3c and 10b); the last line is
+also with its wrapper's launches on the decode paths of phase 10, on the
+SR paths of phases 3c and 10b and on phase 11's CLI paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -2886,6 +2909,347 @@ def generate_api_phase(torch, model, card: str) -> dict:
     return {"multi_guided": multi_launches, "sam_dense": sam_launches}
 
 
+# phase 11: checkpoints from local files and the two CLIs at 4M-21 B
+GEN_SETTINGS = "cfgs/default/generation/settings_base/T2CR_roar49-25_cfg3_t6-0.5.yaml"
+CLI_TARGETS = [t for t in TARGETS if t != "caption"]
+CLI_PROMPTS = ["a photo of a cat on the grass", "a dog and a bicycle near the house"]
+CLI_TOKENIZERS = {"tok_clip": "CLIP-B16", "tok_depth": "depth"}  # key: the config's domain
+CLI_STEPS = 8  # ROAR steps per image target
+# a small WordPiece vocabulary after the 4M layout's added tokens
+WORDPIECE = ("a the of on and near photo cat dog grass bicycle house person car . , ! ? ' "
+             "##s ##ing ##ed x y z").split()
+ACT_NAMES = {"gelu": "GELU", "silu": "SiLU", "relu": "ReLU"}
+
+
+def release_state(torch, model) -> dict:
+    """A FourM of the port as the release format holds it: fp32 tensors
+    under the reference names, the decoder logits untied (a tied model's
+    `to_logits` is its token embedding) and the sin-cos `pos_emb` tables
+    the reference stores, (1, D, h, w) for image grids, (1, N, D) for
+    sequences."""
+    from fourm_torch.ops.posemb import build_1d_sincos_posemb, build_2d_sincos_posemb
+
+    state = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    D = model.config.dim
+    for top in ("encoder_embeddings", "decoder_embeddings"):
+        for mod, emb in getattr(model, top).items():
+            if getattr(emb, "share_embedding", False):
+                state[f"{top}.{mod}.to_logits.weight"] = state[f"{top}.{mod}.token_emb.weight"]
+            if hasattr(emb, "sincos_table"):
+                state[f"{top}.{mod}.pos_emb"] = build_1d_sincos_posemb(
+                    emb.sincos_table.shape[0], D)[None]
+            elif isinstance(getattr(emb, "pos_table", None), torch.Tensor):
+                n = int(round(emb.pos_table.shape[0] ** 0.5))
+                table = build_2d_sincos_posemb(n, n, D)
+                state[f"{top}.{mod}.pos_emb"] = table.reshape(n, n, D).permute(2, 0, 1)[None]
+    return {k: v.contiguous() for k, v in state.items()}
+
+
+def release_metadata(cfg) -> dict:
+    """The reference's str(config) of a FourM's configuration."""
+    return {"config": str({
+        "domains_in": list(cfg.encoder_modalities), "domains_out": list(cfg.decoder_modalities),
+        "dim": cfg.dim, "encoder_depth": cfg.encoder_depth, "decoder_depth": cfg.decoder_depth,
+        "num_heads": cfg.num_heads, "mlp_ratio": cfg.mlp_ratio, "qkv_bias": cfg.qkv_bias,
+        "proj_bias": cfg.proj_bias, "mlp_bias": cfg.mlp_bias, "norm_bias": cfg.norm_bias,
+        "act_layer": ACT_NAMES[cfg.act], "gated_mlp": cfg.gated_mlp, "qk_norm": cfg.qk_norm,
+        "decoder_causal_mask": cfg.decoder_causal_mask,
+        "decoder_sep_mask": cfg.decoder_sep_mask,
+        "num_register_tokens": cfg.num_register_tokens,
+        "share_modality_embeddings": cfg.share_modality_embeddings,
+        "image_size": 224, "patch_size": 16})}
+
+
+def write_text_tokenizer(path: str) -> None:
+    """A tokenizer.json in the layout of the 4M release: [PAD]=0, [UNK]=1,
+    [SOS]=2, [EOS]=3, the sentinels [S_0] .. [S_99], the coordinate tokens
+    v0=0 .. v3=999 (added tokens, single words, special), then WORDPIECE."""
+    added = ["[PAD]", "[UNK]", "[SOS]", "[EOS]"] + [f"[S_{i}]" for i in range(100)]
+    added += [f"v{a}={i}" for a in range(4) for i in range(1000)]
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": i >= 4, "lstrip": False,
+                              "rstrip": False, "normalized": False, "special": True}
+                             for i, t in enumerate(added)],
+            "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": True, "strip_accents": None,
+                           "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"}, "post_processor": None,
+            "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+            "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                      "continuing_subword_prefix": "##", "max_input_chars_per_word": 100,
+                      "vocab": {t: i for i, t in enumerate(added + WORDPIECE)}}}
+    with open(path, "w") as f:
+        json.dump(spec, f)
+
+
+def same_state(torch, a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                    for k in a)
+
+
+def cli_phase(torch, model, bundles: dict, card: str, tmp: str) -> dict:
+    """Phase 11a-d: phase 3's 4M-21 B model written as a release
+    .safetensors and loaded back (timed, bit for bit); two of phase 10's
+    tokenizers (the CLIP-B16 ViT-B VQ-VAE, the depth UNet-P4 DiVAE) written
+    with export_vq_safetensors and loaded back with get_image_tokenizer (bit
+    for bit); a release-layout tokenizer.json and a two-prompt TSV; then
+    `fourm_torch.cli.generate.main` on the card (the T2CR settings config,
+    targets overridden to the chain's 13 other than caption, CLI_STEPS
+    ROAR steps each, CFG 3.0 from the config on every target), the launch
+    counters reset just before and read just after it: its saved tokens
+    equal, exactly, FourMSampler.generate on phase 3's in-memory model with
+    the same seeds; its PNGs and texts equal, byte for byte, what the same
+    saving makes of FourMSampler.decode through phase 10's in-memory
+    bundles; the launch counts exact (pass_launches of its passes and
+    tokens, and per prompt one ViT-B decoder). Returns {path: launch
+    counts}."""
+    from fourm_torch import kernels
+    from fourm_torch.api import FourMSampler
+    from fourm_torch.cli import generate as cli
+    from fourm_torch.utils.checkpoint import (export_vq_safetensors, load_fourm_safetensors,
+                                              load_safetensors, save_safetensors)
+    from fourm_torch.utils.config import parse_args_with_config
+    from fourm_torch.utils.decoding import to_numpy
+    from fourm_torch.utils.text_tokenizer import load_tokenizer
+    from fourm_torch.vq.loader import get_image_tokenizer
+
+    # (a) the model file
+    fm_path = os.path.join(tmp, "4m-21_b.safetensors")
+    t0 = time.perf_counter()
+    save_safetensors(release_state(torch, model), fm_path, metadata=release_metadata(model.config))
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(fm_path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, loaded = load_fourm_safetensors(fm_path, config_override={"dtype": "bfloat16"})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(loaded.mask_token.device.type == "cuda" and cfg.dtype == "bfloat16",
+          "load_fourm_safetensors: not a bf16 model on the card")
+    own = model.state_dict()
+    got = loaded.state_dict()
+    tied = {k: k.replace("to_logits", "token_emb") for k in got if ".to_logits." in k}
+    check(same_state(torch, {k: v for k, v in got.items() if k not in tied}, own)
+          and all(torch.equal(got[k], own[v]) for k, v in tied.items()),
+          "load_fourm_safetensors: the loaded model differs from phase 3's")
+    n_pos = sum(k.endswith(".pos_emb") for k in load_safetensors(fm_path, False))
+    print(f"release file: phase 3's 4M-21 B ({MODEL}, untied logits) as a {size} byte "
+          f".safetensors ({size / 2**30:.3f} GiB, fp32, {n_pos} sin-cos pos_emb tables held to "
+          f"the computed ones and dropped), written in {write_s:.3f} s; load_fourm_safetensors "
+          f"to a bf16 model on the card {load_s:.3f} s ({size / load_s / 1e9:.3f} GB/s), "
+          f"every tensor equal to phase 3's; {card}", flush=True)
+    del loaded, got
+    torch.cuda.empty_cache()
+
+    # (b) two tokenizer files
+    tok_paths = {}
+    for key, domain in CLI_TOKENIZERS.items():
+        spec = VQVAE_TOKENIZERS.get(key) or DIVAE_UNETP4
+        path = os.path.join(tmp, f"{key}.safetensors")
+        export_vq_safetensors(bundles[key].model, dict(spec, domain=domain), path)
+        t0 = time.perf_counter()
+        tok, none = get_image_tokenizer(path, config_override={"dtype": "bfloat16"},
+                                        verbose=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(none is None and type(tok) is type(bundles[key].model)
+              and same_state(torch, tok.state_dict(), bundles[key].model.state_dict()),
+              f"get_image_tokenizer: {key} differs from phase 10's")
+        print(f"tokenizer file {key}: {type(tok).__name__} ({os.path.getsize(path)} bytes) loaded "
+              f"by get_image_tokenizer in {sec:.3f} s, every tensor equal to phase 10's; {card}",
+              flush=True)
+        tok_paths[key] = path
+        del tok
+
+    # (c) the text tokenizer and the prompts
+    text_path = os.path.join(tmp, "tokenizer.json")
+    write_text_tokenizer(text_path)
+    tsv = os.path.join(tmp, "prompts.tsv")
+    with open(tsv, "w") as f:
+        f.write("".join(f"{p}\tAnimals\n" for p in CLI_PROMPTS))  # the CLI reads no header
+
+    # (d) the CLI on the card
+    n_img = len(ROAR_TARGETS)
+    out_dir = os.path.join(tmp, "gen")
+    argv = ["--fm_ckpt", fm_path, "--config", GEN_SETTINGS, "--dataset", "prompts",
+            "--prompts_tsv", tsv, "--num_samples", str(len(CLI_PROMPTS)),
+            "--target_domains", "-".join(CLI_TARGETS),
+            "--autoregression_schemes", "-".join(["roar"] * n_img +
+                                                 ["autoregressive"] * (len(CLI_TARGETS) - n_img)),
+            "--decoding_steps", str(CLI_STEPS), "--temps", "3.0", "--temp_schedules",
+            "onex:0.5:0.5", "--text_tokenizer_path", text_path,
+            "--detokenizer_steps", str(DECODE_STEPS), "--output_dir", out_dir, "--seed", "0"]
+    argv += [a for k, p in tok_paths.items() for a in ("--tokenizer", f"{k}={p}")]
+    seen = {}
+    load_fm = cli.load_fm
+
+    def recorded(*a, **kw):  # the CLI's model, with pass recording
+        seen["model"] = m = load_fm(*a, **kw)
+        seen["lengths"] = PassLengths(m)
+        return m
+
+    cli.load_fm = recorded
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        cli.load_fm = load_fm
+    seen["lengths"].close()
+    cli_model = seen.pop("model")
+
+    # the same requests on phase 3's model and phase 10's bundles
+    args = parse_args_with_config(cli.get_parser(), argv)
+    text_tok = load_tokenizer(text_path)
+    ref = FourMSampler(model, text_tok, top_k=args.top_k, top_p=args.top_p,
+                       tokenizers={k: bundles[k] for k in CLI_TOKENIZERS})
+    check(args.top_p == 0.9 and args.cfg_scales == 3.0, "the settings config was not read")
+    ref_dir = os.path.join(tmp, "ref")
+    os.makedirs(ref_dir)
+    n_tok = 0
+    for i, prompt in enumerate(CLI_PROMPTS):
+        seed = i * 1000
+        md = ref.prepare_sample({"caption": prompt}, ["caption"], CLI_TARGETS, 1)
+        schedule = ref.build_schedule(["caption"], CLI_TARGETS,
+                                      defaults=cli.schedule_overrides(args, ref, ["caption"],
+                                                                      CLI_TARGETS))
+        if i == 0:
+            check([s["target_domain"] for s in schedule][-5:] == CLI_TARGETS[n_img:]
+                  and sum(s["scheme"] == "roar" for s in schedule) == n_img * CLI_STEPS
+                  and all(s["cfg_scale"] == 3.0 and s["cfg_cond_domains"] for s in schedule),
+                  "cli: the schedule is not the config's with the targets overridden")
+        out = ref.generate(md, schedule, seed=seed)
+        n_tok += sum(ref.sampler._ar_tokens.values())
+        name = f"prompt_{i:05d}_v0"
+        saved = np.load(os.path.join(out_dir, f"{name}.npz"))
+        check(sorted(saved.files) == sorted(CLI_TARGETS), f"cli: {name}.npz holds {saved.files}")
+        for t in CLI_TARGETS:
+            check(np.array_equal(saved[t], to_numpy(out[t]["tensor"])),
+                  f"cli: {name} {t} tokens differ from FourMSampler.generate's")
+        for key, val in ref.decode(out, decoding_steps=DECODE_STEPS, seed=seed).items():
+            cli._save_decoded(os.path.join(ref_dir, f"{name}_{key.replace('@', '_')}"), val)
+    files = sorted(f for f in os.listdir(out_dir) if not f.endswith(".npz"))
+    check(files == sorted(os.listdir(ref_dir)), f"cli: files {files}")
+    check(sum(f.endswith(".png") for f in files) == 2 * (2 + 1)
+          and sum(f.endswith(".txt") for f in files) == 2 * 4,
+          f"cli: expected per prompt 3 PNGs (tok_clip, tok_depth, color_palette) and 4 texts, "
+          f"got {files}")
+    for f in files:
+        with open(os.path.join(out_dir, f), "rb") as a, open(os.path.join(ref_dir, f), "rb") as b:
+            check(a.read() == b.read(), f"cli: {f} differs from the in-memory decode's")
+    expected = {k: 0 for k in launches}
+    expected.update(pass_launches(cli_model, seen["lengths"], n_tok))
+    for k, v in {"attn_block": DEPTH, "ln_mlp": DEPTH}.items():  # the CLIP decoder per prompt
+        expected[k] += v * len(CLI_PROMPTS)
+    check(launches == expected, f"cli: launch counts {launches} != {expected}")
+    print(f"generate CLI: fourm_torch.cli.generate.main, {len(CLI_PROMPTS)} prompts x "
+          f"{len(CLI_TARGETS)} targets ({n_img} x {CLI_STEPS} ROAR steps, "
+          f"{len(CLI_TARGETS) - n_img} AR targets, {n_tok} tokens; CFG 3.0, top_p 0.9), "
+          f"decoded by the two loaded tokenizers ({DECODE_STEPS} steps): {cli_s:.3f} s with "
+          f"the loads; tokens equal the in-memory chain's, {len(files)} decoded files equal "
+          f"byte for byte; {card}", flush=True)
+    print(f"cli launches {json.dumps(launches)}", flush=True)
+    del cli_model
+    torch.cuda.empty_cache()
+    return {"cli": launches}, fm_path
+
+
+TRAIN_CLI_DEPTH = 2  # 2 + 2 layers of phase 9's model at full width
+
+
+def train_cli_argv(fm_path: str, out: str, steps: int, save_every: int) -> list:
+    from fourm_torch.utils.synthetic import MOD7_DECODER_MODALITIES, MOD7_MODALITIES
+
+    return ["--synthetic_data", "--model", TRAIN_MODEL, "--in_domains",
+            "-".join(MOD7_MODALITIES), "--out_domains", "-".join(MOD7_DECODER_MODALITIES),
+            "--encoder_depth", str(TRAIN_CLI_DEPTH), "--decoder_depth", str(TRAIN_CLI_DEPTH),
+            "--batch_size", str(TRAIN_BATCH), "--num_input_tokens", str(TRAIN_TOKENS),
+            "--num_target_tokens", str(TRAIN_TOKENS), "--scheduler", "constant",
+            "--warmup_tokens", "2.5e-5", "--blr", "1e-3", "--print_freq", "1",
+            "--epoch_size", str(TRAIN_BATCH), "--save_ckpt_freq", str(save_every),
+            "--finetune", fm_path, "--output_dir", out, "--max_steps", str(steps)]
+
+
+def train_resume_phase(torch, fm_path: str, card: str, tmp: str) -> dict:
+    """Phase 11e: phase 9's train step (4M-B mod-7, B = 32, 128 + 128
+    tokens, bf16 compute) at full width and 2 + 2 layers through
+    `fourm_torch.cli.train_4m.main`, warm-started by --finetune from 11a's
+    file, constant LR after a 3-step warmup: 4 steps in one run (launch
+    counts exact: per step 6 + 6 attention_train, 1 fused_adamw); 2 steps
+    (a checkpoint at step 2); then a second process that auto-resumes and
+    takes steps 3-4. Steps 3-4's losses and the final fp32 masters equal the
+    uninterrupted run's bit for bit. Returns {path: launch counts}."""
+    from fourm_torch import kernels
+    from fourm_torch.cli.train_4m import main
+    from fourm_torch.utils.checkpoint import latest_checkpoint_steps, load_checkpoint
+
+    def losses(run):
+        with open(os.path.join(run, "log.txt")) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f)}
+
+    full, cut = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    main(train_cli_argv(fm_path, full, 4, 4))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = {k: 0 for k in launches}
+    expected.update({k: 4 * (v if k == "fused_adamw" else v // DEPTH * TRAIN_CLI_DEPTH)
+                     for k, v in PER_TRAIN_STEP.items()})
+    check(launches == expected, f"train CLI: launch counts {launches} != {expected}")
+    t0 = time.perf_counter()
+    main(train_cli_argv(fm_path, cut, 2, 4))
+    first_s = time.perf_counter() - t0
+    check(latest_checkpoint_steps(os.path.join(cut, "checkpoints")) == [2],
+          "train CLI: no checkpoint at step 2")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fourm_torch.cli.train_4m"]
+                          + train_cli_argv(fm_path, cut, 4, 4),
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    second_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and "[ckpt] resumed from step 2" in proc.stdout,
+          f"train CLI: the resuming process failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    la, lb = losses(full), losses(cut)
+    check(sorted(la) == sorted(lb) == [0, 1, 2, 3] and la == lb,
+          f"train CLI: losses {la} (one run) != {lb} (2 steps, then resumed)")
+    wa = load_checkpoint(os.path.join(full, "weights"), 4, map_location="cpu")
+    wb = load_checkpoint(os.path.join(cut, "weights"), 4, map_location="cpu")
+    check(same_state(torch, wa, wb) and all(v.dtype == torch.float32 for v in wa.values()),
+          "train CLI: the resumed run's fp32 masters differ from the uninterrupted run's")
+    print(f"train CLI: {TRAIN_MODEL} at full width, {TRAIN_CLI_DEPTH} + {TRAIN_CLI_DEPTH} layers, "
+          f"B={TRAIN_BATCH}, --finetune from the release file; 4 steps in one run "
+          f"{full_s:.3f} s; 2 steps + checkpoint {first_s:.3f} s; a second process resuming "
+          f"at step 2 for steps 3-4 {second_s:.3f} s; losses "
+          f"{', '.join(f'{la[s]:.6f}' for s in sorted(la))} equal bit for bit, and the "
+          f"{len(wa)} fp32 master tensors; {card}", flush=True)
+    print(f"train CLI launches {json.dumps(launches)}", flush=True)
+    return {"train_cli": launches}
+
+
+def checkpoint_phase(torch, model, bundles: dict, card: str) -> dict:
+    """Phase 11: cli_phase, then train_resume_phase, in a temporary
+    directory removed afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="fourm_phase11_")
+    try:
+        t0 = time.perf_counter()
+        launches, fm_path = cli_phase(torch, model, bundles, card, tmp)
+        launches.update(train_resume_phase(torch, fm_path, card, tmp))
+        print(f"phase 11: {time.perf_counter() - t0:.3f} s; {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+
 def xl_phase(torch, card: str):
     """Phases 3b and 4b: the 14-target chain at 4M-21 XL, full width
     and depth, for 4 requests in bf16 and in int8 mode, with the token
@@ -3906,6 +4270,7 @@ def main() -> int:
                                                            card)
     sr_parity_phase(torch, sr_out)
     api_launches = generate_api_phase(torch, model, card)
+    ckpt_launches = checkpoint_phase(torch, model, bundles, card)
     del model, out, bundles, uvit, dec, sr_out
     torch.cuda.empty_cache()
     xl_launches, int8_launches = xl_phase(torch, card)
@@ -3930,13 +4295,14 @@ def main() -> int:
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
                          xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches,
-                         **sr_paths, **api_launches)
+                         **sr_paths, **api_launches, **ckpt_launches)
     decode_paths = {"decode": decode_launches, "uvit_decode": uvit_launches}
     for r in results:  # each wrapper's launches on the path that runs it
         path, wrapper = r["path"], r.pop("wrapper")
         r["launches"] = path_launches[path][wrapper]
         r["decode_launches"] = {p: n[wrapper] for p, n in decode_paths.items()}
         r["sr_launches"] = {p: n[wrapper] for p, n in sr_paths.items()}
+        r["cli_launches"] = {p: n[wrapper] for p, n in ckpt_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

@@ -1,9 +1,37 @@
-"""Weight bridge: the JAX package's parameter trees -> the port's state dicts.
+"""Checkpoints of the PyTorch port: release-format safetensors in and out,
+the port's own train-state checkpoints, and the weight bridge from the JAX
+package's parameter trees.
 
-Each function takes a fourm_tpu variables tree as nested dicts of numpy
-arrays (what `jax.tree.map(np.asarray, variables)` gives) and returns the
-reference-named torch state dict that the port's module takes with
-`load_state_dict(..., strict=True)`:
+Release files (fourm_tpu/utils/checkpoint.py:259-475; reference
+utils/checkpoint.py:176-192), read and written by the port itself (the
+machine with the card has neither `safetensors` nor PyYAML):
+  * `load_safetensors` / `save_safetensors`: the format itself (an 8-byte
+    little-endian header length, a JSON header of `dtype`, `shape` and
+    `data_offsets` with an optional `__metadata__` of strings, then the
+    raw little-endian bytes). Loading maps the file and makes each tensor
+    a view of the mapping (torch.frombuffer): no second host copy;
+  * `parse_metadata_value`: a metadata string as the JAX loader's
+    `yaml.safe_load(v.replace("None", "null"))` reads the forms these
+    files carry: a Python-literal dict or list (the reference writes
+    `str(config)`), JSON, the block YAML of `export_vq_safetensors`, one
+    scalar. Anything else raises;
+  * `fourm_config_from_metadata` / `load_fourm_safetensors`: a released 4M
+    model (a local file) as the port's FourM, its reference-named tensors
+    copied into the module's own parameters, then cast. A key the port
+    cannot place, or a parameter the file lacks, raises with its name; a
+    sin-cos `pos_emb` table in the file is held to the port's computed one
+    and dropped;
+  * `import_vq_state_dict` / `load_vq_safetensors` / `export_vq_safetensors`:
+    the VQ tokenizers (vq/loader.py:get_image_tokenizer reads with them).
+Train state (fourm_tpu/utils/checkpoint.py:31-82, orbax there, here
+`torch.save`): `save_checkpoint` writes `step_N` directories (under a
+temporary name, then renamed) and keeps the newest `keep`;
+`latest_checkpoint_steps`, `load_checkpoint`, `auto_resume`.
+
+Weight bridge: each `from_jax_*` function takes a fourm_tpu variables tree
+as nested dicts of numpy arrays (what `jax.tree.map(np.asarray,
+variables)` gives) and returns the reference-named torch state dict that
+the port's module takes with `load_state_dict(..., strict=True)`:
   * `from_jax_params(params, config)`: `variables["params"]` of a FourM, the
     port's own copy of fourm_tpu/utils/checkpoint.py:export_fourm_torch_state;
   * `from_jax_vq_variables(variables)`: a VQ's, VQVAE's or DiVAE's
@@ -25,8 +53,14 @@ tables are computed, not loaded.
 
 from __future__ import annotations
 
+import ast
+import dataclasses
+import json
+import mmap
+import os
 import re
-from typing import Dict, Mapping
+import shutil
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -192,3 +226,344 @@ def _numpy_tree(tree):
     if isinstance(tree, Mapping):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree, dtype=np.float32)
+
+
+# ------------------------------------------------------------ safetensors
+
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+              "U8": torch.uint8, "BOOL": torch.bool}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def _local_file(path: str) -> str:
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{path}: no such file. The port reads checkpoints from local files only; a "
+            "Hugging Face Hub id (e.g. EPFL-VILAB/4M-21_B) must be downloaded first")
+    return path
+
+
+def _tensor_at(buf, start: int, info: dict, name: str) -> torch.Tensor:
+    dtype = _ST_DTYPES.get(info["dtype"])
+    if dtype is None:
+        raise ValueError(f"{name}: safetensors dtype {info['dtype']} is not supported "
+                         f"(supported: {', '.join(_ST_DTYPES)})")
+    shape = [int(n) for n in info["shape"]]
+    begin, end = info["data_offsets"]
+    numel = int(np.prod(shape))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if end - begin != numel * itemsize:
+        raise ValueError(f"{name}: data_offsets span {end - begin} bytes, shape {shape} of "
+                         f"{info['dtype']} needs {numel * itemsize}")
+    if numel == 0:
+        return torch.empty(shape, dtype=dtype)
+    offset = start + begin
+    if offset % itemsize:  # an unaligned tensor: a copy of its bytes
+        return torch.frombuffer(bytearray(buf[offset:offset + end - begin]),
+                                dtype=dtype).reshape(shape)
+    return torch.frombuffer(buf, dtype=dtype, count=numel, offset=offset).reshape(shape)
+
+
+def load_safetensors(path: str, return_metadata: bool = True):
+    """{name: tensor} of a safetensors file, each tensor a CPU view of the
+    file's private mapping (writing to one never reaches the file), and,
+    with return_metadata, the parsed `__metadata__` (parse_metadata_value
+    on each value) -> (tensors, metadata)."""
+    with open(_local_file(path), "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    start = 8 + n
+    tensors = {name: _tensor_at(buf, start, info, name)
+               for name, info in header.items() if name != "__metadata__"}
+    if not return_metadata:
+        return tensors
+    metadata = header.get("__metadata__") or {}
+    return tensors, {k: parse_metadata_value(v) for k, v in metadata.items()}
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str,
+                     metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Write {name: tensor} as a safetensors file (tensors in name order, the
+    header padded with blanks to 8 bytes); metadata values must be
+    strings."""
+    items = []
+    for name in sorted(tensors):
+        t = tensors[name]
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name here")
+        items.append((name, t.detach().to("cpu").contiguous()))
+    header: Dict[str, Any] = {}
+    if metadata:
+        if not all(isinstance(v, str) for v in metadata.values()):
+            raise TypeError("safetensors metadata values must be strings")
+        header["__metadata__"] = dict(metadata)
+    offset = 0
+    for name, t in items:
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, t in items:
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def _lists(v):
+    if isinstance(v, (list, tuple)):
+        return [_lists(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _lists(x) for k, x in v.items()}
+    return v
+
+
+def parse_metadata_value(v: Any) -> Any:
+    """One `__metadata__` value as the JAX loader reads it
+    (fourm_tpu/utils/checkpoint.py:270-283): a string under 10 000
+    characters is parsed; others are kept as they are. A dict or list is
+    JSON or a Python literal (tuples as lists); anything else is read by
+    the port's YAML subset (utils/config.py) after the JAX loader's
+    replace of "None" by "null", so a form outside all three raises."""
+    from .config import safe_load
+
+    if not isinstance(v, str) or len(v) >= 10_000:
+        return v
+    text = v.strip()
+    if text[:1] in "{[":
+        try:
+            return json.loads(text)
+        except ValueError:
+            pass
+        try:
+            return _lists(ast.literal_eval(text))
+        except (ValueError, SyntaxError):
+            pass
+    return safe_load(v.replace("None", "null"), "safetensors metadata")
+
+
+# --------------------------------------------------------- FourM releases
+
+_ACT_MAP = {"GELU": "gelu", "SiLU": "silu", "ReLU": "relu"}
+
+
+def fourm_config_from_metadata(cfg: Dict[str, Any]):
+    """The port's FourMConfig from the reference FM config dict (reference
+    fm.py:783-831: domains_in / domains_out and the architecture keys), as
+    fourm_tpu/utils/checkpoint.py:290-314 builds it: float32 compute (the
+    metadata names no dtype), untied logits."""
+    from ..models.fourm import FourMConfig
+
+    return FourMConfig(
+        encoder_modalities=tuple(cfg["domains_in"]),
+        decoder_modalities=tuple(cfg["domains_out"]),
+        dim=cfg.get("dim", 768),
+        encoder_depth=cfg.get("encoder_depth", 12),
+        decoder_depth=cfg.get("decoder_depth", 12),
+        num_heads=cfg.get("num_heads", 12),
+        mlp_ratio=cfg.get("mlp_ratio", 4.0),
+        qkv_bias=cfg.get("qkv_bias", True),
+        proj_bias=cfg.get("proj_bias", True),
+        mlp_bias=cfg.get("mlp_bias", True),
+        norm_bias=cfg.get("norm_bias", True),
+        act=_ACT_MAP.get(cfg.get("act_layer", "GELU"), "gelu"),
+        gated_mlp=cfg.get("gated_mlp", False),
+        qk_norm=cfg.get("qk_norm", False),
+        decoder_sep_mask=cfg.get("decoder_sep_mask", True),
+        decoder_causal_mask=cfg.get("decoder_causal_mask", False),
+        num_register_tokens=cfg.get("num_register_tokens", 0),
+        share_modality_embeddings=cfg.get("share_modality_embeddings", True),
+        decoder_share_embedding=False,  # the releases untie the logits (fm.py:813-815)
+    )
+
+
+def _sincos_table(model: torch.nn.Module, key: str):
+    """(table, one_d) of the embedding that `key` (`...embeddings.{mod}.
+    pos_emb`) names: its computed (N, D) sin-cos table and whether it is a
+    sequence's; None if that module computes none."""
+    try:
+        module = model.get_submodule(key.rsplit(".", 1)[0])
+    except AttributeError:
+        return None
+    for name, one_d in (("sincos_table", True), ("pos_table", False)):
+        table = getattr(module, name, None)
+        if isinstance(table, torch.Tensor):  # a sequence decoder's pos_table is a method
+            return table, one_d
+    return None
+
+
+def _check_sincos(key: str, value: torch.Tensor, table: torch.Tensor, one_d: bool) -> None:
+    """A file's sin-cos table, (1, N, D) or, for an image grid, the
+    reference's (1, D, h, w) (its rearrange 'b (h w) d -> b d h w'),
+    against the computed one."""
+    N, D = table.shape
+    v = value.detach().float().cpu()
+    if (not one_d and v.ndim == 4 and v.shape[0] == 1 and v.shape[1] == D
+            and v.shape[2] * v.shape[3] == N):
+        got = v[0].permute(1, 2, 0).reshape(N, D)
+    elif v.ndim in (2, 3) and v.shape[-1] == D and (v.ndim == 2 or v.shape[0] == 1):
+        got = v.reshape(-1, D)
+    else:
+        raise ValueError(f"{key}: a sin-cos table of shape {tuple(v.shape)}; the port's is "
+                         f"({N}, {D}), stored as (1, {N}, {D})"
+                         + ("" if one_d else f" or (1, {D}, h, w)"))
+    if got.shape[0] != N:
+        raise ValueError(f"{key}: a sin-cos table of {got.shape[0]} positions, the port uses {N}")
+    err = float((got - table.detach().float().cpu()).abs().max())
+    if err > 1e-6:
+        raise ValueError(f"{key}: the file's sin-cos table differs from the port's computed "
+                         f"table by up to {err:.3g} (tolerance 1e-6)")
+
+
+def load_fourm_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tensor],
+                          drop_pos_emb: bool = False, strict: bool = True):
+    """Copy a reference-named FourM state dict into `model`'s own
+    parameters (load_state_dict copies in place, so a padded fc2 storage
+    stays). A `pos_emb` the model computes as a sin-cos table is held to
+    that table (_check_sincos) and dropped. strict: a key the model has no
+    place for, or a parameter the state lacks, raises KeyError naming it.
+    drop_pos_emb (the --finetune warm start, reference run_training_4m.py:
+    475-487) leaves out every `.pos_emb` key first; with strict=False
+    (that warm start, as the reference's load_state_dict(strict=False))
+    the keys left out either way are returned: (missing, unexpected)."""
+    own = model.state_dict()
+    sd = {}
+    for k, t in state.items():
+        if drop_pos_emb and ".pos_emb" in k:
+            continue
+        if k.endswith(".pos_emb") and k not in own:
+            found = _sincos_table(model, k)
+            if found is not None:
+                _check_sincos(k, t, *found)
+                continue
+        sd[k] = t
+    missing = [k for k in own if k not in sd and not (drop_pos_emb and ".pos_emb" in k)]
+    unexpected = [k for k in sd if k not in own]
+    if strict and (missing or unexpected):
+        raise KeyError(f"checkpoint keys the model has no place for: {unexpected}; model "
+                       f"parameters the checkpoint lacks: {missing}")
+    model.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
+    return missing, unexpected
+
+
+def load_fourm_safetensors(path: str, config_override: Optional[Dict] = None,
+                           device: Optional[str] = None):
+    """A released 4M safetensors checkpoint (a local file; fourm_tpu/utils/
+    checkpoint.py:317-334 without its Hub download) -> (FourMConfig, FourM).
+    The model is built on `device` (the card unless "cpu" is asked), the
+    file's tensors copied into its fp32 parameters, then the whole module
+    cast to the compute dtype, as inference holds it. config_override
+    updates the metadata's config; its "dtype" (e.g. "bfloat16", which the
+    kernels compute in) sets the compute dtype, float32 without it."""
+    from ..api import resolve_device
+    from ..models.fourm import FourM
+
+    tensors, metadata = load_safetensors(path)
+    cfg_dict = dict(metadata.get("config") or {})
+    cfg_dict.update(config_override or {})
+    config = dataclasses.replace(fourm_config_from_metadata(cfg_dict),
+                                 dtype=(config_override or {}).get("dtype", "float32"))
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = FourM(config)
+    load_fourm_state_dict(model, tensors)
+    return config, model.to(device=dev, dtype=config.compute_dtype).eval()
+
+
+# ------------------------------------------------------- VQ tokenizers
+
+# training state of the quantizer's EMA, and sin-cos tables the port
+# computes: read by neither package's inference modules
+_VQ_UNUSED = ("_codebook.embed_avg", "_codebook.cluster_size", "_codebook.initted", "pos_emb")
+
+
+def import_vq_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tensor]):
+    """Copy a reference-named tokenizer state dict (the names of
+    from_jax_vq_variables; the codebook as `quantize._codebook.embed`) into
+    a VQ / VQVAE / DiVAE of the port, in place (each parameter keeps its
+    dtype). The quantizer's EMA state and `pos_emb` tables may be present
+    or absent; any other key the model has no place for, or parameter the
+    state lacks, raises KeyError naming it (the JAX importer prints the
+    missing ones and keeps their init, fourm_tpu/utils/checkpoint.py:
+    458-461)."""
+    own = model.state_dict()
+    sd = {k: v for k, v in state.items() if not k.endswith(_VQ_UNUSED)}
+    missing = [k for k in own if k not in sd]
+    unexpected = [k for k in sd if k not in own]
+    if missing or unexpected:
+        raise KeyError(f"tokenizer keys the model has no place for: {unexpected}; model "
+                       f"parameters the checkpoint lacks: {missing}")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def export_vq_safetensors(model: torch.nn.Module, config: Mapping[str, Any], path: str) -> None:
+    """A tokenizer of the port in the release format: its reference-named
+    state dict in fp32, the config as YAML metadata (fourm_tpu/utils/
+    checkpoint.py:464-472; utils/config.py:dump_yaml writes what
+    yaml.safe_dump writes). vq/loader.py:get_image_tokenizer reads it."""
+    from .config import dump_yaml
+
+    tensors = {k: v.detach().float() for k, v in model.state_dict().items()}
+    save_safetensors(tensors, path, metadata={"config": dump_yaml(dict(config))})
+
+
+def load_vq_safetensors(path: str, model: torch.nn.Module):
+    """A released tokenizer safetensors checkpoint into `model` (a VQ, VQVAE
+    or DiVAE of the port built from the same config) -> (config metadata,
+    model)."""
+    tensors, metadata = load_safetensors(path)
+    return metadata.get("config", {}), import_vq_state_dict(model, tensors)
+
+
+# ------------------------------------------------------------ train state
+
+def save_checkpoint(ckpt_dir: str, state: Mapping[str, Any], step: int, keep: int = 3) -> None:
+    """`state` (a dict of tensors, numbers, strings, lists and dicts) as
+    `{ckpt_dir}/step_{step}/state.pt`, written under a temporary name and
+    renamed, so a run cut while writing leaves no half-written step_N;
+    an existing step_N is replaced. Then only the newest `keep` stay."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    tmp = os.path.join(ckpt_dir, f".step_{step}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(dict(state), os.path.join(tmp, "state.pt"))
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    _prune_checkpoints(ckpt_dir, keep)
+
+
+def _prune_checkpoints(ckpt_dir: str, keep: int) -> None:
+    steps = latest_checkpoint_steps(ckpt_dir)
+    for s in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+
+
+def latest_checkpoint_steps(ckpt_dir: str):
+    """The steps of the `step_N` directories under ckpt_dir, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in
+                  (re.fullmatch(r"step_(\d+)", n) for n in os.listdir(ckpt_dir)) if m)
+
+
+def load_checkpoint(ckpt_dir: str, step: int, map_location=None) -> Dict[str, Any]:
+    """The state saved at `step` (tensors onto map_location, as torch.load)."""
+    return torch.load(os.path.join(ckpt_dir, f"step_{step}", "state.pt"),
+                      map_location=map_location, weights_only=True)
+
+
+def auto_resume(ckpt_dir: str, map_location=None) -> Tuple[Optional[Dict[str, Any]], int]:
+    """The newest checkpoint under ckpt_dir -> (state, step), or (None, 0)
+    when there is none. A checkpoint that cannot be read raises."""
+    steps = latest_checkpoint_steps(ckpt_dir)
+    if not steps:
+        return None, 0
+    return load_checkpoint(ckpt_dir, steps[-1], map_location), steps[-1]

@@ -177,6 +177,11 @@ class FusedAdamW:
                     grad_norm if clip else None, self.clip_grad, self._table)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """{"count", "mu", "nu"}: what load_state_dict takes back (the moments
+        themselves, not copies)."""
+        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
     def load_state_dict(self, state: dict) -> None:
         """Copy count and moments in ({"count", "mu", "nu"}, as
         `fourm_torch.utils.checkpoint.from_jax_adam_state` gives them). Every parameter

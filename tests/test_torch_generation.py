@@ -137,8 +137,8 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "fourm_tpu", "tokenizers"), \
-                (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "fourm_tpu", "tokenizers",
+                                "safetensors", "yaml", "huggingface_hub", "orbax"), (f, mod)
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
         # PIL, cv2 and matplotlib are absent on the machine with the card:
@@ -147,14 +147,17 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
             top = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                    [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
             assert not {m.split(".")[0] for m in top} & {"PIL", "cv2", "matplotlib"}, (f, top)
-    # and at run time: importing the whole port loads no JAX module, not the
-    # `tokenizers` package and no drawing library, which the machine with
-    # the card lacks
+    # and at run time: importing the whole port loads no JAX module, none of
+    # the `tokenizers`, `safetensors`, PyYAML, Hub or orbax packages and no
+    # drawing library, which the machine with the card lacks
     code = ("import sys, fourm_torch.api, fourm_torch.utils.checkpoint, fourm_torch.kernels, "
             "fourm_torch.vq, fourm_torch.utils.decoding, "
-            "fourm_torch.utils.text_tokenizer; "
+            "fourm_torch.utils.text_tokenizer, fourm_torch.cli.generate, "
+            "fourm_torch.cli.train_4m, fourm_torch.vq.loader, fourm_torch.utils.config, "
+            "fourm_torch.data.generation_datasets; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'fourm_tpu', 'tokenizers', 'PIL', 'cv2', 'matplotlib')]; "
+            "('jax', 'flax', 'fourm_tpu', 'tokenizers', 'safetensors', 'yaml', "
+            "'huggingface_hub', 'orbax', 'PIL', 'cv2', 'matplotlib')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
