@@ -214,11 +214,36 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      whole gradient and each of its 256 leaves), the card's update against
      the AdamW twin applied on the card to the card's own gradients
      (exact), and a planted fault (the cross-attention cores' dq zeroed)
-     that the per-leaf gate must catch.
+     that the per-leaf gate must catch;
+  12. 4M pre-training from tokenized shards at 4M-21 B full width and depth
+     (cfgs/default/4m/models/main/4m-b_mod21_500b.yaml: its 19 domains, its
+     alphas mixture, fm_base_12e_12d_swiglu_nobias), in a temporary
+     directory removed afterwards: webdataset tar shards written from a
+     seed (4 shards of 128 samples per modality group: rgb@224 as PNG
+     larger than 224 with its crop settings, the tok_* arrays a row per
+     crop, t5_caption at width 4096, the JSON domains; a val shard) and
+     phase 11's tokenizer layout; fourm_torch.cli.train_4m.main on them (4
+     spawn loader workers, B = 64, 256 + 256 tokens, a frozen-trunk epoch
+     of 2 steps, layer decay 0.75, 25 steps, the eval at 128 + 128 at the
+     end): the launch counts of the run and of one step exact, the trunk's
+     fp32 masters bit for bit over the frozen steps and every embedding
+     leaf moved, samples/s the median of the last 20 steps; the loader
+     alone, inline (every shard opened by the native tar reader) and with 4
+     workers twice from one seed (equal batches); the same step on
+     synthetic batches (samples/s); a step whose skip_grad is below its
+     norm (masters, moments and count bit for bit, no host sync);
+     fused_adamw at the 4M-21 B tree with layer scales, frozen flags and
+     the scalars read on the card, bit for bit, with planted faults (the
+     scale on the Adam term alone, a frozen leaf updated, a skipped step
+     that advances the count), timed as a row; remat against no remat over
+     4 steps (first loss bit for bit, masters after 4 steps, peak memory,
+     remat's launch counts); and at 2 + 2 layers the loss of a shard batch
+     against the CPU in fp32 and bf16 (phase 4's gate).
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
-SR paths of phases 3c and 10b and on phase 11's CLI paths); the last line is
+SR paths of phases 3c and 10b, on phase 11's CLI paths and on phase 12's
+pre-training run); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -870,11 +895,12 @@ def fault_check(torch, name, faults, refs, tols) -> None:
                                  f"(tol {tols[part]})")
     for label, out in wrong.items():
         dist = {p: (o - refs[p]).abs().max().item() for p, o in parts(out).items()}
-        part = max(dist, key=lambda p: dist[p] / tols[p])
+        part = max(dist, key=lambda p: dist[p] / max(tols[p], 1e-30))
         d, tol = dist[part], tols[part]
         seen = d > tol
         where = "" if part == first else f" in {part}"
-        print(f"  fault {label}: {d:.6g} from the twin{where}, {d / tol:.4g} x tol "
+        times = f"{d / tol:.4g} x tol" if tol else "tol 0: exact"
+        print(f"  fault {label}: {d:.6g} from the twin{where}, {times} "
               f"({'caught' if seen else 'not caught: below two bf16 ulps'})", flush=True)
         check(seen or label not in must, f"{name}: tolerance {tol} cannot tell '{label}' ({d})")
 
@@ -2003,6 +2029,18 @@ def pass_launches(model, lengths: PassLengths, n_tok: int, kv_quant=None) -> dic
          ("decode_attention_int8" if kv_quant == "int8" else "decode_attention"): 1},
         cfg.decoder_depth * n_tok)
     return counts
+
+
+def eval_launches(cfg, n_enc: int, batches: int = 1) -> dict:
+    """The wrappers an eval forward (FourM.forward(train=False), the loss on
+    the inference path) launches per batch: per encoder block its
+    self-attention half over n_enc tokens (prenorm_launches) and ln_mlp;
+    per decoder block the self-attention under the decoder's (B, M, M) mask
+    and the cross-attention, each through `attention`, and ln_mlp."""
+    counts = {k: v * cfg.encoder_depth for k, v in prenorm_launches(n_enc, cfg).items()}
+    counts["ln_mlp"] = counts.get("ln_mlp", 0) + cfg.encoder_depth + cfg.decoder_depth
+    counts["attention"] = counts.get("attention", 0) + 2 * cfg.decoder_depth
+    return {k: v * batches for k, v in counts.items()}
 
 
 def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = DEPTH,
@@ -3171,6 +3209,7 @@ def train_cli_argv(fm_path: str, out: str, steps: int, save_every: int) -> list:
             "--num_target_tokens", str(TRAIN_TOKENS), "--scheduler", "constant",
             "--warmup_tokens", "2.5e-5", "--blr", "1e-3", "--print_freq", "1",
             "--epoch_size", str(TRAIN_BATCH), "--save_ckpt_freq", str(save_every),
+            "--eval_freq", str(save_every), "--eval_size", str(TRAIN_BATCH),
             "--finetune", fm_path, "--output_dir", out, "--max_steps", str(steps)]
 
 
@@ -3179,7 +3218,8 @@ def train_resume_phase(torch, fm_path: str, card: str, tmp: str) -> dict:
     tokens, bf16 compute) at full width and 2 + 2 layers through
     `fourm_torch.cli.train_4m.main`, warm-started by --finetune from 11a's
     file, constant LR after a 3-step warmup: 4 steps in one run (launch
-    counts exact: per step 6 + 6 attention_train, 1 fused_adamw); 2 steps
+    counts exact: per step 6 + 6 attention_train, 1 fused_adamw, and the
+    eval of one held-out batch at the last step); 2 steps
     (a checkpoint at step 2); then a second process that auto-resumes and
     takes steps 3-4. Steps 3-4's losses and the final fp32 masters equal the
     uninterrupted run's bit for bit. Returns {path: launch counts}."""
@@ -3189,7 +3229,7 @@ def train_resume_phase(torch, fm_path: str, card: str, tmp: str) -> dict:
 
     def losses(run):
         with open(os.path.join(run, "log.txt")) as f:
-            return {r["step"]: r["loss"] for r in map(json.loads, f)}
+            return {r["step"]: r["loss"] for r in map(json.loads, f) if "loss" in r}
 
     full, cut = os.path.join(tmp, "full"), os.path.join(tmp, "cut")
     kernels.reset_launch_counts()
@@ -3201,6 +3241,13 @@ def train_resume_phase(torch, fm_path: str, card: str, tmp: str) -> dict:
     expected = {k: 0 for k in launches}
     expected.update({k: 4 * (v if k == "fused_adamw" else v // DEPTH * TRAIN_CLI_DEPTH)
                      for k, v in PER_TRAIN_STEP.items()})
+    # and the eval at the last step: one held-out synthetic batch at 128 + 128
+    from fourm_torch.models import create_fourm_config
+    from fourm_torch.utils.synthetic import MOD7_DECODER_MODALITIES, MOD7_MODALITIES
+
+    cli_cfg = create_fourm_config(TRAIN_MODEL, MOD7_MODALITIES, MOD7_DECODER_MODALITIES,
+                                  encoder_depth=TRAIN_CLI_DEPTH, decoder_depth=TRAIN_CLI_DEPTH)
+    expected.update(eval_launches(cli_cfg, TRAIN_TOKENS))
     check(launches == expected, f"train CLI: launch counts {launches} != {expected}")
     t0 = time.perf_counter()
     main(train_cli_argv(fm_path, cut, 2, 4))
@@ -3878,16 +3925,21 @@ def train_kernel_cases(torch, rn, gen, model):
     norm = torch.linalg.vector_norm(g).reshape(1)
     b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.05
 
+    s = fa.AdamScalars(b1, b2, eps, wd)
+    steps = {}  # the step state on the card, one per count, made once
+
     def adam_step(who, count, dec, clip=None):
-        s = fa.adamw_scalars(count, 1e-3, b1, b2, eps, wd)
+        if count not in steps:
+            steps[count] = fa.StepTables.constant(1e-3, b1, b2, count, dev)
         grad_norm = None if clip is None else norm
         ps, ms, vs = views[who]
         if who == "kernel":
             if tuple(dec) not in tables:
                 tables[tuple(dec)] = fa.AdamwTable(ps, ms, vs, dec)
-            fa.fused_adamw(ps, g_leaves, ms, vs, dec, s, grad_norm, clip, tables[tuple(dec)])
+            fa.fused_adamw(ps, g_leaves, ms, vs, dec, s, steps[count], grad_norm, clip,
+                           tables[tuple(dec)])
         else:
-            fa.fused_adamw_plain(ps, g_leaves, ms, vs, dec, s, grad_norm, clip)
+            fa.fused_adamw_plain(ps, g_leaves, ms, vs, dec, s, steps[count], grad_norm, clip)
 
     def adam_held(who, count, dec, clip=None):
         def go():
@@ -4139,8 +4191,9 @@ def train_parity_phase(torch, card: str) -> None:
             state, train_batch(torch, 2, 1, "cuda"))
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if check_update:
-            s = fa.adamw_scalars(0, tx.schedule(0), tx.b1, tx.b2, tx.eps, tx.weight_decay)
-            fa.fused_adamw_plain(p_b, grads, m_b, v_b, [tx.decay[n] for n in names], s)
+            fa.fused_adamw_plain(p_b, grads, m_b, v_b, [tx.decay[n] for n in names],
+                                 fa.AdamScalars(tx.b1, tx.b2, tx.eps, tx.weight_decay),
+                                 fa.StepTables.constant(1e-3, tx.b1, tx.b2, device="cuda"))
             for what, ts, refs in zip("pmv", (params, *moments()), (p_b, m_b, v_b)):
                 same = sum(int(torch.equal(t.detach(), r)) for t, r in zip(ts, refs))
                 check(same == len(refs), f"train parity: {what} equals the twin's update in "
@@ -4217,6 +4270,565 @@ def train_parity_phase(torch, card: str) -> None:
           f"train parity: the zeroed cross-attention dq was not caught: {out}")
 
 
+# phase 12: 4M pre-training from tokenized shards at 4M-21 B full width and depth
+PRETRAIN_RUN = "cfgs/default/4m/models/main/4m-b_mod21_500b.yaml"
+PRETRAIN_ALPHAS = ("cfgs/default/4m/alphas_mixture/main/"
+                   "mix_mod21_all2allmix_rgb2all_capT5bias.yaml")
+PRETRAIN_BATCH, PRETRAIN_TOKENS, PRETRAIN_EVAL_TOKENS = 64, 256, 128
+# 4 shards per modality group, 2 batches of 64 samples each; 2 eval batches
+PRETRAIN_SHARDS, PRETRAIN_PER_SHARD, PRETRAIN_VAL = 4, 128, 128
+# the CLI run: 2 frozen-trunk steps, 3 warm-up steps, 20 timed steps
+PRETRAIN_FROZEN, PRETRAIN_WARM, PRETRAIN_TIMED = 2, 3, 20
+PRETRAIN_STEPS = PRETRAIN_FROZEN + PRETRAIN_WARM + PRETRAIN_TIMED
+PRETRAIN_WORKERS = 4
+PRETRAIN_WORDS = tuple(w for w in WORDPIECE if w.isalpha())
+PRETRAIN_DEPTH = 2  # the parity model's 2 + 2 layers at full width
+
+
+def pretrain_config(**overrides):
+    """The 4M-21 B pre-training config's model (fm_base_12e_12d_swiglu_nobias
+    on its in / out domains, bf16 compute) and its domains."""
+    from fourm_torch.models import create_fourm_config
+    from fourm_torch.utils.config import load_yaml
+
+    run = load_yaml(PRETRAIN_RUN)
+    din, dout = sorted(run["in_domains"].split("-")), sorted(run["out_domains"].split("-"))
+    cfg = create_fourm_config(run["model"], tuple(din), tuple(dout),
+                              **{"dtype": run["dtype"], **overrides})
+    return cfg, din, dout
+
+
+def write_pretrain_data(tmp: str, card: str) -> dict:
+    """Tar shards of the config's every domain (rgb@224 as PNG larger than
+    224 with its crop settings inside it, the tok_* arrays a row per crop,
+    t5_caption npz at width 4096, the JSON domains) in four modality groups
+    merged by the `[a,b]` syntax, a val shard, phase 11's release-layout
+    tokenizer.json and the data config (cfgs/default/4m/data layout, the
+    config's alphas file)."""
+    from fourm_torch.utils import synthetic_shards as ss
+    from fourm_torch.utils.config import dump_yaml
+
+    _, din, dout = pretrain_config()
+    domains = sorted(set(din) | set(dout))
+    t0 = time.perf_counter()
+    kw = dict(image_size=(240, 320), t5_len=32)
+    train = ss.write_shards(os.path.join(tmp, "train"), domains, PRETRAIN_SHARDS,
+                            PRETRAIN_PER_SHARD, 0, PRETRAIN_WORDS, **kw)
+    val = ss.write_shards(os.path.join(tmp, "val"), domains, 1, PRETRAIN_VAL, 1, PRETRAIN_WORDS,
+                          **kw)
+    tokenizer = os.path.join(tmp, "tokenizer.json")
+    write_text_tokenizer(tokenizer)
+    data = os.path.join(tmp, "data.yaml")
+    with open(data, "w") as f:
+        f.write(dump_yaml(ss.data_config(train, din, dout, PRETRAIN_ALPHAS, val_pattern=val,
+                                         shuffle_buffer=256)))
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+    print(f"pretrain data: {PRETRAIN_SHARDS} shards x {PRETRAIN_PER_SHARD} samples x 4 modality "
+          f"groups (rgb + crop settings, tok_*, JSON domains, t5_caption) and a val shard of "
+          f"{PRETRAIN_VAL}, {len(domains)} domains, {size} bytes, written in "
+          f"{time.perf_counter() - t0:.3f} s; {card}", flush=True)
+    return {"train": train, "val": val, "tokenizer": tokenizer, "data": data,
+            "domains": domains}
+
+
+def pretrain_argv(files: dict, out: str) -> list:
+    """The pre-training CLI on the config: batch 64, 256 + 256 tokens, a
+    frozen-trunk epoch of 2 steps, layer decay 0.75, no warmup, the eval of
+    the val shard at 128 + 128 at the last step only, a step a print."""
+    return ["--config", PRETRAIN_RUN, "--data_config", files["data"],
+            "--text_tokenizer_path", files["tokenizer"], "--batch_size", str(PRETRAIN_BATCH),
+            "--num_workers", str(PRETRAIN_WORKERS), "--max_steps", str(PRETRAIN_STEPS),
+            "--epoch_size", str(PRETRAIN_FROZEN * PRETRAIN_BATCH), "--frozen_model_epochs", "1",
+            "--layer_decay", "0.75", "--warmup_tokens", "0", "--eval_freq", "1000",
+            "--eval_size", str(PRETRAIN_VAL), "--save_ckpt_freq", "1000", "--print_freq", "1",
+            "--output_dir", out, "--run_name", "pretrain"]
+
+
+def pretrain_cli_phase(torch, files: dict, tmp: str, card: str):
+    """Phase 12a: fourm_torch.cli.train_4m.main on the card from the shards
+    (4 spawn workers): the frozen-trunk phase (the trunk's fp32 masters bit
+    for bit over its 2 steps, every embedding leaf moved), the launch counts
+    of the whole run (reset just before, read just after: 25 steps and the
+    eval of 2 batches) and of one step, exact; samples/s, the median of the
+    20 timed steps; the eval line. Returns (train state, launches)."""
+    from fourm_torch import kernels
+    from fourm_torch import parallel as par
+    from fourm_torch.cli.train_4m import main
+
+    seen = {"frozen_calls": 0}
+    orig = par.build_train_step
+
+    def build(model, optimizer, *args, trainable_mask=None, **kw):
+        step = orig(model, optimizer, *args, trainable_mask=trainable_mask, **kw)
+
+        def frozen_step(state, batch, generator=None):
+            if seen["frozen_calls"] == 0:
+                seen["start"] = [p.detach().clone() for p in optimizer.params()]
+            out = step(state, batch, generator)
+            seen["frozen_calls"] += 1
+            if seen["frozen_calls"] == PRETRAIN_FROZEN:
+                names = [n for n, _ in optimizer.named_params()]
+                seen["same"] = {n: torch.equal(p.detach(), s) for n, p, s in
+                                zip(names, optimizer.params(), seen.pop("start"))}
+                seen["mask"] = dict(trainable_mask)
+            return out
+
+        def timed_step(state, batch, generator=None):
+            if "step_launches" in seen:
+                return step(state, batch, generator)
+            before = kernels.launch_counts()
+            out = step(state, batch, generator)
+            seen["step_launches"] = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+            return out
+
+        return frozen_step if trainable_mask is not None else timed_step
+
+    out = os.path.join(tmp, "run")
+    par.build_train_step = build
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state = main(pretrain_argv(files, out))
+    finally:
+        par.build_train_step = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    cfg, _, _ = pretrain_config()
+    expected = {k: 0 for k in launches}
+    expected.update({k: PRETRAIN_STEPS * v for k, v in PER_TRAIN_STEP.items()})
+    for k, v in eval_launches(cfg, PRETRAIN_EVAL_TOKENS, PRETRAIN_VAL // PRETRAIN_BATCH).items():
+        expected[k] += v
+    check(launches == expected, f"pretrain CLI: launch counts {launches} != {expected}")
+    per_step = {k: PER_TRAIN_STEP.get(k, 0) for k in launches}
+    check(seen.get("step_launches") == per_step,
+          f"pretrain step: launch counts {seen.get('step_launches')} != {per_step}")
+    same, mask = seen["same"], seen["mask"]
+    trunk = [n for n, t in mask.items() if not t]
+    moved_trunk = [n for n in trunk if not same[n]]
+    embeddings = [n for n in same if "embeddings." in n]
+    still = [n for n in embeddings if same[n]]
+    check(trunk and not moved_trunk, f"frozen phase: trunk leaves moved: {moved_trunk[:5]}")
+    check(embeddings and not still, f"frozen phase: embedding leaves did not move: {still[:5]}")
+
+    with open(os.path.join(out, "pretrain", "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    train = {r["step"]: r for r in log if "loss" in r}
+    evals = [r for r in log if "eval_loss" in r]
+    check(sorted(train) == list(range(PRETRAIN_STEPS)),
+          f"pretrain CLI: logged steps {sorted(train)}")
+    check(all(np.isfinite(r["loss"]) for r in train.values()),
+          f"pretrain CLI: non-finite losses {[r['loss'] for r in train.values()]}")
+    check(len(evals) == 1 and evals[0]["step"] == PRETRAIN_STEPS
+          and np.isfinite(evals[0]["eval_loss"]), f"pretrain CLI: eval lines {evals}")
+    timed = [train[s]["samples_per_sec"] for s in range(PRETRAIN_STEPS - PRETRAIN_TIMED,
+                                                           PRETRAIN_STEPS)]
+    sps = float(np.median(timed))
+    print(f"pretrain CLI: {cfg.encoder_depth} + {cfg.decoder_depth} layers at width {cfg.dim} "
+          f"({sum(p.numel() for p in state.optimizer.params())} fp32 parameters), "
+          f"{len(state.optimizer.params())} leaves, B={PRETRAIN_BATCH}, {PRETRAIN_TOKENS} + "
+          f"{PRETRAIN_TOKENS} tokens, {PRETRAIN_WORKERS} loader workers: {PRETRAIN_STEPS} steps "
+          f"({PRETRAIN_FROZEN} frozen-trunk, layer decay 0.75) in {wall:.3f} s with start-up, the "
+          f"eval and the checkpoint; from shards {sps:.4f} samples/s (median of the last "
+          f"{PRETRAIN_TIMED} steps, range {min(timed):.4f}-{max(timed):.4f}); losses "
+          f"{', '.join('%.4f' % train[s]['loss'] for s in sorted(train))}; {card}", flush=True)
+    print(f"pretrain eval: {PRETRAIN_VAL} val samples at {PRETRAIN_EVAL_TOKENS} + "
+          f"{PRETRAIN_EVAL_TOKENS} in {evals[0]['eval_seconds'] * 1e3:.3f} ms with their "
+          f"loading, loss {evals[0]['eval_loss']:.6f}; {card}", flush=True)
+    print(f"frozen phase: {len(trunk)} trunk leaves bit for bit over {PRETRAIN_FROZEN} steps, "
+          f"all {len(embeddings)} embedding leaves moved; {card}", flush=True)
+    print(f"pretrain launches {json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    return state, launches, sps
+
+
+def pretrain_loader_phase(torch, files: dict, card: str):
+    """Phase 12b: the loader alone (no card work): inline, samples/s over 2
+    batches after the first, every shard opened by the native tar reader;
+    then twice with 4 spawn workers from one seed, 8 batches each, equal
+    batch for batch (the workers' turns are fixed). Returns 4 batches."""
+    from fourm_torch.data import datasets as dsets
+    from fourm_torch.data.pretrain_utils import build_parallel_train_loader
+    from fourm_torch.native import native_available
+    from fourm_torch.utils.config import load_yaml
+
+    datasets = load_yaml(files["data"])["train"]["datasets"]
+
+    def loader(workers):
+        return build_parallel_train_loader(
+            datasets, files["domains"], PRETRAIN_BATCH, 224, PRETRAIN_TOKENS, PRETRAIN_TOKENS,
+            text_tokenizer_path=files["tokenizer"], seed=0, num_workers=workers)
+
+    reads = dict(dsets.TAR_READS)
+    t0 = time.perf_counter()
+    it = loader(0)
+    first = next(it)
+    t1 = time.perf_counter()
+    inline = [first] + [next(it) for _ in range(2)]
+    t2 = time.perf_counter()
+    it.close()
+    opened = {k: dsets.TAR_READS[k] - reads.get(k, 0) for k in ("native", "tarfile")}
+    check(native_available() and opened["native"] > 0 and opened["tarfile"] == 0,
+          f"loader: shards opened by reader {opened}")
+    inline_sps = 2 * PRETRAIN_BATCH / (t2 - t1)
+    runs = []
+    for _ in range(2):
+        t0w = time.perf_counter()
+        it = loader(PRETRAIN_WORKERS)
+        batches = [next(it)]
+        t1w = time.perf_counter()
+        batches += [next(it) for _ in range(7)]
+        t2w = time.perf_counter()
+        it.close()
+        runs.append((batches, t1w - t0w, 7 * PRETRAIN_BATCH / (t2w - t1w)))
+    same = all(a.keys() == b.keys() and all(
+        np.array_equal(a[m][k], b[m][k]) for m in a for k in a[m])
+        for a, b in zip(runs[0][0], runs[1][0]))
+    check(same, "loader: two 4-worker runs from one seed gave different batches")
+    mb = sum(v.nbytes for d in first.values() for v in d.values()) / 2**20
+    print(f"loader: inline {inline_sps:.4f} samples/s (first batch {t1 - t0:.3f} s), "
+          f"{PRETRAIN_WORKERS} spawn workers {runs[0][2]:.4f} / {runs[1][2]:.4f} samples/s over "
+          f"7 batches after the first (first {runs[0][1]:.3f} / {runs[1][1]:.3f} s, the workers' "
+          f"start included), the two runs equal batch for batch; {mb:.1f} MiB a batch; shards "
+          f"opened {opened}; {card}", flush=True)
+    return inline[:3] + runs[0][0][:1]
+
+
+def pretrain_step_phase(torch, state, files: dict, card: str) -> None:
+    """Phase 12c: the CLI's model and optimizer, the same step on synthetic
+    batches of the same shapes already on the card, so that the loader's
+    and the copy's cost shows beside phase 12a's (samples/s, the median of
+    10 steps after 3, the loss read each step as the CLI reads it); then one
+    step whose
+    skip_grad is below its norm: masters, moments and count bit for bit,
+    no host sync in the whole step."""
+    from fourm_torch.parallel import build_train_step
+    from fourm_torch.utils.synthetic import synthetic_mod_batch, to_torch
+
+    model, tx = state.model, state.optimizer
+    step = build_train_step(model, tx, PRETRAIN_TOKENS, PRETRAIN_TOKENS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [to_torch(synthetic_mod_batch(files["domains"], PRETRAIN_BATCH, PRETRAIN_TOKENS,
+                                            PRETRAIN_TOKENS, seed=i), "cuda") for i in range(3)]
+    times = []
+    for i in range(PRETRAIN_WARM + 10):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % 3], gen)
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+    sec = float(np.median(times[PRETRAIN_WARM:]))
+    print(f"synthetic step: the same model and step, B={PRETRAIN_BATCH}, {PRETRAIN_TOKENS} + "
+          f"{PRETRAIN_TOKENS} tokens of the same domains, on the card: "
+          f"{PRETRAIN_BATCH / sec:.4f} samples/s "
+          f"({sec * 1e3:.4f} ms, median of 10 after {PRETRAIN_WARM}); {card}", flush=True)
+
+    batch = batches[0]
+    names = [n for n, _ in tx.named_params()]
+    before = [p.detach().clone() for p in tx.params()]
+    mu, nu = [tx.mu[n].clone() for n in names], [tx.nu[n].clone() for n in names]
+    count = tx.count
+    tx.skip_grad = 1e-6  # below any norm
+    import warnings
+
+    def skipped_step():
+        """One step with its host syncs: (metrics, [where each sync was])."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, metrics = step(state, batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # (the mode's one-time notice that it is a prototype is no sync)
+        return metrics, [f"{os.path.relpath(w.filename)}:{w.lineno}: {w.message}"
+                         for w in caught if "synchroniz" in str(w.message)
+                         and "prototype" not in str(w.message)]
+
+    metrics, where = skipped_step()
+    syncs = len(where)
+    tx.skip_grad = None
+    norm = float(metrics["grad_norm"])
+    same = (all(torch.equal(p.detach(), b) for p, b in zip(tx.params(), before))
+            and all(torch.equal(tx.mu[n], m) for n, m in zip(names, mu))
+            and all(torch.equal(tx.nu[n], v) for n, v in zip(names, nu)))
+    check(norm > 1e-6 and same and tx.count == count,
+          f"skip step: norm {norm}, state kept {same}, count {tx.count} (was {count})")
+    if syncs:  # where: the step again with syncs raising, for the traceback
+        import traceback
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(state, batch, gen)
+            trace = "no sync the second time"
+        except RuntimeError:
+            trace = traceback.format_exc()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(False, f"skip step: {syncs} host syncs, at {where}: {trace}")
+    print(f"skip step: skip_grad 1e-6 below the norm {norm:.6g}: masters, moments and the count "
+          f"({count}) bit for bit, {syncs} host syncs in the whole step; {card}", flush=True)
+
+
+def adamw_extended_case(torch, model, card: str):
+    """Phase 12d: fused_adamw over the 4M-21 B tree (its leaves laid out in
+    flat buffers, as phase 8) with the options of this path: layer decay
+    0.75, the frozen-trunk flags, the clip engaged and the step's scalars
+    read from the card (count 7 of a 1024-entry lr table), held to its twin
+    bit for bit with planted faults (the scale applied to the Adam term
+    alone, a frozen leaf updated); then a skipped step (skip_max below the
+    norm), held the same way with the fault of a skipped step that still
+    advances the count. Returns the case of time_cases."""
+    from fourm_torch.kernels import fused_adamw as fa
+    from fourm_torch.parallel import frozen_trunk_mask
+    from fourm_torch.utils.optim import layerwise_lr_scales, weight_decay_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    named = list(model.named_parameters())
+    names, params = [n for n, _ in named], [p.detach() for _, p in named]
+    decay = [weight_decay_mask(model)[n] for n in names]
+    scales = [layerwise_lr_scales(model, 0.75)[n] for n in names]
+    trainable = [frozen_trunk_mask(model)[n] for n in names]
+    sizes = [p.numel() for p in params]
+    offsets = np.cumsum([0] + [-(-n // 64) * 64 for n in sizes])
+    total = int(offsets[-1])
+
+    def leaves(flat):
+        return [flat[int(o):int(o) + n].view(p.shape) for o, n, p in zip(offsets, sizes, params)]
+
+    p0 = torch.zeros(total, device=dev)
+    for leaf, value in zip(leaves(p0), params):
+        leaf.copy_(value)
+    g = torch.randn(total, generator=gen, device=dev) * 1e-2
+    m0 = torch.randn(total, generator=gen, device=dev) * 1e-3
+    v0 = torch.rand(total, generator=gen, device=dev) * 1e-5
+    norm = torch.linalg.vector_norm(g).reshape(1)
+    clip = 0.5 * norm.item()
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.05
+    s = fa.AdamScalars(b1, b2, eps, wd)
+    lr = torch.from_numpy(np.linspace(1e-3, 1e-4, 1024, dtype=np.float32)).to(dev)
+    bias = torch.from_numpy(fa.bias_correction_table(b1, b2, fa.bias_table_length(b1, b2))
+                            ).to(dev)
+    bufs = {who: [torch.empty_like(p0) for _ in range(3)] + [torch.zeros(2, dtype=torch.int32,
+                                                                           device=dev)]
+            for who in ("kernel", "twin")}
+    views = {who: [leaves(t) for t in ts[:3]] for who, ts in bufs.items()}
+    g_leaves = leaves(g)
+    table = fa.AdamwTable(*views["kernel"], decay, scales, trainable)
+
+    def step(who, skip_max=None, **override):
+        ps, ms, vs = views[who]
+        steps = fa.StepTables(bufs[who][3], 0, lr, bias)
+        kw = dict(lr_scale=scales, trainable=trainable, skip_max=skip_max)
+        kw.update(override)
+        if who == "kernel":
+            fa.fused_adamw(ps, g_leaves, ms, vs, decay, s, steps, norm, clip, table, **kw)
+        else:
+            fa.fused_adamw_plain(ps, g_leaves, ms, vs, decay, s, steps, norm, clip, **kw)
+
+    def reset(who):
+        for buf, start in zip(bufs[who], (p0, m0, v0)):
+            buf.copy_(start)
+        bufs[who][3].copy_(torch.tensor([7, 0], dtype=torch.int32))
+
+    def held_at(who, skip_max=None, **override):
+        def go():
+            reset(who)
+            step(who, skip_max, **override)
+            return {k: t.clone() for k, t in zip(("p", "m", "v", "count"), bufs[who])}
+        return go
+
+    def adam_alone():
+        """The wrong scale: lr x (scale x the Adam term + wd p), leaf by leaf."""
+        reset("twin")
+        lr7, c1, c2 = lr[7], bias[7, 0], bias[7, 1]
+        ps, ms, vs = views["twin"]
+        with torch.no_grad():
+            for p, gl, m, v, d, sc, tr in zip(ps, g_leaves, ms, vs, decay, scales, trainable):
+                gc = gl.div(norm.reshape(())).mul(clip)
+                m.copy_(m.mul(b1).add(gc.mul(1.0 - b1)))
+                v.copy_(v.mul(b2).add(gc.mul(1.0 - b2).mul(gc)))
+                u = m.mul(c1).div(v.mul(c2).sqrt().add(eps)).mul(sc)
+                if d:
+                    u = u.add(p.mul(wd))
+                if tr:
+                    p.copy_(p.sub(u.mul(lr7)))
+        bufs["twin"][3].copy_(torch.tensor([7, 8], dtype=torch.int32))
+        return {k: t.clone().float() for k, t in zip(("p", "m", "v", "count"), bufs["twin"])}
+
+    def faults():
+        right = {k: t.clone().float() for k, t in held_at("twin")().items()}
+        frozen_updated = {k: t.clone().float() for k, t in
+                          held_at("twin", trainable=None)().items()}
+        wrong = {"the layer scale applied to the Adam term alone": adam_alone(),
+                 "a frozen leaf updated": frozen_updated}
+        return right, wrong, set(wrong)
+
+    def skip_faults():
+        right = {k: t.clone().float() for k, t in held_at("twin", skip_max=1e-6)().items()}
+        advanced = dict(right)
+        advanced["count"] = right["count"] + torch.tensor([0.0, 1.0], device=dev)
+        return right, {"a skipped step that still advances the count": advanced}, {
+            "a skipped step that still advances the count"}
+
+    n = sum(sizes)
+    lib_p = [torch.nn.Parameter(t.clone()) for t in leaves(p0)]
+    for p, gl in zip(lib_p, g_leaves):
+        p.grad = gl
+    groups = {}  # a frozen leaf at lr 0: its moments step, its value stays
+    for p, d, sc, tr in zip(lib_p, decay, scales, trainable):
+        groups.setdefault((d, sc if tr else 0.0), []).append(p)
+    library = torch.optim.AdamW([{"params": ps, "lr": 1e-3 * sc, "weight_decay": wd if d else 0.0}
+                                 for (d, sc), ps in groups.items()], lr=1e-3, betas=(b1, b2),
+                                eps=eps, fused=True)
+    n_frozen = sum(n for n, tr in zip(sizes, trainable) if not tr)
+    table_bytes = (table.leaves.numel() * 8 + table.chunks.numel() * 4 + 8 * len(params))
+    held(torch, "fused_adamw, skipped step (skip_max below the norm)",
+         held_at("kernel", 1e-6), held_at("twin", 1e-6), skip_faults, exact=True)
+    print(f"variant fused_adamw, skipped step: parameters, moments and count (7) kept, bit for "
+          f"bit; {card}", flush=True)
+    return dict(run=lambda: step("kernel"), plain=lambda: step("twin"),
+                held_run=held_at("kernel"), held_plain=held_at("twin"), faults=faults,
+                exact=True, library=library.step, path="pretrain", wrapper="fused_adamw",
+                # g, p, m, v read and p, m, v written a trainable parameter; a
+                # frozen one's p is neither needed nor changed
+                flops=18 * n, peak=PEAK_FP32_FLOPS,
+                bytes=7 * 4 * (n - n_frozen) + 5 * 4 * n_frozen + table_bytes,
+                shape=f"{len(params)} leaves, {n} fp32 params (4M-21 B), layer decay 0.75, "
+                      f"{trainable.count(False)} frozen leaves, clip engaged, scalars read on "
+                      f"the card at count 7")
+
+
+def pretrain_remat_phase(torch, batches, card: str) -> None:
+    """Phase 12e: the full 4M-21 B step with and without remat over 4 shard
+    batches from one seed: remat's first-step loss bit for bit, its fp32
+    masters after 4 steps within phase 4's gate (max abs difference <=
+    1e-3, the gate's floor), its peak device memory lower; the launch counts
+    of a remat step exact (every attention_train forward twice); ms a
+    step."""
+    from fourm_torch import kernels
+    from fourm_torch.models import FourM, init_weights
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+    from fourm_torch.utils.synthetic import to_torch
+
+    out = {}
+    for remat in (False, True):
+        cfg, _, _ = pretrain_config(remat=remat)
+        torch.cuda.empty_cache()
+        with torch.device("cuda"):
+            model = FourM(cfg)
+        init_weights(model, 0)
+        tx = create_optimizer(model, constant_schedule(1e-4), layer_decay=0.75, clip_grad=1.0)
+        state = init_train_state(model, tx)
+        step = build_train_step(model, tx, PRETRAIN_TOKENS, PRETRAIN_TOKENS)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i, b in enumerate(batches):
+            tb = to_torch(b, "cuda")
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, tb, gen)
+            losses.append(metrics["loss"].clone())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: PER_TRAIN_STEP.get(k, 0) * (2 if remat and k == "attention_train_fwd"
+                                                   else 1) for k in launches}
+        check(launches == expected, f"remat={remat} step: launch counts {launches} != {expected}")
+        out[remat] = dict(loss=losses[0], masters=[p.detach().cpu() for p in tx.params()],
+                          peak=peak, above=peak - base, ms=float(np.median(times[1:])) * 1e3,
+                          losses=[float(x) for x in losses])
+        del state, model, tx, step, metrics
+    torch.cuda.empty_cache()
+    a, b = out[False], out[True]
+    diff = max(float((x - y).abs().max()) for x, y in zip(a["masters"], b["masters"]))
+    identical = all(torch.equal(x, y) for x, y in zip(a["masters"], b["masters"]))
+    check(torch.equal(a["loss"], b["loss"]), f"remat: first loss {b['loss']} != {a['loss']}")
+    check(diff <= 1e-3, f"remat: masters after 4 steps {diff} apart")
+    check(b["peak"] < a["peak"], f"remat: peak {b['peak']} not below {a['peak']}")
+    print(f"remat: 4 steps of the 4M-21 B step on shard batches: first loss {float(a['loss']):.6f} "
+          f"equal bit for bit; fp32 masters after 4 steps max abs difference {diff:.6g} "
+          f"({'bit for bit' if identical else 'not bit for bit'}); peak device memory "
+          f"{b['peak'] / 2**30:.3f} GiB with remat against {a['peak'] / 2**30:.3f} GiB without "
+          f"({b['above'] / 2**30:.3f} / {a['above'] / 2**30:.3f} GiB above the model and "
+          f"optimizer); {b['ms']:.3f} ms a step with remat against {a['ms']:.3f} ms without "
+          f"(median of 3); {card}", flush=True)
+
+
+def pretrain_parity_phase(torch, batch, card: str) -> None:
+    """Phase 12f: at 2 + 2 layers of the 4M-21 B model at full width, the
+    loss of the first step on 8 samples of a shard batch, card bf16 against
+    the same weights on the CPU in fp32 and in bf16 (phase 4's gate)."""
+    from fourm_torch.models import FourM, init_weights
+    from fourm_torch.utils.synthetic import to_torch
+
+    small = {m: {k: v[:8] for k, v in d.items()} for m, d in batch.items()}
+    cfg, _, _ = pretrain_config(encoder_depth=PRETRAIN_DEPTH, decoder_depth=PRETRAIN_DEPTH)
+    with torch.device("cuda"):
+        model = FourM(cfg)
+    init_weights(model.to("cuda"), 3)
+    state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    card_loss = float(model(to_torch(small, "cuda"), PRETRAIN_TOKENS, PRETRAIN_TOKENS)[0].detach())
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        cpu_cfg, _, _ = pretrain_config(encoder_depth=PRETRAIN_DEPTH,
+                                        decoder_depth=PRETRAIN_DEPTH, dtype=dtype)
+        cm = FourM(cpu_cfg)
+        cm.load_state_dict(state)
+        with torch.no_grad():
+            ref[dtype] = float(cm(to_torch(small, "cpu"), PRETRAIN_TOKENS, PRETRAIN_TOKENS)[0])
+        del cm
+    err, plain = abs(card_loss - ref["float32"]), abs(ref["bfloat16"] - ref["float32"])
+    tol = 2.0 * plain + 1e-3
+    print(f"pretrain parity: {PRETRAIN_DEPTH} + {PRETRAIN_DEPTH} layers, 8 shard samples: card "
+          f"loss {card_loss:.6f}, fp32 CPU {ref['float32']:.6f} (error {err:.6g}, tol {tol:.6g}; "
+          f"plain bf16 {plain:.6g}); {card}", flush=True)
+    check(np.isfinite(card_loss) and err <= tol, f"pretrain parity: {err} > {tol}")
+    del model
+
+
+def pretrain_phase(torch, card: str):
+    """Phase 12: 4M pre-training from tokenized shards (write_pretrain_data)
+    at 4M-21 B full width and depth, in a temporary directory removed
+    afterwards: the CLI run (12a), the loader alone (12b), the synthetic
+    step and the skipped step (12c), fused_adamw's new row (12d), remat
+    (12e) and the CPU parity (12f). Returns ({path: launches}, kernel
+    rows)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fourm_phase12_")
+    try:
+        files = write_pretrain_data(tmp, card)
+        state, launches, _sps = pretrain_cli_phase(torch, files, tmp, card)
+        batches = pretrain_loader_phase(torch, files, card)
+        pretrain_step_phase(torch, state, files, card)
+        case = adamw_extended_case(torch, state.model, card)
+        del state
+        torch.cuda.empty_cache()
+        rows = time_cases(torch, [("fused_adamw@pretrain", "fourm_tpu/kernels/fused_adamw.py:73",
+                                   "fourm_torch/kernels/csrc/fused_adamw.cu", case)], card)
+        del case
+        torch.cuda.empty_cache()
+        pretrain_remat_phase(torch, batches, card)
+        pretrain_parity_phase(torch, batches[0], card)
+        print(f"phase 12: {time.perf_counter() - t0:.3f} s; {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"pretrain": launches}, rows
+
+
 def main() -> int:
     import torch
 
@@ -4291,11 +4903,14 @@ def main() -> int:
     train_launches = train_phase(torch, card)
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
+    torch.cuda.empty_cache()
+    pretrain_launches, pretrain_rows = pretrain_phase(torch, card)
+    results += pretrain_rows
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
                          xl_chain=xl_launches, int8_chain=int8_launches, **narrow_launches,
-                         **sr_paths, **api_launches, **ckpt_launches)
+                         **sr_paths, **api_launches, **ckpt_launches, **pretrain_launches)
     decode_paths = {"decode": decode_launches, "uvit_decode": uvit_launches}
     for r in results:  # each wrapper's launches on the path that runs it
         path, wrapper = r["path"], r.pop("wrapper")
@@ -4303,6 +4918,7 @@ def main() -> int:
         r["decode_launches"] = {p: n[wrapper] for p, n in decode_paths.items()}
         r["sr_launches"] = {p: n[wrapper] for p, n in sr_paths.items()}
         r["cli_launches"] = {p: n[wrapper] for p, n in ckpt_launches.items()}
+        r["pretrain_launches"] = pretrain_launches["pretrain"][wrapper]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

@@ -8,7 +8,7 @@ Checkpoints are local files: a released 4M `.safetensors` (the config in
 its metadata) or a train_4m run directory of the port (`config.json` and
 `weights/step_N`); tokenizers `.safetensors` or `.pth`; the text tokenizer
 a `tokenizer.json`. Everything is read by the port itself, and images are
-written by its own PNG writer (`write_png`, zlib + struct): the machine
+written by the port's own PNG writer (data/image_io.py): the machine
 with the card has no safetensors, PyYAML, tokenizers or PIL. Only the
 folder dataset reads images, with PIL, imported there.
 
@@ -25,10 +25,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from ..data import image_io
 
 
 def get_parser():
@@ -186,22 +186,12 @@ def iter_samples(args, text_tokenizer):
 
 def write_png(path: str, arr: np.ndarray) -> None:
     """An (H, W, 3) uint8 image as an 8-bit RGB PNG (rows unfiltered, zlib
-    level 6): the pixels PIL's Image.fromarray(arr).save(path) writes."""
-    arr = np.ascontiguousarray(arr)
+    level 6; data/image_io.py:write_png): the pixels PIL's
+    Image.fromarray(arr).save(path) writes."""
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"write_png takes (H, W, 3) uint8, got {arr.dtype} {arr.shape}")
-    h, w = arr.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(image_io.write_png(arr))
 
 
 def _save_decoded(base: str, val) -> None:

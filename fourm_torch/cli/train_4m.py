@@ -1,28 +1,44 @@
-"""4M pre-training on one card: the port of fourm_tpu/cli/train_4m.py for the
-options this slice serves.
+"""4M pre-training on one card: the port of fourm_tpu/cli/train_4m.py.
 
-Carried over: the model registry and overrides, token budgets and loss type,
-the token-budget step math (reference run_training_4m.py:431-470), LR x
-bs/256 (:498), the three schedules, AdamW with the 4M decay rules and the
-global-norm clip, gradient accumulation, the NaN tripwire with a batch dump
+Carried over: `--config` (a run config of cfgs/default/4m/models/**, read by
+the port's YAML reader; CLI flags win) and the `auto` run name, the model
+registry and overrides, token budgets (with `--min_input_tokens` /
+`--min_target_tokens` ranges) and loss type, the token-budget step math
+(reference run_training_4m.py:431-470), LR x bs/256 (:498), the three
+schedules, AdamW with the 4M decay rules, the global-norm clip, `--skip_grad`
+(a step whose gradient norm exceeds it, or is not finite, is skipped, on the
+card), `--layer_decay` (per-layer LR scales, in the reference's order: see
+utils/optim.py), the frozen-trunk phase of `--frozen_model_epochs` epochs
+(:522-529: only the embeddings train), `--remat` (activation checkpointing
+per block), gradient accumulation, the NaN tripwire with a batch dump
 (:729-732), per-step print lines, `config.json` and a JSONL log with
 tokens-seen accounting, checkpoints every `--save_ckpt_freq` epochs of
 `--epoch_size` samples and at the end (`checkpoints/step_N`: the fp32
 masters, the AdamW moments and step count, the step, the generators'
 states; and a params export `weights/step_N`, which cli/generate.py:load_fm
-reads), auto-resume from the newest checkpoint (on by default), and
-`--finetune` (a warm start from a released .safetensors or a run directory
-of the port, without its `.pos_emb` tensors, reference :475-487).
-Synthetic batches only. Unlike the JAX CLI, which starts afresh when a
-resume fails (fourm_tpu/cli/train_4m.py:326-333), a checkpoint that cannot
-be read raises. Not ported yet (ROADMAP): eval, the frozen-trunk phase,
-layer decay, skip-grad, remat, the data pipeline, FSDP / tensor parallel.
+reads), auto-resume from the newest checkpoint (on by default; a resumed run
+restarts its data stream, as the JAX CLI does), `--finetune` (a warm start
+from a released .safetensors or a run directory of the port, without its
+`.pos_emb` tensors, reference :475-487), and the eval every `--eval_freq`
+epochs (:156-192, :798-832) on the data config's val datasets, or held-out
+synthetic batches, at the fixed `--fixed_eval_*` budgets.
+
+Data: `--data_config` (cfgs/default/4m/data/** layout: tar shards with
+use_wds, or aligned folders; a mixture of datasets with weights), decoded,
+transformed, Dirichlet-masked and batched by fourm_torch/data, inline or in
+`--num_workers` spawn processes, prefetched by a thread; or
+`--synthetic_data`. Unlike the JAX CLI, which starts afresh when a resume
+fails (fourm_tpu/cli/train_4m.py:326-333), a checkpoint that cannot be read
+raises. Not ported (ROADMAP): FSDP / tensor parallel (`--fsdp` / `--tensor`
+other than 1 raise), wandb (`--log_wandb` raises).
 
 Usage:
-  python -m fourm_torch.cli.train_4m --synthetic_data --max_steps 100   # on the card
-  python -m fourm_torch.cli.train_4m --device cpu --synthetic_data ...  # plain twins
+  python -m fourm_torch.cli.train_4m --config cfgs/default/4m/models/main/4m-b_mod21_500b.yaml \
+      --data_config my_shards.yaml --text_tokenizer_path tokenizer.json   # on the card
+  python -m fourm_torch.cli.train_4m --synthetic_data --max_steps 100     # no data
+  python -m fourm_torch.cli.train_4m --device cpu --synthetic_data ...    # plain twins
   python -m fourm_torch.cli.train_4m --synthetic_data --finetune 4m-21_b.safetensors \
-      --save_ckpt_freq 1 --epoch_size 3200 --output_dir out/ft         # resumes if run again
+      --save_ckpt_freq 1 --epoch_size 3200 --output_dir out/ft           # resumes if run again
 """
 
 from __future__ import annotations
@@ -51,9 +67,12 @@ def get_parser():
     p.add_argument("--num_heads", type=int, default=None)
     p.add_argument("--num_register_tokens", type=int, default=0)
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--remat", action="store_true", help="activation checkpointing per block")
     # token budgets (reference :76-79)
     p.add_argument("--num_input_tokens", type=int, default=128)
     p.add_argument("--num_target_tokens", type=int, default=128)
+    p.add_argument("--min_input_tokens", type=int, default=None)
+    p.add_argument("--min_target_tokens", type=int, default=None)
     p.add_argument("--loss_type", default="mod", choices=["mod", "token"])
     # schedule (token-based step math, reference :431-470)
     p.add_argument("--total_tokens", type=float, default=1.0,
@@ -67,18 +86,38 @@ def get_parser():
     p.add_argument("--scheduler", default="cosine", choices=["cosine", "inverse_sqrt", "constant"])
     p.add_argument("--weight_decay", type=float, default=0.05)
     p.add_argument("--clip_grad", type=float, default=1.0)
+    p.add_argument("--skip_grad", type=float, default=None,
+                   help="skip a step whose gradient norm exceeds this (or is not finite)")
     p.add_argument("--opt_betas", type=float, nargs=2, default=(0.9, 0.95))
+    p.add_argument("--frozen_model_epochs", type=int, default=0,
+                   help="initial epochs where only the embeddings train (reference :522-529)")
+    p.add_argument("--layer_decay", type=float, default=None,
+                   help="per-layer LR decay factor (reference optim_factory.py:62-150)")
     p.add_argument("--finetune", default=None,
                    help="warm-start weights (a released .safetensors or a run dir of the "
                         "port), loaded minus pos-embs (reference :475-487)")
     # data
-    p.add_argument("--synthetic_data", action="store_true",
-                   help="synthetic batches (the only data this port reads yet)")
+    p.add_argument("--data_config", default=None, help="YAML with train (and val) datasets")
+    p.add_argument("--synthetic_data", action="store_true")
+    p.add_argument("--text_tokenizer_path", default=None)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="data-loading worker processes (0 = inline)")
+    # mesh (not ported: one card)
+    p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--tensor", type=int, default=1)
     # misc
     p.add_argument("--output_dir", default="out/train_4m")
     p.add_argument("--run_name", default="auto")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--print_freq", type=int, default=50)
+    p.add_argument("--eval_freq", type=int, default=1, help="eval every N epochs")
+    p.add_argument("--fixed_eval", action="store_true", default=True,
+                   help="eval with pinned token budgets (reference :166-174)")
+    p.add_argument("--fixed_eval_input_tokens", type=int, default=128)
+    p.add_argument("--fixed_eval_target_tokens", type=int, default=128)
+    p.add_argument("--eval_size", type=int, default=256, help="samples per eval")
+    p.add_argument("--log_wandb", action="store_true")
+    p.add_argument("--wandb_project", default=None)
     p.add_argument("--epoch_size", type=int, default=10_000,
                    help="samples per 'epoch' (the checkpoint cadence)")
     p.add_argument("--save_ckpt_freq", type=int, default=1, help="checkpoint every N epochs")
@@ -97,6 +136,78 @@ def make_synthetic_loader(domains, batch_size, num_input_tokens, num_target_toke
         yield synthetic_mod_batch(domains, batch_size, num_input_tokens, num_target_tokens,
                                   seed=i)
         i += 1
+
+
+def evaluate(model, val_loader, num_input_tokens: int, num_target_tokens: int, loss_type: str,
+             max_samples: int, global_bs: int, device) -> dict:
+    """Held-out loss at (pinned) token budgets (fourm_tpu/cli/train_4m.py:
+    156-192; reference run_training_4m.py:798-832): the model's inference
+    path (train=False: no stochastic depth, the inference kernels), batches
+    until max_samples, the mean loss and per-modality losses."""
+    from ..utils.synthetic import to_torch
+
+    losses, mod_losses, seen = [], {}, 0
+    with torch.no_grad():
+        for batch in val_loader:
+            loss, (mod_loss, _cnt) = model(to_torch(batch, device), num_input_tokens,
+                                           num_target_tokens, loss_type=loss_type, train=False)
+            losses.append(float(loss))
+            for m, v in mod_loss.items():
+                mod_losses.setdefault(m, []).append(float(v))
+            seen += global_bs
+            if seen >= max_samples:
+                break
+    out = {"loss": float(np.mean(losses))}
+    out.update({f"loss_{m}": float(np.mean(v)) for m, v in mod_losses.items()})
+    return out
+
+
+def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int):
+    """(train batch iterator, val loader factory or None): the data config's
+    datasets through fourm_torch/data (inline or in --num_workers
+    processes, prefetched by a thread), or synthetic batches with held-out
+    seeds for the eval."""
+    if args.synthetic_data or args.data_config is None:
+        print("[data] synthetic batches")
+        from ..utils.synthetic import synthetic_mod_batch
+
+        def val_loader_fn():
+            n_batches = max(args.eval_size // global_bs, 1)
+            return iter([synthetic_mod_batch(all_domains, global_bs, eval_in, eval_tgt,
+                                             seed=10_000_000 + i) for i in range(n_batches)])
+
+        return None, val_loader_fn
+    import itertools
+
+    from ..data.datasets import batched_loader, prefetch_iterator
+    from ..data.pretrain_utils import build_parallel_train_loader, get_val_dataset
+    from ..utils.config import load_yaml
+    from ..utils.text_tokenizer import load_tokenizer
+
+    data_cfg = load_yaml(args.data_config)
+    text_tokenizer = load_tokenizer(args.text_tokenizer_path) if args.text_tokenizer_path else None
+    print(f"[data] {args.data_config}: {len(data_cfg['train']['datasets'])} train dataset(s), "
+          f"{args.num_workers} worker process(es)", flush=True)
+    loader = prefetch_iterator(build_parallel_train_loader(
+        data_cfg["train"]["datasets"], all_domains, global_bs, 224, args.num_input_tokens,
+        args.num_target_tokens, args.min_input_tokens, args.min_target_tokens,
+        text_tokenizer_path=args.text_tokenizer_path, seed=args.seed,
+        num_workers=args.num_workers), prefetch=4)
+    val_cfgs = (data_cfg.get("val") or {}).get("datasets", {})
+    if not val_cfgs:
+        return loader, None
+
+    def val_loader_fn():
+        return itertools.chain.from_iterable(
+            batched_loader(iter(get_val_dataset(
+                dcfg, text_tokenizer, 224, args.num_input_tokens, args.num_target_tokens,
+                args.min_input_tokens, args.min_target_tokens, fixed_eval=args.fixed_eval,
+                fixed_eval_input_tokens=args.fixed_eval_input_tokens,
+                fixed_eval_target_tokens=args.fixed_eval_target_tokens, seed=args.seed)),
+                global_bs)
+            for dcfg in val_cfgs.values())
+
+    return loader, val_loader_fn
 
 
 def load_finetune_weights(path: str, model) -> None:
@@ -148,14 +259,23 @@ def restore_checkpoint(state, generator, ckpt: dict) -> int:
 
 def main(args=None):
     from ..models import FourM, create_fourm_config, init_weights
-    from ..parallel import build_train_step, init_train_state
+    from ..parallel import build_train_step, frozen_trunk_mask, init_train_state
     from ..utils.checkpoint import auto_resume, save_checkpoint
+    from ..utils.config import expand_run_name, parse_args_with_config
     from ..utils.logger import JSONLLogger, tokens_seen
     from ..utils.optim import create_optimizer, make_schedule
     from ..utils.synthetic import to_torch
 
-    args = get_parser().parse_args(args)
-    output_dir = (os.path.join(args.output_dir, args.run_name) if args.run_name != "auto"
+    args = parse_args_with_config(get_parser(), args)
+    if args.fsdp != 1 or args.tensor != 1:
+        raise NotImplementedError("--fsdp / --tensor other than 1: training over a mesh (FSDP, "
+                                  "tensor parallel) is not ported yet; the port trains on one "
+                                  "card")
+    if args.log_wandb:
+        raise NotImplementedError("--log_wandb: the port does not use wandb; the run logs to "
+                                  "log.txt (JSONL) in its output directory")
+    run_name = expand_run_name(args.run_name, args.config)
+    output_dir = (os.path.join(args.output_dir, run_name) if run_name != "auto"
                   else args.output_dir)
     os.makedirs(output_dir, exist_ok=True)
     in_domains = sorted(args.in_domains.split("-"))
@@ -179,7 +299,7 @@ def main(args=None):
                                                "num_heads") if getattr(args, k) is not None}
     config = create_fourm_config(args.model, tuple(in_domains), tuple(out_domains),
                                  dtype=args.dtype, num_register_tokens=args.num_register_tokens,
-                                 **overrides)
+                                 remat=args.remat, **overrides)
     with open(os.path.join(output_dir, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(config), f, indent=1)
     model = init_weights(FourM(config), args.seed)
@@ -188,11 +308,22 @@ def main(args=None):
     sched = make_schedule(args.scheduler, lr, total_steps, warmup_steps, min_lr=args.min_lr,
                           cooldown_steps=cooldown_steps)
     tx = create_optimizer(model, sched, weight_decay=args.weight_decay,
-                          betas=tuple(args.opt_betas), clip_grad=args.clip_grad)
+                          betas=tuple(args.opt_betas), clip_grad=args.clip_grad,
+                          skip_grad=args.skip_grad, layer_decay=args.layer_decay)
     state = init_train_state(model, tx, device=args.device)
     device = model.mask_token.device
+    step_kw = dict(loss_type=args.loss_type, grad_accum_steps=args.grad_accum_steps)
     step_fn = build_train_step(model, tx, args.num_input_tokens, args.num_target_tokens,
-                               loss_type=args.loss_type, grad_accum_steps=args.grad_accum_steps)
+                               **step_kw)
+    # the frozen-trunk warm-start phase (reference :522-529, fm.py:762): a
+    # second step whose gradients and updates are masked to the embeddings
+    frozen_steps = args.frozen_model_epochs * steps_per_epoch
+    frozen_step_fn = None
+    if frozen_steps > 0:
+        frozen_step_fn = build_train_step(model, tx, args.num_input_tokens,
+                                          args.num_target_tokens, **step_kw,
+                                          trainable_mask=frozen_trunk_mask(model))
+        print(f"[train] frozen-trunk phase for the first {frozen_steps} steps")
     jsonl = JSONLLogger(output_dir)
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     ckpt_dir = os.path.join(output_dir, "checkpoints")
@@ -203,9 +334,12 @@ def main(args=None):
             start_step = restore_checkpoint(state, generator, ckpt)
             print(f"[ckpt] resumed from step {start_step}")
             del ckpt
-    print("[data] synthetic batches")
-    loader = make_synthetic_loader(all_domains, global_bs, args.num_input_tokens,
-                                   args.num_target_tokens, args.seed + start_step)
+    eval_in = args.fixed_eval_input_tokens if args.fixed_eval else args.num_input_tokens
+    eval_tgt = args.fixed_eval_target_tokens if args.fixed_eval else args.num_target_tokens
+    loader, val_loader_fn = build_loaders(args, all_domains, global_bs, eval_in, eval_tgt)
+    if loader is None:
+        loader = make_synthetic_loader(all_domains, global_bs, args.num_input_tokens,
+                                       args.num_target_tokens, args.seed + start_step)
 
     t0 = time.time()
     for step in range(start_step, total_steps):
@@ -214,7 +348,8 @@ def main(args=None):
         if args.grad_accum_steps > 1:
             batch = {m: {k: v.reshape((args.grad_accum_steps, -1) + v.shape[1:])
                          for k, v in d.items()} for m, d in batch.items()}
-        state, metrics = step_fn(state, batch, generator)
+        fn = frozen_step_fn if (frozen_step_fn is not None and step < frozen_steps) else step_fn
+        state, metrics = fn(state, batch, generator)
 
         if step % args.print_freq == 0 or step == total_steps - 1:
             loss = float(metrics["loss"])  # a host read: waits for the step
@@ -240,6 +375,17 @@ def main(args=None):
             # params-only export for generation (read by cli/generate.py:load_fm)
             save_checkpoint(os.path.join(output_dir, "weights"), model.state_dict(), step + 1)
             print(f"[ckpt] saved step {step + 1}", flush=True)
+
+        if val_loader_fn is not None and (
+                (step + 1) % (steps_per_epoch * args.eval_freq) == 0 or step == total_steps - 1):
+            t_eval = time.time()
+            stats = evaluate(model, val_loader_fn(), eval_in, eval_tgt, args.loss_type,
+                             args.eval_size, global_bs, device)
+            stats["seconds"] = time.time() - t_eval
+            print(f"[eval] step {step + 1}: {stats}", flush=True)
+            jsonl.write({"step": step + 1, **{f"eval_{k}": v for k, v in stats.items()}})
+            t0 += time.time() - t_eval
+    loader.close()  # stops the prefetch thread and the data workers
     print("training done")
     return state
 

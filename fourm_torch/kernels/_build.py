@@ -57,7 +57,8 @@ SIGNATURES = {
                      [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P]),
     "attention_train_bwd": ("attention_train", "fourm_attention_train_bwd",
                             [_P] * 11 + [_IA, _F, _P]),
-    "fused_adamw": ("fused_adamw", "fourm_fused_adamw", [_P] * 3 + [_I] + [_F] * 9 + [_P, _F, _P]),
+    "fused_adamw": ("fused_adamw", "fourm_fused_adamw",
+                    [_P] * 3 + [_I] + [_F] * 6 + [_P, _F, _I, _I, _F, _P, _P, _P, _I, _P, _I, _P]),
 }
 
 _lock = threading.Lock()

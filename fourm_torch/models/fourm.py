@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.modality_info import MODALITY_INFO, ModalitySpec
 from ..ops.token_select import adapt_decoder_attention_mask, gather_tokens, select_tokens
@@ -230,8 +231,20 @@ class FourM(nn.Module):
         if encoder_mask is not None and encoder_mask.ndim == 2:
             encoder_mask = encoder_mask[:, None, :]
         for blk in self.encoder:
-            x = blk(x, encoder_mask, train=train, generator=generator)
+            x = self._block(blk, x, encoder_mask, train=train, generator=generator)
         return self.encoder_norm(x)
+
+    def _block(self, blk, *args, train: bool, generator):
+        """One block; in training with config.remat, under activation
+        checkpointing (fourm_tpu fourm.py:216-217 wraps each block in
+        nn.remat): its activations are recomputed in the backward. The
+        drop-path masks are drawn first, in the order the block draws them,
+        and passed in, so that the recomputation reuses them (checkpoint
+        restores the global generators' states, not `generator`'s)."""
+        if not (train and self.config.remat):
+            return blk(*args, train=train, generator=generator)
+        keeps = blk.drop_path.draw_keeps(args[0], blk.BRANCHES, generator)
+        return checkpoint(blk, *args, True, None, keeps, use_reentrant=False)
 
     def encode(self, mod_dict, num_encoder_tokens: Optional[int] = None, train: bool = False,
                generator: Optional[torch.Generator] = None):
@@ -305,8 +318,8 @@ class FourM(nn.Module):
         if encoder_mask is not None and encoder_mask.ndim == 2:
             encoder_mask = encoder_mask[:, None, :]
         for blk in self.decoder:
-            y = blk(y, context, decoder_attention_mask, encoder_mask, train=train,
-                    generator=generator)
+            y = self._block(blk, y, context, decoder_attention_mask, encoder_mask, train=train,
+                            generator=generator)
         return self.decoder_norm(y)
 
     def mod_logits(self, mod: str, y: torch.Tensor) -> torch.Tensor:
@@ -419,18 +432,20 @@ class FourM(nn.Module):
 
     def forward(self, mod_dict: Dict[str, Dict[str, torch.Tensor]], num_encoder_tokens: int,
                 num_decoder_tokens: int, loss_type: str = "mod",
-                generator: Optional[torch.Generator] = None):
-        """The training forward (fourm_tpu fourm.py:529-557 with
-        deterministic=False; reference fm.py:640-692): encoder and decoder
-        on their training paths, then the loss. `generator` draws the
-        stochastic-depth masks. Returns (loss, (mod_loss, mod_count))."""
-        if self.config.remat:
-            raise NotImplementedError("remat (activation checkpointing) is not ported yet")
-        enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens, True, generator)
+                generator: Optional[torch.Generator] = None, train: bool = True):
+        """The loss forward (fourm_tpu fourm.py:529-557; reference fm.py:
+        640-692): encoder and decoder, then the loss. train=True (JAX's
+        deterministic=False) runs the blocks' differentiable training path,
+        `generator` drawing the stochastic-depth masks, each block under
+        activation checkpointing with config.remat; train=False (JAX's
+        deterministic=True, the eval) the inference path and its kernels,
+        without stochastic depth. Returns (loss, (mod_loss, mod_count))."""
+        enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens, train,
+                                                    generator)
         dec_x, dec_emb, _dec_mask, target_ids, sa_mask, dec_modid = self.forward_mask_decoder(
             mod_dict, num_decoder_tokens)
         context = self.decoder_context(enc_out, enc_emb)
-        y = self.forward_decoder(dec_x + dec_emb, context, enc_mask, sa_mask, True, generator)
+        y = self.forward_decoder(dec_x + dec_emb, context, enc_mask, sa_mask, train, generator)
         mods = [m for m in self.config.decoder_modalities
                 if m in mod_dict and m in self.decoder_embeddings]
         loss, mod_loss, mod_count = self.forward_loss(y, target_ids, dec_modid, mods, mod_dict,

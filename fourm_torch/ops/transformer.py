@@ -328,17 +328,27 @@ class CrossAttention(nn.Module):
         return self.attend(x, k, v, mask, train)
 
 
-def drop_path(x: torch.Tensor, drop_prob: float, train: bool,
+def draw_keep(x: torch.Tensor, drop_prob: float,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The per-sample keep mask of drop_path, (B, 1, ...) bool, drawn from
+    `generator` (the default one if None)."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - drop_prob
+
+
+def drop_path(x: torch.Tensor, drop_prob: float, train: bool,
+              generator: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stochastic depth per sample (reference fm_utils.py:66-90;
     fourm_tpu/ops/transformer.py:703-712): in training, each sample's branch
     is kept with probability 1 - drop_prob and scaled by its inverse, or
-    zeroed. The keep draw comes from `generator` (the default one if None)."""
+    zeroed. The keep mask is `keep` when given (drawn beforehand by
+    draw_keep, as a recomputed block must reuse it), else drawn here."""
     if drop_prob == 0.0 or not train:
         return x
     keep_prob = 1.0 - drop_prob
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if keep is None:
+        keep = draw_keep(x, drop_prob, generator)
     return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
 
 
@@ -350,8 +360,17 @@ class DropPath(nn.Module):
         self.drop_prob = drop_prob
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return drop_path(x, self.drop_prob, train, generator)
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return drop_path(x, self.drop_prob, train, generator, keep)
+
+    def draw_keeps(self, x: torch.Tensor, n: int,
+                   generator: Optional[torch.Generator] = None) -> tuple:
+        """The keep masks of a block's n branches in the order its forward
+        draws them (None each at rate 0, where nothing is drawn)."""
+        if self.drop_prob == 0.0:
+            return (None,) * n
+        return tuple(draw_keep(x, self.drop_prob, generator) for _ in range(n))
 
 
 def _make_mlp(gated_mlp: bool, act: str, dim: int, mlp_ratio: float, mlp_bias: bool, dtype):
@@ -390,12 +409,16 @@ class Block(nn.Module):
         self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
         self.drop_path = DropPath(drop_path_rate)
 
+    BRANCHES = 2  # drop-path draws of one training forward
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                keeps: Optional[tuple] = None) -> torch.Tensor:
         if train:
             dp = self.drop_path
-            x = x + dp(self.attn(self.norm1(x), mask, train=True), True, generator)
-            return x + dp(self.mlp(self.norm2(x)), True, generator)
+            k = keeps or (None,) * self.BRANCHES
+            x = x + dp(self.attn(self.norm1(x), mask, train=True), True, generator, k[0])
+            return x + dp(self.mlp(self.norm2(x)), True, generator, k[1])
         x = self.attn.fused_prenorm(x, self.norm1, mask)
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
 
@@ -422,16 +445,20 @@ class DecoderBlock(nn.Module):
         self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, mlp_bias, dtype)
         self.drop_path = DropPath(drop_path_rate)
 
+    BRANCHES = 3  # drop-path draws of one training forward
+
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sa_mask: Optional[torch.Tensor] = None,
                 xa_mask: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keeps: Optional[tuple] = None) -> torch.Tensor:
         if train:
             dp = self.drop_path
-            x = x + dp(self.self_attn(self.norm1(x), sa_mask, train=True), True, generator)
+            k = keeps or (None,) * self.BRANCHES
+            x = x + dp(self.self_attn(self.norm1(x), sa_mask, train=True), True, generator, k[0])
             x = x + dp(self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask,
-                                       train=True), True, generator)
-            return x + dp(self.mlp(self.norm2(x)), True, generator)
+                                       train=True), True, generator, k[1])
+            return x + dp(self.mlp(self.norm2(x)), True, generator, k[2])
         x = self.self_attn.fused_prenorm(x, self.norm1, sa_mask)
         x = x + self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask)
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)

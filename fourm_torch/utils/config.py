@@ -8,16 +8,20 @@ The port reads its YAML itself (the machine with the card has no PyYAML),
 a subset of it that the run configs and the tokenizers' safetensors
 metadata use, read as `yaml.safe_load` reads it (YAML 1.1 scalars):
   * comments;
-  * a flat block mapping of scalars: null (`~`, `null`, empty), bools
-    (`true`, `yes`, `on`, ... in their three casings), ints (decimal,
+  * block mappings, nested by indentation, of scalars: null (`~`,
+    `null`, empty), bools (`true`, `yes`, `on`, ... in their three
+    casings), ints (decimal,
     0x, 0o-style `0...`, 0b, with `_`), floats (`1.5`, `1.0e-06`, `.inf`,
     `.nan`; `1e-6` without a dot is a string, as in YAML 1.1), plain,
     single-quoted and double-quoted strings;
-  * block lists of scalars as a mapping's values;
+  * block lists and flow sequences (`[a, 'b', 1.5]`) of scalars as a
+    mapping's values;
   * a document that is one scalar.
-Anything else (nested mappings, anchors, aliases, tags, flow collections,
-block scalars, multi-line scalars, several documents, dates) raises
-ValueError. `dump_yaml` writes that subset as `yaml.safe_dump` would.
+This covers the run configs, the data configs and the alphas files of
+cfgs/default/4m/. Anything else (anchors, aliases, tags, flow mappings,
+nested flow collections, block scalars, multi-line scalars, several
+documents, dates, duplicate keys) raises ValueError. `dump_yaml` writes
+that subset as `yaml.safe_dump` would.
 """
 
 from __future__ import annotations
@@ -173,6 +177,41 @@ def _split_key(text: str, where: str):
     return _plain(text[:m.start()].strip(), where), text[m.end():].strip()
 
 
+def _flow_list(text: str, where: str) -> List[Any]:
+    """A flow sequence of scalars, '[a, 'b', 1.5]' (no nesting)."""
+    body = text[1:-1]
+    items, cur, quote = [], [], None
+    for c in body:
+        if quote:
+            cur.append(c)
+            if c == quote:
+                quote = None
+        elif c in "'\"":
+            quote = c
+            cur.append(c)
+        elif c == ",":
+            items.append("".join(cur))
+            cur = []
+        elif c in "[]{}":
+            raise ValueError(f"{where}: nested flow collections are outside the YAML subset")
+        else:
+            cur.append(c)
+    if quote:
+        raise ValueError(f"{where}: unterminated quote in a flow sequence")
+    items.append("".join(cur))
+    if items and not items[-1].strip():  # '[]' or a trailing comma
+        items.pop()
+    if any(not item.strip() for item in items):
+        raise ValueError(f"{where}: an empty item in a flow sequence")
+    return [_scalar(item, where) for item in items]
+
+
+def _value(text: str, where: str) -> Any:
+    if text.startswith("[") and text.endswith("]"):
+        return _flow_list(text, where)
+    return _scalar(text, where)
+
+
 def safe_load(text: str, source: str = "<yaml>") -> Any:
     """The YAML subset above, as `yaml.safe_load(text)` reads it."""
     lines = []
@@ -186,43 +225,54 @@ def safe_load(text: str, source: str = "<yaml>") -> Any:
         raise ValueError(f"{source}: document markers and directives are outside the subset")
     if not lines:
         return None
-    if len(lines) == 1 and lines[0][1] == 0 and _split_key(lines[0][2], source) is None:
-        return _scalar(lines[0][2], f"{source}:{lines[0][0]}")
+    if len(lines) == 1 and _split_key(lines[0][2], source) is None:
+        return _value(lines[0][2], f"{source}:{lines[0][0]}")
+
+    def is_item(t: str) -> bool:
+        return t == "-" or t.startswith("- ")
 
     def block_list(i: int, indent: int):
         items = []
-        while i < len(lines) and lines[i][1] == indent and (
-                lines[i][2] == "-" or lines[i][2].startswith("- ")):
+        while i < len(lines) and lines[i][1] == indent and is_item(lines[i][2]):
             n, _, t = lines[i]
             where = f"{source}:{n}"
             item = t[1:].strip()
             if not item or _split_key(item, where) is not None:
                 raise ValueError(f"{where}: only scalars may be list items")
-            items.append(_scalar(item, where))
+            items.append(_value(item, where))
             i += 1
         return items, i
 
-    out: Dict[Any, Any] = {}
-    i = 0
-    while i < len(lines):
-        n, indent, t = lines[i]
-        where = f"{source}:{n}"
-        if indent != 0:
-            raise ValueError(f"{where}: nested mappings and multi-line scalars are outside "
-                             "the YAML subset this reader takes")
-        kv = _split_key(t, where)
-        if kv is None:
-            raise ValueError(f"{where}: expected 'key: value', got {t!r}")
-        key, value = kv
-        if key in out:
-            raise ValueError(f"{where}: duplicate key {key!r}")
-        i += 1
-        if value:
-            out[key] = _scalar(value, where)
-        elif i < len(lines) and (lines[i][2] == "-" or lines[i][2].startswith("- ")):
-            out[key], i = block_list(i, lines[i][1])
-        else:
-            out[key] = None
+    def mapping(i: int, indent: int):
+        out: Dict[Any, Any] = {}
+        while i < len(lines) and lines[i][1] >= indent:
+            n, ind, t = lines[i]
+            where = f"{source}:{n}"
+            if ind != indent or is_item(t):
+                raise ValueError(f"{where}: unexpected indentation or list item (multi-line "
+                                 "scalars are outside the YAML subset this reader takes)")
+            kv = _split_key(t, where)
+            if kv is None:
+                raise ValueError(f"{where}: expected 'key: value', got {t!r}")
+            key, value = kv
+            if key in out:
+                raise ValueError(f"{where}: duplicate key {key!r}")
+            i += 1
+            if value:
+                out[key] = _value(value, where)
+            elif i < len(lines) and lines[i][1] > indent:
+                out[key], i = (block_list(i, lines[i][1]) if is_item(lines[i][2])
+                               else mapping(i, lines[i][1]))
+            elif i < len(lines) and lines[i][1] == indent and is_item(lines[i][2]):
+                out[key], i = block_list(i, indent)
+            else:
+                out[key] = None
+        return out, i
+
+    root = lines[0][1]
+    out, i = block_list(0, root) if is_item(lines[0][2]) else mapping(0, root)
+    if i != len(lines):
+        raise ValueError(f"{source}:{lines[i][0]}: unexpected indentation")
     return out
 
 
@@ -261,16 +311,24 @@ def _dump_scalar(v: Any) -> str:
 
 
 def dump_yaml(d: Dict[str, Any]) -> str:
-    """A flat mapping of scalars and lists of scalars as block YAML, keys
-    sorted, as yaml.safe_dump writes it (read back equal by both)."""
+    """A mapping of scalars, lists of scalars and nested mappings as block
+    YAML, keys sorted, as yaml.safe_dump writes it (read back equal by
+    both)."""
     lines = []
-    for k in sorted(d):
-        v = d[k]
-        if isinstance(v, (list, tuple)):
-            lines.append(f"{_dump_scalar(k)}:" + ("" if v else " []"))
-            lines += [f"- {_dump_scalar(x)}" for x in v]
-        else:
-            lines.append(f"{_dump_scalar(k)}: {_dump_scalar(v)}")
+
+    def walk(m, pad):
+        for k in sorted(m):
+            v = m[k]
+            if isinstance(v, dict):
+                lines.append(f"{pad}{_dump_scalar(k)}:")
+                walk(v, pad + "  ")
+            elif isinstance(v, (list, tuple)):
+                lines.append(f"{pad}{_dump_scalar(k)}:" + ("" if v else " []"))
+                lines.extend(f"{pad}- {_dump_scalar(x)}" for x in v)
+            else:
+                lines.append(f"{pad}{_dump_scalar(k)}: {_dump_scalar(v)}")
+
+    walk(d, "")
     return "\n".join(lines) + "\n"
 
 

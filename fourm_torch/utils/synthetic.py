@@ -91,8 +91,10 @@ def synthetic_mod_batch(
 
 
 def to_torch(batch: Dict[str, Dict[str, np.ndarray]], device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The same batch as torch tensors on `device`."""
-    return {m: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in d.items()}
+    """The same batch as torch tensors on `device`, from numpy arrays or CPU
+    tensors (a pinned tensor's copy to the card does not wait)."""
+    return {m: {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+                    ).to(device, non_blocking=True) for k, v in d.items()}
             for m, d in batch.items()}
 
 

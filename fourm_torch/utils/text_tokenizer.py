@@ -11,7 +11,7 @@ library runs it: the added tokens (`single_word`, `lstrip`, `rstrip`,
 multi-word class names) split out first, then the BertNormalizer
 (clean_text, handle_chinese_chars, strip_accents, lowercase), the
 BertPreTokenizer and the WordPiece model; decoding by the WordPiece
-decoder (with cleanup). It answers `encode(text).ids`, `decode(ids,
+decoder (with cleanup). It answers `encode(text).ids`, `encode_batch(texts)`, `decode(ids,
 skip_special_tokens=)`, `get_vocab()`, `token_to_id()`, `id_to_token()`.
 A component of any other type raises, naming it.
 
@@ -261,6 +261,9 @@ class WordPieceTokenizer:
                             raise KeyError(f"the WordPiece vocabulary lacks {piece!r}")
                         ids.append(self.vocab[piece])
         return Encoding(ids)
+
+    def encode_batch(self, texts: Iterable[str]) -> List[Encoding]:
+        return [self.encode(t) for t in texts]
 
     def decode(self, ids: Iterable[int], skip_special_tokens: bool = True) -> str:
         tokens = [self.id_to_tok[i] for i in (int(x) for x in ids) if i in self.id_to_tok]

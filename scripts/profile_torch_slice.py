@@ -2,7 +2,8 @@
 """Where the time goes in the port on the card, under torch.profiler.
 
     python3 scripts/profile_torch_slice.py
-        [--part all|chain|xl|train|vq|decode|sr|decode448] [--out out/chain_trace.json]
+        [--part all|chain|xl|train|vq|decode|sr|decode448|pretrain]
+        [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
 ROAR with CFG, batch 16; 6 sequence targets decoded autoregressively,
@@ -67,6 +68,22 @@ the median wall time of 2 runs without the profiler. `--part decode448`: chip_sm
 tok_semseg@448 (their tokenizers' vocabularies) at 448, then the UViT-B
 decoding 4 grids of 28 x 28 at 448, both at 25 steps, broken down as
 `--part decode`.
+
+`--part pretrain`: chip_smoke.py's phase 12 -- the 4M-21 B pre-training
+step (fm_base_12e_12d_swiglu_nobias at full width and depth, B = 64, 256 +
+256 tokens, layer decay 0.75) fed from that phase's tar shards by the
+data pipeline with 4 spawn workers and the CLI's prefetch thread, as
+cli/train_4m.py runs it. After 3 warm-up steps, 8 steps run without the
+profiler (wall time a step: the wait for the batch, its copy to the card,
+the step, the loss read); then 3 steps under the profiler, each in three
+windows fenced by synchronizations: data (the wait for the next batch),
+h2d (its copy to the card) and step. The device time is given by kernel
+group as `--part train` (attention_train forward and backward, fused_adamw,
+cuBLAS GEMMs, other ops); the busy share is device time a step over the
+unprofiled median wall time; the host's share waiting for data is the
+data window over the step's wall time. Then the loader inline for 2
+batches with its host time split by stage (tar reading and decoding, the
+transforms, the masking, the collation): where a worker's time goes.
 
 The last line is one JSON object with the numbers. Needs one CUDA card and
 nvcc.
@@ -277,7 +294,7 @@ def train_profile() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq", "decode", "sr",
-                                       "decode448"],
+                                       "decode448", "pretrain"],
                     default="all", help="all: chain and train (the others only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     ap.add_argument("--root", default=ROOT, help="the checkout whose fourm_torch to profile")
@@ -305,6 +322,8 @@ def main() -> int:
         res["sr"] = sr_profile()
     if args.part == "decode448":
         res.update(decode448_profile())
+    if args.part == "pretrain":
+        res["pretrain"] = pretrain_profile()
     print(json.dumps(res))
     return 0
 
@@ -606,6 +625,149 @@ def decode448_profile() -> dict:
               f"{', '.join(f'{w:.3f}' for w in walls)} ms)")
         res[key] = fenced_profile(run, label, wall_ms)
     return res
+
+
+def loader_stages(files: dict, batches: int = 2) -> dict:
+    """Host seconds of one inline loader's stages over `batches` batches:
+    each stage's function timed where the pipeline calls it."""
+    from fourm_torch.data import datasets, masking, transforms
+    from fourm_torch.data.pretrain_utils import build_parallel_train_loader
+    from fourm_torch.utils.config import load_yaml
+
+    spent = {}
+
+    def timed(owner, attr, stage):
+        fn = getattr(owner, attr)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
+        setattr(owner, attr, wrapper)
+        return fn
+
+    patches = [(datasets, "decode_sample", "tar read + decode"),
+               (transforms.UnifiedDataTransform, "__call__", "transforms"),
+               (masking.UnifiedMasking, "__call__", "masking"),
+               (datasets, "batch_mod_dicts", "collation")]
+    saved = [(owner, attr, timed(owner, attr, stage)) for owner, attr, stage in patches]
+    try:
+        ds = load_yaml(files["data"])["train"]["datasets"]
+        it = build_parallel_train_loader(
+            ds, files["domains"], chip_smoke.PRETRAIN_BATCH, 224, chip_smoke.PRETRAIN_TOKENS,
+            chip_smoke.PRETRAIN_TOKENS, text_tokenizer_path=files["tokenizer"], seed=0)
+        next(it)
+        spent.clear()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        total = time.perf_counter() - t0
+        it.close()
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    # the tar reading sits inside the shuffle buffer's iteration: what the
+    # stages leave of the total is the reading, the buffer and the mixture
+    stages = dict(spent)
+    stages["tar read, buffers, mixture (the rest)"] = total - sum(spent.values())
+    return {"seconds_per_batch": total / batches,
+            "share": {k: v / total for k, v in stages.items()}}
+
+
+def pretrain_profile() -> dict:
+    """Phase 12's step fed by the data pipeline: busy share, device time by
+    group, the host's wait for data, the loader's stages."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, record_function
+
+    from fourm_torch.data.datasets import prefetch_iterator
+    from fourm_torch.data.pretrain_utils import build_parallel_train_loader
+    from fourm_torch.models import FourM, init_weights
+    from fourm_torch.parallel import build_train_step, init_train_state
+    from fourm_torch.utils.config import load_yaml
+    from fourm_torch.utils.optim import constant_schedule, create_optimizer
+    from fourm_torch.utils.synthetic import to_torch
+
+    card = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="fourm_pretrain_profile_")
+    try:
+        files = chip_smoke.write_pretrain_data(tmp, card)
+        T, B = chip_smoke.PRETRAIN_TOKENS, chip_smoke.PRETRAIN_BATCH
+        cfg, _, _ = chip_smoke.pretrain_config()
+        model = init_weights(FourM(cfg), 0)
+        tx = create_optimizer(model, constant_schedule(2.5e-5), layer_decay=0.75, clip_grad=1.0)
+        state = init_train_state(model, tx)
+        step = build_train_step(model, tx, T, T)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ds = load_yaml(files["data"])["train"]["datasets"]
+        loader = prefetch_iterator(build_parallel_train_loader(
+            ds, files["domains"], B, 224, T, T, text_tokenizer_path=files["tokenizer"], seed=0,
+            num_workers=chip_smoke.PRETRAIN_WORKERS), prefetch=4)
+
+        def one(fence: bool):
+            with record_function("pretrain/data"):
+                batch = next(loader)
+            with record_function("pretrain/h2d"):
+                batch = to_torch(batch, "cuda")
+                if fence:
+                    torch.cuda.synchronize()
+            with record_function("pretrain/step"):
+                _, metrics = step(state, batch, gen)
+                float(metrics["loss"])
+
+        walls = []
+        for i in range(11):  # 3 warm-up steps, then 8 timed
+            t0 = time.perf_counter()
+            one(False)
+            if i >= 3:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls))
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                one(True)
+            wall_profiled = (time.perf_counter() - t0) * 1e3 / 3
+        loader.close()
+        from torch.autograd import DeviceType
+
+        host = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name.startswith("pretrain/"):
+                w = e.name[len("pretrain/"):]
+                host[w] = host.get(w, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+        groups, windows, names = by_window(prof.events(), "pretrain/", train_group)
+        groups = {g: ms / 3 for g, ms in groups.items()}
+        device_ms = sum(groups.values())
+        del state, model, tx, step
+        stages = loader_stages(files)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[pretrain step] {card}; B={B}, {T}+{T} tokens, 4M-21 B, fed from shards by "
+          f"{chip_smoke.PRETRAIN_WORKERS} workers; device busy {device_ms:.3f} ms a step: "
+          f"{device_ms / wall_ms:.4f} of the {wall_ms:.3f} ms median step without the profiler "
+          f"(steps {', '.join(f'{w:.3f}' for w in walls)} ms; {wall_profiled:.3f} ms a fenced "
+          f"step under the profiler)")
+    for w, ms in host.items():
+        print(f"  host window {w}: {ms:.3f} ms a step ({ms / wall_profiled:.4f} of the fenced "
+              f"step)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})")
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (count, ms) in top:
+        print(f"  device {ms / 3:10.3f} ms {count // 3:7d}x  {name[:100]}")
+    print(f"  loader inline: {stages['seconds_per_batch']:.3f} s a batch; " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(stages["share"].items(), key=lambda kv: -kv[1])))
+    return {"wall_ms_unprofiled": wall_ms, "wall_ms_steps": walls,
+            "wall_ms_fenced_profiled": wall_profiled, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "host_window_ms": host,
+            "by_group_ms": groups, "loader_inline": stages,
+            "top_device": [{"ms": ms / 3, "count": c // 3, "name": n[:200]}
+                           for n, (c, ms) in top]}
 
 
 if __name__ == "__main__":

@@ -59,7 +59,16 @@ def test_yaml_writer_and_refusals():
          "n": "tok_rgb@224", "o": "a #b", "p": "1e-3", "q": "0x1F", "r": float("inf")}
     for text in (dump_yaml(d), yaml.safe_dump(d)):
         assert safe_load(text) == yaml.safe_load(text) == d
-    for bad in ("a:\n  b: 1\n", "a: {b: 1}\n", "a: [1, 2]\n", "a: &x 1\nb: *x\n",
+    # nested block mappings and flow sequences of scalars (the data and alphas configs)
+    for text in ("a:\n  b: 1\n", "a: [1, 2]\n", "a: [1, 'x y', 0., ]\nb:\n- 1\n- c\n",
+                 "x:\n  y:\n    z: [a]\n  w: 2\nq: 3\n"):
+        assert safe_load(text) == yaml.safe_load(text)
+    ascii_only = {k: v for k, v in d.items() if k != "m"}  # safe_dump escapes the rest
+    nested = {"train": {"datasets": {"x": {**ascii_only, "k": {"p": "/a/[b,c]/{0..3}.tar"}}}},
+              "e": 1}
+    assert dump_yaml(nested) == yaml.safe_dump(nested)
+    assert safe_load(dump_yaml(nested)) == yaml.safe_load(dump_yaml(nested)) == nested
+    for bad in ("a: {b: 1}\n", "a: &x 1\nb: *x\n", "a: [[1]]\n", "a: 1\n  b: 2\n",
                 "a: 1\n---\nb: 2\n", "a: |\n  text\n", "a: !!str 1\n"):
         with pytest.raises(ValueError):
             safe_load(bad)

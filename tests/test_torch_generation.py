@@ -138,7 +138,8 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
         for mod in _imports(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "fourm_tpu", "tokenizers",
-                                "safetensors", "yaml", "huggingface_hub", "orbax"), (f, mod)
+                                "safetensors", "yaml", "huggingface_hub", "orbax", "webdataset",
+                                "datasets", "wandb"), (f, mod)
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
         # PIL, cv2 and matplotlib are absent on the machine with the card:
@@ -154,10 +155,15 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
             "fourm_torch.vq, fourm_torch.utils.decoding, "
             "fourm_torch.utils.text_tokenizer, fourm_torch.cli.generate, "
             "fourm_torch.cli.train_4m, fourm_torch.vq.loader, fourm_torch.utils.config, "
-            "fourm_torch.data.generation_datasets; "
+            "fourm_torch.data.generation_datasets, fourm_torch.data.pretrain_utils, "
+            "fourm_torch.data.datasets, fourm_torch.data.transforms, "
+            "fourm_torch.data.augmenters, fourm_torch.data.masking, fourm_torch.data.batching, "
+            "fourm_torch.data.loader, fourm_torch.data.image_io, fourm_torch.native, "
+            "fourm_torch.utils.synthetic_shards, fourm_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'fourm_tpu', 'tokenizers', 'safetensors', 'yaml', "
-            "'huggingface_hub', 'orbax', 'PIL', 'cv2', 'matplotlib')]; "
+            "'huggingface_hub', 'orbax', 'PIL', 'cv2', 'matplotlib', 'webdataset', 'datasets', "
+            "'wandb')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

@@ -146,11 +146,12 @@ def test_adamw_twin_matches_pallas_leaf(count):
     p, g, m, v = _leaves(count)
     decay = [True, False, True]
     b1, b2, eps, wd, lr = 0.9, 0.95, 1e-8, 0.05, 3e-4
-    s = fa.adamw_scalars(count, lr, b1, b2, eps, wd)
+    steps = fa.StepTables.constant(lr, b1, b2, count)
+    c1, c2 = steps.bias[min(count, steps.bias.shape[0] - 1)].tolist()
     ref_sc = np.asarray(jax_adamw_scalars(jnp.int32(count), lr, b1, b2))
-    np.testing.assert_allclose([s.lr, s.c1, s.c2], ref_sc, rtol=1e-6)
+    np.testing.assert_allclose([float(steps.lr[0]), c1, c2], ref_sc, rtol=1e-6)
     tp, tm, tv = ([_t(a) for a in arr] for arr in (p, m, v))
-    fa.fused_adamw(tp, [_t(a) for a in g], tm, tv, decay, s)
+    fa.fused_adamw(tp, [_t(a) for a in g], tm, tv, decay, fa.AdamScalars(b1, b2, eps, wd), steps)
     for i in range(3):
         ref = fused_adamw_leaf(jnp.asarray(g[i]), jnp.asarray(p[i]), jnp.asarray(m[i]),
                                jnp.asarray(v[i]), jnp.asarray(ref_sc), b1=b1, b2=b2, eps=eps,
@@ -177,6 +178,8 @@ def test_adamw_twin_matches_optax_over_steps(clip):
     params = {n: jnp.asarray(a) for n, a in zip(names, p)}
     state = tx.init(params)
     sched = cosine_schedule(1e-2, 50, 2)
+    steps = fa.StepTables(torch.zeros(2, dtype=torch.int32), 0, torch.from_numpy(sched.table(0, 4)),
+                          torch.from_numpy(fa.bias_correction_table(0.9, 0.95, 4)))
     tp = [_t(a) for a in p]
     tm, tv = [torch.zeros_like(a) for a in tp], [torch.zeros_like(a) for a in tp]
     rng = np.random.RandomState(12)
@@ -188,8 +191,9 @@ def test_adamw_twin_matches_optax_over_steps(clip):
         params = optax.apply_updates(params, upd)
         tg = [_t(a) for a in g[:2]] + [None]
         norm = torch.linalg.vector_norm(torch.stack([a.norm() for a in tg[:2]]))
-        s = fa.adamw_scalars(count, sched(count), 0.9, 0.95, 1e-8, 0.05)
-        fa.fused_adamw(tp, tg, tm, tv, [mask[n] for n in names], s,
+        steps.parity = count % 2  # the count the previous step wrote
+        fa.fused_adamw(tp, tg, tm, tv, [mask[n] for n in names],
+                       fa.AdamScalars(0.9, 0.95, 1e-8, 0.05), steps,
                        norm if clip is not None else None, clip)
         for n, a in zip(names, tp):
             np.testing.assert_allclose(a.numpy(), np.asarray(params[n]), rtol=1e-6, atol=1e-8,
