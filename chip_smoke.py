@@ -238,12 +238,18 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      that advances the count), timed as a row; remat against no remat over
      4 steps (first loss bit for bit, masters after 4 steps, peak memory,
      remat's launch counts); and at 2 + 2 layers the loss of a shard batch
-     against the CPU in fp32 and bf16 (phase 4's gate).
+     against the CPU in fp32 and bf16 (phase 4's gate);
+  13. the tokenizer stage (scripts/chip_tokenizer.py, which says what it
+     runs and gates): VQ-VAE / DiVAE training through cli.train_vqvae at
+     the 4M-21 tokenizers' full width (T1-T3), pre-tokenization through
+     cli.save_vq_tokens (T4), exact launch counts, CPU parity at 2 + 2
+     layers. `python3 chip_smoke.py --part tokenizer` runs the build and
+     this phase alone.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
-SR paths of phases 3c and 10b, on phase 11's CLI paths and on phase 12's
-pre-training run); the last line is
+SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
+pre-training run and on phase 13's tokenizer paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -4829,9 +4835,27 @@ def pretrain_phase(torch, card: str):
     return {"pretrain": launches}, rows
 
 
+def tokenizer_module():
+    """scripts/chip_tokenizer.py beside this script (phase 13)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "chip_tokenizer.py")
+    spec = importlib.util.spec_from_file_location("chip_tokenizer", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    parts = argparse.ArgumentParser(description="smoke run of the port on one card")
+    parts.add_argument("--part", choices=["all", "tokenizer"], default="all",
+                       help="'tokenizer': the build and phase 13 alone")
+    part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
@@ -4853,6 +4877,18 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     print(f"build: {_build.build_all():.2f} s for {len(_build.SOURCES)} sources "
           f"({', '.join(_build.SOURCES)})", flush=True)
+    if part == "tokenizer":
+        tokenizer_module().tokenizer_phase(torch, card, check)
+        print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
+
+    def mark(label: str) -> None:
+        """The script's clock after a phase (its budget is PERF.md's)."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label} done", flush=True)
 
     results = kernel_phase(torch, card)
     torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
@@ -4861,6 +4897,7 @@ def main() -> int:
     results += narrow_kernel_phase(torch, card)
     torch.cuda.empty_cache()
     results += sr_kernel_phase(torch, card)
+    mark("kernel phases 2-2d")
     torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
@@ -4869,11 +4906,13 @@ def main() -> int:
     cpu = cpu_models(torch, model)
     parity_phase(torch, model, out, cpu)
     decode_parity_phase(torch, model, out, cpu)
+    mark("phases 3-4")
     del cpu
     bundles = build_tokenizers(torch)
     dec, decode_launches = decode_phase(torch, model, out, bundles, card)
     uvit_launches, uvit = uvit_decode_phase(torch, card)
     decode_tokens_parity_phase(torch, bundles, uvit, out, dec)
+    mark("phase 10")
     sr_model, sr_out, sr_chain_launches = sr_phase(torch, card)
     resolve_launches = super_resolve_phase(torch, card, sr_model, model, out)
     del sr_model
@@ -4881,21 +4920,26 @@ def main() -> int:
     decode448_launches, uvit448_launches = decode448_phase(torch, model, sr_out, bundles, uvit,
                                                            card)
     sr_parity_phase(torch, sr_out)
+    mark("phases 3c, 10b, 4c")
     api_launches = generate_api_phase(torch, model, card)
     ckpt_launches = checkpoint_phase(torch, model, bundles, card)
+    mark("phases 3f, 11")
     del model, out, bundles, uvit, dec, sr_out
     torch.cuda.empty_cache()
     xl_launches, int8_launches = xl_phase(torch, card)
+    mark("phase 3b")
     torch.cuda.empty_cache()
     narrow_launches = narrow_phase(torch, card)
     torch.cuda.empty_cache()
     fp32_phase(torch, card)
+    mark("phases 3d, 3e")
     torch.cuda.empty_cache()
     results += vq_kernel_phase(torch, card)
     torch.cuda.empty_cache()
     vq_launches, vq_models, vq_x = vq_phase(torch, card)
     vq_parity_phase(torch, vq_models, vq_x)
     vq448_phase(torch, vq_models, card)
+    mark("phases 5-7")
     del vq_models, vq_x
     torch.cuda.empty_cache()
     results += train_kernel_phase(torch, card)
@@ -4903,9 +4947,14 @@ def main() -> int:
     train_launches = train_phase(torch, card)
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
+    mark("phases 8-9")
     torch.cuda.empty_cache()
     pretrain_launches, pretrain_rows = pretrain_phase(torch, card)
     results += pretrain_rows
+    mark("phase 12")
+    torch.cuda.empty_cache()
+    tokenizer_launches = tokenizer_module().tokenizer_phase(torch, card, check)
+    mark("phase 13")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -4919,6 +4968,7 @@ def main() -> int:
         r["sr_launches"] = {p: n[wrapper] for p, n in sr_paths.items()}
         r["cli_launches"] = {p: n[wrapper] for p, n in ckpt_launches.items()}
         r["pretrain_launches"] = pretrain_launches["pretrain"][wrapper]
+        r["tokenizer_launches"] = {p: n[wrapper] for p, n in tokenizer_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

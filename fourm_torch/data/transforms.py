@@ -20,12 +20,17 @@ What differs, and why:
     given one pair per dataset (data/pretrain_utils.py), and draws from
     them in the JAX order. Seeding the JAX globals with the same seed gives
     the same stream.
-  * SAMInstanceTokTransform tests its query points against the instance
-    polygons with `point_in_polygon`, the port's copy of what
-    cv2.pointPolygonTest(contour, point, measureDist=True) >= 0 decides
-    (no cv2 on the card's machine).
-The DiVAE-training transforms (depth, normals, semseg, masks, raw SAM
-instances) are not ported yet.
+  * SAMInstanceTokTransform and SAMInstanceTransform test points against
+    instance polygons with `point_in_polygon`, the port's copy of what
+    cv2.pointPolygonTest(contour, point, measureDist=True) >= 0 decides,
+    and SAMInstanceTransform rasterises them with `fill_contour`, the
+    port's copy of cv2.drawContours(..., thickness=cv2.FILLED) (no cv2 on
+    the card's machine).
+  * The DiVAE-training transforms (`divae_modality_transforms`: depth,
+    normals, COCO semseg, validity masks, canny edges, SMPL poses, raw SAM
+    instances) read 16-bit depth maps (Pillow's I;16) and palette semseg
+    maps as Pillow opens them (image_io.decode_image_mode) and resample
+    them as Pillow does: BICUBIC on I;16, NEAREST on class maps and masks.
 
 The name helpers and the metadata maps are also what token decoding reads
 (utils/decoding.py:decode_metadata).
@@ -44,7 +49,8 @@ import numpy as np
 
 from . import image_io
 from .modality_info import (IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN,
-                            IMAGENET_INCEPTION_STD)
+                            IMAGENET_INCEPTION_STD, IMAGENET_SURFACE_NORMAL_MEAN,
+                            IMAGENET_SURFACE_NORMAL_STD)
 
 
 # ------------------------------------------------------------- name helpers
@@ -205,6 +211,12 @@ class ImageTransform(AbstractTransform):
         return image_io.decode_image(Path(path).read_bytes(), path)
 
     @staticmethod
+    def load_mode(path: str):
+        """The image file's pixels and Pillow's mode for them (L, RGB, RGBA,
+        I;16, P indices; image_io.decode_image_mode)."""
+        return image_io.decode_image_mode(Path(path).read_bytes(), path)
+
+    @staticmethod
     def image_hflip(img: np.ndarray, flip: bool) -> np.ndarray:
         return image_io.hflip(img) if flip else img
 
@@ -249,6 +261,157 @@ class RGBTransform(ImageTransform):
     def postprocess(self, sample):
         arr = np.asarray(sample, dtype=np.float32) / 255.0
         return (arr - self.mean) / self.std
+
+
+class DepthTransform(ImageTransform):
+    """uint16 depth -> float32 (H, W, 1), optionally robust-standardized
+    (transforms.py:221-250). A 16-bit PNG is I;16: cropped and resized
+    (BICUBIC) in 16 bits, as Pillow 12 does."""
+
+    def __init__(self, standardize_depth: bool = True, **rngs):
+        super().__init__(**rngs)
+        self.standardize_depth = standardize_depth
+
+    @staticmethod
+    def truncated_depth_standardization(depth: np.ndarray, thresh: float = 0.1) -> np.ndarray:
+        trunc = np.sort(depth.reshape(-1))
+        trunc = trunc[int(thresh * len(trunc)): int((1 - thresh) * len(trunc))]
+        return (depth - trunc.mean()) / np.sqrt(trunc.var() + 1e-6)
+
+    def load(self, path):
+        return self.load_mode(path)[0]
+
+    def preprocess(self, sample):
+        return sample
+
+    def image_augment(self, img, crop_coords, flip, orig_size, target_size,
+                      rand_aug_idx, resample_mode=None):
+        img = self.image_crop_and_resize(img, crop_coords, target_size, resample_mode)
+        return self.image_hflip(img, flip)
+
+    def postprocess(self, sample):
+        arr = np.asarray(sample, dtype=np.float32) / (2**16 - 1.0)
+        if self.standardize_depth:
+            arr = self.truncated_depth_standardization(arr)
+        return arr[..., None]
+
+
+class NormalTransform(ImageTransform):
+    """Surface normals (an RGB image); a horizontal flip negates the x (red)
+    channel (transforms.py:252-286)."""
+
+    def __init__(self, standardize_surface_normals: bool = False, **rngs):
+        super().__init__(**rngs)
+        self.mean = np.asarray(
+            IMAGENET_SURFACE_NORMAL_MEAN if standardize_surface_normals else (0.5, 0.5, 0.5),
+            dtype=np.float32,
+        )
+        self.std = np.asarray(
+            IMAGENET_SURFACE_NORMAL_STD if standardize_surface_normals else (0.5, 0.5, 0.5),
+            dtype=np.float32,
+        )
+
+    def load(self, path):
+        img, mode = self.load_mode(path)
+        if mode != "RGB":
+            raise ValueError(f"{path}: a surface-normal map is an RGB image, got {mode}")
+        return img
+
+    def preprocess(self, sample):
+        return sample
+
+    def image_hflip(self, img: np.ndarray, flip: bool) -> np.ndarray:
+        if flip:
+            img = image_io.hflip(img)
+            img[:, :, 0] = 255 - img[:, :, 0]
+        return img
+
+    def image_augment(self, img, crop_coords, flip, orig_size, target_size,
+                      rand_aug_idx, resample_mode=None):
+        img = self.image_crop_and_resize(img, crop_coords, target_size, resample_mode)
+        return self.image_hflip(img, flip)
+
+    def postprocess(self, sample):
+        arr = np.asarray(sample, dtype=np.float32) / 255.0
+        return (arr - self.mean) / self.std
+
+
+class SemsegTransform(ImageTransform):
+    """Class-index maps -> int64 (H, W); nearest resampling
+    (transforms.py:289-326). An image is read as Pillow's convert("P")
+    leaves a palette or greyscale one: its indices, or its grey values."""
+
+    def __init__(self, scale_factor: float = 1.0, shift_idx_by_one: bool = False,
+                 id_mapping: Optional[Dict] = None, select_channel: Optional[int] = None,
+                 **rngs):
+        super().__init__(**rngs)
+        self.scale_factor = scale_factor
+        self.shift_idx_by_one = shift_idx_by_one
+        self.id_mapping = id_mapping
+        self.select_channel = select_channel
+
+    def load(self, path):
+        sample, mode = self.load_mode(path)
+        if self.select_channel is not None:  # img.split()[c]: one band, as L
+            bands = ([sample] if sample.ndim == 2
+                     else [sample[..., c] for c in range(sample.shape[2])])
+            sample, mode = bands[self.select_channel], "L" if sample.ndim == 3 else mode
+        if mode not in ("L", "P"):
+            raise ValueError(f"{path}: a class map is a palette or greyscale image, got "
+                             f"{mode} (Pillow's convert('P') would quantize it)")
+        return sample
+
+    def preprocess(self, sample):
+        sample = np.asarray(sample, dtype=np.uint8)
+        if self.id_mapping is not None:
+            sample = np.vectorize(lambda x: self.id_mapping.get(x, x))(sample).astype(np.uint8)
+        if self.shift_idx_by_one:
+            sample = (sample + 1).astype(np.uint8)
+        return sample
+
+    def image_augment(self, img, crop_coords, flip, orig_size, target_size,
+                      rand_aug_idx, resample_mode=None):
+        img = self.image_crop_and_resize(img, crop_coords, target_size, resample_mode="nearest")
+        return self.image_hflip(img, flip)
+
+    def postprocess(self, sample):
+        if self.scale_factor != 1.0:
+            th = int(sample.shape[0] * self.scale_factor)
+            tw = int(sample.shape[1] * self.scale_factor)
+            sample = image_io.resize(sample, (tw, th), resample="nearest")
+        return np.asarray(sample, dtype=np.int64)
+
+
+class MaskTransform(ImageTransform):
+    """Validity masks -> bool (H, W, 1); min-pooled dilation
+    (transforms.py:329-356)."""
+
+    def __init__(self, mask_pool_size: int = 1, **rngs):
+        super().__init__(**rngs)
+        self.mask_pool_size = int(mask_pool_size)
+
+    def load(self, path):
+        return self.load_mode(path)[0]
+
+    def preprocess(self, sample):
+        return sample
+
+    def image_augment(self, img, crop_coords, flip, orig_size, target_size,
+                      rand_aug_idx, resample_mode=None):
+        img = self.image_crop_and_resize(img, crop_coords, target_size, resample_mode="nearest")
+        return self.image_hflip(img, flip)
+
+    def postprocess(self, sample):
+        mask = np.asarray(sample, dtype=np.float32)
+        if mask.ndim == 3:
+            mask = mask[..., 0]
+        mask = mask / 255.0 if mask.max() > 1.0 else mask
+        p = self.mask_pool_size
+        if p > 1:
+            H, W = mask.shape
+            pooled = mask[: H // p * p, : W // p * p].reshape(H // p, p, W // p, p).min(axis=(1, 3))
+            mask = np.repeat(np.repeat(pooled, p, axis=0), p, axis=1)
+        return (mask == 1.0)[..., None]
 
 
 class TokTransform(AbstractTransform):
@@ -521,11 +684,16 @@ class ColorPaletteTransform(AbstractTransform):
 
 class HumanPoseTransform(AbstractTransform):
     """SMPL pose instances -> coordinate-token string (transforms.py:640-725).
-    only_pose (tokenizer training) is not ported."""
+    only_pose=True gives the 207-dim body-pose vector of the first instance
+    (zeros without one) for tokenizer training, which no augmentation or
+    postprocessing changes. (The JAX transform compares that vector with
+    "none" in image_augment, which numpy 2 refuses; ROADMAP.)"""
 
-    def __init__(self, coord_bins: int = 1000, return_raw: bool = False, **rngs):
+    def __init__(self, coord_bins: int = 1000, only_pose: bool = False,
+                 return_raw: bool = False, **rngs):
         super().__init__(**rngs)
         self.coord_bins = coord_bins
+        self.only_pose = only_pose
         self.return_raw = return_raw
 
     def load(self, path):
@@ -534,6 +702,11 @@ class HumanPoseTransform(AbstractTransform):
 
     def preprocess(self, sample):
         instances = sample
+        if self.only_pose:
+            if len(instances) == 0:
+                return np.zeros(207, dtype=np.float32)
+            return np.asarray(instances["pred_smpl_params"]["body_pose"][0],
+                              dtype=np.float32).flatten()
         if len(instances) == 0:
             return "none"
         n = len(instances["bbox_xyxy"])
@@ -551,7 +724,7 @@ class HumanPoseTransform(AbstractTransform):
 
     def image_augment(self, humanposes, crop_coords, flip, orig_size, target_size,
                       rand_aug_idx=None, resample_mode=None):
-        if humanposes == "none":
+        if self.only_pose or humanposes == "none":
             return humanposes
         orig_h, orig_w = orig_size
         top, left, h, w = crop_coords
@@ -573,7 +746,7 @@ class HumanPoseTransform(AbstractTransform):
         return out if out else "none"
 
     def postprocess(self, humanposes):
-        if humanposes == "none":
+        if self.only_pose or humanposes == "none":
             return humanposes if not self.return_raw else []
         if self.return_raw:
             return humanposes
@@ -682,6 +855,187 @@ def point_in_polygon(contour, point) -> bool:
     return bool(np.sum(counted & ~skip) % 2 == 1)
 
 
+# OpenCV's drawing fixed point (drawing.cpp): 16 fractional bits
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _clip_line(width, height, p1, p2):
+    """OpenCV clipLine(Size2l, Point2l&, Point2l&) in int64 / double."""
+    right, bottom = width - 1, height - 1
+    (x1, y1), (x2, y2) = p1, p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line8(img, p1, p2, value):
+    """cv2.line's LINE_8 (LineIterator, left to right) on a uint8 image."""
+    h, w = img.shape
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        ok, p1, p2 = _clip_line(w, h, p1, p2)
+        if not ok:
+            return
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:
+        dx, dy = -dx, -dy
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - (dy + dy)
+    plus, minus = dx + dx, -(dy + dy)
+    x, y = x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = value
+        step_minor = err < 0
+        err += minus + (plus if step_minor else 0)
+        if vert:
+            y += sy
+            if step_minor:
+                x += sx
+        else:
+            x += sx
+            if step_minor:
+                y += sy
+
+
+def fill_contour(img, contour, value=255):
+    """cv2.drawContours(img, [contour], 0, value, thickness=cv2.FILLED) on a
+    uint8 (H, W) image, in place, as cv2 5.0.0 draws it: each edge drawn as
+    a LINE_8 line (clipped to the image), then the scanline fill of
+    fillPoly's edge list: 16.16 fixed-point edges (an edge that leaves the
+    image follows its clipped segment), each row filled from the left edge
+    rounded up to the right edge rounded down between edge pairs. Equal to
+    cv2's on polygons inside the image; on edges that leave it, cv2 5.0.0
+    differs in a few rows of about one polygon in a thousand (ROADMAP)."""
+    h, w = img.shape
+    pts = np.asarray(contour).reshape(-1, 2).astype(np.int64)
+    n = len(pts)
+    edges = []
+    pt0 = (int(pts[-1, 0]) << XY_SHIFT, int(pts[-1, 1]))
+    for i in range(n):
+        pt1 = (int(pts[i, 0]) << XY_SHIFT, int(pts[i, 1]))
+        t0 = ((pt0[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt0[1])
+        t1 = ((pt1[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt1[1])
+        _line8(img, t0, t1, value)
+        p0c, p1c = list(pt0), list(pt1)
+        if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            _, c0, c1 = _clip_line(w, h, t0, t1)
+            if c0[1] != c1[1]:
+                p0c = [c0[0] << XY_SHIFT, c0[1]]
+                p1c = [c1[0] << XY_SHIFT, c1[1]]
+
+        if pt0[1] != pt1[1]:
+            dx = _cdiv(p1c[0] - p0c[0], p1c[1] - p0c[1])
+            if pt0[1] < pt1[1]:
+                edges.append([pt0[1], pt1[1], p0c[0] + (pt0[1] - p0c[1]) * dx, dx])
+            else:
+                edges.append([pt1[1], pt0[1], p1c[0] + (pt1[1] - p1c[1]) * dx, dx])
+        pt0 = pt1
+    _fill_edges(img, edges, value)
+
+
+def _cdiv(a, b):
+    """C integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _fill_edges(img, edges, value):
+    """OpenCV's FillEdgeCollection over edges [y0, y1, x, dx] (x, dx in
+    16.16 fixed point): an active list in x order, each row filled between
+    consecutive pairs, the list bubble-sorted by x after each row."""
+    h, w = img.shape
+    if len(edges) < 2:
+        return
+    y_min = min(e[0] for e in edges)
+    y_max = max(e[1] for e in edges)
+    xs = [e[2] for e in edges] + [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    if y_max < 0 or y_min >= h or max(xs) < 0 or min(xs) >= (w << XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e[0], e[2], e[3]))
+    total = len(edges)
+    active = []  # the active list, in its order
+    i = 0
+    y_max = min(y_max, h)
+    y = edges[0][0]
+    while y < y_max:
+        # walk the active list, dropping finished edges and inserting new
+        # ones (sorted position), drawing between every pair
+        new_active = []
+        draw = False
+        k = 0
+        pending = None
+        while True:
+            last = active[k] if k < len(active) else None
+            if last is not None and last[1] == y:
+                k += 1
+                continue
+            e = edges[i] if i < total else None
+            if last is None and (e is None or e[0] != y):
+                break
+            if last is not None and (e is None or e[0] > y or last[2] < e[2]):
+                cur = last
+                k += 1
+            elif e is not None:
+                cur = e
+                i += 1
+            else:
+                break
+            new_active.append(cur)
+            if draw:
+                a, b = pending, cur
+                if y >= 0:
+                    if a[2] > b[2]:
+                        x1, x2 = (b[2] + XY_ONE - 1) >> XY_SHIFT, a[2] >> XY_SHIFT
+                    else:
+                        x1, x2 = (a[2] + XY_ONE - 1) >> XY_SHIFT, b[2] >> XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+                a[2] += a[3]
+                b[2] += b[3]
+            pending = cur
+            draw = not draw
+        active = new_active
+        # bubble sort by x (stable exchanges, as the C loop)
+        n = len(active)
+        swapped = True
+        while swapped:
+            swapped = False
+            for j in range(n - 1):
+                if active[j][2] > active[j + 1][2]:
+                    active[j], active[j + 1] = active[j + 1], active[j]
+                    swapped = True
+        y += 1
+
+
 class SAMInstanceTokTransform(AbstractTransform):
     """Pre-tokenized SAM instances -> query-point-conditioned token string
     (transforms.py:781-855): for random/grid query points, list the (bbox +
@@ -758,6 +1112,141 @@ class SAMInstanceTokTransform(AbstractTransform):
         return self.convert_target_tokens_to_string(self.get_target_tokens(sample, qp))
 
 
+class SAMInstanceTransform(AbstractTransform):
+    """Raw SAM instance polygons -> fixed-size binary masks and boxes, for SAM
+    instance tokenizer training (transforms.py:858-995): crops clip the
+    polygons against the crop rectangle (border crossings added), resize,
+    drop tiny instances, and rasterise each polygon to a mask_size x
+    mask_size mask (`fill_contour`). At most max_instance_n instances, drawn
+    from np_rng as the JAX transform draws them from np.random."""
+
+    def __init__(self, mask_size: int = 64, max_instance_n: Optional[int] = 20,
+                 bbox_area_threshold: float = 0.0005, **rngs):
+        super().__init__(**rngs)
+        self.mask_size = mask_size
+        self.max_instance_n = max_instance_n
+        self.bbox_area_threshold = bbox_area_threshold
+
+    @staticmethod
+    def get_bbox(instance):
+        min_h, max_h = instance[:, :, 1].min(), instance[:, :, 1].max()
+        min_w, max_w = instance[:, :, 0].min(), instance[:, :, 0].max()
+        return [min_h, min_w, max_h, max_w]
+
+    @staticmethod
+    def _border_crossings(crop_points):
+        p = crop_points[:, 0]
+        p_next = np.roll(p, -1, axis=0)
+
+        def fn(x, xn):
+            out = []
+            c_diff = p_next - p
+            x_diff = x - xn
+            for diff, c in zip(c_diff, p):
+                A = np.array([[diff[0], x_diff[0]], [diff[1], x_diff[1]]], dtype=np.float64)
+                b = (x - c).astype(np.float64)
+                try:
+                    lm = np.linalg.solve(A, b)
+                except np.linalg.LinAlgError:
+                    continue
+                if 0 <= lm[0] <= 1 and 0 <= lm[1] <= 1:
+                    out.append(lm[1] * xn + (1 - lm[1]) * x)
+            return out
+
+        return fn
+
+    def crop_sample(self, sample, crop_coords):
+        top, left, h, w = crop_coords
+        region = (left, top, left + w, top + h)
+        crop_points = np.array([
+            [region[0], region[1]], [region[2], region[1]],
+            [region[2], region[3]], [region[0], region[3]],
+        ])[:, None]
+        border_fn = self._border_crossings(crop_points)
+        out = []
+        for instance in sample:
+            p = instance[:, 0]
+            p_next = np.roll(p, -1, axis=0)
+            pts = []
+            for x, xn in zip(p, p_next):
+                pts.append(x)
+                for r in border_fn(x, xn):
+                    pts.append(r.astype(np.int32))
+            inst = np.stack(pts)[:, None]
+            inside = (
+                (inst[:, :, 0] > region[0]) & (inst[:, :, 0] < region[2])
+                & (inst[:, :, 1] > region[1]) & (inst[:, :, 1] < region[3])
+            )
+            if not np.any(inside):
+                continue
+            clipped = inst.copy()
+            clipped[:, :, 0] = np.clip(inst[:, :, 0], region[0], region[2])
+            clipped[:, :, 1] = np.clip(inst[:, :, 1], region[1], region[3])
+            # drop points that left the original polygon (redundant lines)
+            kept = [q[0] for q in clipped
+                    if point_in_polygon(inst, (float(q[0, 0]), float(q[0, 1])))]
+            if len(kept) < 3:
+                continue
+            clipped = np.stack(kept)[:, None]
+            clipped[:, :, 0] -= region[0]
+            clipped[:, :, 1] -= region[1]
+            out.append(clipped)
+        return out
+
+    def image_augment(self, v, crop_coords, flip, orig_size, target_size,
+                      rand_aug_idx=None, resample_mode=None):
+        v = self.crop_sample(v, crop_coords)
+        _, _, h, w = crop_coords
+        th, tw = target_size
+        scaled = []
+        for inst in v:
+            c = inst.copy()
+            c[:, :, 0] = np.round(tw / w * c[:, :, 0])
+            c[:, :, 1] = np.round(th / h * c[:, :, 1])
+            scaled.append(c)
+        kept = []
+        for inst in scaled:  # drop tiny instances
+            min_h, min_w, max_h, max_w = self.get_bbox(inst)
+            if (max_h - min_h) * (max_w - min_w) / (th * tw) >= self.bbox_area_threshold:
+                kept.append(inst)
+        if flip:
+            flipped = []
+            for inst in kept:
+                c = inst.copy()
+                c[:, :, 0] = tw - c[:, :, 0]
+                flipped.append(c)
+            kept = flipped
+        return kept
+
+    def load(self, path):
+        return np.load(path, allow_pickle=True)
+
+    def preprocess(self, sample):
+        if self.max_instance_n is None or len(sample) <= self.max_instance_n:
+            idx = np.arange(len(sample))
+        else:
+            idx = self.np_rng.choice(len(sample), size=self.max_instance_n, replace=False)
+        return [p["points"] for i, p in enumerate(sample) if i in idx]
+
+    def postprocess(self, sample):
+        n = self.max_instance_n if self.max_instance_n is not None else len(sample)
+        masks = np.zeros((n, self.mask_size, self.mask_size), np.float32)
+        bboxes = np.zeros((n, 4), np.float32)
+        valid = np.full(n, False)
+        for i, inst in enumerate(sample[:n]):
+            bbox = self.get_bbox(inst)
+            min_h, min_w, max_h, max_w = bbox
+            c = inst.copy().astype(np.float64)
+            c[:, :, 0] = (c[:, :, 0] - min_w) / max(max_w - min_w, 1e-6) * self.mask_size
+            c[:, :, 1] = (c[:, :, 1] - min_h) / max(max_h - min_h, 1e-6) * self.mask_size
+            mask = np.zeros((self.mask_size, self.mask_size), np.uint8)
+            fill_contour(mask, c.astype(np.int32), 255)
+            masks[i] = mask / 255.0
+            bboxes[i] = np.asarray(bbox, np.float32)
+            valid[i] = True
+        return {"instance": masks, "bbox": bboxes, "valid": valid}
+
+
 # ---------------------------------------------------------------- registries
 
 def default_modality_transforms(rng: Optional[random.Random] = None,
@@ -789,4 +1278,24 @@ def default_modality_transforms(rng: Optional[random.Random] = None,
         "tok_imagebind_global": TokTransform(**r),
         "sam_instance": SAMInstanceTokTransform(image_size=224, points_per_side=7,
                                                 point_order="random", **r),
+        "mask_valid": MaskTransform(mask_pool_size=1, **r),
+    }
+
+
+def divae_modality_transforms(rng: Optional[random.Random] = None,
+                              np_rng: Optional[np.random.RandomState] = None
+                              ) -> Dict[str, AbstractTransform]:
+    """The tokenizer-training transforms (transforms.py:1024-1034), every
+    one drawing from `rng` / `np_rng`."""
+    r = dict(rng=rng if rng is not None else random.Random(),
+             np_rng=np_rng if np_rng is not None else np.random.RandomState())
+    return {
+        "rgb": RGBTransform(imagenet_default_mean_and_std=False, **r),
+        "depth": DepthTransform(standardize_depth=True, **r),
+        "normal": NormalTransform(standardize_surface_normals=False, **r),
+        "mask_valid": MaskTransform(mask_pool_size=1, **r),
+        "semseg_coco": SemsegTransform(shift_idx_by_one=True, **r),
+        "canny_edge": RGBTransform(imagenet_default_mean_and_std=False, **r),
+        "human_poses": HumanPoseTransform(coord_bins=1000, only_pose=True, **r),
+        "sam_mask": SAMInstanceTransform(mask_size=64, max_instance_n=1, **r),
     }

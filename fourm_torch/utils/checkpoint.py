@@ -163,16 +163,21 @@ def _vq_tree(out: Dict[str, np.ndarray], path: list, tree: Mapping) -> None:
         out[".".join(path + [_VQ_LEAF.get(name, name)])] = np.ascontiguousarray(arr)
 
 
+CODEBOOK_STATE = ("embed", "embed_avg", "cluster_size", "initted")
+
+
 def from_jax_vq_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """State dict of the port's VQ, VQVAE or DiVAE from the JAX module's
-    variables. Of the codebook collection the search and the lookup need
-    `embed`; the EMA state (embed_avg, cluster_size, initted) belongs to
-    training and is left out."""
+    variables: the params, and of each codebook collection `embed` and its
+    EMA state (`embed_avg`, `cluster_size`, `initted`, where present) as
+    `<quantizer>._codebook.<name>`."""
     out: Dict[str, np.ndarray] = {}
     _vq_tree(out, [], variables["params"])
     for path, cb in _codebooks(variables.get("codebook", {}), []):
-        out[f"{'.'.join(path) or 'quantize'}._codebook.embed"] = np.asarray(cb["embed"],
-                                                                            np.float32)
+        for name in CODEBOOK_STATE:
+            if name in cb:
+                out[f"{'.'.join(path) or 'quantize'}._codebook.{name}"] = np.asarray(
+                    cb[name], np.float32)
     return _tensors(out)
 
 
@@ -477,22 +482,29 @@ def load_fourm_safetensors(path: str, config_override: Optional[Dict] = None,
 
 # ------------------------------------------------------- VQ tokenizers
 
-# training state of the quantizer's EMA, and sin-cos tables the port
-# computes: read by neither package's inference modules
-_VQ_UNUSED = ("_codebook.embed_avg", "_codebook.cluster_size", "_codebook.initted", "pos_emb")
+# sin-cos tables the port computes
+_VQ_UNUSED = ("pos_emb",)
 
 
 def import_vq_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tensor]):
     """Copy a reference-named tokenizer state dict (the names of
     from_jax_vq_variables; the codebook as `quantize._codebook.embed`) into
     a VQ / VQVAE / DiVAE of the port, in place (each parameter keeps its
-    dtype). The quantizer's EMA state and `pos_emb` tables may be present
-    or absent; any other key the model has no place for, or parameter the
-    state lacks, raises KeyError naming it (the JAX importer prints the
-    missing ones and keeps their init, fourm_tpu/utils/checkpoint.py:
-    458-461)."""
+    dtype). `pos_emb` tables may be present or absent. So may a codebook's
+    EMA state: a file without it (the release files) gets the JAX
+    package's init from its `embed` (quantizer.py:150-159: embed_avg =
+    embed, cluster_size = 0, initted = 1). Any other key the model has no
+    place for, or parameter the state lacks, raises KeyError naming it (the
+    JAX importer prints the missing ones and keeps their init,
+    fourm_tpu/utils/checkpoint.py:458-461)."""
     own = model.state_dict()
     sd = {k: v for k, v in state.items() if not k.endswith(_VQ_UNUSED)}
+    for key in [k for k in own if k.endswith("_codebook.embed") and k in sd]:
+        base = key[:-len("embed")]
+        if base + "embed_avg" not in sd:
+            sd[base + "embed_avg"] = sd[key]
+            sd[base + "cluster_size"] = torch.zeros(sd[key].shape[0])
+            sd[base + "initted"] = torch.tensor(1.0)
     missing = [k for k in own if k not in sd]
     unexpected = [k for k in sd if k not in own]
     if missing or unexpected:
@@ -502,14 +514,18 @@ def import_vq_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tenso
     return model
 
 
-def export_vq_safetensors(model: torch.nn.Module, config: Mapping[str, Any], path: str) -> None:
+def export_vq_safetensors(model: torch.nn.Module, config: Mapping[str, Any], path: str,
+                          overrides: Optional[Mapping[str, torch.Tensor]] = None) -> None:
     """A tokenizer of the port in the release format: its reference-named
-    state dict in fp32, the config as YAML metadata (fourm_tpu/utils/
-    checkpoint.py:464-472; utils/config.py:dump_yaml writes what
-    yaml.safe_dump writes). vq/loader.py:get_image_tokenizer reads it."""
+    state dict in fp32 (with `overrides`, {name: tensor} such as a model
+    EMA, in place of those entries), the config as YAML metadata
+    (fourm_tpu/utils/checkpoint.py:464-472; utils/config.py:dump_yaml
+    writes what yaml.safe_dump writes). vq/loader.py:get_image_tokenizer
+    reads it."""
     from .config import dump_yaml
 
-    tensors = {k: v.detach().float() for k, v in model.state_dict().items()}
+    tensors = {k: v.detach().float() for k, v in {**model.state_dict(),
+                                                   **(overrides or {})}.items()}
     save_safetensors(tensors, path, metadata={"config": dump_yaml(dict(config))})
 
 

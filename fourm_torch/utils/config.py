@@ -18,9 +18,11 @@ metadata use, read as `yaml.safe_load` reads it (YAML 1.1 scalars):
     mapping's values;
   * a document that is one scalar.
 This covers the run configs, the data configs and the alphas files of
-cfgs/default/4m/. Anything else (anchors, aliases, tags, flow mappings,
-nested flow collections, block scalars, multi-line scalars, several
-documents, dates, duplicate keys) raises ValueError. `dump_yaml` writes
+cfgs/default/4m/ and cfgs/default/tokenization/. A repeated key keeps its
+last value, as yaml.safe_load does (the frozen-encoder DiVAE recipe sets
+`zero_terminal_snr` twice). Anything else (anchors, aliases, tags, flow
+mappings, nested flow collections, block scalars, multi-line scalars,
+several documents, dates) raises ValueError. `dump_yaml` writes
 that subset as `yaml.safe_dump` would.
 """
 
@@ -254,9 +256,7 @@ def safe_load(text: str, source: str = "<yaml>") -> Any:
             kv = _split_key(t, where)
             if kv is None:
                 raise ValueError(f"{where}: expected 'key: value', got {t!r}")
-            key, value = kv
-            if key in out:
-                raise ValueError(f"{where}: duplicate key {key!r}")
+            key, value = kv  # a repeated key keeps its last value, as yaml.safe_load
             i += 1
             if value:
                 out[key] = _value(value, where)

@@ -58,12 +58,17 @@ NO_DECAY_PATTERNS = (
 _f = np.float32
 
 
-def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
+def weight_decay_mask(model: nn.Module, vectors: bool = True) -> Dict[str, bool]:
     """{parameter name: True = apply weight decay} over the model's unique
     parameters (a tensor shared by two modules is listed once, under its
-    first name)."""
-    return {name: not any(re.match(pat, name) for pat in NO_DECAY_PATTERNS)
-            for name, _ in model.named_parameters()}
+    first name). vectors=False also spares every parameter of ndim <= 1, as
+    the JAX rule does: the VQ tokenizers' mask, whose vectors (GroupNorm
+    and ConvNeXt scales, `norm_mlp`, `conv_norm_out`, the UViT mask token)
+    the name patterns do not all name, and whose other parameters have the
+    JAX leaves' ndim."""
+    return {name: (vectors or p.ndim > 1)
+            and not any(re.match(pat, name) for pat in NO_DECAY_PATTERNS)
+            for name, p in model.named_parameters()}
 
 
 class Schedule:
@@ -186,13 +191,15 @@ class FusedAdamW:
     the gradients, unclipped); `trainable` ({name: bool}) leaves the values
     of the others as they are. `lr_scales` ({name: float}) multiplies each
     leaf's step, weight decay included; `frozen` ({name: bool}) are never
-    updated (their moments are)."""
+    updated (their moments are); `decay` ({name: bool}) replaces the 4M
+    decay mask."""
 
     def __init__(self, model: nn.Module, schedule, betas=(0.9, 0.95), eps: float = 1e-8,
                  weight_decay: float = 0.05, clip_grad: Optional[float] = None,
                  skip_grad: Optional[float] = None,
                  lr_scales: Optional[Dict[str, float]] = None,
-                 frozen: Optional[Dict[str, bool]] = None):
+                 frozen: Optional[Dict[str, bool]] = None,
+                 decay: Optional[Dict[str, bool]] = None):
         self.model = model
         self.schedule = schedule
         self.b1, self.b2 = betas
@@ -200,7 +207,7 @@ class FusedAdamW:
         self.weight_decay = weight_decay
         self.clip_grad = clip_grad
         self.skip_grad = skip_grad
-        self.decay = weight_decay_mask(model)
+        self.decay = weight_decay_mask(model) if decay is None else decay
         self.lr_scales = lr_scales
         self.frozen = frozen or {}
         self.mu: Dict[str, torch.Tensor] = {}
@@ -318,15 +325,18 @@ def create_optimizer(model: nn.Module, schedule, weight_decay: float = 0.05,
                      betas=(0.9, 0.95), eps: float = 1e-8, clip_grad: Optional[float] = None,
                      skip_grad: Optional[float] = None,
                      frozen_mask: Optional[Dict[str, bool]] = None,
-                     layer_decay: Optional[float] = None) -> FusedAdamW:
+                     layer_decay: Optional[float] = None,
+                     decay_mask: Optional[Dict[str, bool]] = None) -> FusedAdamW:
     """AdamW with the 4M parameter-group rules (reference optim_factory.py:
     171-245), optionally after a global-norm clip; skip_grad skips a step
     whose global gradient norm exceeds it (or is not finite); frozen_mask
     ({name: True = frozen}) keeps those values as they are (their moments
     step); layer_decay < 1 scales each leaf's learning rate by
-    layerwise_lr_scales. Call `init()` (or parallel.init_train_state) once
-    the model is on its device."""
+    layerwise_lr_scales; decay_mask ({name: True = decay}) replaces the 4M
+    rules (weight_decay_mask(model, vectors=False) for a tokenizer). Call
+    `init()` (or parallel.init_train_state) once the model is on its
+    device."""
     scales = (layerwise_lr_scales(model, layer_decay)
               if layer_decay is not None and layer_decay < 1.0 else None)
     return FusedAdamW(model, schedule, betas, eps, weight_decay, clip_grad, skip_grad,
-                      lr_scales=scales, frozen=frozen_mask)
+                      lr_scales=scales, frozen=frozen_mask, decay=decay_mask)

@@ -58,7 +58,8 @@ class BottleneckMLP(nn.Module):
         self.blocks = nn.ModuleList(BottleneckBlock(thin, wide, dtype) for wide, thin in block_dims)
         self.linear_out = nn.Linear(block_dims[-1][1], dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """`train` changes nothing: plain differentiable ops either way."""
         x, hw = _flatten_image(x)
         x = _dense(x, self.linear_in, self.dtype)
         for norm, block in zip(self.layernorms, self.blocks):
@@ -79,7 +80,8 @@ class StandardMLP(nn.Module):
         self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
         self.linear_out = nn.Linear(widths[-1], dim_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """`train` changes nothing: plain differentiable ops either way."""
         x, hw = _flatten_image(x)
         z = _dense(x, self.linear_in, self.dtype)
         for norm, layer in zip(self.layernorms, self.layers):

@@ -223,7 +223,9 @@ class PatchedUNetCondCat(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep, condition: torch.Tensor,
                 cond_mask: Optional[torch.Tensor] = None, orig_res=None,
-                unconditional: bool = False) -> torch.Tensor:
+                unconditional: bool = False, train: bool = False) -> torch.Tensor:
+        """`train` changes nothing: the UNet has no kernel and no dropout,
+        its forward is differentiable as it is."""
         B, H, W, C = sample.shape
         P = self.patch_size
         nh, nw = H // P, W // P

@@ -13,7 +13,8 @@ Timesteps, TimestepEmbedding):
   * the SDXL-style original-resolution embedding (arXiv:2307.01952).
 The mid blocks' attention cores go through `dot_product_attention`, so at
 head dim 64 in bf16 on the card each is one launch of the `attention`
-kernel. The adaLN modulation sits between each LayerNorm and its product,
+kernel, and in the training forward (`train=True`) one `attention_train`
+forward (and its backward), which, unlike `attention`, has a backward. The adaLN modulation sits between each LayerNorm and its product,
 so the fused LN kernels do not apply: the products are `_dense`, the
 LayerNorms fp32 (flax nn.LayerNorm, eps 1e-6), the GELU exact. The
 ResNet GroupNorms take the UViT's norm_eps (1e-5).
@@ -131,11 +132,12 @@ class AdaLNAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         B, N, C = x.shape
         qkv = _dense(x, self.qkv, self.dtype).reshape(B, N, 3, self.num_heads, C // self.num_heads)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = dot_product_attention(q, k, v, mask_to_bias(mask, N))
+        out = dot_product_attention(q, k, v, mask_to_bias(mask, N), train=train)
         return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
 
 
@@ -155,14 +157,14 @@ class AdaLNBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
-    def forward(self, x, temb, mask=None, skip_connection=None):
+    def forward(self, x, temb, mask=None, skip_connection=None, train: bool = False):
         st = F.silu(temb)
         mod = _dense(st, self.adaLN_modulation, self.dtype)[:, None, :]
         shift_msa, scale_msa, shift_mlp, scale_mlp = mod.chunk(4, dim=-1)
         gate_msa, gate_mlp = _dense(st, self.adaLN_gate, self.dtype)[:, None, :].chunk(2, dim=-1)
         if self.skip_linear is not None:
             x = _dense(torch.cat([x, skip_connection], dim=-1), self.skip_linear, self.dtype)
-        x = x + gate_msa * self.attn(modulate(self.norm1(x), shift_msa, scale_msa), mask)
+        x = x + gate_msa * self.attn(modulate(self.norm1(x), shift_msa, scale_msa), mask, train)
         h = modulate(self.norm2(x), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h)
 
@@ -198,7 +200,8 @@ class AdaLNDecoderBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
-    def forward(self, x, context, temb, xa_mask=None, skip_connection=None):
+    def forward(self, x, context, temb, xa_mask=None, skip_connection=None,
+                train: bool = False):
         dt = self.dtype
         st = F.silu(temb)
         (shift_msa, scale_msa, shift_mxa, scale_mxa, shift_mlp,
@@ -206,7 +209,8 @@ class AdaLNDecoderBlock(nn.Module):
         gate_msa, gate_mxa, gate_mlp = _dense(st, self.adaLN_gate, dt)[:, None, :].chunk(3, -1)
         if self.skip_linear is not None:
             x = _dense(torch.cat([x, skip_connection], dim=-1), self.skip_linear, dt)
-        x = x + gate_msa * self.self_attn(modulate(self.norm1(x), shift_msa, scale_msa))
+        x = x + gate_msa * self.self_attn(modulate(self.norm1(x), shift_msa, scale_msa),
+                                          train=train)
         B, N, D = x.shape
         M, H = context.shape[1], self.num_heads
         hq = modulate(self.query_norm(x), shift_mxa, scale_mxa)
@@ -214,27 +218,27 @@ class AdaLNDecoderBlock(nn.Module):
         q = _dense(hq, xa.q, dt).reshape(B, N, H, D // H).transpose(1, 2)
         kv = _dense(self.context_norm(context), xa.kv, dt).reshape(B, M, 2, H, D // H)
         k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-        out = dot_product_attention(q, k, v, mask_to_bias(xa_mask, N))
+        out = dot_product_attention(q, k, v, mask_to_bias(xa_mask, N), train=train)
         x = x + gate_mxa * _dense(out.transpose(1, 2).reshape(B, N, D), xa.proj, dt)
         h = modulate(self.norm2(x), shift_mlp, scale_mlp)
         return x + gate_mlp * self.mlp(h)
 
 
-def _run_blocks(blocks, x, args, use_long_skip: bool):
+def _run_blocks(blocks, x, args, use_long_skip: bool, train: bool = False):
     """The mid blocks in order; with long skips the second half's blocks take
     the first half's outputs, last in first out (U-ViT)."""
     if not use_long_skip:
         for blk in blocks:
-            x = blk(x, *args)
+            x = blk(x, *args, train=train)
         return x
     n = len(blocks) // 2
     skips = []
     for blk in blocks[:n]:
-        x = blk(x, *args)
+        x = blk(x, *args, train=train)
         skips.append(x)
-    x = blocks[n](x, *args)
+    x = blocks[n](x, *args, train=train)
     for blk in blocks[n + 1:]:
-        x = blk(x, *args, skip_connection=skips.pop())
+        x = blk(x, *args, skip_connection=skips.pop(), train=train)
     return x
 
 
@@ -269,7 +273,7 @@ class TransformerConcatCond(nn.Module):
             self._pos[key] = interp_posemb(pos, H, W).reshape(1, H * W, -1).to(device)
         return self._pos[key]
 
-    def forward(self, x, temb, cond, cond_mask=None):
+    def forward(self, x, temb, cond, cond_mask=None, train: bool = False):
         B, _, H, W = x.shape
         dt = self.dtype
         x = _dense(x.flatten(2).transpose(1, 2), self.mid_proj_in, dt)
@@ -283,7 +287,7 @@ class TransformerConcatCond(nn.Module):
                                cond)
         x = x + cond
         x = x + self.pos_table(H, W, x.device).to(x.dtype)
-        x = _run_blocks(self.mid_block, x, (temb,), self.use_long_skip)
+        x = _run_blocks(self.mid_block, x, (temb,), self.use_long_skip, train)
         x = _dense(x, self.mid_proj_out, dt)
         return x.transpose(1, 2).reshape(B, -1, H, W)
 
@@ -307,7 +311,7 @@ class TransformerXattnCond(nn.Module):
             for i in range(mid_layers))
         self.mid_proj_out = nn.Linear(mid_dim, unet_dim)
 
-    def forward(self, x, temb, cond, cond_mask=None):
+    def forward(self, x, temb, cond, cond_mask=None, train: bool = False):
         B, _, H, W = x.shape
         dt = self.dtype
         x = _dense(x.flatten(2).transpose(1, 2), self.mid_proj_in, dt)
@@ -317,7 +321,7 @@ class TransformerXattnCond(nn.Module):
         x = x + pos.to(device=x.device, dtype=x.dtype)
         ctx = cond.reshape(B, cond.shape[1] * cond.shape[2], cond.shape[-1])
         xa_mask = None if cond_mask is None else cond_mask.reshape(B, 1, -1)  # True = masked
-        x = _run_blocks(self.mid_block, x, (ctx, temb, xa_mask), self.use_long_skip)
+        x = _run_blocks(self.mid_block, x, (ctx, temb, xa_mask), self.use_long_skip, train)
         x = _dense(x, self.mid_proj_out, dt)
         return x.transpose(1, 2).reshape(B, -1, H, W)
 
@@ -344,7 +348,7 @@ class UViT(nn.Module):
 
     forward(sample (B, H, W, C), timestep (B,) or a scalar, condition
     (B, Hc, Wc, Dc), cond_mask (B, Hc, Wc) bool, orig_res (B, 2),
-    unconditional) -> (B, H, W, out_channels), channel-last."""
+    unconditional, train) -> (B, H, W, out_channels), channel-last."""
 
     def __init__(self, sample_size: Optional[int] = None, in_channels: int = 3,
                  out_channels: int = 3, patch_size: int = 4,
@@ -415,7 +419,7 @@ class UViT(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep, condition: torch.Tensor,
                 cond_mask: Optional[torch.Tensor] = None, orig_res=None,
-                unconditional: bool = False) -> torch.Tensor:
+                unconditional: bool = False, train: bool = False) -> torch.Tensor:
         B, dev = sample.shape[0], sample.device
         emb = self.time_embedding(self._embed(timestep, B, dev))
         if self.res_embedding and orig_res is not None:
@@ -436,7 +440,7 @@ class UViT(nn.Module):
                 res_stack.append(x)
         if self.downsample_before_mid:
             x = self.downsample_mid(x)
-        x = self.mid_block(x, emb, condition.to(self.dtype), cond_mask)
+        x = self.mid_block(x, emb, condition.to(self.dtype), cond_mask, train)
         if self.downsample_before_mid:
             x = self.upsample_mid(x)
         for stage in self.up_blocks:

@@ -1,4 +1,4 @@
-"""ViT encoder and decoder of the VQ tokenizers, channel-last, inference.
+"""ViT encoder and decoder of the VQ tokenizers, channel-last.
 
 Counterpart of fourm_tpu/vq/vit_models.py (reference
 fourm/vq/models/vit_models.py:298-661). The encoder: patch projection (or a
@@ -9,7 +9,10 @@ decoder's), an output projection depatchified channel-major, and optional
 ConvNeXt output blocks. The blocks are fourm_torch.ops.transformer's, so
 their halves run as `attn_block` and `ln_mlp`. A token grid other than the
 training resolution's gets its positions resized bicubically
-(`interp_posemb`), as jax.image.resize does.
+(`interp_posemb`), as jax.image.resize does. `forward(x, train=True)` is
+the training forward: the blocks' differentiable path (ops/transformer.py:
+`attention_train` for every attention core, the plain MLPs), gradients to
+every parameter.
 """
 
 from __future__ import annotations
@@ -41,16 +44,22 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
 
 
-def resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in, n_out) fp64 weights of a 1-D bicubic resize from n_in to n_out
-    samples, as jax.image.resize(..., "bicubic") builds them
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """jax.image's linear kernel, at distances x >= 0."""
+    return np.maximum(0.0, 1.0 - x)
+
+
+def resize_weights(n_in: int, n_out: int, method: str = "bicubic") -> np.ndarray:
+    """(n_in, n_out) fp64 weights of a 1-D bicubic (or "bilinear") resize
+    from n_in to n_out samples, as jax.image.resize builds them
     (jax/_src/image/scale.py:compute_weight_mat): half-pixel centres; when
     downsizing, antialiased (the kernel widened by n_in / n_out); each
     output's weights normalised to sum 1."""
+    kernel = {"bicubic": _keys_cubic, "bilinear": _triangle}[method]
     inv_scale = n_in / n_out
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
-    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale)
+    w = kernel(np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1.0), 0.0)
@@ -132,14 +141,14 @@ class ViTEncoder(nn.Module):
             self._pos[key] = pos.to(device)
         return self._pos[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         B = x.shape[0]
         x = self.proj(x, self.dtype)
         nh, nw = x.shape[1:3]
         pos = self.pos_table(nh, nw, x.device)
         x = x.reshape(B, nh * nw, self.dim_tokens) + pos.to(self.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train=train)
         if self.post_mlp is not None:
             x32 = x.float()
             x = (x32 + self.post_mlp(self.norm_mlp(x32))).to(self.dtype)
@@ -212,11 +221,11 @@ class ViTDecoder(nn.Module):
             self._pos[key] = pos.to(device)
         return self._pos[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         B, nh, nw, D = x.shape
         x = x.reshape(B, nh * nw, D) + self.pos_table(nh, nw, x.device).to(self.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train=train)
         if self.post_mlp is not None:
             x = x + self.post_mlp(self.norm_mlp(x))
         x = _dense(x, self.out_proj, self.dtype)

@@ -1,6 +1,6 @@
-"""VQ tokenizers of the port, inference: `VQ` (encoder + quantizer),
-`VQVAE` (+ ViT or MLP decoder) and `DiVAE` (+ UNet or UViT diffusion
-decoder).
+"""VQ tokenizers of the port: `VQ` (encoder + quantizer), `VQVAE` (+ ViT or
+MLP decoder) and `DiVAE` (+ UNet or UViT diffusion decoder), for inference
+and training.
 
 Counterpart of fourm_tpu/vq/vqvae.py:VQ, VQVAE and DiVAE (reference
 vqvae.py:39-763), channel-last. `VQ`: `prepare_input` (ImageNet
@@ -10,21 +10,30 @@ tokenizer (ViT, or the BottleneckMLP of the global-embedding and pose
 tokenizers). `VQVAE`: `decode_quant`, `decode_tokens`, `autoencode`.
 `DiVAE`: `noise_scheduler`, `denoise_step`, and diffusion decoding by
 `divae_decode_quant` / `divae_decode_tokens` (an eager loop over the
-timesteps). Training (the quantizer's EMA, the DiVAE's training forward
-and condition dropout) is not ported yet; nor is VQControlNet.
+timesteps). Training (fourm_tpu/vq/vqvae.py:105-116, :176-179, :229-261):
+`VQ.encode(x, train=True)` (the blocks' differentiable path through
+`attention_train`, the quantizer's straight-through estimator, commitment
+loss and codebook EMA; `freeze_enc` stops the gradient at the encoder's
+output), `VQVAE.forward` -> (reconstruction, code loss), `DiVAE.forward`
+(clean input encoded, noised input denoised) with `sample_cond_mask`, and
+`init_codebook_kmeans`. Built with `fp32_params=True` a model keeps every
+parameter in fp32 (the train CLI's masters; each product casts them to the
+compute dtype). Not ported: VQControlNet.
 
 Usage:
     vq = VQ(image_size=224, patch_size=16, enc_type="vit_b_enc",
             codebook_size=16384, latent_dim=32, dtype="bfloat16")  # on "cuda"
     vq.load_state_dict(from_jax_vq_variables(variables))  # or init_vq_weights(vq, seed)
     tokens = vq.tokenize(images_nhwc)                    # (B, 14, 14) int64
+    vqvae = VQVAE(..., fp32_params=True).requires_grad_(True)
+    rec, code_loss = vqvae(images_nhwc, train=True)      # a training forward
     divae = DiVAE(dec_type="unet_patched", prediction_type="sample", ...)
     images = divae_decode_tokens(divae, tokens, generator, timesteps=25)
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -64,9 +73,14 @@ class VQ(nn.Module):
                  enc_type: str = "vit_b_enc", patch_proj: bool = True, post_mlp: bool = False,
                  patch_size: int = 16, codebook_size: int = 16384, num_codebooks: int = 1,
                  latent_dim: int = 32, norm_codes: bool = True, norm_latents: bool = False,
-                 undo_std: bool = False, dtype: str = "float32", device: Optional[str] = None):
+                 ema_decay: float = 0.99, threshold_ema_dead_code: float = 0.25,
+                 code_replacement_policy: str = "batch_random", commitment_weight: float = 1.0,
+                 kmeans_init: bool = False, undo_std: bool = False, freeze_enc: bool = False,
+                 dtype: str = "float32", fp32_params: bool = False,
+                 device: Optional[str] = None):
         super().__init__()
         self.image_size, self.n_labels, self.undo_std = image_size, n_labels, undo_std
+        self.freeze_enc, self.fp32_params = freeze_enc, fp32_params
         self.n_channels, self.patch_size, self.latent_dim = n_channels, patch_size, latent_dim
         self.patch_proj, self.post_mlp = patch_proj, post_mlp
         self.num_codebooks = num_codebooks
@@ -90,11 +104,19 @@ class VQ(nn.Module):
         self.quant_proj = nn.Linear(enc_dim, latent_dim)
         self.quantize = VectorQuantize(latent_dim, codebook_size, codebook_dim=latent_dim,
                                        heads=num_codebooks, use_cosine_sim=norm_codes,
-                                       norm_latents=norm_latents)
+                                       norm_latents=norm_latents, decay=ema_decay,
+                                       threshold_ema_dead_code=threshold_ema_dead_code,
+                                       code_replacement_policy=code_replacement_policy,
+                                       commitment_weight=commitment_weight,
+                                       kmeans_init=kmeans_init)
         for m in low + [self.quant_proj, getattr(self, "cls_emb", None)]:
             if m is not None:
-                cast_matrices(m, self.compute_dtype)
+                self._cast(m)
         self._place(device)
+
+    def _cast(self, module: nn.Module) -> None:
+        if not self.fp32_params:
+            cast_matrices(module, self.compute_dtype)
 
     def _place(self, device: Optional[str]) -> None:
         """Onto the entry point's device (`api.resolve_device`), frozen, in
@@ -120,17 +142,27 @@ class VQ(nn.Module):
             x = self.cls_emb(x.long())
         return x.to(self.compute_dtype)
 
-    def latents(self, x: torch.Tensor) -> torch.Tensor:
+    def latents(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The encoder's output projected to the latent dim, before the
-        quantizer: (B, Hq, Wq, latent_dim) in the compute dtype."""
-        return _dense(self.encoder(self.prepare_input(x)), self.quant_proj, self.compute_dtype)
+        quantizer: (B, Hq, Wq, latent_dim) in the compute dtype. In training
+        with freeze_enc the gradient stops at the encoder's output
+        (vqvae.py:107-108)."""
+        h = self.encoder(self.prepare_input(x), train=train)
+        if train and self.freeze_enc:
+            h = h.detach()
+        return _dense(h, self.quant_proj, self.compute_dtype)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, train: bool = False,
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None):
         """-> (quant (B, Hq, Wq, latent_dim), code_loss, tokens (B, Hq, Wq)
-        or (B, Hq, Wq, num_codebooks))."""
-        h = self.latents(x)
+        or (B, Hq, Wq, num_codebooks)). train=True: the training forward,
+        the codebook's EMA state updated in place (`draws` / `generator`:
+        the quantizer's random draws, VectorQuantize.forward)."""
+        h = self.latents(x, train)
         B, Hq, Wq, D = h.shape
-        quant, tokens, loss = self.quantize(h.reshape(B, Hq * Wq, D))
+        quant, tokens, loss = self.quantize(h.reshape(B, Hq * Wq, D), train=train, draws=draws,
+                                            generator=generator)
         shape = (B, Hq, Wq) if self.num_codebooks == 1 else (B, Hq, Wq, self.num_codebooks)
         return quant.reshape(B, Hq, Wq, -1), loss, tokens.reshape(shape)
 
@@ -140,6 +172,17 @@ class VQ(nn.Module):
     def tokens_to_embedding(self, tokens: torch.Tensor) -> torch.Tensor:
         """Codebook lookup: (B, Hq, Wq) -> (B, Hq, Wq, latent_dim)."""
         return self.quantize.indices_to_embedding(tokens)
+
+    def init_codebook_kmeans(self, x: torch.Tensor, init_idx: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None) -> None:
+        """k-means codebook init from a batch (vqvae.py:127-130)."""
+        with torch.no_grad():
+            self.quantize.init_codebook_kmeans(self.latents(x), init_idx, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False, **kw):
+        """-> (quant, code_loss) (vqvae.py:132-134)."""
+        quant, code_loss, _ = self.encode(x, train=train, **kw)
+        return quant, code_loss
 
 
 class VQVAE(VQ):
@@ -165,12 +208,12 @@ class VQVAE(VQ):
         else:
             raise NotImplementedError(f"{dec_type} not implemented")
         self.post_quant_proj = nn.Linear(self.latent_dim, dec_dim)
-        cast_matrices(self.decoder, dt)
-        cast_matrices(self.post_quant_proj, dt)
+        self._cast(self.decoder)
+        self._cast(self.post_quant_proj)
         self._place(device)
 
-    def decode_quant(self, quant: torch.Tensor) -> torch.Tensor:
-        return self.decoder(_dense(quant, self.post_quant_proj, self.compute_dtype))
+    def decode_quant(self, quant: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.decoder(_dense(quant, self.post_quant_proj, self.compute_dtype), train=train)
 
     def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.decode_quant(self.tokens_to_embedding(tokens))
@@ -178,13 +221,20 @@ class VQVAE(VQ):
     def autoencode(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode_quant(self.encode(x)[0])
 
+    def forward(self, x: torch.Tensor, train: bool = False, **kw):
+        """-> (reconstruction, code_loss) (vqvae.py:176-179)."""
+        quant, code_loss, _ = self.encode(x, train=train, **kw)
+        return self.decode_quant(quant, train), code_loss
+
 
 class DiVAE(VQ):
     """Diffusion VQ-VAE: encoder, quantizer and a diffusion decoder, UViT
     (`uvit_*` presets) or the patched ADM UNet (`unet_patched`) (reference
-    vqvae.py:498-763, inspired by arXiv:2206.00386). Inference only."""
+    vqvae.py:498-763, inspired by arXiv:2206.00386)."""
 
     def __init__(self, dec_type: str = "uvit_b_p4_f16", num_train_timesteps: int = 1000,
+                 cls_free_guidance_dropout: float = 0.0, masked_cfg: bool = False,
+                 masked_cfg_low: int = 0, masked_cfg_high: Optional[int] = None,
                  scheduler: str = "ddpm", beta_schedule: str = "squaredcos_cap_v2",
                  prediction_type: str = "v_prediction", clip_sample: bool = False,
                  thresholding: bool = True, conditioning: str = "concat",
@@ -192,6 +242,8 @@ class DiVAE(VQ):
                  device: Optional[str] = None, **kw):
         super().__init__(device="cpu", **kw)
         dt = self.compute_dtype
+        self.cls_free_guidance_dropout, self.masked_cfg = cls_free_guidance_dropout, masked_cfg
+        self.masked_cfg_low, self.masked_cfg_high = masked_cfg_low, masked_cfg_high
         self.scheduler_kw = dict(kind=scheduler, num_train_timesteps=num_train_timesteps,
                                  beta_schedule=beta_schedule, prediction_type=prediction_type,
                                  clip_sample=clip_sample, thresholding=thresholding,
@@ -207,11 +259,60 @@ class DiVAE(VQ):
                                         dtype=dt)
         else:
             raise NotImplementedError(f"dec_type {dec_type} not implemented")
-        cast_matrices(self.decoder, dt)
+        self._cast(self.decoder)
         self._place(device)
 
     def noise_scheduler(self) -> DiffusionScheduler:
         return DiffusionScheduler(**self.scheduler_kw)
+
+    def sample_cond_mask(self, B: int, Hq: int, Wq: int, drop: Optional[torch.Tensor] = None,
+                         k: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training-time condition dropout of classifier-free guidance
+        (vqvae.py:229-244; reference vqvae.py:618-640): a sample's whole
+        condition is dropped with probability cls_free_guidance_dropout
+        (`drop` (B,) bool); with masked_cfg, of a dropped sample only the
+        tokens whose rank in `noise` ((B, Hq*Wq) uniforms) is at least `k`
+        ((B,) ints in [masked_cfg_low, masked_cfg_high]). Draws not given
+        come from `generator`."""
+        dev = self.device
+        if drop is None:
+            drop = torch.rand(B, generator=generator, device=dev) < self.cls_free_guidance_dropout
+        cond_mask = drop.to(dev)[:, None, None].expand(B, Hq, Wq)
+        if self.masked_cfg:
+            n = Hq * Wq
+            high = self.masked_cfg_high if self.masked_cfg_high is not None else n
+            if k is None:
+                k = torch.randint(self.masked_cfg_low, high + 1, (B,), generator=generator,
+                                  device=dev)
+            if noise is None:
+                noise = torch.rand(B, n, generator=generator, device=dev)
+            ranks = torch.argsort(torch.argsort(noise.to(dev), dim=1, stable=True), dim=1,
+                                  stable=True)
+            cond_mask = (ranks >= k.to(dev)[:, None]).reshape(B, Hq, Wq) & cond_mask
+        return cond_mask
+
+    def forward(self, input_clean: torch.Tensor, input_noised: torch.Tensor, timesteps,
+                cond_mask: Optional[torch.Tensor] = None, orig_res=None, train: bool = False,
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward (vqvae.py:252-261; reference vqvae.py:727-763):
+        encode the clean input, denoise the noised one conditioned on the
+        quantized latents -> (the decoder's prediction, code_loss). In
+        training with cls_free_guidance_dropout > 0 and no cond_mask, the
+        mask comes from sample_cond_mask (its draws `draws["cond_drop"]`,
+        `draws["cond_k"]`, `draws["cond_noise"]` when given)."""
+        draws = draws or {}
+        quant, code_loss, _ = self.encode(input_clean, train=train, draws=draws,
+                                          generator=generator)
+        if cond_mask is None and self.cls_free_guidance_dropout > 0.0 and train:
+            B, Hq, Wq, _ = quant.shape
+            cond_mask = self.sample_cond_mask(B, Hq, Wq, draws.get("cond_drop"),
+                                              draws.get("cond_k"), draws.get("cond_noise"),
+                                              generator)
+        dec = self.decoder(input_noised, timesteps, quant, cond_mask=cond_mask,
+                           orig_res=orig_res, train=train)
+        return dec, code_loss
 
     def denoise_step(self, noised, timesteps, quant, cond_mask=None, orig_res=None,
                      unconditional: bool = False) -> torch.Tensor:

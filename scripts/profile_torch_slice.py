@@ -2,7 +2,7 @@
 """Where the time goes in the port on the card, under torch.profiler.
 
     python3 scripts/profile_torch_slice.py
-        [--part all|chain|xl|train|vq|decode|sr|decode448|pretrain]
+        [--part all|chain|xl|train|vq|decode|sr|decode448|pretrain|tokenizer]
         [--out out/chain_trace.json]
 
 The chain: RGB -> all 14 targets for 8 requests (8 image-token targets by
@@ -84,6 +84,15 @@ unprofiled median wall time; the host's share waiting for data is the
 data window over the step's wall time. Then the loader inline for 2
 batches with its host time split by stage (tar reading and decoding, the
 transforms, the masking, the collation): where a worker's time goes.
+
+`--part tokenizer`: chip_smoke.py's phase 13 -- one training step of each
+tokenizer config (T1 UNet-P4 DiVAE, T2 frozen-encoder UViT-B DiVAE, T3
+semseg ViT-B VQ-VAE; B = 64, synthetic batches, cli.train_vqvae's
+Trainer) after 2 warm-up steps: the median wall time of 3 steps without
+the profiler, the device time of one profiled step by kernel group
+(attention_train forward / backward, the codebook search, fused_adamw,
+cuBLAS GEMMs, cuDNN convolutions and their transposes, GroupNorm, other
+ops) and the busy share.
 
 The last line is one JSON object with the numbers. Needs one CUDA card and
 nvcc.
@@ -294,7 +303,7 @@ def train_profile() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--part", choices=["all", "chain", "xl", "train", "vq", "decode", "sr",
-                                       "decode448", "pretrain"],
+                                       "decode448", "pretrain", "tokenizer"],
                     default="all", help="all: chain and train (the others only when asked)")
     ap.add_argument("--out", default=None, help="also write a chrome trace of the chain here")
     ap.add_argument("--root", default=ROOT, help="the checkout whose fourm_torch to profile")
@@ -324,6 +333,8 @@ def main() -> int:
         res.update(decode448_profile())
     if args.part == "pretrain":
         res["pretrain"] = pretrain_profile()
+    if args.part == "tokenizer":
+        res["tokenizer"] = tokenizer_profile()
     print(json.dumps(res))
     return 0
 
@@ -769,6 +780,80 @@ def pretrain_profile() -> dict:
             "top_device": [{"ms": ms / 3, "count": c // 3, "name": n[:200]}
                            for n, (c, ms) in top]}
 
+
+
+
+TOKENIZER_KERNELS = {"attn_kernel": "attention_train forward",
+                     "attn_train_bwd_kernel": "attention_train backward",
+                     "dq_reduce_kernel": "attention_train backward",
+                     "nearest_kernel": "codebook search", "code_norms_kernel": "codebook search",
+                     "adamw_kernel": "fused_adamw"}
+GROUP_NORM_MARKS = ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams",
+                    "computegroupnorm", "computeinternalgradients")
+
+
+def tokenizer_group(name: str, _window: str) -> str:
+    for mark, group in TOKENIZER_KERNELS.items():
+        if mark in name:
+            return group
+    low = name.lower()
+    if any(m in low for m in GROUP_NORM_MARKS):
+        return "GroupNorm"
+    if any(m in low for m in CONV_MARKS) or "cudnn" in low:
+        return "cuDNN convolutions and transposes"
+    if any(m in low for m in GEMM_MARKS):
+        return "cuBLAS GEMM"
+    return "other ops"
+
+
+def tokenizer_profile() -> dict:
+    """One train step of each phase-13 config by kernel group."""
+    from torch.profiler import ProfilerActivity
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import chip_tokenizer as ct
+    from fourm_torch.cli import train_vqvae as tcli
+
+    out = {}
+    for name in ("T1", "T2", "T3"):
+        torch.cuda.empty_cache()
+        args = ct.parse_args(tcli, ct.cli_args(name, "unused", "--synthetic_data"))
+        trainer = tcli.Trainer(args, torch.device("cuda"))
+        source = tcli.SyntheticBatches(args)
+        batch = torch.from_numpy(source.batch(0)).cuda()
+
+        def run():
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+
+        walls = []
+        for i in range(5):  # 2 warm-up steps, then 3 timed
+            t0 = time.perf_counter()
+            run()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = float(np.median(walls))
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            run()
+        groups, _windows, names = by_window(prof.events(), "tok/", tokenizer_group)
+        device_ms = sum(groups.values())
+        print(f"[tokenizer {name}] {torch.cuda.get_device_name(0)}; B={args.batch_size}; "
+              f"device busy {device_ms:.3f} ms: {device_ms / wall_ms:.4f} of the "
+              f"{wall_ms:.3f} ms median step without the profiler (steps "
+              f"{', '.join(f'{w:.3f}' for w in walls)} ms)")
+        for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"  group {group}: {ms:.3f} ms ({ms / device_ms:.4f})")
+        top = sorted(names.items(), key=lambda kv: -kv[1][1])[:15]
+        for kname, (count, ms) in top:
+            print(f"  device {ms:10.3f} ms {count:7d}x  {kname[:100]}")
+        out[name] = {"wall_ms_unprofiled": wall_ms, "wall_ms_steps": walls,
+                     "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+                     "by_group_ms": groups,
+                     "top_device": [{"ms": ms, "count": c, "name": n[:200]}
+                                    for n, (c, ms) in top]}
+        del trainer, batch
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -130,8 +130,8 @@ def test_vqvae_decode_matches_jax(vqvae_pair):
 def test_vqvae_bridge_keys_match_export(vqvae_pair):
     _, _, variables, pm, _ = vqvae_pair
     ours, ref = from_jax_vq_variables(variables), export_vq_torch_state(variables)
-    training_state = {k for k in ref if k.endswith(("embed_avg", "cluster_size", "initted"))}
-    assert set(ours) == set(ref) - training_state == set(pm.state_dict())
+    # the codebook's EMA state (embed_avg, cluster_size, initted) comes across too
+    assert set(ours) == set(ref) == set(pm.state_dict())
     for k, v in ours.items():
         np.testing.assert_array_equal(v.numpy(), ref[k])
 
@@ -150,8 +150,8 @@ def test_divae_uvit_bridge_and_denoise_step():
     jm, variables = _divae_init(TINY_DIVAE, 37)
     pm = DiVAE(**TINY_DIVAE, device="cpu")
     pm.load_state_dict(from_jax_vq_variables(variables), strict=True)
-    ref_keys = {k for k in export_vq_torch_state(variables)
-                if not k.endswith(("embed_avg", "cluster_size", "initted"))}
+    # every name of the export, the codebook's EMA state included
+    ref_keys = set(export_vq_torch_state(variables))
     assert set(pm.state_dict()) == ref_keys
     rng = np.random.RandomState(38)
     noised = rng.randn(2, 64, 64, 3).astype(np.float32)
@@ -173,8 +173,7 @@ def test_divae_unet_bridge_full_width():
     x = jnp.zeros((1, 32, 32, 3))
     variables = init_variables(jm, 39, x, x, jnp.asarray([3]))
     state = from_jax_vq_variables(variables)
-    ref = {k for k in export_vq_torch_state(variables)
-           if not k.endswith(("embed_avg", "cluster_size", "initted"))}
+    ref = set(export_vq_torch_state(variables))  # the codebook's EMA state included
     assert set(state) == ref
     pm = DiVAE(**kw, device="cpu")
     pm.load_state_dict(state, strict=True)
