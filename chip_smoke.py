@@ -244,12 +244,22 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      the 4M-21 tokenizers' full width (T1-T3), pre-tokenization through
      cli.save_vq_tokens (T4), exact launch counts, CPU parity at 2 + 2
      layers. `python3 chip_smoke.py --part tokenizer` runs the build and
-     this phase alone.
+     this phase alone;
+  14. transfer learning from real image files (scripts/chip_transfer.py,
+     which says what it runs and gates): the committed JPEG fixtures
+     decoded equal to Pillow's pixels by the native decoder built here (J),
+     a 4M-21 B fine-tune from a JPEG folder through the transfer dataset,
+     TransferMasking and 4 loader workers (X1, exact launches, 2 + 2 parity),
+     FourMViT-B warm-started from it with a fused LoRA (X2, exact launches,
+     parity, a planted stale-weight fault, LoRA-only gradients).
+     `python3 chip_smoke.py --part transfer` runs the build and this phase
+     alone.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
 SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
-pre-training run and on phase 13's tokenizer paths); the last line is
+pre-training run, on phase 13's tokenizer paths and on phase 14's transfer
+paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -4835,13 +4845,12 @@ def pretrain_phase(torch, card: str):
     return {"pretrain": launches}, rows
 
 
-def tokenizer_module():
-    """scripts/chip_tokenizer.py beside this script (phase 13)."""
+def script_module(name: str):
+    """scripts/<name>.py beside this script (phases 13-14)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "chip_tokenizer.py")
-    spec = importlib.util.spec_from_file_location("chip_tokenizer", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -4853,8 +4862,8 @@ def main() -> int:
     import torch
 
     parts = argparse.ArgumentParser(description="smoke run of the port on one card")
-    parts.add_argument("--part", choices=["all", "tokenizer"], default="all",
-                       help="'tokenizer': the build and phase 13 alone")
+    parts.add_argument("--part", choices=["all", "tokenizer", "transfer"], default="all",
+                       help="'tokenizer' / 'transfer': the build and phase 13 / 14 alone")
     part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -4877,8 +4886,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     print(f"build: {_build.build_all():.2f} s for {len(_build.SOURCES)} sources "
           f"({', '.join(_build.SOURCES)})", flush=True)
-    if part == "tokenizer":
-        tokenizer_module().tokenizer_phase(torch, card, check)
+    if part != "all":
+        if part == "tokenizer":
+            script_module("chip_tokenizer").tokenizer_phase(torch, card, check)
+        else:
+            script_module("chip_transfer").transfer_phase(torch, card, check, gate, time_ms)
         print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4953,8 +4965,12 @@ def main() -> int:
     results += pretrain_rows
     mark("phase 12")
     torch.cuda.empty_cache()
-    tokenizer_launches = tokenizer_module().tokenizer_phase(torch, card, check)
+    tokenizer_launches = script_module("chip_tokenizer").tokenizer_phase(torch, card, check)
     mark("phase 13")
+    torch.cuda.empty_cache()
+    transfer_launches = script_module("chip_transfer").transfer_phase(torch, card, check, gate,
+                                                                      time_ms)
+    mark("phase 14")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -4969,6 +4985,7 @@ def main() -> int:
         r["cli_launches"] = {p: n[wrapper] for p, n in ckpt_launches.items()}
         r["pretrain_launches"] = pretrain_launches["pretrain"][wrapper]
         r["tokenizer_launches"] = {p: n[wrapper] for p, n in tokenizer_launches.items()}
+        r["transfer_launches"] = {p: n[wrapper] for p, n in transfer_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

@@ -9,8 +9,8 @@ its metadata) or a train_4m run directory of the port (`config.json` and
 `weights/step_N`); tokenizers `.safetensors` or `.pth`; the text tokenizer
 a `tokenizer.json`. Everything is read by the port itself, and images are
 written by the port's own PNG writer (data/image_io.py): the machine
-with the card has no safetensors, PyYAML, tokenizers or PIL. Only the
-folder dataset reads images, with PIL, imported there.
+with the card has no safetensors, PyYAML, tokenizers or PIL. The folder
+dataset reads PNG and JPEG files with the port's decoders.
 
 Usage:
   python -m fourm_torch.cli.generate --fm_ckpt 4m-21_b.safetensors \\
@@ -163,16 +163,14 @@ def iter_samples(args, text_tokenizer):
     """Yield (sample_id, sample_dict) conditioning inputs (reference
     get_dataset, run_generation.py:408-470)."""
     if args.dataset == "folder":
-        from PIL import Image
-
         from ..data.modality_info import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 
         mean = np.asarray(IMAGENET_DEFAULT_MEAN, dtype=np.float32)
         std = np.asarray(IMAGENET_DEFAULT_STD, dtype=np.float32)
         files = sorted(os.listdir(args.data_path))[: args.num_samples]
         for f in files:
-            img = Image.open(os.path.join(args.data_path, f)).convert("RGB").resize((224, 224))
-            arr = (np.asarray(img, dtype=np.float32) / 255.0 - mean) / std
+            img = image_io.resize(image_io.read_rgb(os.path.join(args.data_path, f)), (224, 224))
+            arr = (img.astype(np.float32) / 255.0 - mean) / std
             yield f, {"rgb@224": arr[None]}
     elif args.dataset == "prompts":
         with open(args.prompts_tsv) as fh:

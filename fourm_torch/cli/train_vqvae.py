@@ -44,7 +44,7 @@ What differs from the JAX CLI, and why:
   * random draws (noise, timesteps, condition masks, dead codes, k-means)
     come from one torch.Generator on the card, seeded by `--seed`; data
     from numpy / random generators seeded by it.
-Images are read without Pillow (data/image_io.py); JPEG needs Pillow.
+Images (PNG, JPEG) are read without Pillow (data/image_io.py).
 
 Usage:
   python -m fourm_torch.cli.train_vqvae \\

@@ -19,14 +19,16 @@ webdataset-free:
 Tar shards are read by the port's native reader (fourm_torch/native) when
 it builds, else by Python's tarfile; each ShardedTarDataset prints which
 reader serves it, and `TAR_READS` counts the shards each reader opened in
-this process. Images are decoded by data/image_io.py (PNG
-without Pillow). Remote (http / s3) shards and the Hugging Face text
-dataset are not ported yet and raise.
+this process; http(s):// shards stream through tarfile (utils/remote.py),
+and s3:// ones need boto3 and raise ImportError without it. Images are
+decoded by data/image_io.py (PNG and JPEG, without Pillow). The Hugging
+Face text dataset is not ported and raises.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gzip
 import io
 import itertools
@@ -152,11 +154,19 @@ def _tar_samples(path_or_file) -> Iterator[Dict[str, Any]]:
     """Group tar members by sample key: '000123.ext' or '000123.modality.ext'
     (webdataset convention). Uses the native C++ indexed reader for plain
     uncompressed tar paths (fourm_torch/native), falling back to Python
-    tarfile; the reader that opens the shard is counted in TAR_READS."""
+    tarfile, which also streams http(s):// shards; the reader that opens the
+    shard is counted in TAR_READS."""
+    from ..utils.remote import is_remote, open_url
+
+    if isinstance(path_or_file, str) and is_remote(path_or_file):
+        # http(s):// shards stream through tarfile; s3:// needs boto3 and
+        # raises ImportError without it
+        with contextlib.closing(open_url(path_or_file)) as stream:
+            yield from _tar_samples(stream)
+        return
     if isinstance(path_or_file, str) and re.match(r"^[a-z][a-z0-9+.-]*://", path_or_file):
-        raise NotImplementedError(f"{path_or_file}: remote (http / s3) shards are not ported "
-                                  "yet; copy the shards to a local path")
-    if isinstance(path_or_file, str) and path_or_file.endswith(".tar"):
+        raise NotImplementedError(f"{path_or_file}: only local, http(s) and s3 shards are read")
+    elif isinstance(path_or_file, str) and path_or_file.endswith(".tar"):
         from ..native import native_available, native_tar_samples
 
         if native_available():
@@ -225,7 +235,7 @@ def iterate_multi_tar_samples(
                             name = (modality_name_map or {}).get(mod_name, mod_name)
                             merged[f"{name}.{k}"] = v
                 yield merged
-        except NotImplementedError:
+        except (NotImplementedError, ImportError):  # a missing reader, not a bad shard
             raise
         except Exception as e:  # corrupt shard tolerance (unified_datasets.py:31)
             if on_error == "warn":

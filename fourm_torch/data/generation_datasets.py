@@ -1,13 +1,16 @@
 """Datasets for batch generation, PyTorch port (fourm_tpu/data/
 generation_datasets.py; reference fourm/utils/generation_datasets/): Parti
 prompts, image+caption folders, and an empty (unconditional) dataset.
-ImageCaptionDataset reads images with PIL, imported when an item is read
-(the machine with the card has no PIL)."""
+ImageCaptionDataset reads PNG and JPEG images with the port's own decoders
+(data/image_io.py), as Image.open(path).convert("RGB") gives them: a
+(H, W, 3) uint8 array."""
 
 from __future__ import annotations
 
 import os
 from typing import Callable, List, Optional, Tuple
+
+from . import image_io
 
 
 class PartiPromptsDataset:
@@ -55,10 +58,8 @@ class ImageCaptionDataset:
         return len(self.items)
 
     def __getitem__(self, i):
-        from PIL import Image
-
         img_path, cap_path = self.items[i]
-        img = Image.open(img_path).convert("RGB")
+        img = image_io.read_rgb(img_path)
         if self.image_transform:
             img = self.image_transform(img)
         with open(cap_path) as f:

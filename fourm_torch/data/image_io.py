@@ -13,8 +13,10 @@ transforms read the RGB image (its size sets the crop of the boxes of
     `read_png` takes L / RGB / RGBA alone (a P or I;16 file raises).
     `write_png` writes L / RGB / RGBA, `palette=` P and uint16 I;16, with
     a chosen filter per row.
-  * `decode_image`: PNG by `read_png`; JPEG through Pillow when it can be
-    imported, else a RuntimeError naming the file and Pillow.
+  * `decode_image` / `decode_image_mode`: PNG by `read_png_mode`, JPEG
+    (baseline or progressive) by the native library's `decode_jpeg`, equal
+    byte for byte to Pillow 12.1.0 (native/jpeg_decode.cpp); any other
+    format raises, naming the file. Nothing here imports Pillow.
   * `crop`, `resize` and `hflip`: what fourm_tpu/data/transforms.py:
     ImageTransform.image_crop_and_resize (:166-171) and image_hflip do
     with Pillow, byte for byte: `img.crop(box)` (pixels outside the image
@@ -213,31 +215,38 @@ def write_png(arr: np.ndarray, filters: Sequence[int] = (0,), level: int = 6,
 
 
 def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
-    """PNG by read_png; JPEG (and any other format) through Pillow, which
-    must then be importable, as L, RGB or RGBA."""
+    """A PNG or JPEG file's pixels as Pillow opens them, as L, RGB or RGBA."""
     return decode_image_mode(data, name, ("L", "RGB", "RGBA"))[0]
 
 
 def decode_image_mode(data: bytes, name: str = "<image>",
                       modes=("L", "RGB", "RGBA", "I;16", "P")) -> Tuple[np.ndarray, str]:
     """An image file's pixels and Pillow's mode for them: a PNG by
-    read_png_mode (a mode outside `modes` raises, naming the file); any
-    other format through Pillow, which must then be importable, in its own
-    mode when it is one of `modes`, else converted to RGB."""
+    read_png_mode (a mode outside `modes` raises, naming the file); a JPEG
+    (SOI FF D8) by native.decode_jpeg, in its mode (L or RGB) when it is one
+    of `modes`, else converted to RGB. Any other format raises ValueError
+    naming the file."""
     if data[:8] == PNG_SIGNATURE:
         pixels, mode = read_png_mode(data, name)
         if mode not in modes:
             raise ValueError(f"{name}: a {mode} PNG; this reader takes {', '.join(modes)}")
         return pixels, mode
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(f"{name}: only PNG is decoded without Pillow; this image needs "
-                           "Pillow (not installed)") from None
-    img = Image.open(io.BytesIO(data))
-    if img.mode not in modes:
-        img = img.convert("RGB")
-    return np.asarray(img), img.mode
+    if data[:2] == b"\xff\xd8":
+        from ..native import decode_jpeg
+
+        pixels, mode = decode_jpeg(data, name)
+        if mode not in modes:
+            pixels, mode = to_rgb(pixels), "RGB"
+        return pixels, mode
+    raise ValueError(f"{name}: not a PNG or JPEG file (starts with {data[:8]!r}); "
+                     "the port decodes these two formats")
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """Image.open(path).convert("RGB")'s pixels: a PNG or JPEG file as
+    (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        return to_rgb(decode_image(f.read(), path))
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:

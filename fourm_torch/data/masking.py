@@ -9,8 +9,8 @@ pipeline's workers; it emits the fixed-shape arrays {tensor, input_mask,
 target_mask, decoder_attention_mask} per modality that FourM.forward takes.
 All randomness flows through one explicit np.random.Generator, so the same
 seed gives the JAX package's arrays. The sentinel ids come from the port's
-text tokenizer helpers (utils/text_tokenizer.py). TransferMasking comes
-with data/transfer.py, not ported yet.
+text tokenizer helpers (utils/text_tokenizer.py). TransferMasking is the
+fixed input / target split of transfer learning (data/transfer.py).
 
 Mask convention: boolean, True = masked out (not an input / not a target).
 """
@@ -386,4 +386,92 @@ class UnifiedMasking:
                 out[name] = self.sequence_emb_mask_span(value, spec.resolved_max_tokens(), in_b, scheme)
             else:
                 raise ValueError(f"invalid modality type {spec.type}")
+        return out
+
+
+class TransferMasking:
+    """Fixed input/target modality split for transfer learning (the JAX
+    package's fourm_tpu/data/masking.py:387-470; reference masking.py:567-
+    746): every token of an input modality is an input, every token of a
+    target modality a target. Sequences are span-masked with keep
+    probability 1.0 (inputs) or 0.0 (targets) on one np.random.Generator
+    stream, so the same seed gives the JAX package's arrays draw for draw."""
+
+    def __init__(self, modality_info: Dict[str, ModalitySpec], text_tokenizer,
+                 input_modalities: Sequence[str], target_modalities: Sequence[str],
+                 seed: Optional[int] = None):
+        self.modality_info = dict(modality_info)
+        self.input_modalities = set(input_modalities)
+        self.target_modalities = set(target_modalities)
+        self.text_tokenizer = text_tokenizer
+        if text_tokenizer is not None:
+            self.sentinel_to_id = get_sentinel_to_id_mapping(text_tokenizer)
+            self.sentinel_ids = set(self.sentinel_to_id.values())
+            self.pad_id = text_tokenizer.token_to_id("[PAD]")
+            self.eos_id = text_tokenizer.token_to_id("[EOS]")
+        self.rng = np.random.default_rng(seed)
+
+    def input_image(self, tensor, num_tokens: int) -> Dict[str, np.ndarray]:
+        return {
+            "tensor": np.asarray(tensor),
+            "input_mask": np.zeros(num_tokens, dtype=bool),
+            "target_mask": np.ones(num_tokens, dtype=bool),
+            "decoder_attention_mask": np.zeros(num_tokens, dtype=np.int32),
+        }
+
+    def target_image(self, tensor, num_tokens: int) -> Dict[str, np.ndarray]:
+        dam = np.zeros(num_tokens, dtype=np.int32)
+        dam[0] = num_tokens
+        return {
+            "tensor": np.asarray(tensor),
+            "input_mask": np.ones(num_tokens, dtype=bool),
+            "target_mask": np.zeros(num_tokens, dtype=bool),
+            "decoder_attention_mask": dam,
+        }
+
+    def _pack(self, input_seq, target_seq, max_tokens) -> Dict[str, np.ndarray]:
+        max_length = (max_tokens + 1) * 2
+        target_at = max_tokens
+        tensor = np.full(max_length, self.pad_id, dtype=np.int32)
+        input_mask = np.ones(max_length, dtype=bool)
+        target_mask = np.ones(max_length, dtype=bool)
+        dam = np.zeros(max_length, dtype=np.int32)
+        tensor[: len(input_seq)] = input_seq
+        input_mask[: len(input_seq)] = False
+        tensor[target_at: target_at + len(target_seq)] = target_seq
+        target_mask[target_at: target_at + len(target_seq)] = False
+        dam[target_at: target_at + len(target_seq)] = 1
+        return {"tensor": tensor, "input_mask": input_mask, "target_mask": target_mask,
+                "decoder_attention_mask": dam}
+
+    def _encode(self, sequence_str: str, max_tokens: int) -> List[int]:
+        seq_ids = self.text_tokenizer.encode(sequence_str).ids
+        seq_ids.append(self.eos_id)
+        return seq_ids[:max_tokens]
+
+    def input_sequence(self, sequence_str: str, max_tokens: int) -> Dict[str, np.ndarray]:
+        seq_ids = self._encode(sequence_str, max_tokens)
+        input_seq, target_seq = simple_span_masking(seq_ids, self.sentinel_to_id, 1.0, self.rng)
+        return self._pack(input_seq, target_seq, max_tokens)
+
+    def target_sequence(self, sequence_str: str, max_tokens: int) -> Dict[str, np.ndarray]:
+        seq_ids = self._encode(sequence_str, max_tokens)
+        input_seq, target_seq = simple_span_masking(seq_ids, self.sentinel_to_id, 0.0, self.rng)
+        return self._pack(input_seq, target_seq, max_tokens)
+
+    def __call__(self, mod_dict: Dict[str, object]) -> Dict[str, Dict[str, np.ndarray]]:
+        out = {}
+        for name, spec in self.modality_info.items():
+            if name not in mod_dict:
+                continue
+            value = mod_dict[name]
+            n = spec.resolved_max_tokens()
+            if spec.type == "img":
+                out[name] = (self.input_image(value, n) if name in self.input_modalities
+                             else self.target_image(value, n))
+            elif spec.type in SEQ_TYPES:
+                out[name] = (self.input_sequence(value, n) if name in self.input_modalities
+                             else self.target_sequence(value, n))
+            else:
+                raise ValueError(f"unsupported transfer modality type {spec.type}")
         return out

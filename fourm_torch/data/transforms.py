@@ -11,9 +11,9 @@ numpy, channel-last (H, W, C), as the JAX package's.
 
 What differs, and why:
   * Images are numpy uint8 arrays, not PIL images: data/image_io.py
-    decodes PNG and crops, resizes (Pillow's BICUBIC, byte for byte) and
-    flips without Pillow, which the machine with the card lacks. JPEG
-    needs Pillow; `color_jitter` (PIL ImageEnhance) raises.
+    decodes PNG and JPEG and crops, resizes (Pillow's BICUBIC, byte for
+    byte) and flips without Pillow, which the machine with the card lacks;
+    `color_jitter` (PIL ImageEnhance) raises.
   * Randomness comes from explicit generators, not the global `random`
     and `np.random` that the JAX transforms draw from: each transform
     takes `rng` (random.Random) and `np_rng` (np.random.RandomState),
@@ -893,7 +893,7 @@ def _clip_line(width, height, p1, p2):
 
 def _line8(img, p1, p2, value):
     """cv2.line's LINE_8 (LineIterator, left to right) on a uint8 image."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
         ok, p1, p2 = _clip_line(w, h, p1, p2)
         if not ok:
@@ -931,10 +931,8 @@ def fill_contour(img, contour, value=255):
     uint8 (H, W) image, in place, as cv2 5.0.0 draws it: each edge drawn as
     a LINE_8 line (clipped to the image), then the scanline fill of
     fillPoly's edge list: 16.16 fixed-point edges (an edge that leaves the
-    image follows its clipped segment), each row filled from the left edge
-    rounded up to the right edge rounded down between edge pairs. Equal to
-    cv2's on polygons inside the image; on edges that leave it, cv2 5.0.0
-    differs in a few rows of about one polygon in a thousand (ROADMAP)."""
+    image takes x from its clipped segment), each row filled from the left
+    edge rounded up to the right edge rounded down between edge pairs."""
     h, w = img.shape
     pts = np.asarray(contour).reshape(-1, 2).astype(np.int64)
     n = len(pts)
@@ -947,10 +945,13 @@ def fill_contour(img, contour, value=255):
         _line8(img, t0, t1, value)
         p0c, p1c = list(pt0), list(pt1)
         if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            # cv2 5.0.0 takes x from clipLine's points (clipped, or as given
+            # when it rejects the line) and y only where they differ: a line
+            # that clips to one border point becomes a vertical edge there
             _, c0, c1 = _clip_line(w, h, t0, t1)
             if c0[1] != c1[1]:
-                p0c = [c0[0] << XY_SHIFT, c0[1]]
-                p1c = [c1[0] << XY_SHIFT, c1[1]]
+                p0c[1], p1c[1] = c0[1], c1[1]
+            p0c[0], p1c[0] = c0[0] << XY_SHIFT, c1[0] << XY_SHIFT
 
         if pt0[1] != pt1[1]:
             dx = _cdiv(p1c[0] - p0c[0], p1c[1] - p0c[1])

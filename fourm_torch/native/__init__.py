@@ -1,15 +1,17 @@
 """Native (C++) helpers of the data pipeline, with ctypes bindings: the
-port's own copy of fourm_tpu/native/ (tar_reader.cpp) and a PNG row
-reconstruction (png_unfilter.cpp) for data/image_io.py.
+port's own copy of fourm_tpu/native/ (tar_reader.cpp), a PNG row
+reconstruction (png_unfilter.cpp) and a JPEG decoder (jpeg_decode.cpp) for
+data/image_io.py.
 
 `tar_reader`: indexed tar-shard reading (one pread per member, no
-per-member Python object churn). The two sources are one library, built
+per-member Python object churn). The sources are one library, built
 with g++ -O3 at first use into `_build/` beside them (ignored by git),
 named after the hash of the sources, so an edited source rebuilds. The
 build writes a temporary file and renames it, so that worker processes
 building at once do not read a half-written library. Without a compiler
-the callers fall back to Python (tarfile; numpy row reconstruction), and
-`native_available()` says which.
+the tar and PNG callers fall back to Python (tarfile; numpy row
+reconstruction), and `native_available()` says which; `decode_jpeg` has no
+fallback and raises.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-SOURCES = ("tar_reader.cpp", "png_unfilter.cpp")
+SOURCES = ("tar_reader.cpp", "png_unfilter.cpp", "jpeg_decode.cpp")
 BUILD_DIR = _DIR / "_build"
 _FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 _lib = None
@@ -64,14 +66,17 @@ def _load() -> Optional[ctypes.CDLL]:
     except Exception as e:  # no compiler: the callers fall back to Python
         _build_error = f"{type(e).__name__}: {e}"
         print(f"[native] the native library could not be built ({_build_error}); "
-              "tar shards are read by Python's tarfile, PNG rows by numpy", flush=True)
+              "tar shards are read by Python's tarfile, PNG rows by numpy, and JPEG "
+              "files raise", flush=True)
         return None
     i64, p = ctypes.c_int64, ctypes.c_void_p
     for name, args in (("tar_open", [ctypes.c_char_p]), ("tar_num_members", [i64]),
                        ("tar_member_name", [i64, i64, ctypes.c_char_p, i64]),
                        ("tar_member_size", [i64, i64]),
                        ("tar_read_member", [i64, i64, ctypes.POINTER(ctypes.c_uint8), i64]),
-                       ("png_unfilter", [p, i64, i64, i64, p])):
+                       ("png_unfilter", [p, i64, i64, i64, p]),
+                       ("jpeg_info", [p, i64, p, ctypes.c_char_p, i64]),
+                       ("jpeg_decode", [p, i64, p, i64, ctypes.c_char_p, i64])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i64
     lib.tar_close.argtypes, lib.tar_close.restype = [i64], None
@@ -94,6 +99,29 @@ def png_unfilter(data: bytes, height: int, rowbytes: int, bpp: int) -> np.ndarra
         raise ValueError(f"PNG row {-code - 1}: filter type {src[(-code - 1) * (rowbytes + 1)]} "
                          "is not one of 0..4")
     return out
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg>") -> Tuple[np.ndarray, str]:
+    """A baseline or progressive JPEG's pixels as Pillow 12.1.0 decodes them
+    (libjpeg-turbo's defaults; jpeg_decode.cpp): (H, W) uint8 mode "L" or
+    (H, W, 3) uint8 "RGB". A file the decoder does not take (arithmetic
+    coding, 12-bit, lossless, CMYK / YCCK, other sampling factors) or a
+    truncated one raises ValueError naming `name` and the feature; without
+    the native library it raises RuntimeError."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"{name}: JPEG needs the native library, which could not be built "
+                           f"({_build_error})")
+    src = np.frombuffer(data, np.uint8)
+    dims = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(src.ctypes.data, src.size, dims.ctypes.data, err, 256) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    h, w, c = (int(v) for v in dims)
+    out = np.empty((h, w, c) if c == 3 else (h, w), np.uint8)
+    if lib.jpeg_decode(src.ctypes.data, src.size, out.ctypes.data, out.size, err, 256) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out, ("RGB" if c == 3 else "L")
 
 
 class NativeTarFile:

@@ -119,6 +119,22 @@ def from_jax_params(params: Mapping, config) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
 
 
+def from_jax_vit_params(params: Mapping, img_size: int = 224) -> Dict[str, torch.Tensor]:
+    """The port's FourMViT state dict from a JAX FourMViT parameter tree
+    (models/fm_vit.py): the encoder as from_jax_params maps a FourM's, and
+    the Dense head."""
+    from types import SimpleNamespace
+
+    enc = SimpleNamespace(encoder_modalities=(f"rgb@{img_size}",), decoder_modalities=(),
+                          share_modality_embeddings=False)
+    out = from_jax_params({k: v for k, v in params.items() if k != "head"}, enc)
+    if "head" in params:
+        tmp: Dict[str, np.ndarray] = {}
+        _walk(tmp, "head", params["head"])
+        out.update(_tensors(tmp))
+    return out
+
+
 def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
 

@@ -9,11 +9,12 @@ VQVAE or DiVAE of the port on its device, and diffusion decoding runs its
 eager loop there. Outputs are numpy arrays on the host, as the JAX
 package's.
 
-What the default outputs need runs without PIL, cv2 or matplotlib (the
-machine with the card has none of them): the depth and semseg colormaps
-are the port's own tables (utils/colormaps.py), the SAM masks' bicubic
-resize is torch's. Drawing boxes (`visualize_bboxes`, PIL) and human poses
-(`visualize_human_poses`, cv2) imports its library when called.
+Everything runs without PIL, cv2 or matplotlib (the machine with the card
+has none of them): the depth and semseg colormaps are the port's own
+tables (utils/colormaps.py), the SAM masks' bicubic resize is torch's, and
+boxes and human poses are drawn by utils/drawing.py (cv2's lines, circles
+and rectangles and Pillow's rectangle outline pixel for pixel; box labels
+in a built-in pixel font, not Pillow's default font).
 
 Randomness: one torch.Generator per device, seeded from `seed`, drawn by
 the diffusion decoders in mod_dict order (the JAX package splits one key
@@ -34,6 +35,7 @@ from ..data.modality_info import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from ..data.transforms import (ID_METADATA_MAP, IMAGE_DIM_BIN_SIZE, IMAGE_DIM_MODALITIES,
                                METADATA_ID_MAP, MIN_MAX_BINS, get_transform_key,
                                get_transform_resolution)
+from . import drawing
 from .colormaps import colormap
 from .text_tokenizer import get_sentinel_to_id_mapping, merge_span_masking
 
@@ -191,18 +193,17 @@ def convert_string_to_bboxes(bboxes_str: str, bins: int = 1000) -> List[Tuple]:
 
 
 def visualize_bboxes(img: np.ndarray, bboxes_str: str, color=(255, 99, 71), thickness: int = 2):
-    """Draw parsed bboxes on an RGB [0,1] image with PIL (reference
-    :1042-1086); PIL is imported here, on call."""
-    from PIL import Image, ImageDraw
-
+    """Draw parsed bboxes on an RGB [0,1] image (reference :1042-1086):
+    Pillow's rectangle outline exactly; the class label in the built-in
+    pixel font of utils/drawing.py (the JAX package writes it in Pillow's
+    default font)."""
     H, W = img.shape[:2]
-    pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-    draw = ImageDraw.Draw(pil)
+    out = (np.clip(img, 0, 1) * 255).astype(np.uint8)
     for bbox in convert_string_to_bboxes(bboxes_str):
         x0, y0, x1, y1, cls = bbox[:5]
-        draw.rectangle([x0 * W, y0 * H, x1 * W, y1 * H], outline=color, width=thickness)
-        draw.text((x0 * W + 2, y0 * H + 2), str(cls), fill=color)
-    return np.asarray(pil).astype(np.float32) / 255.0
+        drawing.pil_rectangle(out, (x0 * W, y0 * H, x1 * W, y1 * H), color, thickness)
+        drawing.draw_text(out, (x0 * W + 2, y0 * H + 2), str(cls), color)
+    return out.astype(np.float32) / 255.0
 
 
 def visualize_palette(palette_str: str, size: int = 224) -> np.ndarray:
@@ -505,9 +506,8 @@ def visualize_human_poses(pose_str: str, pose_tokenizer: TokenizerBundle,
     reference's SMPL-mesh render, plotting_utils.py:934-1040): the 8 pose
     tokens decoded to 23 body rotation matrices by the pose tokenizer,
     forward kinematics over an approximate rest skeleton, projection with
-    the predicted crop camera, bones drawn with cv2 (imported here)."""
-    import cv2
-
+    the predicted crop camera, bones drawn as cv2 draws them
+    (utils/drawing.py)."""
     img = (np.ascontiguousarray((background * 255).astype(np.uint8))
            if background is not None and np.ndim(background) == 3
            else np.zeros((image_size, image_size, 3), np.uint8))
@@ -532,13 +532,13 @@ def visualize_human_poses(pose_str: str, pose_tokenizer: TokenizerBundle,
                 focal * pts[:, 0] / np.maximum(pts[:, 2], 1e-6) + image_size / 2,
                 focal * pts[:, 1] / np.maximum(pts[:, 2], 1e-6) + image_size / 2,
             ], axis=1).astype(np.int32)
-            cv2.rectangle(img, (int(bbox[0]), int(bbox[1])), (int(bbox[2]), int(bbox[3])),
-                          (166, 189, 219), 1)
+            drawing.cv_rectangle(img, (int(bbox[0]), int(bbox[1])),
+                                 (int(bbox[2]), int(bbox[3])), (166, 189, 219), 1)
             for i in range(1, len(SMPL_PARENTS)):
                 p = SMPL_PARENTS[i]
-                cv2.line(img, tuple(xy[p]), tuple(xy[i]), (66, 135, 245), 2)
+                drawing.cv_line(img, tuple(xy[p]), tuple(xy[i]), (66, 135, 245), 2)
             for x, y in xy:
-                cv2.circle(img, (int(x), int(y)), 2, (255, 255, 255), -1)
+                drawing.cv_circle(img, (int(x), int(y)), 2, (255, 255, 255), -1)
         except Exception as e:  # the reference's per-instance tolerance
             print(f"Error decoding human pose instance: {e}")
             continue

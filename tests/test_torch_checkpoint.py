@@ -14,6 +14,7 @@ get_image_tokenizer: tokens equal, decodes within rel 1e-4, weights equal;
 and the train CLI's resume, bit for bit, with a corrupt checkpoint raising.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import argparse
 import json
 import os

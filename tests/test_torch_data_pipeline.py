@@ -140,10 +140,10 @@ def test_batches_equal_jax(files, cv2_stub, use_wds, min_tokens):
         opened.values())
 
 
-def test_val_and_reader_paths(files, cv2_stub):
+def test_val_and_reader_paths(files, cv2_stub, monkeypatch):
     """get_val_dataset (fixed 128 + 128 budgets, no augmentation) over the
     folder equals JAX's; the native tar reader equals tarfile member for
-    member; a remote shard and the Hugging Face dataset raise."""
+    member; an s3 shard (no boto3) and the Hugging Face dataset raise."""
     cfg = _dataset_config(files, False)
     random.seed(SEED)
     np.random.seed(SEED)
@@ -166,7 +166,8 @@ def test_val_and_reader_paths(files, cv2_stub):
         for k, v in s.items():
             if k != "__key__":
                 assert members[f"{s['__key__']}.{k}"] == v
-    with pytest.raises(NotImplementedError, match="remote"):
+    monkeypatch.setitem(sys.modules, "boto3", None)  # absent, whatever another test stubbed
+    with pytest.raises(ImportError, match="boto3"):  # http(s) streams (test_torch_transfer)
         next(tds._tar_samples("s3://bucket/shard-0000.tar"))
     with pytest.raises(NotImplementedError, match="datasets"):
         tds.build_huggingface_text_dataset("c4")

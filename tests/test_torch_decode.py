@@ -15,6 +15,7 @@ package's (fourm_tpu), on the CPU in fp32.
     encoder-budget counts exact).
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -21,6 +21,7 @@ summation order), with heads of 64 as on the card:
     wave of 132 SMs.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax.numpy as jnp
 import pytest

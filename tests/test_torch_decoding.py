@@ -14,6 +14,7 @@ fp64; the resize itself to 1e-6 of cv2's; no pixel differs at the test's
 seed); the pose drawings exactly (both draw with cv2 from integer pixel
 coordinates); the colormaps exactly against matplotlib."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import jax
 import jax.numpy as jnp
 import numpy as np

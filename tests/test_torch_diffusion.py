@@ -11,6 +11,7 @@ same operations); the decoders to 1e-4 of the output's magnitude plus 1e-5
 sampling loops, which run the decoder at each step, to 1e-4 of the
 magnitude likewise."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -147,6 +147,27 @@ def test_fill_contour_equals_cv2():
         assert np.array_equal(got, ref), (i, c[:, 0].tolist())
 
 
+@pytest.mark.parametrize("case", ["random", "named"])
+def test_fill_contour_equals_cv2_past_the_border(case):
+    """Integer polygons whose edges leave the image: 3000 of 3-8 vertices in
+    [-8, 72) on 64 x 64 (seed 0), and one whose edges clip to a single
+    border pixel, which cv2 fills as a vertical edge (column 63, rows 2-50)."""
+    if case == "named":
+        polys = [np.array([[68, 2], [67, 7], [63, 50]], np.int32)]
+    else:
+        rng = np.random.default_rng(0)
+        polys = [rng.integers(-8, 72, size=(int(rng.integers(3, 9)), 2)).astype(np.int32)
+                 for _ in range(3000)]
+    for i, c in enumerate(polys):
+        ref = np.zeros((64, 64), np.uint8)
+        cv2.drawContours(ref, [c], 0, 255, thickness=cv2.FILLED)
+        got = np.zeros((64, 64), np.uint8)
+        tt.fill_contour(got, c, 255)
+        assert np.array_equal(got, ref), (i, c.tolist())
+    if case == "named":
+        assert got[2:51, 63].all() and got.sum() == 49 * 255
+
+
 def _jax_value(t, path):
     """What the JAX transform's load gives for this file (PIL image, json,
     array)."""

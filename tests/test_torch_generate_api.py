@@ -10,6 +10,7 @@ target masks of the two packages must be equal exactly. The host span
 merge must equal the JAX package's exactly, and the port's device merges
 must equal its host merge."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ JAX CLI's in at most one level and in at most 1 pixel value in 1000 (the
 two fp32 decoders differ in their last bits, and a value that lands on a
 step of the uint8 conversion may round either way)."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import glob
 import os
 

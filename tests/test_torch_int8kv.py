@@ -13,6 +13,7 @@ package's (fourm_tpu), on the CPU in fp32.
   * an unknown kv_quant raises ValueError in both packages.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

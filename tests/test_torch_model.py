@@ -7,6 +7,7 @@ side runs its XLA path (the CPU), the port its kernels' plain twins.
 Tolerance: atol 1e-4 (2e-5 per module) in fp32 — the arithmetic is the same
 and only summation orders differ."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

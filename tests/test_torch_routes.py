@@ -10,6 +10,7 @@ fm_small_8e_8d_swiglu_nobias) cut to 2 + 2 layers against the JAX package in
 fp32: forward_generation_img logits and ar_prefill + decode_one_token
 logits at atol 1e-4 (rtol 1e-4), only summation orders differing."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

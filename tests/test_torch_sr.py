@@ -11,6 +11,7 @@ tests/test_torch_generation.py). The decoders at 448: to 1e-4 of the
 output's magnitude plus 1e-5 (summation orders differ), as
 tests/test_torch_decoding.py."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,7 @@
     CPU.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import json
 import os
 

@@ -17,6 +17,7 @@ first steps (lr * sign(g) for a gradient near 0) may move an entry by up to
 2 lr if the two summation orders give its gradient opposite signs: at most
 0.1% of the entries may differ beyond 2e-6, and none beyond 2 lr x steps."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import json
 
 import jax

@@ -31,6 +31,7 @@ the gradients' floor of 2e-6 carried into it ((1 - b1) 2e-6 in mu, (1 - b2)
 (2e-6)^2 in nu).
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import json
 from types import SimpleNamespace
 

@@ -19,6 +19,7 @@ Tolerance: atol 2e-5, rtol 1e-4, as tests/test_torch_train_kernels.py --
 the same fp32 arithmetic, summed in other orders (values are O(1)). The
 CUDA kernels are held to the twins on the card by chip_smoke.py (phase 8)."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import jax
 import jax.numpy as jnp
 import numpy as np

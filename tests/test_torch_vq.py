@@ -13,6 +13,7 @@ and teacher features to atol 1e-4 in fp32; tokens exactly, with the number
 of rows whose fp32 top-2 gap lies within the latents' error counted and
 asserted to be 0 at the seed (so the exact match is not luck)."""
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -22,6 +22,8 @@ below 0.3 of eps_row there. The Euclidean search's exact values, shifted by
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 import numpy as np
 import pytest
 import torch

@@ -31,6 +31,7 @@ across by from_jax_vq_variables and JAX's random draws fed to the port.
   * Memcodes: eval and training outputs, indices and gradients.
 """
 
+import _torch_threads  # noqa: F401  (torch's threads in xdist workers)
 import jax
 import jax.numpy as jnp
 import numpy as np
