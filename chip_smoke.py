@@ -253,13 +253,20 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      FourMViT-B warm-started from it with a fused LoRA (X2, exact launches,
      parity, a planted stale-weight fault, LoRA-only gradients).
      `python3 chip_smoke.py --part transfer` runs the build and this phase
-     alone.
+     alone;
+  15. the train step over a mesh (scripts/chip_parallel.py, which says what
+     it runs and gates): a world-1 NCCL group started in the script, phase
+     9's step 3 times through build_train_step(mesh=make_mesh()), data
+     parallel and FSDP-wrapped, exact launches, losses and masters against
+     the step without a mesh. `python3 chip_smoke.py --part parallel` runs
+     the build and this phase alone. More than one card:
+     scripts/chip_multicard.py under torchrun.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
 SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
-pre-training run, on phase 13's tokenizer paths and on phase 14's transfer
-paths); the last line is
+pre-training run, on phase 13's tokenizer paths, on phase 14's transfer
+paths and on phase 15's mesh paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -4845,6 +4852,14 @@ def pretrain_phase(torch, card: str):
     return {"pretrain": launches}, rows
 
 
+def parallel_phase(torch, card: str) -> dict:
+    """Phase 15 (scripts/chip_parallel.py): phase 9's step over a world-1
+    NCCL mesh, data parallel and FSDP-wrapped, against the step without a
+    mesh."""
+    return script_module("chip_parallel").parallel_phase(
+        torch, card, check, train_model, train_batch, PER_TRAIN_STEP, TRAIN_BATCH, TRAIN_TOKENS)
+
+
 def script_module(name: str):
     """scripts/<name>.py beside this script (phases 13-14)."""
     import importlib.util
@@ -4862,8 +4877,9 @@ def main() -> int:
     import torch
 
     parts = argparse.ArgumentParser(description="smoke run of the port on one card")
-    parts.add_argument("--part", choices=["all", "tokenizer", "transfer"], default="all",
-                       help="'tokenizer' / 'transfer': the build and phase 13 / 14 alone")
+    parts.add_argument("--part", choices=["all", "tokenizer", "transfer", "parallel"],
+                       default="all", help="'tokenizer' / 'transfer' / 'parallel': the build "
+                       "and phase 13 / 14 / 15 alone")
     part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -4889,6 +4905,8 @@ def main() -> int:
     if part != "all":
         if part == "tokenizer":
             script_module("chip_tokenizer").tokenizer_phase(torch, card, check)
+        elif part == "parallel":
+            parallel_phase(torch, card)
         else:
             script_module("chip_transfer").transfer_phase(torch, card, check, gate, time_ms)
         print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
@@ -4971,6 +4989,9 @@ def main() -> int:
     transfer_launches = script_module("chip_transfer").transfer_phase(torch, card, check, gate,
                                                                       time_ms)
     mark("phase 14")
+    torch.cuda.empty_cache()
+    parallel_launches = parallel_phase(torch, card)
+    mark("phase 15")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -4986,6 +5007,7 @@ def main() -> int:
         r["pretrain_launches"] = pretrain_launches["pretrain"][wrapper]
         r["tokenizer_launches"] = {p: n[wrapper] for p, n in tokenizer_launches.items()}
         r["transfer_launches"] = {p: n[wrapper] for p, n in transfer_launches.items()}
+        r["parallel_launches"] = {p: n[wrapper] for p, n in parallel_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

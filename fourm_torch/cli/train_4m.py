@@ -1,4 +1,4 @@
-"""4M pre-training on one card: the port of fourm_tpu/cli/train_4m.py.
+"""4M pre-training on one card or several: the port of fourm_tpu/cli/train_4m.py.
 
 Carried over: `--config` (a run config of cfgs/default/4m/models/**, read by
 the port's YAML reader; CLI flags win) and the `auto` run name, the model
@@ -29,14 +29,25 @@ transformed, Dirichlet-masked and batched by fourm_torch/data, inline or in
 `--num_workers` spawn processes, prefetched by a thread; or
 `--synthetic_data`. Unlike the JAX CLI, which starts afresh when a resume
 fails (fourm_tpu/cli/train_4m.py:326-333), a checkpoint that cannot be read
-raises. Not ported (ROADMAP): FSDP / tensor parallel (`--fsdp` / `--tensor`
-other than 1 raise), wandb (`--log_wandb` raises).
+raises. Not ported: wandb (`--log_wandb` raises).
+
+Several cards: run it under torchrun, one process a card. `--fsdp` and
+`--tensor` size those axes of the (data, fsdp, tensor) mesh and `data` takes
+the rest of the world (parallel/mesh.py); the global batch is batch_size x
+world x grad_accum_steps and lr = blr x global batch / 256, as the JAX CLI
+(a tensor group shares batch_size x tensor samples). Each rank of the
+(data, fsdp) group takes its rows of the global batch: of each synthetic
+batch, or from its own shards of a data config (data/pretrain_utils.py).
+The eval's losses are the global batch's. Only rank 0 prints, logs and
+writes; checkpoints hold whole tensors (gathered), and resume at any mesh.
 
 Usage:
   python -m fourm_torch.cli.train_4m --config cfgs/default/4m/models/main/4m-b_mod21_500b.yaml \
       --data_config my_shards.yaml --text_tokenizer_path tokenizer.json   # on the card
   python -m fourm_torch.cli.train_4m --synthetic_data --max_steps 100     # no data
   python -m fourm_torch.cli.train_4m --device cpu --synthetic_data ...    # plain twins
+  python -m torch.distributed.run --nproc_per_node 4 -m fourm_torch.cli.train_4m \
+      --config cfgs/default/4m/models/main/4m-xl_mod21_500b.yaml --fsdp 4 --remat ...
   python -m fourm_torch.cli.train_4m --synthetic_data --finetune 4m-21_b.safetensors \
       --save_ckpt_freq 1 --epoch_size 3200 --output_dir out/ft           # resumes if run again
 """
@@ -51,12 +62,14 @@ import os
 import sys
 import time
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 
 def get_parser():
-    p = argparse.ArgumentParser("4M pre-training (fourm_torch, one card)", add_help=True)
+    p = argparse.ArgumentParser("4M pre-training (fourm_torch)", add_help=True)
     # model
     p.add_argument("--model", default="fm_base_12e_12d_swiglu_qknorm_nobias")
     p.add_argument("--in_domains", default="tok_rgb@224-caption")
@@ -102,9 +115,9 @@ def get_parser():
     p.add_argument("--text_tokenizer_path", default=None)
     p.add_argument("--num_workers", type=int, default=0,
                    help="data-loading worker processes (0 = inline)")
-    # mesh (not ported: one card)
-    p.add_argument("--fsdp", type=int, default=1)
-    p.add_argument("--tensor", type=int, default=1)
+    # mesh (under torchrun; data = world / (fsdp * tensor))
+    p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size (sharded masters)")
+    p.add_argument("--tensor", type=int, default=1, help="tensor-parallel axis size")
     # misc
     p.add_argument("--output_dir", default="out/train_4m")
     p.add_argument("--run_name", default="auto")
@@ -138,22 +151,47 @@ def make_synthetic_loader(domains, batch_size, num_input_tokens, num_target_toke
         i += 1
 
 
+def rows_of(batch, index: int, count: int, accum: int = 1):
+    """Rank `index` of `count`'s rows of a global batch of numpy arrays
+    (fourm_tpu/cli/train_4m.py:246-249 shards the global batch the same
+    way); with accum > 1 its rows of each of the accum micro-batches."""
+    if count == 1:
+        return batch
+
+    def take(v):
+        micro = v.reshape((accum, -1) + v.shape[1:])
+        b = micro.shape[1] // count
+        part = micro[:, index * b:(index + 1) * b]
+        return part.reshape((-1,) + v.shape[1:])
+
+    return {m: {k: take(v) for k, v in d.items()} for m, d in batch.items()}
+
+
 def evaluate(model, val_loader, num_input_tokens: int, num_target_tokens: int, loss_type: str,
-             max_samples: int, global_bs: int, device) -> dict:
+             max_samples: int, global_bs: int, device, plan=None) -> dict:
     """Held-out loss at (pinned) token budgets (fourm_tpu/cli/train_4m.py:
     156-192; reference run_training_4m.py:798-832): the model's inference
     path (train=False: no stochastic depth, the inference kernels), batches
-    until max_samples, the mean loss and per-modality losses."""
+    until max_samples, the mean loss and per-modality losses. Over a mesh
+    (`plan`) each rank takes its rows of each global batch and the losses
+    are the global batch's (counts and sums all-reduced)."""
     from ..utils.synthetic import to_torch
 
     losses, mod_losses, seen = [], {}, 0
+    index, count = (0, 1) if plan is None else (plan.batch_index, plan.batch_count)
+    reduce = plan.reduce_batch if count > 1 else None
     with torch.no_grad():
         for batch in val_loader:
-            loss, (mod_loss, _cnt) = model(to_torch(batch, device), num_input_tokens,
-                                           num_target_tokens, loss_type=loss_type, train=False)
-            losses.append(float(loss))
-            for m, v in mod_loss.items():
-                mod_losses.setdefault(m, []).append(float(v))
+            loss, (mod_loss, _cnt) = model(to_torch(rows_of(batch, index, count), device),
+                                           num_input_tokens, num_target_tokens,
+                                           loss_type=loss_type, train=False,
+                                           count_reduce=reduce)
+            mods = list(mod_loss)
+            vals = torch.stack([loss.float()] + [mod_loss[m].float() for m in mods])
+            vals = (vals if reduce is None else reduce(vals)).tolist()
+            losses.append(vals[0])
+            for m, v in zip(mods, vals[1:]):
+                mod_losses.setdefault(m, []).append(v)
             seen += global_bs
             if seen >= max_samples:
                 break
@@ -162,13 +200,20 @@ def evaluate(model, val_loader, num_input_tokens: int, num_target_tokens: int, l
     return out
 
 
-def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int):
+def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int,
+                  shard=(0, 1)):
     """(train batch iterator, val loader factory or None): the data config's
     datasets through fourm_torch/data (inline or in --num_workers
     processes, prefetched by a thread), or synthetic batches with held-out
-    seeds for the eval."""
+    seeds for the eval. shard (index, count): a rank of the batch-sharded
+    group, whose loader reads its own shards and gives its global_bs /
+    count rows a step (the val batches stay global: evaluate takes the
+    rank's rows)."""
+    from ..parallel.launch import is_main_process
+
+    say = print if is_main_process() else (lambda *a, **k: None)
     if args.synthetic_data or args.data_config is None:
-        print("[data] synthetic batches")
+        say("[data] synthetic batches")
         from ..utils.synthetic import synthetic_mod_batch
 
         def val_loader_fn():
@@ -186,13 +231,13 @@ def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int
 
     data_cfg = load_yaml(args.data_config)
     text_tokenizer = load_tokenizer(args.text_tokenizer_path) if args.text_tokenizer_path else None
-    print(f"[data] {args.data_config}: {len(data_cfg['train']['datasets'])} train dataset(s), "
-          f"{args.num_workers} worker process(es)", flush=True)
+    say(f"[data] {args.data_config}: {len(data_cfg['train']['datasets'])} train dataset(s), "
+        f"{args.num_workers} worker process(es) a rank", flush=True)
     loader = prefetch_iterator(build_parallel_train_loader(
-        data_cfg["train"]["datasets"], all_domains, global_bs, 224, args.num_input_tokens,
-        args.num_target_tokens, args.min_input_tokens, args.min_target_tokens,
-        text_tokenizer_path=args.text_tokenizer_path, seed=args.seed,
-        num_workers=args.num_workers), prefetch=4)
+        data_cfg["train"]["datasets"], all_domains, global_bs // shard[1], 224,
+        args.num_input_tokens, args.num_target_tokens, args.min_input_tokens,
+        args.min_target_tokens, text_tokenizer_path=args.text_tokenizer_path, seed=args.seed,
+        num_workers=args.num_workers, shard=shard), prefetch=4)
     val_cfgs = (data_cfg.get("val") or {}).get("datasets", {})
     if not val_cfgs:
         return loader, None
@@ -233,22 +278,37 @@ def load_finetune_weights(path: str, model) -> None:
           f"unused {unexpected[:5]}")
 
 
-def train_checkpoint(state, generator, step: int) -> dict:
+def train_checkpoint(state, generator, step: int) -> Optional[dict]:
     """What a resumed run needs to continue the uninterrupted one: the fp32
     masters, the AdamW state (moments, step count: the schedule's
     position), the step (and so the synthetic batch position), and the
-    state of every generator (the step's, torch's CPU and CUDA ones)."""
-    return {"step": step, "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(), "generator": generator.get_state(),
+    state of every generator (the step's, torch's CPU and CUDA ones). Over
+    a mesh every rank calls it: the whole tensors are gathered onto rank 0,
+    which gets the dict (the others None)."""
+    if state.plan is None:
+        model_state, opt_state = state.model.state_dict(), state.optimizer.state_dict()
+    else:
+        model_state, opt_state = state.plan.full_state(state.optimizer)
+        if model_state is None:
+            return None
+    return {"step": step, "model": model_state,
+            "optimizer": opt_state, "generator": generator.get_state(),
             "torch_rng": torch.get_rng_state(),
             "cuda_rng": torch.cuda.get_rng_state_all() if torch.cuda.is_available() else []}
 
 
 def restore_checkpoint(state, generator, ckpt: dict) -> int:
     """Load train_checkpoint's dict (on the CPU) into the train state and
-    generator, in place; -> its step."""
-    state.model.load_state_dict(ckpt["model"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    generator, in place, at this run's mesh whatever the writer's; -> its
+    step."""
+    if state.plan is None:
+        state.model.load_state_dict(ckpt["model"], strict=True)
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+    else:
+        missing = set(state.model.state_dict()) ^ set(ckpt["model"])
+        if missing:
+            raise KeyError(f"checkpoint and model differ in {sorted(missing)[:5]}")
+        state.plan.load_full(ckpt["model"], state.optimizer, ckpt["optimizer"])
     generator.set_state(ckpt["generator"])
     torch.set_rng_state(ckpt["torch_rng"])
     if ckpt["cuda_rng"]:
@@ -259,7 +319,9 @@ def restore_checkpoint(state, generator, ckpt: dict) -> int:
 
 def main(args=None):
     from ..models import FourM, create_fourm_config, init_weights
-    from ..parallel import build_train_step, frozen_trunk_mask, init_train_state
+    from ..parallel import build_train_step, frozen_trunk_mask, init_train_state, make_mesh
+    from ..parallel.launch import (barrier, initialize_multihost, is_main_process,
+                                   process_count, shutdown)
     from ..utils.checkpoint import auto_resume, save_checkpoint
     from ..utils.config import expand_run_name, parse_args_with_config
     from ..utils.logger import JSONLLogger, tokens_seen
@@ -267,21 +329,25 @@ def main(args=None):
     from ..utils.synthetic import to_torch
 
     args = parse_args_with_config(get_parser(), args)
-    if args.fsdp != 1 or args.tensor != 1:
-        raise NotImplementedError("--fsdp / --tensor other than 1: training over a mesh (FSDP, "
-                                  "tensor parallel) is not ported yet; the port trains on one "
-                                  "card")
     if args.log_wandb:
         raise NotImplementedError("--log_wandb: the port does not use wandb; the run logs to "
                                   "log.txt (JSONL) in its output directory")
+    initialize_multihost(device=args.device)
+    world = process_count()
+    mesh = None
+    if world > 1 or args.fsdp != 1 or args.tensor != 1:
+        mesh = make_mesh(data=-1, fsdp=args.fsdp, tensor=args.tensor)
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
     run_name = expand_run_name(args.run_name, args.config)
     output_dir = (os.path.join(args.output_dir, run_name) if run_name != "auto"
                   else args.output_dir)
-    os.makedirs(output_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(output_dir, exist_ok=True)
     in_domains = sorted(args.in_domains.split("-"))
     out_domains = sorted(args.out_domains.split("-"))
     all_domains = sorted(set(in_domains) | set(out_domains))
-    global_bs = args.batch_size * args.grad_accum_steps
+    global_bs = args.batch_size * world * args.grad_accum_steps
 
     # token-budget step math (reference run_training_4m.py:431-470)
     tokens_per_step = global_bs * (args.num_input_tokens + args.num_target_tokens)
@@ -292,17 +358,19 @@ def main(args=None):
         total_steps = min(total_steps, args.max_steps)
     steps_per_epoch = max(args.epoch_size // global_bs, 1)
     lr = args.blr * global_bs / 256.0  # reference :498
-    print(f"device={args.device} global_bs={global_bs} total_steps={total_steps} "
-          f"warmup={warmup_steps} lr={lr:.2e}")
+    shape = "one process" if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
+    say(f"device={args.device} mesh={shape} global_bs={global_bs} total_steps={total_steps} "
+        f"warmup={warmup_steps} lr={lr:.2e}")
 
     overrides = {k: getattr(args, k) for k in ("dim", "encoder_depth", "decoder_depth",
                                                "num_heads") if getattr(args, k) is not None}
     config = create_fourm_config(args.model, tuple(in_domains), tuple(out_domains),
                                  dtype=args.dtype, num_register_tokens=args.num_register_tokens,
                                  remat=args.remat, **overrides)
-    with open(os.path.join(output_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=1)
-    model = init_weights(FourM(config), args.seed)
+    if main_rank:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(config), f, indent=1)
+    model = init_weights(FourM(config), args.seed)  # alike on every rank: one seed
     if args.finetune:
         load_finetune_weights(args.finetune, model)
     sched = make_schedule(args.scheduler, lr, total_steps, warmup_steps, min_lr=args.min_lr,
@@ -310,9 +378,10 @@ def main(args=None):
     tx = create_optimizer(model, sched, weight_decay=args.weight_decay,
                           betas=tuple(args.opt_betas), clip_grad=args.clip_grad,
                           skip_grad=args.skip_grad, layer_decay=args.layer_decay)
-    state = init_train_state(model, tx, device=args.device)
+    state = init_train_state(model, tx, device=args.device, mesh=mesh)
     device = model.mask_token.device
-    step_kw = dict(loss_type=args.loss_type, grad_accum_steps=args.grad_accum_steps)
+    shard = (0, 1) if state.plan is None else (state.plan.batch_index, state.plan.batch_count)
+    step_kw = dict(loss_type=args.loss_type, grad_accum_steps=args.grad_accum_steps, mesh=mesh)
     step_fn = build_train_step(model, tx, args.num_input_tokens, args.num_target_tokens,
                                **step_kw)
     # the frozen-trunk warm-start phase (reference :522-529, fm.py:762): a
@@ -323,27 +392,32 @@ def main(args=None):
         frozen_step_fn = build_train_step(model, tx, args.num_input_tokens,
                                           args.num_target_tokens, **step_kw,
                                           trainable_mask=frozen_trunk_mask(model))
-        print(f"[train] frozen-trunk phase for the first {frozen_steps} steps")
-    jsonl = JSONLLogger(output_dir)
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+        say(f"[train] frozen-trunk phase for the first {frozen_steps} steps")
+    jsonl = JSONLLogger(output_dir) if main_rank else None
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)  # shared by the ranks
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     start_step = 0
     if args.auto_resume:
+        barrier()  # rank 0 made the output directory
         ckpt, _ = auto_resume(ckpt_dir, map_location="cpu")
         if ckpt is not None:
             start_step = restore_checkpoint(state, generator, ckpt)
-            print(f"[ckpt] resumed from step {start_step}")
+            say(f"[ckpt] resumed from step {start_step}")
             del ckpt
     eval_in = args.fixed_eval_input_tokens if args.fixed_eval else args.num_input_tokens
     eval_tgt = args.fixed_eval_target_tokens if args.fixed_eval else args.num_target_tokens
-    loader, val_loader_fn = build_loaders(args, all_domains, global_bs, eval_in, eval_tgt)
-    if loader is None:
+    loader, val_loader_fn = build_loaders(args, all_domains, global_bs, eval_in, eval_tgt,
+                                          shard)
+    synthetic = loader is None
+    if synthetic:
         loader = make_synthetic_loader(all_domains, global_bs, args.num_input_tokens,
                                        args.num_target_tokens, args.seed + start_step)
 
     t0 = time.time()
     for step in range(start_step, total_steps):
         batch_np = next(loader)
+        if synthetic:  # the global batch: this rank's rows
+            batch_np = rows_of(batch_np, *shard, accum=args.grad_accum_steps)
         batch = to_torch(batch_np, device)
         if args.grad_accum_steps > 1:
             batch = {m: {k: v.reshape((args.grad_accum_steps, -1) + v.shape[1:])
@@ -353,9 +427,9 @@ def main(args=None):
 
         if step % args.print_freq == 0 or step == total_steps - 1:
             loss = float(metrics["loss"])  # a host read: waits for the step
-            if not math.isfinite(loss):
+            if not math.isfinite(loss):  # the global loss: every rank stops
                 # NaN tripwire: dump the batch and abort (reference :729-732)
-                dump = os.path.join(output_dir, f"nan_batch_step{step}.npz")
+                dump = os.path.join(output_dir, f"nan_batch_step{step}_rank{shard[0]}.npz")
                 np.savez(dump, **{f"{m}_{k}": v for m, d in batch_np.items()
                                   for k, v in d.items()})
                 print(f"FATAL: non-finite loss {loss} at step {step}; batch dumped to {dump}")
@@ -365,28 +439,37 @@ def main(args=None):
             gnorm = float(metrics["grad_norm"])
             tokens_b = tokens_seen(step + 1, global_bs, args.num_input_tokens,
                                    args.num_target_tokens)
-            print(f"step {step}/{total_steps} loss {loss:.4f} gnorm {gnorm:.2f} "
-                  f"samples/s {sps:.1f} tokens {tokens_b:.3f}B", flush=True)
-            jsonl.write({"step": step, "loss": loss, "grad_norm": gnorm,
-                         "samples_per_sec": sps, "tokens_B": tokens_b})
+            say(f"step {step}/{total_steps} loss {loss:.4f} gnorm {gnorm:.2f} "
+                f"samples/s {sps:.1f} tokens {tokens_b:.3f}B", flush=True)
+            if main_rank:
+                jsonl.write({"step": step, "loss": loss, "grad_norm": gnorm,
+                             "samples_per_sec": sps, "tokens_B": tokens_b})
 
         if (step + 1) % (steps_per_epoch * args.save_ckpt_freq) == 0 or step == total_steps - 1:
-            save_checkpoint(ckpt_dir, train_checkpoint(state, generator, step + 1), step + 1)
-            # params-only export for generation (read by cli/generate.py:load_fm)
-            save_checkpoint(os.path.join(output_dir, "weights"), model.state_dict(), step + 1)
-            print(f"[ckpt] saved step {step + 1}", flush=True)
+            ckpt = train_checkpoint(state, generator, step + 1)  # every rank: a gather
+            if main_rank:
+                save_checkpoint(ckpt_dir, ckpt, step + 1)
+                # params-only export for generation (read by cli/generate.py:load_fm)
+                save_checkpoint(os.path.join(output_dir, "weights"), ckpt["model"], step + 1)
+                print(f"[ckpt] saved step {step + 1}", flush=True)
+            del ckpt
+            barrier()  # the others wait for rank 0's files
 
         if val_loader_fn is not None and (
                 (step + 1) % (steps_per_epoch * args.eval_freq) == 0 or step == total_steps - 1):
             t_eval = time.time()
             stats = evaluate(model, val_loader_fn(), eval_in, eval_tgt, args.loss_type,
-                             args.eval_size, global_bs, device)
+                             args.eval_size, global_bs, device, state.plan)
             stats["seconds"] = time.time() - t_eval
-            print(f"[eval] step {step + 1}: {stats}", flush=True)
-            jsonl.write({"step": step + 1, **{f"eval_{k}": v for k, v in stats.items()}})
+            say(f"[eval] step {step + 1}: {stats}", flush=True)
+            if main_rank:
+                jsonl.write({"step": step + 1, **{f"eval_{k}": v for k, v in stats.items()}})
             t0 += time.time() - t_eval
-    loader.close()  # stops the prefetch thread and the data workers
-    print("training done")
+    if hasattr(loader, "close"):
+        loader.close()  # stops the prefetch thread and the data workers
+    say("training done")
+    if world > 1:
+        shutdown()
     return state
 
 

@@ -1,4 +1,4 @@
-"""VQ tokenizer training on one card: the port of fourm_tpu/cli/train_vqvae.py
+"""VQ tokenizer training on one card or several: the port of fourm_tpu/cli/train_vqvae.py
 (reference run_training_vqvae.py / run_training_divae.py), VQ-VAE (a
 feed-forward decoder) and DiVAE (a diffusion decoder) in one path.
 
@@ -43,7 +43,18 @@ What differs from the JAX CLI, and why:
     `tokenizer_ema.safetensors`;
   * random draws (noise, timesteps, condition masks, dead codes, k-means)
     come from one torch.Generator on the card, seeded by `--seed`; data
-    from numpy / random generators seeded by it.
+    from numpy / random generators seeded by it;
+  * several cards (under torchrun): data parallel, `--batch_size` a card
+    and lr = blr x batch_size x world / 256 (fourm_tpu/cli/train_vqvae.py:
+    240 scales lr by the device count but builds its mesh, :229, without
+    placing anything on it). Each rank takes its rows of the global
+    synthetic batch (a folder stream is read by each rank with its own
+    seed), gradients are averaged over the ranks, the codebook's EMA sums,
+    dead codes and k-means see the global batch (vq/quantizer.py), and the
+    noise and timesteps are drawn for the global batch, so every rank keeps
+    the same model and codebook. Rank 0 alone prints, logs, evaluates its
+    rows and writes checkpoints. `--fsdp` above 1 raises: the tokenizers
+    are small and their optimizer state is not sharded.
 Images (PNG, JPEG) are read without Pillow (data/image_io.py).
 
 Usage:
@@ -52,6 +63,7 @@ Usage:
       --data_path /data/images --output_dir out/divae          # on the card
   python -m fourm_torch.cli.train_vqvae --synthetic_data --total_steps 100
   python -m fourm_torch.cli.train_vqvae --device cpu ...       # plain twins
+  python -m torch.distributed.run --nproc_per_node 4 -m fourm_torch.cli.train_vqvae ...
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ import torch.nn.functional as F
 
 
 def get_parser():
-    p = argparse.ArgumentParser("VQ tokenizer training (fourm_torch, one card)")
+    p = argparse.ArgumentParser("VQ tokenizer training (fourm_torch)")
     p.add_argument("--model_type", default="vqvae", choices=["vqvae", "divae"])
     p.add_argument("--domain", default="rgb", help="modality to tokenize")
     p.add_argument("--input_size", type=int, default=224)
@@ -237,9 +249,10 @@ class SyntheticBatches:
     step `it` at size res_choices[hash(it) % len] (the reference's
     multi-resolution choice)."""
 
-    def __init__(self, args):
+    def __init__(self, args, shard=(0, 1)):
         self.rng = np.random.RandomState(args.seed)
         self.args = args
+        self.shard = shard  # (rank, world): this rank's rows of the global batch
         if args.input_size_min and args.input_size_max:
             self.choices = list(range(args.input_size_min, args.input_size_max + 1,
                                       args.resolution_step))
@@ -249,20 +262,26 @@ class SyntheticBatches:
     def batch(self, it: int) -> np.ndarray:
         a = self.args
         size = self.choices[hash(it) % len(self.choices)]
+        r, n = self.shard
         if a.n_labels is not None:
-            return self.rng.randint(0, a.n_labels, (a.batch_size, size, size)).astype(np.int32)
-        return self.rng.rand(a.batch_size, size, size, a.n_channels).astype(np.float32) * 2 - 1
+            x = self.rng.randint(0, a.n_labels, (a.batch_size * n, size, size)).astype(np.int32)
+        else:
+            x = self.rng.rand(a.batch_size * n, size, size, a.n_channels).astype(np.float32)
+            x = x * 2 - 1
+        return x[r * a.batch_size:(r + 1) * a.batch_size]
 
 
-def folder_batches(args):
+def folder_batches(args, rank: int = 0):
     """Batches of `--domain` from root/{domain}/... through the DiVAE
     transforms, a random crop to input_size and a flip
-    (train_vqvae.py:208-224), every draw from generators seeded by --seed."""
+    (train_vqvae.py:208-224), every draw from generators seeded by --seed
+    (+ 1000 x rank on rank `rank`)."""
     from ..data.augmenters import RandomCropImageAugmenter
     from ..data.datasets import MultiModalDatasetFolder, repeat_dataset
     from ..data.transforms import UnifiedDataTransform, divae_modality_transforms
 
-    rng, np_rng = random.Random(args.seed), np.random.RandomState(args.seed)
+    seed = args.seed + 1000 * rank
+    rng, np_rng = random.Random(seed), np.random.RandomState(seed)
     transforms = divae_modality_transforms(rng, np_rng)
     aug = RandomCropImageAugmenter(target_size=args.input_size, main_domain=args.domain,
                                    rng=rng, np_rng=np_rng)
@@ -276,16 +295,22 @@ def folder_batches(args):
 class Trainer:
     """One tokenizer run's state and step: the model (fp32 masters and the
     codebook buffers), FusedAdamW, the model EMA, the step count and the
-    generator of the step's draws."""
+    generator of the step's draws. group: the data-parallel process group
+    (None: one process); the model and codebook stay equal on its ranks."""
 
-    def __init__(self, args, device):
+    def __init__(self, args, device, group=None):
         from ..utils.optim import cosine_schedule, create_optimizer, weight_decay_mask
+        from ..vq.quantizer import VectorQuantize
 
-        self.args, self.device = args, device
+        self.args, self.device, self.group = args, device, group
+        self.world = 1 if group is None else torch.distributed.get_world_size(group)
         self.model = build_model(args, device)
+        for m in self.model.modules():
+            if isinstance(m, VectorQuantize):
+                m.group = group
         self.is_divae = args.model_type == "divae"
         self.scheduler = self.model.noise_scheduler() if self.is_divae else None
-        lr = args.blr * args.batch_size / 256.0
+        lr = args.blr * args.batch_size * self.world / 256.0
         frozen = frozen_names(self.model, args.freeze_enc)
         self.opt = create_optimizer(
             self.model, cosine_schedule(lr, args.total_steps, args.warmup_steps),
@@ -331,14 +356,17 @@ class Trainer:
         for p in self.opt.params():
             p.grad = None
         if self.is_divae:
+            from ..vq.quantizer import rank_rows
+
             x = batch.float()
             noise = draws.get("noise")
             if noise is None:
-                noise = torch.randn(x.shape, generator=gen, device=x.device)
+                noise = rank_rows(x.shape, self.group, gen, x.device, torch.randn)
             t = draws.get("timesteps")
             if t is None:
-                t = torch.randint(0, args.num_train_timesteps, (x.shape[0],), generator=gen,
-                                  device=x.device)
+                t = rank_rows((x.shape[0],), self.group, gen, x.device,
+                              lambda shape, **kw: torch.randint(0, args.num_train_timesteps,
+                                                                shape, **kw))
             noised = self.scheduler.add_noise(x, noise, t)
             pred, code_loss = m(x, noised, t, train=True, draws=draws, generator=gen)
             target = {"v_prediction": lambda: self.scheduler.get_velocity(x, noise, t),
@@ -353,13 +381,26 @@ class Trainer:
                                                                   batch.float()).mean()
         total.backward()
         grads = [p.grad for p in self.opt.params() if p.grad is not None]
+        metrics = torch.stack([total.detach(), rec.detach(), code_loss.detach().float()])
+        if self.group is not None:  # the global batch's mean: the ranks' means averaged
+            average_over(grads + [metrics], self.group, self.world)
         grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
         self.opt.step(grad_norm)
         if self.ema is not None:
             update_ema(self.ema, self.model, args.model_ema_decay)
         self.step += 1
-        return {"loss": total.detach(), "rec": rec.detach(), "code_loss": code_loss.detach(),
+        return {"loss": metrics[0], "rec": metrics[1], "code_loss": metrics[2],
                 "grad_norm": grad_norm}
+
+
+def average_over(tensors, group, world: int) -> None:
+    """Each tensor averaged over the group's ranks, in place, in one
+    all-reduce."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= world
+    torch._foreach_copy_(tensors, [c.view_as(t) for c, t in
+                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
 
 
 def update_ema(ema: Dict[str, torch.Tensor], model, decay: float) -> None:
@@ -461,15 +502,26 @@ def main(args=None):
     from ..utils.config import parse_args_with_config
     from ..utils.logger import JSONLLogger
 
+    from ..parallel.launch import (barrier, initialize_multihost, is_main_process,
+                                   process_count, process_index, shutdown)
+
     args = parse_args_with_config(get_parser(), args)
     if args.fsdp != 1:
-        raise NotImplementedError("--fsdp other than 1: the port trains on one card")
+        raise NotImplementedError(f"--fsdp {args.fsdp}: the tokenizer trainer does not shard "
+                                  "its optimizer state; it runs data parallel over every "
+                                  "rank of torchrun (the model is small): leave --fsdp at 1")
+    initialize_multihost(device=args.device)
     device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
-    trainer = Trainer(args, device)
+    rank, world = process_index(), process_count()
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
+    if main_rank:
+        os.makedirs(args.output_dir, exist_ok=True)
+    trainer = Trainer(args, device, torch.distributed.group.WORLD if world > 1 else None)
+    barrier()
     state, start = auto_resume(os.path.join(args.output_dir, "checkpoints"), map_location=device)
     synthetic = args.synthetic_data or args.data_path is None
-    source = SyntheticBatches(args) if synthetic else folder_batches(args)
+    source = SyntheticBatches(args, (rank, world)) if synthetic else folder_batches(args, rank)
 
     def next_batch(it: int) -> torch.Tensor:
         arr = source.batch(it) if synthetic else next(source)
@@ -480,8 +532,8 @@ def main(args=None):
         if synthetic:  # the batches the run has seen: it continues bit for bit
             for it in range(start):
                 source.batch(it)
-        print(f"resumed from step {start}")
-    jsonl = JSONLLogger(args.output_dir)
+        say(f"resumed from step {start}")
+    jsonl = JSONLLogger(args.output_dir) if main_rank else None
     fid_state: Dict = {}
     t0 = time.time()
     batch = None
@@ -489,25 +541,30 @@ def main(args=None):
         batch = next_batch(it)
         if it == 0 and float(trainer.model.quantize._codebook.initted) == 0.0:
             trainer.model.init_codebook_kmeans(batch, generator=trainer.gen)
-            print("[kmeans] codebook initialised from the first batch")
+            say("[kmeans] codebook initialised from the first (global) batch")
         metrics = trainer.train_step(batch)
         if it % args.print_freq == 0 or it == args.total_steps - 1:
             vals = {k: float(v) for k, v in metrics.items()}
             if not all(math.isfinite(v) for v in vals.values()):
                 raise FloatingPointError(f"step {it}: non-finite metrics {vals}")
-            sps = args.batch_size * args.print_freq / max(time.time() - t0, 1e-6)
+            sps = args.batch_size * world * args.print_freq / max(time.time() - t0, 1e-6)
             t0 = time.time()
-            print(f"step {it}/{args.total_steps} loss {vals['loss']:.4f} rec {vals['rec']:.4f} "
-                  f"code {vals['code_loss']:.4f} samples/s {sps:.1f}", flush=True)
-            jsonl.write({"step": it, "loss": vals["loss"], "rec": vals["rec"],
-                         "code_loss": vals["code_loss"]})
-        if (it + 1) % args.eval_freq == 0 and not trainer.is_divae:
+            say(f"step {it}/{args.total_steps} loss {vals['loss']:.4f} rec {vals['rec']:.4f} "
+                f"code {vals['code_loss']:.4f} samples/s {sps:.1f}", flush=True)
+            if main_rank:
+                jsonl.write({"step": it, "loss": vals["loss"], "rec": vals["rec"],
+                             "code_loss": vals["code_loss"]})
+        if (it + 1) % args.eval_freq == 0 and not trainer.is_divae and main_rank:
             m = run_eval(trainer, batch, fid_state)
             print(f"[eval] {m}", flush=True)
             jsonl.write({"step": it, **{f"eval_{k}": v for k, v in m.items()}})
         if (it + 1) % args.save_ckpt_freq == 0 or it == args.total_steps - 1:
-            save(trainer, args.output_dir)
-    print("tokenizer training done")
+            if main_rank:  # every rank holds the same state
+                save(trainer, args.output_dir)
+            barrier()
+    say("tokenizer training done")
+    if world > 1:
+        shutdown()
     return trainer
 
 

@@ -37,7 +37,7 @@ import os
 import random
 import re
 import tarfile
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -297,9 +297,16 @@ class ShardedTarDataset:
         modality_name_map: Optional[Dict[str, str]] = None,
         n_repeats: int = 1,
         shuffle_buffer_repeat: int = 1000,
+        shard_split: Optional[Tuple[int, int]] = None,
     ):
         self.pattern = shard_pattern
         self.urls = braceexpand(shard_pattern)
+        if shard_split is not None:  # reader i of n (ranks x workers) reads its own shards
+            i, n = shard_split
+            if len(self.urls) < n:
+                raise ValueError(f"{shard_pattern}: {len(self.urls)} shards cannot give each "
+                                 f"of {n} readers (ranks x workers) shards of its own")
+            self.urls = self.urls[i::n]
         self.modalities = list(modalities)
         self.modality_transforms = modality_transforms
         self.transform = transform

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import random
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -120,10 +120,13 @@ def get_train_dataset(
     min_input_tokens: Optional[int] = None,
     min_target_tokens: Optional[int] = None,
     seed: Optional[int] = None,
+    shard_split: Optional[Tuple[int, int]] = None,
 ):
     """Build one dataset's infinite sample iterator (reference get_train_dataloader,
     pretrain_utils.py:84-195): folder or sharded-tar, pre-tokenized or random-crop
-    augmentation, unified transform + Dirichlet masking."""
+    augmentation, unified transform + Dirichlet masking. shard_split (i, n):
+    a sharded-tar dataset reads only shards i, i + n, ... (a reader of n
+    across ranks and workers)."""
     all_domains, in_a, tgt_a, keep, weights = setup_sampling_mod_info(dataset_config)
     rngs = dict(rng=random.Random(seed), np_rng=np.random.RandomState(seed))
     transforms = _transforms(dataset_config, rngs)
@@ -163,6 +166,7 @@ def get_train_dataset(
             seed=seed, modality_name_map=dataset_config.get("modality_name_map"),
             n_repeats=dataset_config.get("wds_n_repeats", 1),
             shuffle_buffer_repeat=dataset_config.get("wds_shuffle_buffer_repeat", 1000),
+            shard_split=shard_split,
         )
     if dtype == "multimodal":
         ds = build_fm_pretraining_dataset(
@@ -263,18 +267,23 @@ def _mixture_worker_factory(spec: Dict[str, Any], worker_id: int, num_workers: i
     """Picklable worker entry for MultiprocessLoader: rebuilds tokenizer +
     datasets inside the worker with a per-worker seed, seed + 1000 *
     worker_id (pretrain_utils.py:249; the reference's independent per-worker
-    shard resampling, unified_datasets.py:371-373)."""
+    shard resampling, unified_datasets.py:371-373). On rank i of n (spec
+    "shard", n > 1) the reader is worker i * num_workers + worker_id of n *
+    num_workers: its seed follows that index, and it reads its own shards."""
     from ..utils.text_tokenizer import load_tokenizer
 
     text_tokenizer = (load_tokenizer(spec["text_tokenizer_path"])
                       if spec.get("text_tokenizer_path") else None)
-    seed = (spec.get("seed") or 0) + 1000 * worker_id
+    rank, ranks = spec.get("shard") or (0, 1)
+    reader = rank * num_workers + worker_id
+    seed = (spec.get("seed") or 0) + 1000 * reader
+    split = (reader, ranks * num_workers) if ranks > 1 else None
     datasets, weights = [], []
     for name, dcfg in spec["train_datasets"].items():
         datasets.append(get_train_dataset(
             dcfg, text_tokenizer, spec["input_size"], spec["num_input_tokens"],
             spec["num_target_tokens"], spec.get("min_input_tokens"),
-            spec.get("min_target_tokens"), seed=seed,
+            spec.get("min_target_tokens"), seed=seed, shard_split=split,
         ))
         weights.append(dcfg.get("weight", 1.0))
     return build_mixture_loader(datasets, weights, spec["all_domains"],
@@ -293,11 +302,14 @@ def build_parallel_train_loader(
     text_tokenizer_path: Optional[str] = None,
     seed: Optional[int] = None,
     num_workers: int = 0,
+    shard: Tuple[int, int] = (0, 1),
 ):
     """Mixture train loader across `num_workers` spawn processes (a torch
     DataLoader; 0 = inline, numpy batches): the host-side Dirichlet / span
     masking is the loader's cost. With workers, batches arrive as CPU
-    tensors, pinned on a machine with a card."""
+    tensors, pinned on a machine with a card. shard (index, count): this
+    rank of the batch-sharded group; its readers take disjoint sets of the
+    tar shards (_mixture_worker_factory)."""
     from .loader import MultiprocessLoader
 
     spec = dict(
@@ -305,7 +317,7 @@ def build_parallel_train_loader(
         batch_size=batch_size, input_size=input_size,
         num_input_tokens=num_input_tokens, num_target_tokens=num_target_tokens,
         min_input_tokens=min_input_tokens, min_target_tokens=min_target_tokens,
-        text_tokenizer_path=text_tokenizer_path, seed=seed,
+        text_tokenizer_path=text_tokenizer_path, seed=seed, shard=tuple(shard),
     )
     if num_workers == 0:
         return _mixture_worker_factory(spec, 0, 1)

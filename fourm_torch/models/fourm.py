@@ -392,29 +392,37 @@ class FourM(nn.Module):
         return n - 1 if self.config.spec(mod).type in SEQ_TYPES else n
 
     def forward_loss(self, y, target_ids, decoder_modid, mods, mod_dict,
-                     num_decoder_tokens: Optional[int], loss_type: str = "mod"):
+                     num_decoder_tokens: Optional[int], loss_type: str = "mod",
+                     count_reduce=None):
         """Per-modality cross-entropy over exact fixed-capacity buckets
         (fourm_tpu fourm.py:485-525, reference fm.py:547-637): each target
         modality gathers the first C positions carrying its id (C = min(its
         stream length, the budget, M), which bounds how many it can hold),
         logits in fp32. "mod" averages the modalities' mean losses; "token"
         weights each by its count times its vocabulary (logits.numel(), as
-        the reference)."""
+        the reference). count_reduce (a data-parallel rank's): the sum of
+        the per-modality counts over the ranks, given this rank's stacked;
+        each modality's summed loss is then divided by its global count, so
+        that the ranks' losses (and gradients) sum to the global batch's."""
         M = y.shape[1]
         mod_loss, mod_count = {}, {}
         total_sum, total_cnt = 0.0, 0.0
+        buckets = []
         for mod in mods:
             spec = self.config.spec(mod)
             cap = min(self._decoder_stream_length(mod, mod_dict), num_decoder_tokens or M, M)
             bucket = select_tokens(decoder_modid != spec.id, cap)
+            buckets.append((bucket, torch.gather(decoder_modid, 1, bucket) == spec.id))
+        counts = [valid.sum() for _, valid in buckets]
+        if count_reduce is not None and counts:
+            counts = list(count_reduce(torch.stack(counts)).unbind(0))
+        for mod, (bucket, valid), cnt in zip(mods, buckets, counts):
             y_m = gather_tokens(y, bucket)
-            valid = torch.gather(decoder_modid, 1, bucket) == spec.id
             # a position of another modality may hold an id past this vocabulary:
             # its loss is masked out, so any in-range id does
             tgt = torch.gather(target_ids, 1, bucket).masked_fill(~valid, 0)
             logits = self.mod_logits(mod, y_m).float()
             ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, tgt[..., None].long())[..., 0]
-            cnt = valid.sum()
             mod_loss[mod] = torch.where(valid, ce, 0.0).sum() / cnt.clamp_min(1)
             mod_count[mod] = cnt
             vocab = logits.shape[-1]
@@ -432,14 +440,16 @@ class FourM(nn.Module):
 
     def forward(self, mod_dict: Dict[str, Dict[str, torch.Tensor]], num_encoder_tokens: int,
                 num_decoder_tokens: int, loss_type: str = "mod",
-                generator: Optional[torch.Generator] = None, train: bool = True):
+                generator: Optional[torch.Generator] = None, train: bool = True,
+                count_reduce=None):
         """The loss forward (fourm_tpu fourm.py:529-557; reference fm.py:
         640-692): encoder and decoder, then the loss. train=True (JAX's
         deterministic=False) runs the blocks' differentiable training path,
         `generator` drawing the stochastic-depth masks, each block under
         activation checkpointing with config.remat; train=False (JAX's
         deterministic=True, the eval) the inference path and its kernels,
-        without stochastic depth. Returns (loss, (mod_loss, mod_count))."""
+        without stochastic depth. count_reduce: forward_loss's (a
+        data-parallel rank's). Returns (loss, (mod_loss, mod_count))."""
         enc_out, enc_emb, enc_mask, _ = self.encode(mod_dict, num_encoder_tokens, train,
                                                     generator)
         dec_x, dec_emb, _dec_mask, target_ids, sa_mask, dec_modid = self.forward_mask_decoder(
@@ -449,7 +459,8 @@ class FourM(nn.Module):
         mods = [m for m in self.config.decoder_modalities
                 if m in mod_dict and m in self.decoder_embeddings]
         loss, mod_loss, mod_count = self.forward_loss(y, target_ids, dec_modid, mods, mod_dict,
-                                                      num_decoder_tokens, loss_type)
+                                                      num_decoder_tokens, loss_type,
+                                                      count_reduce)
         return loss, (mod_loss, mod_count)
 
     def init_kv_caches(self, batch_size: int, max_len: int):

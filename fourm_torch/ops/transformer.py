@@ -32,10 +32,24 @@ the bias layout, the head dim) refuses the problem, and each branch
 through `DropPath` before its residual add (transformer.py:821-824,
 :878-885). The inference kernels have no
 backward and never run in a train step.
+
+Tensor parallelism (parallel/shard.py:shard_tensor_parallel): a split
+Attention / CrossAttention / MLP holds its rank's heads or hidden features
+and a `tp` group (ops/tensor_parallel.py); its input passes f and its
+row-parallel product g, whose bias is added once after the all-reduce. The
+kernels take the rank's local tensors: `ln_matmul` the head-aligned qkv
+rows, `flash_mha` / `mha_short` / `attention` / `attention_train` the
+rank's heads. `attn_block` and `ln_mlp` add the residual inside the kernel,
+before the all-reduce could sum the partial products: a split attention
+takes `ln_matmul` + the attention kernel instead of `attn_block`, and a
+split MLP the plain products (`_mlp_fuses`). Under data parallelism the
+stochastic-depth masks are drawn for the global batch and each rank takes
+its rows (`RankDraws`), so that N ranks draw what one would.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +65,7 @@ from ..kernels.attention_train import (attention_train, attention_train_fwd_plai
 from ..kernels.decode_step import (cross_decode_attn, cross_decode_attn_plain, residual_mlp,
                                    residual_mlp_plain, self_decode, self_decode_plain)
 from ..kernels.fused_mlp import layer_norm_fp32, ln_matmul, ln_matmul_plain, ln_mlp, ln_mlp_plain
+from .tensor_parallel import copy_to_group, reduce_from_group
 
 # Finite fill for masked logits (reference masked_fill(-finfo.max), fm_utils.py:168):
 # a fully masked row gets uniform weights instead of NaN.
@@ -112,6 +127,20 @@ def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     compute dtype, then one product."""
     b = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+
+
+def _tp_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a split module's column-parallel products (f)."""
+    return x if tp is None else copy_to_group(x, tp)
+
+
+def _row_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """_dense of a row-parallel product: the ranks' partial products summed
+    (g), then the bias, once."""
+    if tp is None:
+        return _dense(x, lin, dtype)
+    y = reduce_from_group(F.linear(x.to(dtype), lin.weight.to(dtype)), tp)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -176,8 +205,12 @@ class Mlp(_PaddedFc2):
         self.fc1 = nn.Linear(dim, hidden_dim, bias=use_bias)
         self.fc2 = nn.Linear(hidden_dim, out_dim or dim, bias=use_bias)
 
+    tp = None  # a TensorGroup once split (hidden features over the ranks)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(self.act(_dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+        x = _tp_in(x, self.tp)
+        return _row_dense(self.act(_dense(x, self.fc1, self.dtype)), self.fc2, self.dtype,
+                          self.tp)
 
 
 class GatedMlp(_PaddedFc2):
@@ -193,10 +226,13 @@ class GatedMlp(_PaddedFc2):
         self.fc2 = nn.Linear(hidden, out_dim or dim, bias=use_bias)
         self.fc3 = nn.Linear(dim, hidden, bias=use_bias)
 
+    tp = None  # a TensorGroup once split (hidden features over the ranks)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _tp_in(x, self.tp)
         g = _dense(x, self.fc1, self.dtype)
         u = _dense(x, self.fc3, self.dtype)
-        return _dense(F.silu(g) * u, self.fc2, self.dtype)
+        return _row_dense(F.silu(g) * u, self.fc2, self.dtype, self.tp)
 
 
 class Attention(nn.Module):
@@ -216,6 +252,8 @@ class Attention(nn.Module):
             self.q_norm = LayerNorm(self.head_dim, dtype=dtype)
             self.k_norm = LayerNorm(self.head_dim, dtype=dtype)
 
+    tp = None  # a TensorGroup once split (num_heads is then this rank's)
+
     def _split_qkv(self, x):
         B, N, _ = x.shape
         qkv = _dense(x, self.qkv, self.dtype).reshape(B, N, 3, self.num_heads, self.head_dim)
@@ -232,20 +270,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
-        B, N, C = x.shape
+        B, N, _ = x.shape
+        x = _tp_in(x, self.tp)
         if train:
             q, k, v = self._split_qkv(x)
             out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn,
                                         train=True)
-            return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
+            return _row_dense(out.transpose(1, 2).reshape(B, N, -1), self.proj, self.dtype,
+                              self.tp)
         if self._short(N, mask):
             out = (mha_short if _kernels(x, self.dtype) else mha_short_plain)(
                 _dense(x, self.qkv, self.dtype), self.num_heads, _key_bias(mask),
                 self.allow_zero_attn)
-            return _dense(out, self.proj, self.dtype)
+            return _row_dense(out, self.proj, self.dtype, self.tp)
         q, k, v = self._split_qkv(x)
         out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn)
-        return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
+        return _row_dense(out.transpose(1, 2).reshape(B, N, -1), self.proj, self.dtype, self.tp)
 
     def fused_prenorm(self, x: torch.Tensor, norm: LayerNorm,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -256,13 +296,16 @@ class Attention(nn.Module):
         QKV is one `ln_matmul`; `flash_mha` reads q/k/v as column slices of
         its output and applies the QK-norm itself. A query-dependent
         (B, N, N) mask, which a key bias cannot express, takes the generic
-        path through `attention`."""
+        path through `attention`. Split over a tensor group, the rank's heads
+        take `ln_matmul` + `mha_short` / `flash_mha` and the row-parallel
+        projection (attn_block adds the residual before the all-reduce)."""
         B, N, C = x.shape
         if mask is not None and mask.ndim == 3 and mask.shape[1] != 1:
             return x + self.forward(norm(x), mask)
         w = self.qkv.weight.to(self.dtype)
         kern = _kernels(x, self.dtype)
-        if self._short(N, mask) and (not kern or attn_block_takes(N, C, x.device, self.num_heads)):
+        if self.tp is None and self._short(N, mask) and (
+                not kern or attn_block_takes(N, C, x.device, self.num_heads)):
             return (attn_block if kern else attn_block_plain)(
                 x, norm.weight, norm.bias, w, self.qkv.bias, self.proj.weight.to(self.dtype),
                 self.proj.bias, self.num_heads, _key_bias(mask), eps=norm.eps,
@@ -272,15 +315,16 @@ class Attention(nn.Module):
         if self._short(N, mask):
             out = (mha_short if kern else mha_short_plain)(qkv, self.num_heads, _key_bias(mask),
                                                            self.allow_zero_attn)
-            return x + _dense(out, self.proj, self.dtype)
+            return x + _row_dense(out, self.proj, self.dtype, self.tp)
         if self.qk_norm:
             qn = (self.q_norm.weight, self.q_norm.bias, self.k_norm.weight, self.k_norm.bias)
         else:
             qn = (None, None, None, None)
+        Cl = self.num_heads * self.head_dim  # this rank's heads
         out = (flash_mha if kern else flash_mha_plain)(
-            qkv[:, :, :C], qkv[:, :, C:2 * C], qkv[:, :, 2 * C:], self.num_heads,
+            qkv[:, :, :Cl], qkv[:, :, Cl:2 * Cl], qkv[:, :, 2 * Cl:], self.num_heads,
             _key_bias(mask), *qn, eps=norm.eps, allow_zero_attn=self.allow_zero_attn)
-        return x + _dense(out, self.proj, self.dtype)
+        return x + _row_dense(out, self.proj, self.dtype, self.tp)
 
 
 class CrossAttention(nn.Module):
@@ -301,6 +345,8 @@ class CrossAttention(nn.Module):
             self.q_norm = LayerNorm(self.head_dim, dtype=dtype)
             self.k_norm = LayerNorm(self.head_dim, dtype=dtype)
 
+    tp = None  # a TensorGroup once split (num_heads is then this rank's)
+
     def project_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, M, _ = context.shape
         kv = _dense(context, self.kv, self.dtype).reshape(B, M, 2, self.num_heads, self.head_dim)
@@ -316,24 +362,43 @@ class CrossAttention(nn.Module):
         return self.q_norm(q) if self.qk_norm else q
 
     def attend(self, x, k, v, mask=None, train: bool = False):
-        B, N, C = x.shape
+        B, N, _ = x.shape
         q = self.project_q(x)
         out = dot_product_attention(q, k, v, mask_to_bias(mask, N), self.allow_zero_attn,
                                     train=train)
-        return _dense(out.transpose(1, 2).reshape(B, N, C), self.proj, self.dtype)
+        return _row_dense(out.transpose(1, 2).reshape(B, N, -1), self.proj, self.dtype, self.tp)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
-        k, v = self.project_kv(context)
-        return self.attend(x, k, v, mask, train)
+        k, v = self.project_kv(_tp_in(context, self.tp))
+        return self.attend(_tp_in(x, self.tp), k, v, mask, train)
+
+
+@dataclass(frozen=True)
+class RankDraws:
+    """The stochastic-depth draws of a data-parallel rank: `generator` (the
+    default one if None) draws each mask for the global batch of count * B
+    rows, shared by the ranks, and the rank's batch of B is rows [index * B,
+    (index + 1) * B) of it. Passed where a generator goes (FourM.forward's
+    `generator`), so that N ranks draw what one would."""
+
+    generator: Optional[torch.Generator]
+    index: int
+    count: int
 
 
 def draw_keep(x: torch.Tensor, drop_prob: float,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator | RankDraws] = None) -> torch.Tensor:
     """The per-sample keep mask of drop_path, (B, 1, ...) bool, drawn from
-    `generator` (the default one if None)."""
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - drop_prob
+    `generator` (the default one if None); for a RankDraws the global
+    batch's, of which the rank's rows."""
+    B = x.shape[0]
+    index, count = 0, 1
+    if isinstance(generator, RankDraws):
+        index, count, generator = generator.index, generator.count, generator.generator
+    shape = (B * count,) + (1,) * (x.ndim - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - drop_prob
+    return keep[index * B:(index + 1) * B] if count > 1 else keep
 
 
 def drop_path(x: torch.Tensor, drop_prob: float, train: bool,
@@ -382,8 +447,18 @@ def _make_mlp(gated_mlp: bool, act: str, dim: int, mlp_ratio: float, mlp_bias: b
     return cls(dim, int(dim * mlp_ratio), use_bias=mlp_bias, dtype=dtype)
 
 
+def _mlp_fuses(mlp: nn.Module) -> bool:
+    """Whether the MLP half goes through `ln_mlp`: not for an MLP split over
+    a tensor group, whose fc2 gives a partial sum that the kernel would add
+    to the residual before the all-reduce; that one takes the plain
+    products and the all-reduce."""
+    return mlp.tp is None
+
+
 def _fused_ln_mlp(norm: LayerNorm, mlp: nn.Module, x: torch.Tensor, gated: bool):
-    """x + mlp(norm(x)) through the `ln_mlp` kernel."""
+    """x + mlp(norm(x)) through the `ln_mlp` kernel (split: _mlp_fuses)."""
+    if not _mlp_fuses(mlp):
+        return x + mlp(norm(x))
     dt = mlp.dtype
     w3 = mlp.fc3.weight.to(dt) if gated else None
     b3 = mlp.fc3.bias if gated else None
@@ -480,6 +555,10 @@ class DecoderBlock(nn.Module):
         `quantize_kv_decode` (the int8 mode, transformer.py:987-993);
         xa_bias the fp32 (B, M) key bias of the encoder mask (`_key_bias`).
         Returns (x_t, cache_k, cache_v)."""
+        if any(m.tp is not None for m in (self.self_attn, self.cross_attn, self.mlp)):
+            raise NotImplementedError("the KV-cached decode step does not run tensor-parallel: "
+                                      "its kernels add the residual before an all-reduce could "
+                                      "sum the ranks' products")
         k_scale = v_scale = None
         if isinstance(cross_k, tuple):
             (cross_k, k_scale), (cross_v, v_scale) = cross_k, cross_v

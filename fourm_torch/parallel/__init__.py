@@ -1,7 +1,10 @@
-"""The single-card training step (fourm_tpu/parallel's TrainState,
-init_train_state, build_train_step and frozen_trunk_mask; the mesh, FSDP
-and tensor parallelism are not ported yet)."""
+"""Training on one card or over several (fourm_tpu/parallel): TrainState,
+init_train_state, build_train_step and frozen_trunk_mask; the mesh and its
+sharding rules (mesh.py); the process-group start (launch.py); the rank's
+shards and the step's collectives (shard.py)."""
 
+from .mesh import make_mesh
 from .train import TrainState, build_train_step, frozen_trunk_mask, init_train_state
 
-__all__ = ["TrainState", "build_train_step", "frozen_trunk_mask", "init_train_state"]
+__all__ = ["TrainState", "build_train_step", "frozen_trunk_mask", "init_train_state",
+           "make_mesh"]

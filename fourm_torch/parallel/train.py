@@ -1,11 +1,12 @@
-"""The training step on one card.
+"""The training step, on one card or over a (data, fsdp, tensor) mesh.
 
 Counterpart of fourm_tpu/parallel/train.py (reference run_training_4m.py:
-676-795) without the mesh: one eager step over the model's fp32 master
-parameters, the model computing in its compute dtype (bf16 on the card),
-gradients in fp32, then one `FusedAdamW` launch. On the card every attention
-core of the step runs `attention_train` (forward and backward kernels), the
-update `fused_adamw`; nothing of the inference kernels runs.
+676-795, run_training_4m_fsdp.py:516-555): one eager step over the model's
+fp32 master parameters, the model computing in its compute dtype (bf16 on
+the card), gradients in fp32, then one `FusedAdamW` launch. On the card
+every attention core of the step runs `attention_train` (forward and
+backward kernels), the update `fused_adamw`; nothing of the inference
+kernels runs.
 
 Gradient accumulation averages the microbatches' gradients and losses
 (train.py:146-159): the leading batch axis is then (accum, micro_batch, ...).
@@ -16,6 +17,19 @@ Metrics (train.py:172-176): `loss`, `grad_norm` (the global norm of the
 unclipped, masked gradients) and `loss_{mod}` per modality (one microbatch
 only), each a tensor on the card, so that a step does not wait for the host
 (a skipped step, skip_grad, is decided on the card too).
+
+Over a mesh (parallel/mesh.py:make_mesh, parallel/shard.py:ParallelPlan)
+each rank of the (data, fsdp) group runs its rows of the global batch (the
+ranks of a tensor group the same rows). The step is JAX's over the global
+batch: each modality's summed loss is divided by its count over the ranks
+(the counts all-reduced before the loss), so the ranks' losses and
+gradients sum to the global batch's; the stochastic-depth masks are the
+global batch's (ops/transformer.py:RankDraws); gradients are summed over
+the ranks (reduce-scatter into fsdp chunks, all-reduce otherwise) and their
+norm counts each element once, the same on every rank, so that the clip and
+skip_grad decide alike; the update is one `fused_adamw` launch over the
+rank's masters; fsdp chunks are then all-gathered into the parameters.
+`loss` and `loss_{mod}` are the global batch's.
 """
 
 from __future__ import annotations
@@ -27,28 +41,51 @@ import torch
 from torch import nn
 
 from ..api import resolve_device
+from ..ops.transformer import RankDraws
 from ..utils.optim import FusedAdamW
+from .shard import ParallelPlan, leaf_norms
 
 
 @dataclass
 class TrainState:
-    """The model (fp32 master parameters), its optimizer and the step count."""
+    """The model (fp32 master parameters), its optimizer, the step count and,
+    over a mesh, the plan of the rank's shards."""
 
     model: nn.Module
     optimizer: FusedAdamW
     step: int = 0
+    plan: Optional[object] = None
+
+
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names != ("data", "fsdp", "tensor"):
+        raise TypeError(f"mesh must be a DeviceMesh with the axes (data, fsdp, tensor) "
+                        f"(parallel.make_mesh), got {mesh!r}")
 
 
 def init_train_state(model: nn.Module, optimizer: FusedAdamW, device: Optional[str] = None,
-                     mesh=None) -> TrainState:
+                     mesh=None, shard: Optional[bool] = None) -> TrainState:
     """Move the model to `device` (the card unless "cpu" is asked; raises
-    without one) and give the optimizer zero moments there."""
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh (FSDP / tensor parallel) is not "
-                                  "ported yet: the port trains on one card")
-    model.to(resolve_device(device))
-    optimizer.init()
-    return TrainState(model, optimizer, 0)
+    without one) and give the optimizer zero moments there. With a mesh:
+    split the blocks over its tensor axis, keep the fp32 masters (and so
+    the moments) as the rank's fsdp chunks (`shard`, default fsdp > 1;
+    parallel/shard.py) and step those. The model holds its current whole
+    weights on every rank, as given: each rank must build it alike."""
+    if mesh is None:
+        model.to(resolve_device(device))
+        optimizer.init()
+        return TrainState(model, optimizer, 0)
+    _check_mesh(mesh)
+    dev = resolve_device(device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"the mesh is over {mesh.device_type} devices, the model goes to {dev}")
+    model.to(dev)
+    plan = ParallelPlan(model, mesh, shard)
+    optimizer.use_leaves(plan.named_masters()).init()
+    optimizer.plan = plan
+    return TrainState(model, optimizer, 0, plan)
 
 
 def frozen_trunk_mask(model: nn.Module) -> Dict[str, bool]:
@@ -65,6 +102,24 @@ def _micro(batch, i: int):
     return {m: {k: v[i] for k, v in d.items()} for m, d in batch.items()}
 
 
+class _OneCard:
+    """The plan of a step without a mesh: the parameters' own gradients, no
+    collective."""
+
+    batch_count = 1
+    shard = False
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+
+    def reduce_grads(self):
+        return [p.grad for p in self.model.parameters()]
+
+    @staticmethod
+    def grad_norm(grads):
+        return leaf_norms([g for g in grads if g is not None]).square().sum().sqrt().float()
+
+
 def build_train_step(model: nn.Module, optimizer: FusedAdamW, num_encoder_tokens: int,
                      num_decoder_tokens: int, loss_type: str = "mod", grad_accum_steps: int = 1,
                      mesh=None, trainable_mask: Optional[Dict[str, bool]] = None
@@ -74,25 +129,36 @@ def build_train_step(model: nn.Module, optimizer: FusedAdamW, num_encoder_tokens
     tensor}} on the model's device, with a leading (accum, micro_batch) when
     grad_accum_steps > 1; `generator` draws the stochastic-depth masks.
     trainable_mask ({name: trainable}, e.g. frozen_trunk_mask): the others'
-    gradients are zeroed and their values kept."""
+    gradients are zeroed and their values kept. mesh: the one
+    init_train_state was given (batch: this rank's rows)."""
+    plan = optimizer.plan
     if mesh is not None:
-        raise NotImplementedError("training over a mesh is not ported yet: one card only")
-    frozen_params = []
-    if trainable_mask is not None:
-        names = {n for n, _ in model.named_parameters()}
-        if set(trainable_mask) != names:
-            raise KeyError(f"trainable_mask must name every parameter: differs in "
-                           f"{sorted(set(trainable_mask) ^ names)[:5]}")
-        frozen_params = [p for n, p in model.named_parameters() if not trainable_mask[n]]
+        _check_mesh(mesh)
+        if plan is None or plan.mesh is not mesh:
+            raise ValueError("build_train_step(mesh=...): the optimizer was not initialised "
+                             "over this mesh (init_train_state(..., mesh=mesh))")
+    elif plan is not None:
+        raise ValueError("the optimizer steps a mesh's shards: pass that mesh to "
+                         "build_train_step")
+    else:
+        plan = _OneCard(model)
+    names = [n for n, _ in model.named_parameters()]
+    if trainable_mask is not None and set(trainable_mask) != set(names):
+        raise KeyError(f"trainable_mask must name every parameter: differs in "
+                       f"{sorted(set(trainable_mask) ^ set(names))[:5]}")
+    frozen = [i for i, n in enumerate(names) if trainable_mask is not None
+              and not trainable_mask[n]]
+    count_reduce = plan.reduce_batch if plan.batch_count > 1 else None
 
     def loss_fn(batch, generator):
         return model(batch, num_encoder_tokens, num_decoder_tokens, loss_type=loss_type,
-                     generator=generator)
+                     generator=generator, count_reduce=count_reduce)
 
     def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        params = optimizer.params()
-        for p in params:
+        for p in model.parameters():
             p.grad = None
+        if count_reduce is not None:
+            generator = RankDraws(generator, plan.batch_index, plan.batch_count)
         if grad_accum_steps == 1:
             loss, (mod_loss, _count) = loss_fn(batch, generator)
             loss.backward()
@@ -103,19 +169,24 @@ def build_train_step(model: nn.Module, optimizer: FusedAdamW, num_encoder_tokens
                 micro_loss, _aux = loss_fn(_micro(batch, i), generator)
                 micro_loss.backward()
                 loss = loss + micro_loss.detach()
-            grads = [p.grad for p in params if p.grad is not None]
-            torch._foreach_div_(grads, float(grad_accum_steps))
             loss = loss / grad_accum_steps
             mod_loss = {}
-        frozen_grads = [p.grad for p in frozen_params if p.grad is not None]
-        if frozen_grads:
-            torch._foreach_mul_(frozen_grads, 0.0)
-        grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
-        optimizer.step(grad_norm, trainable_mask)
+        grads = plan.reduce_grads()
+        if grad_accum_steps > 1:
+            torch._foreach_div_([g for g in grads if g is not None], float(grad_accum_steps))
+        zero = [grads[i] for i in frozen if grads[i] is not None]
+        if zero:
+            torch._foreach_mul_(zero, 0.0)
+        grad_norm = plan.grad_norm(grads)
+        optimizer.step(grad_norm, trainable_mask, grads=grads)
+        if plan.shard:
+            plan.gather_params()
         state.step += 1
-        metrics = {"loss": loss, "grad_norm": grad_norm,
-                   **{f"loss_{m}": v.detach() for m, v in mod_loss.items()}}
+        losses = {"loss": loss, **{f"loss_{m}": v.detach() for m, v in mod_loss.items()}}
+        if count_reduce is not None:
+            total = count_reduce(torch.stack([v.reshape(()).float() for v in losses.values()]))
+            losses = dict(zip(losses, total))
+        metrics = {"loss": losses.pop("loss"), "grad_norm": grad_norm, **losses}
         return state, metrics
 
     return step_fn

@@ -192,7 +192,10 @@ class FusedAdamW:
     of the others as they are. `lr_scales` ({name: float}) multiplies each
     leaf's step, weight decay included; `frozen` ({name: bool}) are never
     updated (their moments are); `decay` ({name: bool}) replaces the 4M
-    decay mask."""
+    decay mask. Over a mesh (parallel/shard.py) the optimizer steps the
+    rank's fp32 masters, `use_leaves([(name, master)])` before `init()`,
+    each a local shard or the parameter itself, and `step` takes their
+    gradients."""
 
     def __init__(self, model: nn.Module, schedule, betas=(0.9, 0.95), eps: float = 1e-8,
                  weight_decay: float = 0.05, clip_grad: Optional[float] = None,
@@ -218,9 +221,17 @@ class FusedAdamW:
         self._lr: Optional[torch.Tensor] = None
         self._bias: Optional[torch.Tensor] = None
         self._tables: Dict[tuple, AdamwTable] = {}
+        self._leaves = None  # [(name, fp32 master)] over a mesh
+        self.plan = None  # parallel/shard.py's ParallelPlan over a mesh
+
+    def use_leaves(self, leaves) -> "FusedAdamW":
+        """Step these (name, tensor) leaves in place of the model's
+        parameters (a rank's master shards); init() afterwards."""
+        self._leaves = list(leaves)
+        return self
 
     def named_params(self):
-        return list(self.model.named_parameters())
+        return self._leaves if self._leaves is not None else list(self.model.named_parameters())
 
     def params(self) -> List[torch.Tensor]:
         return [p for _, p in self.named_params()]
@@ -274,7 +285,10 @@ class FusedAdamW:
         return decay, scales, (None if all(train) else train)
 
     def step(self, grad_norm: Optional[torch.Tensor] = None,
-             trainable: Optional[Dict[str, bool]] = None) -> None:
+             trainable: Optional[Dict[str, bool]] = None,
+             grads: Optional[List[Optional[torch.Tensor]]] = None) -> None:
+        """grads: the leaves' gradients in named_params order (default their
+        `.grad`)."""
         named = self.named_params()
         names = [n for n, _ in named]
         params = [p.detach() for _, p in named]
@@ -292,7 +306,9 @@ class FusedAdamW:
                 table = self._tables[key] = AdamwTable(params, mu, nu, decay, scales, train)
         steps = self.step_tables()
         s = AdamScalars(self.b1, self.b2, self.eps, self.weight_decay)
-        fused_adamw(params, [p.grad for _, p in named], mu, nu, decay, s, steps,
+        if grads is None:
+            grads = [p.grad for _, p in named]
+        fused_adamw(params, grads, mu, nu, decay, s, steps,
                     grad_norm, self.clip_grad, table, lr_scale=scales, trainable=train,
                     skip_max=self.skip_grad)
         self._calls += 1

@@ -24,6 +24,15 @@ batch rows or noise, k-means' first means) is an argument here (`draws`,
 `init_idx`), drawn from an explicit torch.Generator when not given, so a
 test can feed the JAX package's draws.
 
+Data parallel (`group`, a process group over which the batch is split in
+rank order; cli/train_vqvae.py sets it): the one-hot EMA sums are
+all-reduced before the update, dead codes take their rows from the global
+batch (all-gathered, the row index drawn over it from the shared
+generator), k-means runs on the global batch, and gumbel noise is drawn for
+the global batch, of which each rank takes its rows. So every rank keeps the
+same codebook, the one a single process would keep on the global batch
+(the JAX package's TestMultiDeviceVQ, tests/test_parallel.py:166).
+
 Channel-last: latents (B, N, dim) -> (quantize (B, N, dim), indices
 (B, N[, heads]), loss).
 """
@@ -34,6 +43,7 @@ import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ..kernels.vq_codebook import nearest_code, nearest_code_cosine
@@ -57,6 +67,26 @@ def fp32_products():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The global batch's rows: every rank's t (equal shapes) concatenated
+    along dim 0 in rank order (t itself without a group)."""
+    if group is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(tdist.get_world_size(group))]
+    tdist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def rank_rows(shape, group, generator, device, draw=torch.rand) -> torch.Tensor:
+    """A draw of `shape` (this rank's rows first) made for the global batch
+    from the shared generator, of which this rank's rows."""
+    if group is None:
+        return draw(shape, generator=generator, device=device)
+    n, r = tdist.get_world_size(group), tdist.get_rank(group)
+    full = draw((shape[0] * n,) + tuple(shape[1:]), generator=generator, device=device)
+    return full[r * shape[0]:(r + 1) * shape[0]]
 
 
 def euclidean_distance_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -183,6 +213,8 @@ class VectorQuantize(nn.Module):
             self.project_out = nn.Linear(cdim * heads, dim)
         self._codebook = Codebook(codebook_size, cdim, kmeans_init)
 
+    group = None  # the data-parallel process group, if any (see the module docstring)
+
     @property
     def codebook(self) -> torch.Tensor:
         return self._codebook.embed
@@ -256,8 +288,11 @@ class VectorQuantize(nn.Module):
             if self.sample_codebook_temp > 0:
                 dist = ((flatten_n @ l2norm(embed).t()) if self.use_cosine_sim
                         else euclidean_distance_logits(flatten, embed))
-                ind = gumbel_sample(dist, self.sample_codebook_temp, draws.get("gumbel_u"),
-                                    generator)
+                u = draws.get("gumbel_u")
+                if u is None and self.group is not None:
+                    u = rank_rows(dist.shape, self.group, generator, dist.device)
+                    u = u * (1.0 - 1e-20) + 1e-20
+                ind = gumbel_sample(dist, self.sample_codebook_temp, u, generator)
             else:
                 ind = nearest(flatten_n, l2norm(embed) if self.use_cosine_sim else embed,
                               self.use_cosine_sim)
@@ -278,6 +313,10 @@ class VectorQuantize(nn.Module):
         """The codebook's EMA step (quantizer.py:217-246), in place."""
         cb, d = self._codebook, self.decay
         bins, embed_sum = cluster_sums(ind, flatten, self.codebook_size)
+        if self.group is not None:  # the global batch's sums
+            sums = torch.cat([bins[:, None], embed_sum], 1)
+            tdist.all_reduce(sums, group=self.group)
+            bins, embed_sum = sums[:, 0], sums[:, 1:]
         cb.cluster_size.copy_(d * cb.cluster_size + (1 - d) * bins)
         if self.use_cosine_sim:
             normalized = l2norm(embed_sum / bins.clamp_min(1.0)[:, None])
@@ -300,7 +339,8 @@ class VectorQuantize(nn.Module):
         expired = cb.cluster_size < self.threshold_ema_dead_code
         embed = cb.embed
         if self.code_replacement_policy == "batch_random":
-            flat = l2norm(batch_samples.reshape(-1, batch_samples.shape[-1]))
+            flat = l2norm(gather_rows(batch_samples, self.group)
+                          .reshape(-1, batch_samples.shape[-1]))
             idx = draws.get("expire_idx")
             if idx is None:
                 idx = torch.randint(0, flat.shape[0], (K,), generator=generator,
@@ -322,7 +362,7 @@ class VectorQuantize(nn.Module):
         (quantizer.py:182-192; reference quantize_lucid.py:222-233): embed,
         embed_avg and cluster_size from `kmeans`, initted set."""
         with torch.no_grad():
-            flat = data.reshape(-1, data.shape[-1]).float()
+            flat = gather_rows(data, self.group).reshape(-1, data.shape[-1]).float()
             if self.use_cosine_sim:
                 flat = l2norm(flat)
             means, bins = kmeans(flat, self.codebook_size, use_cosine_sim=self.use_cosine_sim,

@@ -1,0 +1,162 @@
+"""The ranks of tests/test_torch_parallel*.py: jobs run in every process of a
+world-2 gloo group (started with torch.multiprocessing.spawn on a file://
+store under the test's tmp_path, one torch thread a process). Imports
+torch and fourm_torch only, so that a spawned process loads no JAX.
+
+`spawn(tmp_path, jobs)` writes the jobs, runs them on both ranks in turn,
+and returns rank 0's results: {job name: result}. A job is a dict with
+"kind" ("train", "forward" or "vq") and "name"; see run_* below.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+WORLD = 2
+
+
+def spawn(tmp_path, jobs, world: int = WORLD) -> dict:
+    import torch.multiprocessing as mp
+
+    path = os.path.join(str(tmp_path), "jobs.pt")
+    torch.save(jobs, path)
+    mp.spawn(_child, args=(world, str(tmp_path)), nprocs=world, join=True)
+    return torch.load(os.path.join(str(tmp_path), "results.pt"), weights_only=False)
+
+
+def _child(rank: int, world: int, tmp: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            rank=rank, world_size=world)
+    jobs = torch.load(os.path.join(tmp, "jobs.pt"), weights_only=False)
+    results = {}
+    for job in jobs:
+        if job.get("resume_from"):  # rank 0's full state of an earlier job, on every rank
+            obj = [results[job["resume_from"]].get("saved")]
+            dist.broadcast_object_list(obj, src=0)
+            job = dict(job, resume=obj[0])
+        results[job["name"]] = {"train": run_train, "forward": run_forward,
+                                "vq": run_vq}[job["kind"]](job)
+        dist.barrier()
+    if rank == 0:
+        torch.save(results, os.path.join(tmp, "results.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def build_model(job):
+    from fourm_torch.models import FourM, create_fourm_config
+
+    cfg = create_fourm_config(job["flavor"], job["mods"], job["dec"], **job["config"])
+    model = FourM(cfg)
+    model.load_state_dict(job["state"], strict=True)
+    return model
+
+
+def _torch(batch):
+    from fourm_torch.utils.synthetic import to_torch
+
+    return to_torch(batch, "cpu")
+
+
+def local_batch(batch, plan, accum: int):
+    """The rank's rows of a global numpy batch, (accum, rows) when accum > 1."""
+    from fourm_torch.cli.train_4m import rows_of
+
+    b = _torch(rows_of(batch, plan.batch_index, plan.batch_count, accum))
+    if accum > 1:
+        b = {m: {k: v.reshape((accum, -1) + v.shape[1:]) for k, v in d.items()}
+             for m, d in b.items()}
+    return b
+
+
+def run_train(job):
+    """job: mesh (make_mesh kwargs), flavor / mods / dec / config / state (the
+    model), opt (create_optimizer kwargs; "frozen_trunk": the trainable mask),
+    sched, accum, batches (global numpy batches, one a step), gen_seed
+    (drop-path generator), resume (a full state to load first), save_after
+    (steps after which to keep the full state). -> rank 0's metrics a step,
+    the final full state, the saved state, this job's per-rank counts and
+    local-count losses of the first batch (counts), every rank's bytes."""
+    from fourm_torch.parallel import (build_train_step, frozen_trunk_mask, init_train_state,
+                                      make_mesh)
+    from fourm_torch.utils import optim
+
+    mesh = make_mesh(**job["mesh"])
+    model = build_model(job)
+    opt = dict(job.get("opt", {}))
+    mask = frozen_trunk_mask(model) if opt.pop("frozen_trunk", False) else None
+    tx = optim.create_optimizer(model, optim.cosine_schedule(*job["sched"]), **opt)
+    state = init_train_state(model, tx, device="cpu", mesh=mesh)
+    plan = state.plan
+    out = {"bytes": _gather_obj(plan.param_bytes())}
+    if job.get("resume") is not None:
+        m_sd, o_sd = job["resume"]
+        plan.load_full(m_sd, tx, o_sd)
+    if job.get("counts"):
+        b = local_batch(job["batches"][0], plan, 1)
+        with torch.no_grad():
+            loss, (_, counts) = model(b, job["ni"], job["nt"])
+        out["counts"] = _gather_obj({"loss": float(loss),
+                                     "counts": {m: int(c) for m, c in counts.items()}})
+    step = build_train_step(model, tx, job["ni"], job["nt"], mesh=mesh,
+                            grad_accum_steps=job.get("accum", 1), trainable_mask=mask)
+    gen = None if job.get("gen_seed") is None else torch.Generator().manual_seed(job["gen_seed"])
+    metrics = []
+    for i, batch in enumerate(job["batches"]):
+        state, m = step(state, local_batch(batch, plan, job.get("accum", 1)), gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if job.get("save_after") == i + 1:
+            out["saved"] = plan.full_state(tx)
+    out["metrics"] = metrics
+    out["full"] = plan.full_state(tx)
+    out["count"] = tx.count
+    return out
+
+
+def run_forward(job):
+    """forward_generation_img of a tensor-split model: job mesh, the model,
+    mod_dict (numpy), target, sa_keys_valid. -> logits (rank 0's), every
+    rank's parameter bytes."""
+    from fourm_torch.parallel import make_mesh
+    from fourm_torch.parallel.shard import ParallelPlan
+
+    mesh = make_mesh(**job["mesh"])
+    model = build_model(job)
+    plan = ParallelPlan(model, mesh)
+    with torch.no_grad():
+        logits = model.forward_generation_img(_torch(job["mod_dict"]), job["target"],
+                                              torch.from_numpy(job["sa_keys_valid"]))
+    return {"logits": logits.numpy(), "bytes": _gather_obj(plan.param_bytes()),
+            "split_heads": [m.num_heads for m in model.modules() if hasattr(m, "tp")
+                            and m.tp is not None and hasattr(m, "num_heads")]}
+
+
+def run_vq(job):
+    """A VectorQuantize training forward over the world's group, each rank
+    on its rows of x: job quantizer kwargs, codebook, x (global), draws
+    (global). -> indices and losses of every rank, the codebook."""
+    from fourm_torch.vq import quantizer as tq
+
+    pm = tq.VectorQuantize(**job["kwargs"])
+    pm.group = dist.group.WORLD
+    pm._codebook.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in
+                                  job["codebook"].items()})
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.from_numpy(job["x"])
+    b = x.shape[0] // n
+    draws = {k: torch.from_numpy(v) for k, v in job["draws"].items()}
+    _, ind, loss = pm(x[r * b:(r + 1) * b], train=True, draws=draws)
+    return {"ind": _gather_obj(ind.numpy()), "loss": _gather_obj(float(loss)),
+            "codebook": {k: v.clone() for k, v in pm._codebook.state_dict().items()},
+            "codebooks_equal": _gather_obj(pm._codebook.embed.clone())}
+
+
+def _gather_obj(obj):
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out

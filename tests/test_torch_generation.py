@@ -134,7 +134,8 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_fourm_tpu():
     files = (sorted((REPO / "fourm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + [REPO / "scripts" / f"{name}.py" for name in ("chip_tokenizer", "chip_transfer")])
+             + [REPO / "scripts" / f"{name}.py" for name in ("chip_tokenizer", "chip_transfer",
+                                                             "chip_parallel", "chip_multicard")])
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):  # every import, inside functions too
@@ -162,6 +163,8 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
             "fourm_torch.data.augmenters, fourm_torch.data.masking, fourm_torch.data.batching, "
             "fourm_torch.data.loader, fourm_torch.data.image_io, fourm_torch.native, "
             "fourm_torch.utils.synthetic_shards, fourm_torch.parallel, "
+            "fourm_torch.parallel.launch, fourm_torch.parallel.mesh, "
+            "fourm_torch.parallel.shard, fourm_torch.ops.tensor_parallel, "
             "fourm_torch.data.transfer, fourm_torch.models.fm_vit, fourm_torch.models.lora, "
             "fourm_torch.utils.remote, fourm_torch.utils.profiling, fourm_torch.utils.drawing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

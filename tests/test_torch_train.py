@@ -306,14 +306,16 @@ def test_drop_path():
 
 
 def test_what_is_not_ported_raises():
-    """Training over a mesh (FSDP / tensor parallel) raises. skip_grad, the
-    frozen mask, layer decay and remat, which raised here before, are held
-    to JAX by tests/test_torch_train_features.py."""
+    """A mesh that is not a (data, fsdp, tensor) DeviceMesh raises: training
+    over a mesh (data parallel, FSDP, tensor parallel) is held to JAX's by
+    tests/test_torch_parallel.py. skip_grad, the frozen mask, layer decay
+    and remat, which raised here before, are held to JAX by
+    tests/test_torch_train_features.py."""
     tm = _tiny_port()
     tx = optim.create_optimizer(tm, optim.constant_schedule(1e-3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         init_train_state(tm, tx, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(tm, tx, NI, NT, mesh=object())
 
 
