@@ -260,13 +260,23 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      parallel and FSDP-wrapped, exact launches, losses and masters against
      the step without a mesh. `python3 chip_smoke.py --part parallel` runs
      the build and this phase alone. More than one card:
-     scripts/chip_multicard.py under torchrun.
+     scripts/chip_multicard.py under torchrun;
+  16. the VQControlNet tokenizer (scripts/chip_controlnet.py, which says
+     what it runs and gates) at the full width of
+     ViTB-SD1.5_1k_224-448.yaml: tokenize and controlnet_decode_tokens, CFG
+     off and on, the tokenize's launches held to their twins, the latents
+     and tokens against the CPU, a CPU parity at num_res_blocks 1 (C1);
+     cli.train_vqcontrolnet for 6 steps at B = 32, exact launches, step 1's
+     held to their twins, the frozen parameters bit for bit (C2); its tokenizer.safetensors through
+     get_image_tokenizer (C3). `python3 chip_smoke.py --part controlnet`
+     runs the build and this phase alone.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
 SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
 pre-training run, on phase 13's tokenizer paths, on phase 14's transfer
-paths and on phase 15's mesh paths); the last line is
+paths, on phase 15's mesh paths and on phase 16's ControlNet paths); the
+last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -1960,15 +1970,45 @@ def vq_kernel_phase(torch, card: str):
     return results
 
 
-def build_model(torch, dtype: str, device: str, seed: int = 0, name: str = MODEL,
+class skip_init:
+    """Modules built inside take no default initialisation (torch.nn.init's
+    functions return their tensor untouched): for a copy whose every
+    parameter a strict load_state_dict overwrites next (a CPU copy of 4M-21
+    B took 10 s to draw weights it then dropped)."""
+
+    NAMES = ("kaiming_uniform_", "uniform_", "normal_", "trunc_normal_", "zeros_", "ones_",
+             "constant_", "xavier_uniform_")
+
+    def __init__(self):
+        import torch
+
+        self.init = torch.nn.init
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.init, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.init, n, lambda t, *a, **k: t)
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.init, n, f)
+
+
+def build_model(torch, dtype: str, device: str, seed=0, name: str = MODEL,
                 mods=(MOD21, MOD21_DEC), **overrides):
+    """The chain's model with seeded random weights; seed None: no weights
+    drawn at all (for a copy that loads a state next)."""
     from fourm_torch.models import FourM, create_fourm_config, init_weights
 
     cfg = create_fourm_config(name, *mods, dtype=dtype, **overrides)
     with torch.device(device):
-        model = FourM(cfg)
+        if seed is None:
+            with skip_init():
+                model = FourM(cfg)
+        else:
+            model = FourM(cfg)
     model = model.to(device=device, dtype=cfg.compute_dtype)
-    return init_weights(model, seed).eval()
+    return (model if seed is None else init_weights(model, seed)).eval()
 
 
 def chain_launches(depth: int, n_tok: int, kv_quant=None) -> dict:
@@ -2222,7 +2262,7 @@ def cpu_models(torch, model, name: str = MODEL, **overrides):
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
     models = {}
     for dtype in ("float32", "bfloat16"):
-        models[dtype] = build_model(torch, dtype, "cpu", name=name, **overrides)
+        models[dtype] = build_model(torch, dtype, "cpu", seed=None, name=name, **overrides)
         models[dtype].load_state_dict(state)
     return models
 
@@ -3332,18 +3372,24 @@ def xl_phase(torch, card: str):
                  if n.startswith(("encoder.", "decoder.")))
     print(f"xl model {XL_MODEL}: {params} parameters, {blocks} in the 24 + 24 blocks, "
           f"bf16, random (seed 0)", flush=True)
+    t0 = time.perf_counter()
     out, xl_launches, _ = chain_phase(torch, model, card, XL_REQUESTS, XL_DEPTH,
                                       label="xl_chain")
+    t1 = time.perf_counter()
     out8, int8_launches, _ = chain_phase(torch, model, card, XL_REQUESTS, XL_DEPTH,
                                          kv_quant="int8", label="int8_chain")
+    t2 = time.perf_counter()
     token_agreement(torch, out, out8, "xl_chain bf16 vs int8", card)
     decode_bench(torch, model, out, card, label=" XL")
     decode_bench(torch, model, out, card, kv_quant="int8", label=" XL")
+    t3 = time.perf_counter()
     del model, out8
     torch.cuda.empty_cache()
     cut = dict(encoder_depth=2, decoder_depth=2)  # depth cut for the CPU's fp32 runs
     model = build_model(torch, "bfloat16", "cuda", seed=1, name=XL_MODEL, **cut)
     cpu = cpu_models(torch, model, XL_MODEL, **cut)
+    print(f"xl phase seconds: bf16 chain {t1 - t0:.1f}, int8 chain {t2 - t1:.1f}, decode "
+          f"benches {t3 - t2:.1f}, 2 + 2 models {time.perf_counter() - t3:.1f}", flush=True)
     parity_phase(torch, model, out, cpu, label="xl parity (2 + 2 layers)")
     decode_parity_phase(torch, model, out, cpu, label="xl decode parity (2 + 2 layers)")
     decode_parity_phase(torch, model, out, cpu, kv_quant="int8",
@@ -3736,7 +3782,8 @@ def cpu_copies(model, build) -> dict:
     state = {k: v.float().cpu() for k, v in model.state_dict().items()}
     out = {}
     for dtype in ("float32", "bfloat16"):
-        out[dtype] = build(dtype)
+        with skip_init():
+            out[dtype] = build(dtype)
         out[dtype].load_state_dict(state)
     return out
 
@@ -3779,7 +3826,11 @@ def train_model(torch, device: str, dtype: str = "bfloat16", seed=0, **overrides
     cfg = create_fourm_config(TRAIN_MODEL, MOD7_MODALITIES, MOD7_DECODER_MODALITIES, dtype=dtype,
                               **overrides)
     with torch.device(device):
-        model = FourM(cfg)
+        if seed is None:
+            with skip_init():
+                model = FourM(cfg)
+        else:
+            model = FourM(cfg)
     return model if seed is None else init_weights(model, seed)
 
 
@@ -4806,7 +4857,8 @@ def pretrain_parity_phase(torch, batch, card: str) -> None:
     for dtype in ("float32", "bfloat16"):
         cpu_cfg, _, _ = pretrain_config(encoder_depth=PRETRAIN_DEPTH,
                                         decoder_depth=PRETRAIN_DEPTH, dtype=dtype)
-        cm = FourM(cpu_cfg)
+        with skip_init():
+            cm = FourM(cpu_cfg)
         cm.load_state_dict(state)
         with torch.no_grad():
             ref[dtype] = float(cm(to_torch(small, "cpu"), PRETRAIN_TOKENS, PRETRAIN_TOKENS)[0])
@@ -4860,8 +4912,14 @@ def parallel_phase(torch, card: str) -> dict:
         torch, card, check, train_model, train_batch, PER_TRAIN_STEP, TRAIN_BATCH, TRAIN_TOKENS)
 
 
+def controlnet_phase(torch, card: str) -> dict:
+    """Phase 16 (scripts/chip_controlnet.py): the VQControlNet tokenizer."""
+    return script_module("chip_controlnet").controlnet_phase(torch, card, check, latent_gate,
+                                                             token_gate, skip_init)
+
+
 def script_module(name: str):
-    """scripts/<name>.py beside this script (phases 13-14)."""
+    """scripts/<name>.py beside this script (phases 13-16)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
@@ -4877,9 +4935,10 @@ def main() -> int:
     import torch
 
     parts = argparse.ArgumentParser(description="smoke run of the port on one card")
-    parts.add_argument("--part", choices=["all", "tokenizer", "transfer", "parallel"],
-                       default="all", help="'tokenizer' / 'transfer' / 'parallel': the build "
-                       "and phase 13 / 14 / 15 alone")
+    parts.add_argument("--part", choices=["all", "tokenizer", "transfer", "parallel",
+                                          "controlnet"],
+                       default="all", help="'tokenizer' / 'transfer' / 'parallel' / "
+                       "'controlnet': the build and phase 13 / 14 / 15 / 16 alone")
     part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -4907,6 +4966,8 @@ def main() -> int:
             script_module("chip_tokenizer").tokenizer_phase(torch, card, check)
         elif part == "parallel":
             parallel_phase(torch, card)
+        elif part == "controlnet":
+            controlnet_phase(torch, card)
         else:
             script_module("chip_transfer").transfer_phase(torch, card, check, gate, time_ms)
         print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
@@ -4916,13 +4977,20 @@ def main() -> int:
               flush=True)
         return 0
 
+    last = [t_start]
+
     def mark(label: str) -> None:
-        """The script's clock after a phase (its budget is PERF.md's)."""
-        print(f"[{time.perf_counter() - t_start:.1f} s] {label} done", flush=True)
+        """The script's clock after a phase, and the phase's seconds (its
+        budget is PERF.md's)."""
+        now = time.perf_counter()
+        print(f"[{now - t_start:.1f} s] {label} done ({now - last[0]:.1f} s)", flush=True)
+        last[0] = now
 
     results = kernel_phase(torch, card)
     torch.cuda.empty_cache()  # each phase starts from an empty allocator cache
+    mark("kernel phase 2")
     results += xl_kernel_phase(torch, card)
+    mark("kernel phase 2b")
     torch.cuda.empty_cache()
     results += narrow_kernel_phase(torch, card)
     torch.cuda.empty_cache()
@@ -4931,27 +4999,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
     out, launches, _ = chain_phase(torch, model, card)
+    mark("phase 3 chain")
     decode_bench(torch, model, out, card)
     decode_bench(torch, model, out, card, kv_quant="int8")
+    mark("phase 3 decode bench")
     cpu = cpu_models(torch, model)
+    mark("phase 4 CPU models")
     parity_phase(torch, model, out, cpu)
     decode_parity_phase(torch, model, out, cpu)
     mark("phases 3-4")
     del cpu
     bundles = build_tokenizers(torch)
     dec, decode_launches = decode_phase(torch, model, out, bundles, card)
+    mark("phase 10a")
     uvit_launches, uvit = uvit_decode_phase(torch, card)
+    mark("phase 10 UViT")
     decode_tokens_parity_phase(torch, bundles, uvit, out, dec)
     mark("phase 10")
     sr_model, sr_out, sr_chain_launches = sr_phase(torch, card)
+    mark("phase 3c")
     resolve_launches = super_resolve_phase(torch, card, sr_model, model, out)
+    mark("super_resolve")
     del sr_model
     torch.cuda.empty_cache()
     decode448_launches, uvit448_launches = decode448_phase(torch, model, sr_out, bundles, uvit,
                                                            card)
+    mark("phase 10b")
     sr_parity_phase(torch, sr_out)
     mark("phases 3c, 10b, 4c")
     api_launches = generate_api_phase(torch, model, card)
+    mark("phase 3f")
     ckpt_launches = checkpoint_phase(torch, model, bundles, card)
     mark("phases 3f, 11")
     del model, out, bundles, uvit, dec, sr_out
@@ -4960,21 +5037,27 @@ def main() -> int:
     mark("phase 3b")
     torch.cuda.empty_cache()
     narrow_launches = narrow_phase(torch, card)
+    mark("phase 3d")
     torch.cuda.empty_cache()
     fp32_phase(torch, card)
     mark("phases 3d, 3e")
     torch.cuda.empty_cache()
     results += vq_kernel_phase(torch, card)
+    mark("kernel phase 5")
     torch.cuda.empty_cache()
     vq_launches, vq_models, vq_x = vq_phase(torch, card)
+    mark("phase 6")
     vq_parity_phase(torch, vq_models, vq_x)
+    mark("phase 7")
     vq448_phase(torch, vq_models, card)
     mark("phases 5-7")
     del vq_models, vq_x
     torch.cuda.empty_cache()
     results += train_kernel_phase(torch, card)
+    mark("kernel phase 8")
     torch.cuda.empty_cache()
     train_launches = train_phase(torch, card)
+    mark("phase 9")
     torch.cuda.empty_cache()
     train_parity_phase(torch, card)
     mark("phases 8-9")
@@ -4992,6 +5075,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel_launches = parallel_phase(torch, card)
     mark("phase 15")
+    torch.cuda.empty_cache()
+    controlnet_launches = controlnet_phase(torch, card)
+    mark("phase 16")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -5008,6 +5094,7 @@ def main() -> int:
         r["tokenizer_launches"] = {p: n[wrapper] for p, n in tokenizer_launches.items()}
         r["transfer_launches"] = {p: n[wrapper] for p, n in transfer_launches.items()}
         r["parallel_launches"] = {p: n[wrapper] for p, n in parallel_launches.items()}
+        r["controlnet_launches"] = {p: n[wrapper] for p, n in controlnet_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

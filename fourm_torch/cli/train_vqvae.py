@@ -21,8 +21,10 @@ blocks, the codebook search through `nearest_code_cosine` /
 `nearest_code`, the EMA update of the codebook, and one `fused_adamw`
 launch over the fp32 master parameters. The model EMA is kept beside the
 masters, fp32, updated after each step. A frozen encoder (`--freeze_enc`)
-is neither read nor written by the optimizer, so it stays bit for bit (the
-JAX chain's AdamW decays it, ROADMAP).
+is left out of the optimizer (no moments; neither read nor written), so it
+stays bit for bit (the JAX chain's AdamW decays it, ROADMAP).
+cli/train_vqcontrolnet.py runs the same Trainer (its diffusion in a VAE's
+latent space through the `diffusion_target` hook) and `train_loop`.
 
 What differs from the JAX CLI, and why:
   * `--kmeans_init` initialises the codebook by k-means on the first
@@ -294,29 +296,26 @@ def folder_batches(args, rank: int = 0):
 
 class Trainer:
     """One tokenizer run's state and step: the model (fp32 masters and the
-    codebook buffers), FusedAdamW, the model EMA, the step count and the
-    generator of the step's draws. group: the data-parallel process group
-    (None: one process); the model and codebook stay equal on its ranks."""
+    codebook buffers), FusedAdamW over its trainable parameters, the model
+    EMA, the step count and the generator of the step's draws. group: the
+    data-parallel process group (None: one process); the model and codebook
+    stay equal on its ranks. `model`: a tokenizer built by the caller (its
+    frozen parameters without requires_grad), else build_model's."""
 
-    def __init__(self, args, device, group=None):
-        from ..utils.optim import cosine_schedule, create_optimizer, weight_decay_mask
+    def __init__(self, args, device, group=None, model=None):
         from ..vq.quantizer import VectorQuantize
 
         self.args, self.device, self.group = args, device, group
         self.world = 1 if group is None else torch.distributed.get_world_size(group)
-        self.model = build_model(args, device)
+        self.model = build_model(args, device) if model is None else model
         for m in self.model.modules():
             if isinstance(m, VectorQuantize):
                 m.group = group
-        self.is_divae = args.model_type == "divae"
-        self.scheduler = self.model.noise_scheduler() if self.is_divae else None
-        lr = args.blr * args.batch_size * self.world / 256.0
-        frozen = frozen_names(self.model, args.freeze_enc)
-        self.opt = create_optimizer(
-            self.model, cosine_schedule(lr, args.total_steps, args.warmup_steps),
-            weight_decay=args.weight_decay, clip_grad=args.clip_grad,
-            frozen_mask={n: n in frozen for n, _ in self.model.named_parameters()},
-            decay_mask=weight_decay_mask(self.model, vectors=False)).init()
+        self.diffusion = args.model_type != "vqvae"
+        self.scheduler = self.model.noise_scheduler() if self.diffusion else None
+        self.opt = make_optimizer(self.model, args, self.world,
+                                  {n for n, p in self.model.named_parameters()
+                                   if not p.requires_grad})
         self.ema = ({n: p.detach().clone() for n, p in self.model.named_parameters()}
                     if args.model_ema else None)
         self.gen = torch.Generator(device=device).manual_seed(args.seed + 2)
@@ -324,6 +323,15 @@ class Trainer:
         self.lpips = None
         if args.percept_loss_weight > 0 and args.n_labels is None:
             self.lpips = build_lpips(args, device)
+
+    def config(self) -> Dict:
+        """The tokenizer's constructor config (the export's metadata)."""
+        return model_config(self.args)
+
+    def diffusion_target(self, x: torch.Tensor, draws: Dict) -> torch.Tensor:
+        """The clean sample a diffusion decoder learns to denoise: the image
+        itself (DiVAE)."""
+        return x
 
     def state(self) -> Dict:
         m = self.model
@@ -349,34 +357,36 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One step (train_vqvae.py:273-325) -> {"loss", "rec", "code_loss",
         "grad_norm"}, tensors on the card. `draws`: the step's random draws
-        where given ("noise", "timesteps", and the model's: VectorQuantize /
-        DiVAE.forward), else from the trainer's generator."""
+        where given ("noise", "timesteps", those of `diffusion_target`, and
+        the model's: VectorQuantize / DiVAE.forward), else from the trainer's
+        generator."""
         args, m, gen = self.args, self.model, self.gen
         draws = draws or {}
         for p in self.opt.params():
             p.grad = None
-        if self.is_divae:
+        if self.diffusion:
             from ..vq.quantizer import rank_rows
 
             x = batch.float()
+            z = self.diffusion_target(x, draws)
             noise = draws.get("noise")
             if noise is None:
-                noise = rank_rows(x.shape, self.group, gen, x.device, torch.randn)
+                noise = rank_rows(z.shape, self.group, gen, z.device, torch.randn)
             t = draws.get("timesteps")
             if t is None:
-                t = rank_rows((x.shape[0],), self.group, gen, x.device,
+                t = rank_rows((z.shape[0],), self.group, gen, z.device,
                               lambda shape, **kw: torch.randint(0, args.num_train_timesteps,
                                                                 shape, **kw))
-            noised = self.scheduler.add_noise(x, noise, t)
+            noised = self.scheduler.add_noise(z, noise, t)
             pred, code_loss = m(x, noised, t, train=True, draws=draws, generator=gen)
-            target = {"v_prediction": lambda: self.scheduler.get_velocity(x, noise, t),
-                      "epsilon": lambda: noise, "sample": lambda: x}[args.prediction_type]()
+            target = {"v_prediction": lambda: self.scheduler.get_velocity(z, noise, t),
+                      "epsilon": lambda: noise, "sample": lambda: z}[args.prediction_type]()
             rec = compute_reconst_loss(pred.float(), target, args.loss_fn)
         else:
             pred, code_loss = m(batch, train=True, draws=draws, generator=gen)
             rec = compute_reconst_loss(pred.float(), batch, args.loss_fn)
         total = rec + args.codebook_weight * code_loss
-        if self.lpips is not None and (not self.is_divae or args.prediction_type == "sample"):
+        if self.lpips is not None and (not self.diffusion or args.prediction_type == "sample"):
             total = total + args.percept_loss_weight * self.lpips(pred.float(),
                                                                   batch.float()).mean()
         total.backward()
@@ -391,6 +401,22 @@ class Trainer:
         self.step += 1
         return {"loss": metrics[0], "rec": metrics[1], "code_loss": metrics[2],
                 "grad_norm": grad_norm}
+
+
+def make_optimizer(model, args, world: int, frozen: set):
+    """FusedAdamW of the JAX create_optimizer (train_vqvae.py:240-243): lr =
+    blr x batch_size x world / 256 on the cosine schedule, a global-norm
+    clip, AdamW with the JAX tree's decay mask (every vector spared), over
+    the parameters outside `frozen` only (those get no moments and are
+    neither read nor written)."""
+    from ..utils.optim import cosine_schedule, create_optimizer, weight_decay_mask
+
+    lr = args.blr * args.batch_size * world / 256.0
+    opt = create_optimizer(model, cosine_schedule(lr, args.total_steps, args.warmup_steps),
+                           weight_decay=args.weight_decay, clip_grad=args.clip_grad,
+                           decay_mask=weight_decay_mask(model, vectors=False))
+    return opt.use_leaves([(n, p) for n, p in model.named_parameters()
+                           if n not in frozen]).init()
 
 
 def average_over(tensors, group, world: int) -> None:
@@ -483,7 +509,7 @@ def export_tokenizer(trainer: Trainer, path: str, weights=None) -> None:
     place of its parameters when given, and its config as metadata."""
     from ..utils.checkpoint import export_vq_safetensors
 
-    export_vq_safetensors(trainer.model, model_config(trainer.args), path, overrides=weights)
+    export_vq_safetensors(trainer.model, trainer.config(), path, overrides=weights)
 
 
 def save(trainer: Trainer, output_dir: str) -> None:
@@ -496,28 +522,23 @@ def save(trainer: Trainer, output_dir: str) -> None:
                          trainer.ema)
 
 
-def main(args=None):
-    from ..api import resolve_device
+def train_loop(trainer: Trainer, eval_fn=None, rank: int = 0, world: int = 1) -> None:
+    """A run from its last checkpoint under --output_dir (auto-resume) to
+    --total_steps: synthetic batches (this rank's rows) or a folder's, the
+    k-means init on the first batch where the codebook waits for it, one
+    train_step a batch, the metrics printed and logged every --print_freq
+    steps (a non-finite one raises), eval_fn(trainer, batch) -> {name:
+    value} every --eval_freq steps on rank 0, a checkpoint every
+    --save_ckpt_freq steps and at the end (rank 0 writes it)."""
+    from ..parallel.launch import barrier
     from ..utils.checkpoint import auto_resume
-    from ..utils.config import parse_args_with_config
     from ..utils.logger import JSONLLogger
 
-    from ..parallel.launch import (barrier, initialize_multihost, is_main_process,
-                                   process_count, process_index, shutdown)
-
-    args = parse_args_with_config(get_parser(), args)
-    if args.fsdp != 1:
-        raise NotImplementedError(f"--fsdp {args.fsdp}: the tokenizer trainer does not shard "
-                                  "its optimizer state; it runs data parallel over every "
-                                  "rank of torchrun (the model is small): leave --fsdp at 1")
-    initialize_multihost(device=args.device)
-    device = resolve_device(args.device)
-    rank, world = process_index(), process_count()
-    main_rank = is_main_process()
+    args, device = trainer.args, trainer.device
+    main_rank = rank == 0
     say = print if main_rank else (lambda *a, **k: None)
     if main_rank:
         os.makedirs(args.output_dir, exist_ok=True)
-    trainer = Trainer(args, device, torch.distributed.group.WORLD if world > 1 else None)
     barrier()
     state, start = auto_resume(os.path.join(args.output_dir, "checkpoints"), map_location=device)
     synthetic = args.synthetic_data or args.data_path is None
@@ -534,9 +555,7 @@ def main(args=None):
                 source.batch(it)
         say(f"resumed from step {start}")
     jsonl = JSONLLogger(args.output_dir) if main_rank else None
-    fid_state: Dict = {}
     t0 = time.time()
-    batch = None
     for it in range(trainer.step, args.total_steps):
         batch = next_batch(it)
         if it == 0 and float(trainer.model.quantize._codebook.initted) == 0.0:
@@ -554,8 +573,8 @@ def main(args=None):
             if main_rank:
                 jsonl.write({"step": it, "loss": vals["loss"], "rec": vals["rec"],
                              "code_loss": vals["code_loss"]})
-        if (it + 1) % args.eval_freq == 0 and not trainer.is_divae and main_rank:
-            m = run_eval(trainer, batch, fid_state)
+        if eval_fn is not None and (it + 1) % args.eval_freq == 0 and main_rank:
+            m = eval_fn(trainer, batch)
             print(f"[eval] {m}", flush=True)
             jsonl.write({"step": it, **{f"eval_{k}": v for k, v in m.items()}})
         if (it + 1) % args.save_ckpt_freq == 0 or it == args.total_steps - 1:
@@ -563,6 +582,27 @@ def main(args=None):
                 save(trainer, args.output_dir)
             barrier()
     say("tokenizer training done")
+
+
+def main(args=None):
+    from ..api import resolve_device
+    from ..utils.config import parse_args_with_config
+
+    from ..parallel.launch import initialize_multihost, process_count, process_index, shutdown
+
+    args = parse_args_with_config(get_parser(), args)
+    if args.fsdp != 1:
+        raise NotImplementedError(f"--fsdp {args.fsdp}: the tokenizer trainer does not shard "
+                                  "its optimizer state; it runs data parallel over every "
+                                  "rank of torchrun (the model is small): leave --fsdp at 1")
+    initialize_multihost(device=args.device)
+    device = resolve_device(args.device)
+    rank, world = process_index(), process_count()
+    trainer = Trainer(args, device, torch.distributed.group.WORLD if world > 1 else None)
+    fid_state: Dict = {}
+    eval_fn = None if trainer.diffusion else (
+        lambda trainer, batch: run_eval(trainer, batch, fid_state))
+    train_loop(trainer, eval_fn, rank, world)
     if world > 1:
         shutdown()
     return trainer

@@ -183,9 +183,11 @@ CODEBOOK_STATE = ("embed", "embed_avg", "cluster_size", "initted")
 
 
 def from_jax_vq_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict of the port's VQ, VQVAE or DiVAE from the JAX module's
-    variables: the params, and of each codebook collection `embed` and its
-    EMA state (`embed_avg`, `cluster_size`, `initted`, where present) as
+    """State dict of the port's VQ, VQVAE, DiVAE or VQControlNet (or of a
+    decoder module such as Token2VAE) from the JAX module's variables, under
+    the names of fourm_tpu/utils/checkpoint.py:_vq_torch_name: the params,
+    and of each codebook collection `embed` and its EMA state (`embed_avg`,
+    `cluster_size`, `initted`, where present) as
     `<quantizer>._codebook.<name>`."""
     out: Dict[str, np.ndarray] = {}
     _vq_tree(out, [], variables["params"])

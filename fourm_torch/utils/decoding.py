@@ -69,7 +69,16 @@ class TokenizerBundle:
                       image_size: Optional[int] = None,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Tokens (array or tensor) -> the decoder's output on the model's
-        device (a diffusion decoder's sampled images, fp32)."""
+        device (a diffusion decoder's sampled images, fp32). A VQControlNet
+        raises: the JAX bundle has no ControlNet route
+        (fourm_tpu/utils/decoding.py:36-48 falls through to a decode_tokens
+        that VQ lacks); decode its tokens with vq.controlnet_decode_tokens."""
+        from ..vq.vqvae import VQControlNet
+
+        if isinstance(self.model, VQControlNet):
+            raise NotImplementedError(
+                "TokenizerBundle.decode_tokens: a VQControlNet has no route in decode_dict "
+                "(nor in the JAX package's); call fourm_torch.vq.controlnet_decode_tokens")
         tokens = torch.as_tensor(to_numpy(tokens)).long().to(self.device)
         with torch.inference_mode():
             if self.is_diffusion:

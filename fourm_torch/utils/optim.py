@@ -221,12 +221,13 @@ class FusedAdamW:
         self._lr: Optional[torch.Tensor] = None
         self._bias: Optional[torch.Tensor] = None
         self._tables: Dict[tuple, AdamwTable] = {}
-        self._leaves = None  # [(name, fp32 master)] over a mesh
+        self._leaves = None  # [(name, fp32 master)] over a mesh, or a subset
         self.plan = None  # parallel/shard.py's ParallelPlan over a mesh
 
     def use_leaves(self, leaves) -> "FusedAdamW":
         """Step these (name, tensor) leaves in place of the model's
-        parameters (a rank's master shards); init() afterwards."""
+        parameters (a rank's master shards, or the trainable subset of a
+        tokenizer); init() afterwards."""
         self._leaves = list(leaves)
         return self
 

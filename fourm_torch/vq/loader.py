@@ -6,17 +6,19 @@ Loads a tokenizer checkpoint from
     reference utils/checkpoint.py:176-192; utils/checkpoint.py reads it), or
   * a legacy `.pth` file (`{'model': state_dict, 'args': Namespace}`),
 applies the reference's legacy argument renames (encoder_type -> enc_type,
-input_size -> image_size, ...), infers the model class from the config
-(beta_schedule -> DiVAE, else VQVAE; `encoder_only` -> VQ), builds it on
+input_size -> image_size, input_size_sd -> image_size_sd, ...), infers the
+model class from the state dict and the config (`controlnet` keys ->
+VQControlNet, built from the config's image_size_sd, decoder and vae_*
+fields; beta_schedule -> DiVAE; else VQVAE; `encoder_only` -> VQ), builds it on
 `device` (the card unless "cpu" is asked) and copies the checkpoint into
 it (utils/checkpoint.py:import_vq_state_dict: a key it cannot place, or a
 parameter the file lacks, raises). Returns `(model, None)`: the port's
 modules hold their weights, where the JAX loader returns (model,
 variables); `TokenizerBundle(model)` takes it for decoding.
 
-Not ported: an orbax run directory (the port has no VQ trainer, and orbax
-is not on the machine with the card) and VQControlNet (a state dict with
-`controlnet` keys), which raise.
+Not ported: an orbax run directory of the JAX trainers (orbax is not on
+the machine with the card), which raises; the port's trainers write
+`tokenizer.safetensors` beside their checkpoints.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .vqvae import VQ, VQVAE, DiVAE
+from .vqvae import VQ, VQVAE, DiVAE, VQControlNet
 
 _RENAMES = {
     "encoder_type": "enc_type",
@@ -68,8 +70,7 @@ def _infer_model_type(args: Dict[str, Any], state: Dict[str, torch.Tensor],
     if encoder_only:
         return VQ
     if any("controlnet" in k for k in state):
-        raise NotImplementedError("a VQControlNet tokenizer (state dict with 'controlnet' "
-                                  "keys) is not ported yet (ROADMAP queue 1, item 3)")
+        return VQControlNet
     if args.get("beta_schedule") is not None:
         return DiVAE
     return VQVAE

@@ -1,9 +1,10 @@
 """VQ tokenizers of the port: `VQ` (encoder + quantizer), `VQVAE` (+ ViT or
-MLP decoder) and `DiVAE` (+ UNet or UViT diffusion decoder), for inference
-and training.
+MLP decoder), `DiVAE` (+ UNet or UViT diffusion decoder) and
+`VQControlNet` (+ ControlNet decoder over a KL-VAE latent space), for
+inference and training.
 
-Counterpart of fourm_tpu/vq/vqvae.py:VQ, VQVAE and DiVAE (reference
-vqvae.py:39-763), channel-last. `VQ`: `prepare_input` (ImageNet
+Counterpart of fourm_tpu/vq/vqvae.py:VQ, VQVAE, DiVAE and VQControlNet
+(reference vqvae.py:39-1047), channel-last. `VQ`: `prepare_input` (ImageNet
 standardisation undone to [-1, 1], class maps embedded), `latents`,
 `encode`, `tokenize`, `tokens_to_embedding`; the encoder of every 4M-21
 tokenizer (ViT, or the BottleneckMLP of the global-embedding and pose
@@ -16,9 +17,11 @@ timesteps). Training (fourm_tpu/vq/vqvae.py:105-116, :176-179, :229-261):
 loss and codebook EMA; `freeze_enc` stops the gradient at the encoder's
 output), `VQVAE.forward` -> (reconstruction, code loss), `DiVAE.forward`
 (clean input encoded, noised input denoised) with `sample_cond_mask`, and
-`init_codebook_kmeans`. Built with `fp32_params=True` a model keeps every
-parameter in fp32 (the train CLI's masters; each product casts them to the
-compute dtype). Not ported: VQControlNet.
+`init_codebook_kmeans`. `VQControlNet` (vq/controlnet.py): `vae_encode`,
+`vae_decode`, `denoise_step`, the training forward, and decoding by
+`controlnet_decode_quant` / `controlnet_decode_tokens` in the VAE's latent
+space. Built with `fp32_params=True` a model keeps every parameter in fp32
+(the train CLIs' masters; each product casts them to the compute dtype).
 
 Usage:
     vq = VQ(image_size=224, patch_size=16, enc_type="vit_b_enc",
@@ -29,11 +32,13 @@ Usage:
     rec, code_loss = vqvae(images_nhwc, train=True)      # a training forward
     divae = DiVAE(dec_type="unet_patched", prediction_type="sample", ...)
     images = divae_decode_tokens(divae, tokens, generator, timesteps=25)
+    cn = VQControlNet(image_size=448, codebook_size=1024, dtype="bfloat16")
+    images = controlnet_decode_tokens(init_vq_weights(cn, 0), tokens, generator)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -355,18 +360,167 @@ def divae_decode_tokens(model: DiVAE, tokens: torch.Tensor,
     return divae_decode_quant(model, model.tokens_to_embedding(tokens), generator, **kw)
 
 
+class VQControlNet(VQ):
+    """VQ encoder + ControlNet diffusion decoder over a frozen KL-VAE latent
+    space (fourm_tpu/vq/vqvae.py:306-405; reference vqvae.py:766-1047): the
+    SD-1.5-scale UNet, its ControlNet branch and the VAE of vq/controlnet.py,
+    random unless a checkpoint is loaded. The scheduler is DDIM over
+    scaled-linear betas from 0.00085 to 0.012 (the JAX code's; its docstring
+    says PNDM), epsilon prediction by default. The latent side,
+    (image_size_sd or image_size) / 2^(len(vae_ch_mult) - 1), must be a
+    multiple of 2^(len(channel_mult) - 1) (a ValueError here; the JAX
+    package's concatenation raises at the first call). Built on `device`
+    directly (the card unless "cpu" is asked): SD-1.5 scale is 1.08 B
+    parameters."""
+
+    def __init__(self, image_size_sd: Optional[int] = None,
+                 cls_free_guidance_dropout: float = 0.0, masked_cfg: bool = False,
+                 masked_cfg_low: int = 0, masked_cfg_high: Optional[int] = None,
+                 num_train_timesteps: int = 1000, prediction_type: str = "epsilon",
+                 beta_schedule: str = "scaled_linear", beta_start: float = 0.00085,
+                 beta_end: float = 0.012, model_channels: int = 320, num_res_blocks: int = 2,
+                 channel_mult: Sequence[int] = (1, 2, 4, 4),
+                 attention_levels: Sequence[int] = (0, 1, 2), num_heads: int = 8,
+                 context_len: int = 77, context_dim: int = 768, vae_base_channels: int = 128,
+                 vae_ch_mult: Sequence[int] = (1, 2, 4, 4), latent_channels: int = 4,
+                 device: Optional[str] = None, **kw):
+        from ..api import resolve_device
+        from .controlnet import AutoencoderKL, ControlNetCond
+
+        dev = resolve_device(device)
+        with torch.device(dev):
+            super().__init__(device=dev, **kw)
+            dt = self.compute_dtype
+            self.image_size_sd = image_size_sd
+            self.cls_free_guidance_dropout, self.masked_cfg = cls_free_guidance_dropout, masked_cfg
+            self.masked_cfg_low, self.masked_cfg_high = masked_cfg_low, masked_cfg_high
+            self.prediction_type, self.latent_channels = prediction_type, latent_channels
+            self.scheduler_kw = dict(kind="ddim", num_train_timesteps=num_train_timesteps,
+                                     beta_schedule=beta_schedule, beta_start=beta_start,
+                                     beta_end=beta_end, prediction_type=prediction_type,
+                                     clip_sample=False, thresholding=False,
+                                     zero_terminal_snr=False)
+            self.latent_size = (image_size_sd or self.image_size) // 2 ** (len(vae_ch_mult) - 1)
+            self.decoder = ControlNetCond(
+                in_channels=latent_channels, cond_channels=self.latent_dim,
+                sample_size=self.latent_size, model_channels=model_channels,
+                num_res_blocks=num_res_blocks, channel_mult=tuple(channel_mult),
+                attention_levels=tuple(attention_levels), num_heads=num_heads,
+                context_len=context_len, context_dim=context_dim, dtype=dt)
+            self.vae = AutoencoderKL(vae_base_channels, tuple(vae_ch_mult), latent_channels,
+                                     in_channels=self.n_channels, dtype=dt)
+            # the prompt encoding stays fp32, as the JAX parameter
+            self._cast(self.decoder.unet)
+            self._cast(self.decoder.controlnet)
+            self._cast(self.vae)
+        self._place(dev)
+
+    def noise_scheduler(self) -> DiffusionScheduler:
+        return DiffusionScheduler(**self.scheduler_kw)
+
+    # conditioning dropout: DiVAE's (reference sample_mask, vqvae.py:856-887)
+    sample_cond_mask = DiVAE.sample_cond_mask
+
+    def latents(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The encoder's inference path whatever `train`, without a graph:
+        nothing upstream of the quantizer trains here
+        (vqcontrolnet_trainable_mask), so the training forward's encoder is
+        the tokenizer's (the JAX training forward runs the same encoder and
+        masks its gradients)."""
+        with torch.no_grad():
+            return super().latents(x, train=False)
+
+    def vae_encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Image -> the frozen VAE's scaled latent, without a graph
+        (vqvae.py:367-369): the mean, or a sample (`noise` / `generator`,
+        the JAX method's rng)."""
+        with torch.no_grad():
+            return self.vae.encode(self.prepare_input(x), noise, generator)
+
+    def vae_decode(self, z: torch.Tensor, clip: bool = True) -> torch.Tensor:
+        x = self.vae.decode(z)
+        return x.clamp(-1.0, 1.0) if clip else x
+
+    def denoise_step(self, noised, timesteps, quant, cond_mask=None, orig_res=None,
+                     unconditional: bool = False, cond_scale: float = 1.0,
+                     prompt_emb=None) -> torch.Tensor:
+        return self.decoder(noised, timesteps, quant, cond_mask=cond_mask,
+                            unconditional=unconditional, cond_scale=cond_scale,
+                            prompt_emb=prompt_emb)
+
+    def forward(self, input_clean: torch.Tensor, input_noised: torch.Tensor, timesteps,
+                cond_mask: Optional[torch.Tensor] = None, prompt_emb=None, orig_res=None,
+                train: bool = False, draws: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward (vqvae.py:390-405): the clean image quantized
+        (train=True: the codebook's EMA and dead codes, `draws` /
+        `generator` as VQ.encode), the noised VAE latent (B, Hl, Wl,
+        latent_channels) denoised under the token condition, dropped by
+        sample_cond_mask in training (DiVAE.forward's draws) -> (prediction,
+        code_loss)."""
+        draws = draws or {}
+        quant, code_loss, _ = self.encode(input_clean, train=train, draws=draws,
+                                          generator=generator)
+        if cond_mask is None and self.cls_free_guidance_dropout > 0.0 and train:
+            B, Hq, Wq, _ = quant.shape
+            cond_mask = self.sample_cond_mask(B, Hq, Wq, draws.get("cond_drop"),
+                                              draws.get("cond_k"), draws.get("cond_noise"),
+                                              generator)
+        dec = self.decoder(input_noised, timesteps, quant, cond_mask=cond_mask,
+                           prompt_emb=prompt_emb)
+        return dec, code_loss
+
+
+def controlnet_decode_quant(model: VQControlNet, quant: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            timesteps: Optional[int] = None, guidance_scale: float = 0.0,
+                            cond_scale: float = 1.0, scheduler_timesteps_mode: str = "leading",
+                            vae_decode: bool = True, prompt_emb=None,
+                            noise: Optional[torch.Tensor] = None,
+                            step_noise=None) -> torch.Tensor:
+    """ControlNet diffusion decoding in the VAE's latent space
+    (vqvae.py:407-442; reference decode_quant + PipelineCond, vqvae.py:
+    884-921): `diffusion_sample` over denoise_step (the condition scaled by
+    cond_scale; the unconditional branch of CFG without the branch and with
+    the empty prompt), then the VAE's decoder, clipped to [-1, 1] -> (B, S,
+    S, n_channels); with vae_decode=False the latent. Timesteps "leading"
+    by default (DiVAE's are "trailing"). Noise: `noise` / `step_noise`,
+    else draws from `generator` (on the model's device)."""
+    sched = model.noise_scheduler()
+    shape = (quant.shape[0], model.latent_size, model.latent_size, model.latent_channels)
+
+    def model_fn(noisy, t, cond):
+        return model.denoise_step(noisy, t, cond, cond_scale=cond_scale, prompt_emb=prompt_emb)
+
+    def model_fn_uncond(noisy, t, cond):
+        return model.denoise_step(noisy, t, cond, unconditional=True)
+
+    z = diffusion_sample(model_fn, sched, quant, shape, generator, timesteps, guidance_scale,
+                         0.0, scheduler_timesteps_mode, model_fn_uncond, noise, step_noise)
+    return model.vae_decode(z) if vae_decode else z
+
+
+def controlnet_decode_tokens(model: VQControlNet, tokens: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             **kw) -> torch.Tensor:
+    return controlnet_decode_quant(model, model.tokens_to_embedding(tokens), generator, **kw)
+
+
 def init_vq_weights(vq: VQ, seed: int, spread: float = 0.0) -> VQ:
     """Random weights from a seeded torch.Generator on the model's device,
     after the JAX package's initialisers: matrices and convolution kernels
     lecun-normal (std 1/sqrt(fan_in)), embeddings normal(1), LayerNorm and
     GroupNorm scales one, other vectors zero; the codebook kaiming-uniform
     (bound sqrt(6 / dim)), l2-normalised for a cosine codebook, as at init
-    (quantizer.py:143-149). Layers the JAX modules initialise to zero (the
-    decoders' output convolutions, adaLN-Zero gates) are drawn like the
-    others, so a decoder's output is not zero. With `spread` > 0 the vectors
-    are drawn too: scales 1 + spread * N(0, 1), the others spread * N(0, 1)
-    (a check of the decoders then exercises every bias, mask token and
-    layer scale)."""
+    (quantizer.py:143-149); a ControlNet's prompt encoding normal(0.02), as
+    its JAX initialiser. Layers the JAX modules initialise to zero (the
+    decoders' output convolutions, adaLN-Zero gates, the ControlNet's
+    residual taps and conditioning output) are drawn like the others, so a
+    decoder's output, and a ControlNet branch's share of it, is not zero.
+    With `spread` > 0 the vectors are drawn too: scales 1 + spread *
+    N(0, 1), the others spread * N(0, 1) (a check of the decoders then
+    exercises every bias, mask token and layer scale)."""
     gen = torch.Generator(device=vq.device).manual_seed(seed)
 
     def randn(p):
@@ -378,6 +532,8 @@ def init_vq_weights(vq: VQ, seed: int, spread: float = 0.0) -> VQ:
                 scale = name.endswith("weight")
                 p.copy_(float(scale) + spread * randn(p) if spread else
                         torch.full_like(p, float(scale)))
+            elif name.endswith("empty_str_encoding"):
+                p.copy_(randn(p) * 0.02)
             else:
                 fan_in = 1 if name.startswith("cls_emb") else int(np.prod(p.shape[1:]))
                 if isinstance(_owner(vq, name), nn.ConvTranspose2d):

@@ -315,7 +315,7 @@ def parity(torch, tcli, check, name: str, card: str) -> None:
             batch = torch.from_numpy(tcli.SyntheticBatches(args).batch(0))
             draws = {"expire_idx": torch.randint(0, 2 * 196, (args.codebook_size,),
                                                  generator=gen)}
-            if trainer.is_divae:
+            if trainer.diffusion:
                 draws.update(noise=torch.randn(batch.shape, generator=gen),
                              timesteps=torch.randint(0, 1000, (2,), generator=gen))
         m.load_state_dict(start)

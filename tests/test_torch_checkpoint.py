@@ -383,7 +383,9 @@ def test_tokenizer_refusals(vqvae_file, tmp_path):
     cn = str(tmp_path / "cn.safetensors")
     st_save_numpy(dict(state, **{"controlnet.input_blocks.0.weight": np.zeros(2, np.float32)}),
                   cn, metadata={"config": "{'domain': 'rgb'}"})
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    # `controlnet` keys make a VQControlNet, whose default 224 px latent (28)
+    # the UNet's three halvings do not divide: refused before any key is read
+    with pytest.raises(ValueError, match="latent size 28 is not a multiple of 8"):
         get_image_tokenizer(cn, verbose=False, device="cpu")
     extra = str(tmp_path / "extra.safetensors")
     st_save_numpy(dict(state, **{"decoder.blocks.9.mlp.fc1.weight": np.zeros(2, np.float32)}),
