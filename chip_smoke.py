@@ -269,14 +269,26 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      cli.train_vqcontrolnet for 6 steps at B = 32, exact launches, step 1's
      held to their twins, the frozen parameters bit for bit (C2); its tokenizer.safetensors through
      get_image_tokenizer (C3). `python3 chip_smoke.py --part controlnet`
-     runs the build and this phase alone.
+     runs the build and this phase alone;
+  17. the JAX package's orbax run directories (scripts/chip_orbax.py, which
+     says what it runs and gates): 4M-21 B at full width written as a JAX
+     train_4m run and read back by load_fm bit for bit, its chain at
+     temperature 0 equal token for token to the in-memory model's with
+     phase 3's launch counts, train_4m resuming from its TrainState for one
+     step at B = 8, the restored state bit for bit and the step's
+     attention_train / fused_adamw launches held to their twins (O1); the
+     committed orbax fixtures through the native zstd decoder, the
+     fixture's tokenizer, a ViT-B tokenizer run and the CLIP-B16 teacher
+     from files, their launches held to their twins (O2); the decoder's
+     rate (O3). `python3 chip_smoke.py --part orbax` runs the build and this
+     phase alone.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
 SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
 pre-training run, on phase 13's tokenizer paths, on phase 14's transfer
-paths, on phase 15's mesh paths and on phase 16's ControlNet paths); the
-last line is
+paths, on phase 15's mesh paths, on phase 16's ControlNet paths and on phase
+17's orbax paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -504,6 +516,142 @@ def held(torch, name, run, plain, faults=None, exact=False):
         fault_check(torch, name, faults, {p: r.float() for p, r in refs.items()},
                     {p: t for p, (_e, t) in parts.items()})
     return parts
+
+
+# the wrappers that KernelTap holds to their twins: the module that calls
+# each, the kernels module holding its plain twin, and the twin
+TAPPED = {
+    "ln_matmul": ("fourm_torch.ops.transformer", "fused_mlp", "ln_matmul_plain"),
+    "ln_mlp": ("fourm_torch.ops.transformer", "fused_mlp", "ln_mlp_plain"),
+    "attn_block": ("fourm_torch.ops.transformer", "attention", "attn_block_plain"),
+    "mha_short": ("fourm_torch.ops.transformer", "attention", "mha_short_plain"),
+    "nearest_code": ("fourm_torch.vq.quantizer", "vq_codebook", "nearest_code_plain"),
+    "nearest_code_cosine": ("fourm_torch.vq.quantizer", "vq_codebook",
+                            "nearest_code_cosine_plain"),
+    "attention_train_fwd": ("fourm_torch.kernels.attention_train", "attention_train",
+                            "attention_train_fwd_plain"),
+    "attention_train_bwd": ("fourm_torch.kernels.attention_train", "attention_train",
+                            "attention_train_bwd_stats_plain"),
+    "fused_adamw": ("fourm_torch.utils.optim", "fused_adamw", "fused_adamw_plain"),
+}
+
+
+class KernelTap:
+    """While entered, each launch of the named kernels (TAPPED) is held, as
+    a path makes it, to the kernel's plain twin on the same inputs: the
+    wrapper's name in the module that calls it is bound to a function that
+    calls the wrapper (its one launch, counted as before) and then the twin
+    (no launch). Each part of a bf16 output within `held`'s tolerance (two
+    bf16 ulps of its largest value), the searches' tokens exactly,
+    fused_adamw's parameters, moments and count bit for bit (the twin steps
+    copies taken before the launch, with the same gradients, norm and
+    clip). On the CPU (cpu=True) the wrappers mostly take the twins
+    themselves, so the calls held are printed, not held to a count."""
+
+    def __init__(self, torch, label: str, names, cpu: bool = False):
+        self.torch, self.label, self.names, self.cpu = torch, label, list(names), cpu
+        self.calls = {}  # name -> [calls held, largest error, its tolerance]
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+
+        handlers = {"fused_adamw": self._adamw, "attention_train_fwd": self._train_fwd,
+                    "attention_train_bwd": self._train_bwd}
+        for name in self.names:
+            caller, kmod, plain = TAPPED[name]
+            mod = importlib.import_module(caller)
+            real = getattr(mod, name)
+            twin = getattr(importlib.import_module(f"fourm_torch.kernels.{kmod}"), plain)
+            self._saved.append((mod, name, real))
+            setattr(mod, name, handlers.get(name, self._fn)(name, real, twin))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+
+    def _hold(self, name: str, parts: dict, exact: bool) -> None:
+        """parts: {part: (outputs, twin's outputs)}, lists of tensors."""
+        torch = self.torch
+        for part, (outs, refs) in parts.items():
+            err = max((o.float() - r.float()).abs().max() for o, r in zip(outs, refs)).item()
+            top = max(r.float().abs().max() for r in refs).item()
+            tol = 0.0 if exact else 2.0 ** -6 * top
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            check(finite and err <= tol,
+                  f"{self.label}: {name} {part} at {tuple(outs[0].shape)}: max abs error "
+                  f"{err} against its plain twin > tolerance {tol} (finite {finite})")
+            rec = self.calls.setdefault(name, [0, 0.0, tol])
+            if part == next(iter(parts)):
+                rec[0] += 1
+            if err > rec[1] or (err == rec[1] and tol < rec[2]):
+                rec[1], rec[2] = err, tol
+
+    def _fn(self, name, real, twin):
+        def tapped(*a, **kw):
+            out = real(*a, **kw)
+            self._hold(name, {"out": ([out], [twin(*a, **kw)])}, name.startswith("nearest_code"))
+            return out
+        return tapped
+
+    @staticmethod
+    def _counted(real, tapped):
+        """The wrapper counts its launches on the function its module's name
+        holds (`attention_train_fwd.launches += 1`), the tapped one while
+        it is bound: carry the count across."""
+        def call(*a):
+            tapped.launches = real.launches
+            out = real(*a)
+            real.launches = tapped.launches
+            return out
+        return call
+
+    def _train_fwd(self, name, real, twin):
+        def tapped(q, k, v, bias=None, allow_zero_attn=False):
+            o, stats = run(q, k, v, bias, allow_zero_attn)
+            self._hold(name, {"o": ([o], [twin(q, k, v, bias, allow_zero_attn)])}, False)
+            return o, stats
+        run = self._counted(real, tapped)
+        return tapped
+
+    def _train_bwd(self, name, real, twin):
+        def tapped(q, k, v, bias, o, stats, do):
+            grads = run(q, k, v, bias, o, stats, do)
+            refs = twin(q, k, v, bias, o, do, stats)
+            self._hold(name, {part: ([g], [r]) for part, g, r in zip(("dq", "dk", "dv"), grads,
+                                                                      refs)}, False)
+            return grads
+        run = self._counted(real, tapped)
+        return tapped
+
+    def _adamw(self, name, real, twin):
+        from fourm_torch.kernels.fused_adamw import StepTables
+
+        def tapped(params, grads, exp_avgs, exp_avg_sqs, decay, s, steps, grad_norm=None,
+                   max_norm=None, table=None, **kw):
+            copies = [[t.clone() for t in ts] for ts in (params, exp_avgs, exp_avg_sqs)]
+            count = steps.count.clone()
+            real(params, grads, exp_avgs, exp_avg_sqs, decay, s, steps, grad_norm, max_norm,
+                 table, **kw)
+            twin(copies[0], grads, copies[1], copies[2], decay, s,
+                 StepTables(count, steps.parity, steps.lr, steps.bias), grad_norm, max_norm,
+                 **kw)
+            self._hold(name, {"p": (params, copies[0]), "m": (exp_avgs, copies[1]),
+                              "v": (exp_avg_sqs, copies[2]), "count": ([steps.count], [count])},
+                       exact=True)
+        return tapped
+
+    def report(self, want: dict) -> None:
+        """Every kernel of `want` ({name: launches}) held that many times."""
+        got = {k: self.calls.get(k, [0])[0] for k in want}
+        if self.cpu:
+            print(f"  (CPU rehearsal) {self.label}: calls held {got}", flush=True)
+        else:
+            check(got == want, f"{self.label}: launches held against the twins {got} != {want}")
+        print(f"{self.label}: each launch held to its plain twin on the same inputs: "
+              + "; ".join(f"{k} x{n} max_abs_err {e:.6g} (tol {t:.6g})"
+                          for k, (n, e, t) in sorted(self.calls.items())), flush=True)
 
 
 def time_cases(torch, cases, card: str):
@@ -4918,8 +5066,14 @@ def controlnet_phase(torch, card: str) -> dict:
                                                              token_gate, skip_init)
 
 
+def orbax_phase(torch, card: str) -> dict:
+    """Phase 17 (scripts/chip_orbax.py): the JAX package's orbax run
+    directories."""
+    return script_module("chip_orbax").orbax_phase(torch, card)
+
+
 def script_module(name: str):
-    """scripts/<name>.py beside this script (phases 13-16)."""
+    """scripts/<name>.py beside this script (phases 13-17)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
@@ -4936,9 +5090,10 @@ def main() -> int:
 
     parts = argparse.ArgumentParser(description="smoke run of the port on one card")
     parts.add_argument("--part", choices=["all", "tokenizer", "transfer", "parallel",
-                                          "controlnet"],
+                                          "controlnet", "orbax"],
                        default="all", help="'tokenizer' / 'transfer' / 'parallel' / "
-                       "'controlnet': the build and phase 13 / 14 / 15 / 16 alone")
+                       "'controlnet' / 'orbax': the build and phase 13 / 14 / 15 / 16 / 17 "
+                       "alone")
     part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -4968,6 +5123,8 @@ def main() -> int:
             parallel_phase(torch, card)
         elif part == "controlnet":
             controlnet_phase(torch, card)
+        elif part == "orbax":
+            orbax_phase(torch, card)
         else:
             script_module("chip_transfer").transfer_phase(torch, card, check, gate, time_ms)
         print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
@@ -5078,6 +5235,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     controlnet_launches = controlnet_phase(torch, card)
     mark("phase 16")
+    torch.cuda.empty_cache()
+    orbax_launches = orbax_phase(torch, card)
+    mark("phase 17")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -5095,6 +5255,7 @@ def main() -> int:
         r["transfer_launches"] = {p: n[wrapper] for p, n in transfer_launches.items()}
         r["parallel_launches"] = {p: n[wrapper] for p, n in parallel_launches.items()}
         r["controlnet_launches"] = {p: n[wrapper] for p, n in controlnet_launches.items()}
+        r["orbax_launches"] = {p: n[wrapper] for p, n in orbax_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

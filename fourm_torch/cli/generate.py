@@ -123,16 +123,18 @@ def schedule_overrides(args, sampler, cond_domains, targets):
 
 def load_fm(path: str, dtype: str = "float32", device: str = "cuda"):
     """A FourM of the port on `device`, computing in `dtype`: a released
-    .safetensors (config in the metadata), or a train_4m run directory of
-    the port (config.json and its newest weights/step_N export)."""
+    .safetensors (config in the metadata), or a train_4m run directory
+    (config.json and its newest weights/step_N params export) of the port
+    or of the JAX package (an orbax directory, read by utils/orbax.py; JAX
+    cli/generate.py:101-142)."""
     import dataclasses
 
     import torch
 
     from ..api import resolve_device
     from ..models import FourM, FourMConfig
-    from ..utils.checkpoint import (latest_checkpoint_steps, load_checkpoint,
-                                    load_fourm_safetensors, load_fourm_state_dict)
+    from ..utils.checkpoint import (latest_checkpoint_steps, load_fourm_safetensors,
+                                    load_fourm_state_dict, load_fourm_weights)
 
     if path.endswith(".safetensors"):
         return load_fourm_safetensors(path, config_override={"dtype": dtype}, device=device)[1]
@@ -153,7 +155,7 @@ def load_fm(path: str, dtype: str = "float32", device: str = "cuda"):
         dev = resolve_device(device)
         with torch.device(dev):
             model = FourM(config)
-        load_fourm_state_dict(model, load_checkpoint(ckpt_dir, steps[-1], map_location="cpu"))
+        load_fourm_state_dict(model, load_fourm_weights(ckpt_dir, steps[-1], config))
         return model.to(device=dev, dtype=config.compute_dtype).eval()
     raise SystemExit(f"unsupported checkpoint format: {path} "
                      "(expected .safetensors or a train_4m run dir)")

@@ -17,20 +17,26 @@ the log exists, only the samples it lists are (re)tokenized (reference
 (data/transforms.py); `--task` (CLIP-B16, DINOv2-B14, DINOv2-B14-global)
 tokenizes a teacher's feature maps (vq/teachers.py) of the RGB crops.
 
+The tokenizer comes from `--ckpt_dir`, as in the JAX CLI (:159-186): an
+orbax directory of the JAX package's tokenizer checkpoints (the newest
+step_N; read by utils/orbax.py), its `params` and `codebook` restored into
+an encoder-only VQ of the JAX CLI's build (VQ defaults at `--input_size`,
+the teacher's width as its channels with `--task`), the decoder's weights
+left out; or from `--ckpt`: a .safetensors / .pth tokenizer file
+(vq/loader.py:get_image_tokenizer, encoder only), or a cli/train_vqvae
+output directory of the port (its `tokenizer.safetensors`). With `--task`,
+`--teacher_ckpt` loads the teacher (vq/teachers.py:load_teacher: a
+.safetensors, .pth / .pt or .npz of the OpenAI CLIP or DINOv2 layout).
+
 What differs from the JAX CLI, and why:
-  * the tokenizer comes from `--ckpt`: a .safetensors / .pth tokenizer
-    file (vq/loader.py:get_image_tokenizer, encoder only), or a
-    cli/train_vqvae output directory (its `tokenizer.safetensors`); the
-    JAX CLI reads an orbax `--ckpt_dir`, which the port does not read
-    (ROADMAP);
   * only reading a sample (load, preprocess, crop) counts as corrupt: an
     error of the tokenizer or a kernel raises, where the JAX CLI logs it
     as the sample's;
   * crop draws come from a random.Random / np.random.RandomState pair
     seeded by `--seed` (the JAX CLI's crop boxes draw from the global
     `random`);
-  * a teacher's weights are random from `--seed` (init_teacher_weights):
-    reading CLIP / DINOv2 checkpoints (`--teacher_ckpt`) is not ported.
+  * without `--teacher_ckpt` a teacher's weights are random from `--seed`
+    (init_teacher_weights), where the JAX CLI's are its init's.
 
 Usage:
   python -m fourm_torch.cli.save_vq_tokens --data_root data/ --domain rgb \\
@@ -55,8 +61,11 @@ def get_parser():
     p.add_argument("--domain", default="rgb")
     p.add_argument("--input_size", type=int, default=224)
     p.add_argument("--n_crops", type=int, default=3, help="1 center + n-1 random crops")
-    p.add_argument("--ckpt", required=True,
-                   help="tokenizer: a .safetensors / .pth file, or a train_vqvae output dir")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="the JAX package's orbax tokenizer checkpoints (the newest step_N)")
+    p.add_argument("--ckpt", default=None,
+                   help="or a tokenizer .safetensors / .pth file, or a train_vqvae output dir "
+                        "of the port")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--out_dir", required=True)
     p.add_argument("--crop_settings_dir", default=None)
@@ -70,7 +79,8 @@ def get_parser():
     p.add_argument("--task", default=None,
                    help="teacher feature task: CLIP-B16, DINOv2-B14, DINOv2-B14-global; "
                         "default: tokenize raw pixels of --domain")
-    p.add_argument("--teacher_ckpt", default=None, help="not ported: raises")
+    p.add_argument("--teacher_ckpt", default=None,
+                   help="the teacher's weights: .safetensors, .pth / .pt or .npz (CLIP / DINOv2)")
     p.add_argument("--dtype", default="bfloat16", help="the tokenizer's compute dtype")
     p.add_argument("--device", default=None,
                    help="the card unless 'cpu' is asked (the plain PyTorch twins)")
@@ -175,20 +185,44 @@ def tokenizer_path(ckpt: str) -> str:
     return ckpt
 
 
-def build_teacher(task: str, ckpt: Optional[str], image_size: int, seed: int, device):
-    from ..vq.teachers import TEACHER_PRESETS, ViTTeacher, init_teacher_weights
+def load_orbax_encoder(ckpt_dir: str, input_size: int, task: Optional[str], dtype: str,
+                       device: str):
+    """The JAX CLI's tokenizer (:163-181): an encoder-only VQ of the VQ
+    defaults at `input_size` (its channels the teacher's width with `task`,
+    no patch projection then), its weights the encoder's, quantizer's and
+    codebook's of the newest orbax checkpoint in `ckpt_dir`."""
+    from ..utils.checkpoint import from_jax_vq_variables, import_vq_state_dict
+    from ..vq import VQ
+    from ..vq.loader import read_jax_vq_variables
+    from ..vq.teachers import TEACHER_PRESETS
 
+    n_channels = TEACHER_PRESETS[task]["width"] if task else 3
+    model = VQ(image_size=input_size, n_channels=n_channels, patch_proj=task is None,
+               dtype=dtype, device=device)
+    state = from_jax_vq_variables(read_jax_vq_variables(ckpt_dir))
+    own = model.state_dict()
+    import_vq_state_dict(model, {k: v for k, v in state.items() if k in own})
+    return model.eval()
+
+
+def build_teacher(task: str, ckpt: Optional[str], image_size: int, seed: int, device):
+    """The teacher of `task` as a function of images (a functools.partial of
+    the ViTTeacher: `.func`): its weights from `ckpt`
+    (vq/teachers.py:load_teacher), or random from `seed`."""
+    import functools
+
+    from ..vq.teachers import TEACHER_PRESETS, ViTTeacher, init_teacher_weights, load_teacher
+
+    teacher = ViTTeacher(image_size=image_size, dtype="bfloat16"
+                         if torch.device(device).type == "cuda" else "float32",
+                         device=str(device), **TEACHER_PRESETS[task])
     if ckpt:
-        raise NotImplementedError("--teacher_ckpt: reading CLIP / DINOv2 checkpoints is not "
-                                  "ported; without it the teacher has random weights")
-    print(f"[teacher] WARNING: no --teacher_ckpt for {task}; RANDOM weights "
-          "(pipeline-validation mode, not real features)")
-    teacher = init_teacher_weights(ViTTeacher(image_size=image_size, dtype="bfloat16"
-                                              if torch.device(device).type == "cuda"
-                                              else "float32", device=str(device),
-                                              **TEACHER_PRESETS[task]), seed)
-    is_global = task.endswith("-global")
-    return lambda x: teacher(x, return_global=is_global)
+        load_teacher(teacher, task, ckpt)
+    else:
+        print(f"[teacher] WARNING: no --teacher_ckpt for {task}; RANDOM weights "
+              "(pipeline-validation mode, not real features)")
+        init_teacher_weights(teacher, seed)
+    return functools.partial(teacher, return_global=task.endswith("-global"))
 
 
 def main(args=None):
@@ -201,8 +235,16 @@ def main(args=None):
     teacher = None
     if args.task:
         teacher = build_teacher(args.task, args.teacher_ckpt, args.input_size, args.seed, device)
-    model, _ = get_image_tokenizer(tokenizer_path(args.ckpt), encoder_only=True,
-                                   config_override={"dtype": args.dtype}, device=str(device))
+    if (args.ckpt is None) == (args.ckpt_dir is None):
+        raise SystemExit("give the tokenizer by --ckpt_dir (orbax checkpoints of the JAX "
+                         "package) or by --ckpt (a tokenizer file or a port run directory)")
+    if args.ckpt_dir is not None:
+        model = load_orbax_encoder(args.ckpt_dir, args.input_size, args.task, args.dtype,
+                                   str(device))
+    else:
+        model, _ = get_image_tokenizer(tokenizer_path(args.ckpt), encoder_only=True,
+                                       config_override={"dtype": args.dtype},
+                                       device=str(device))
     t0 = time.time()
     n = tokenize_folder(model, args.data_root, args.domain, args.out_dir,
                         input_size=args.input_size, n_crops=args.n_crops,

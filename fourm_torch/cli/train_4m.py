@@ -17,9 +17,13 @@ tokens-seen accounting, checkpoints every `--save_ckpt_freq` epochs of
 masters, the AdamW moments and step count, the step, the generators'
 states; and a params export `weights/step_N`, which cli/generate.py:load_fm
 reads), auto-resume from the newest checkpoint (on by default; a resumed run
-restarts its data stream, as the JAX CLI does), `--finetune` (a warm start
-from a released .safetensors or a run directory of the port, without its
-`.pos_emb` tensors, reference :475-487), and the eval every `--eval_freq`
+restarts its data stream, as the JAX CLI does; a JAX run's orbax
+`checkpoints/step_N` resumes too: its fp32 masters, AdamW moments and count
+and step, while the generators restart from `--seed`, since the JAX run's
+RNG state has no counterpart here), `--finetune` (a warm start from a
+released .safetensors, or a step, checkpoint or run directory of the port
+or of the JAX package, without its `.pos_emb` tensors, reference
+:475-487), and the eval every `--eval_freq`
 epochs (:156-192, :798-832) on the data config's val datasets, or held-out
 synthetic batches, at the fixed `--fixed_eval_*` budgets.
 
@@ -107,8 +111,9 @@ def get_parser():
     p.add_argument("--layer_decay", type=float, default=None,
                    help="per-layer LR decay factor (reference optim_factory.py:62-150)")
     p.add_argument("--finetune", default=None,
-                   help="warm-start weights (a released .safetensors or a run dir of the "
-                        "port), loaded minus pos-embs (reference :475-487)")
+                   help="warm-start weights (a released .safetensors, or a step, checkpoint "
+                        "or run dir of the port or of the JAX package), loaded minus "
+                        "pos-embs (reference :475-487)")
     # data
     p.add_argument("--data_config", default=None, help="YAML with train (and val) datasets")
     p.add_argument("--synthetic_data", action="store_true")
@@ -256,23 +261,37 @@ def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int
 
 
 def load_finetune_weights(path: str, model) -> None:
-    """--finetune: copy a released .safetensors, or the newest params export
-    of a run directory of the port (`weights/step_N`), into the model
-    without its `.pos_emb` tensors (reference run_training_4m.py:475-487,
-    which loads with strict=False and prints what did not match)."""
-    from ..utils.checkpoint import (latest_checkpoint_steps, load_checkpoint,
-                                    load_fourm_state_dict, load_safetensors)
+    """--finetune: copy released or trained weights into the model without
+    their `.pos_emb` tensors (reference run_training_4m.py:475-487, which
+    loads with strict=False and prints what did not match): a .safetensors;
+    a step directory; a directory of step_N (the newest, as the JAX CLI
+    reads an orbax one, fourm_tpu/cli/train_4m.py:121-150); or a run
+    directory (its weights/). Step directories are the port's (a params
+    export or a train checkpoint) or the JAX package's orbax ones (a params
+    export or a TrainState). A file that fills no parameter raises."""
+    from ..utils.checkpoint import (latest_checkpoint_steps, load_fourm_state_dict,
+                                    load_fourm_weights, load_safetensors)
+    from ..utils.orbax import is_orbax_step
 
     if path.endswith(".safetensors"):
         state = load_safetensors(path, return_metadata=False)
     else:
-        wdir = os.path.join(path, "weights")
-        steps = latest_checkpoint_steps(wdir)
-        if not steps:
-            raise FileNotFoundError(f"{path}: no params export under weights/ (a run dir of "
-                                    "the port) and not a .safetensors")
-        state = load_checkpoint(wdir, steps[-1], map_location="cpu")
+        parent, name = os.path.split(os.path.normpath(path))
+        if is_orbax_step(path) or os.path.isfile(os.path.join(path, "state.pt")):
+            ckpt_dir, step = parent, int(name.rsplit("_", 1)[1])
+        else:
+            ckpt_dir = path if latest_checkpoint_steps(path) else os.path.join(path, "weights")
+            steps = latest_checkpoint_steps(ckpt_dir)
+            if not steps:
+                raise FileNotFoundError(f"{path}: not a .safetensors, a step directory, a "
+                                        "directory of step_N or a run directory with weights/")
+            step = steps[-1]
+        state = load_fourm_weights(ckpt_dir, step, model.config)
     missing, unexpected = load_fourm_state_dict(model, state, drop_pos_emb=True, strict=False)
+    loaded = len(state) - sum(".pos_emb" in k for k in state) - len(unexpected)
+    if loaded == 0:
+        raise ValueError(f"--finetune {path}: no tensor of it is a parameter of the model "
+                         f"(its keys: {sorted(state)[:5]})")
     print(f"[ckpt] warm-started from {path} (pos-embs re-initialized); {len(missing)} "
           f"parameters kept their init {missing[:5]}, {len(unexpected)} checkpoint tensors "
           f"unused {unexpected[:5]}")
@@ -300,7 +319,8 @@ def train_checkpoint(state, generator, step: int) -> Optional[dict]:
 def restore_checkpoint(state, generator, ckpt: dict) -> int:
     """Load train_checkpoint's dict (on the CPU) into the train state and
     generator, in place, at this run's mesh whatever the writer's; -> its
-    step."""
+    step. A dict without generator states (from_jax_train_state's) leaves
+    the generators as they are."""
     if state.plan is None:
         state.model.load_state_dict(ckpt["model"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
@@ -309,10 +329,11 @@ def restore_checkpoint(state, generator, ckpt: dict) -> int:
         if missing:
             raise KeyError(f"checkpoint and model differ in {sorted(missing)[:5]}")
         state.plan.load_full(ckpt["model"], state.optimizer, ckpt["optimizer"])
-    generator.set_state(ckpt["generator"])
-    torch.set_rng_state(ckpt["torch_rng"])
-    if ckpt["cuda_rng"]:
-        torch.cuda.set_rng_state_all(ckpt["cuda_rng"])
+    if "generator" in ckpt:  # not in a JAX run's: its generators keep --seed's state
+        generator.set_state(ckpt["generator"])
+        torch.set_rng_state(ckpt["torch_rng"])
+        if ckpt["cuda_rng"]:
+            torch.cuda.set_rng_state_all(ckpt["cuda_rng"])
     state.step = int(ckpt["step"])
     return state.step
 
@@ -322,9 +343,10 @@ def main(args=None):
     from ..parallel import build_train_step, frozen_trunk_mask, init_train_state, make_mesh
     from ..parallel.launch import (barrier, initialize_multihost, is_main_process,
                                    process_count, shutdown)
-    from ..utils.checkpoint import auto_resume, save_checkpoint
+    from ..utils.checkpoint import auto_resume, from_jax_train_state, save_checkpoint
     from ..utils.config import expand_run_name, parse_args_with_config
     from ..utils.logger import JSONLLogger, tokens_seen
+    from ..utils.orbax import is_orbax_step
     from ..utils.optim import create_optimizer, make_schedule
     from ..utils.synthetic import to_torch
 
@@ -399,10 +421,16 @@ def main(args=None):
     start_step = 0
     if args.auto_resume:
         barrier()  # rank 0 made the output directory
-        ckpt, _ = auto_resume(ckpt_dir, map_location="cpu")
+        ckpt, step = auto_resume(ckpt_dir, map_location="cpu")
         if ckpt is not None:
+            jax_run = is_orbax_step(os.path.join(ckpt_dir, f"step_{step}"))
+            if jax_run:  # the JAX package's TrainState (orbax)
+                ckpt = from_jax_train_state(ckpt, config)
             start_step = restore_checkpoint(state, generator, ckpt)
-            say(f"[ckpt] resumed from step {start_step}")
+            say(f"[ckpt] resumed from step {start_step}" + (
+                " of a JAX run (fp32 masters, AdamW moments and count); its RNG state is not "
+                "carried over: the generators restart from --seed at this step" if jax_run
+                else ""))
             del ckpt
     eval_in = args.fixed_eval_input_tokens if args.fixed_eval else args.num_input_tokens
     eval_tgt = args.fixed_eval_target_tokens if args.fixed_eval else args.num_target_tokens

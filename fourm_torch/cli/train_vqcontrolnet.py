@@ -35,9 +35,10 @@ What differs from the JAX CLI, and why:
     torch.save as `checkpoints/step_N/state.pt` with `tokenizer.safetensors`
     for get_image_tokenizer, auto-resume); the JAX CLI writes orbax
     checkpoints and does not resume;
-  * `--vq_ckpt` reads a tokenizer `.safetensors` / `.pth` or a train_vqvae
-    output directory (encoder, quant_proj and codebook); the JAX CLI reads
-    an orbax directory, which the port does not (ROADMAP);
+  * `--vq_ckpt` takes, beside the JAX CLI's orbax directory (its newest
+    step_N; `encoder`, `quant_proj` and the codebook, JAX :145-156), a
+    tokenizer `.safetensors` / `.pth` or a train_vqvae output directory of
+    the port;
   * random draws (the VAE sample, noise, timesteps, dead codes, condition
     dropout) come from one torch.Generator on the card seeded by
     `--seed` + 2, and the eval's from one seeded 9, as the JAX eval's key;
@@ -103,8 +104,9 @@ def get_parser():
     p.add_argument("--data_path", default=None)
     p.add_argument("--synthetic_data", action="store_true")
     p.add_argument("--vq_ckpt", default=None,
-                   help="pretrained VQ encoder, loaded frozen: a tokenizer .safetensors / "
-                        ".pth, or a train_vqvae output directory")
+                   help="pretrained VQ encoder, loaded frozen: an orbax directory of the JAX "
+                        "package (or one of its step_N), a tokenizer .safetensors / .pth, or "
+                        "a train_vqvae output directory of the port")
     p.add_argument("--output_dir", default="out/train_vqcontrolnet")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval_freq", type=int, default=500)
@@ -140,14 +142,23 @@ def model_config(args) -> Dict:
 
 
 def load_vq_encoder(model, path: str) -> None:
-    """The encoder, quant_proj and codebook of a tokenizer file (or a
-    train_vqvae output directory's) into `model`, in place."""
-    from ..vq.loader import get_image_tokenizer
+    """The encoder, quant_proj and codebook of a JAX orbax checkpoint (a
+    step directory or a directory of them, the newest), a tokenizer file or
+    a port's train_vqvae output directory into `model`, in place."""
+    from ..utils.checkpoint import from_jax_vq_variables, latest_checkpoint_steps
+    from ..utils.orbax import is_orbax_step
+    from ..vq.loader import get_image_tokenizer, read_jax_vq_variables
     from .save_vq_tokens import tokenizer_path
 
-    vq, _ = get_image_tokenizer(tokenizer_path(path), encoder_only=True, verbose=False,
-                                config_override={"dtype": "float32"}, device="cpu")
-    state = {k: v for k, v in vq.state_dict().items() if not k.endswith("pos_emb")}
+    if is_orbax_step(path) or latest_checkpoint_steps(path):
+        jv = read_jax_vq_variables(path)
+        params = {k: v for k, v in jv["params"].items() if k in ("encoder", "quant_proj")}
+        state = from_jax_vq_variables({"params": params, "codebook": jv.get("codebook", {})})
+        state = {k: v for k, v in state.items() if not k.endswith("pos_emb")}
+    else:
+        vq, _ = get_image_tokenizer(tokenizer_path(path), encoder_only=True, verbose=False,
+                                    config_override={"dtype": "float32"}, device="cpu")
+        state = {k: v for k, v in vq.state_dict().items() if not k.endswith("pos_emb")}
     own = model.state_dict()
     unknown = [k for k in state if k not in own]
     if unknown:

@@ -1,7 +1,8 @@
 """Native (C++) helpers of the data pipeline, with ctypes bindings: the
 port's own copy of fourm_tpu/native/ (tar_reader.cpp), a PNG row
 reconstruction (png_unfilter.cpp) and a JPEG decoder (jpeg_decode.cpp) for
-data/image_io.py.
+data/image_io.py, and a zstd decoder with CRC-32C (zstd_decode.cpp) for the
+orbax checkpoints that utils/orbax.py reads and writes.
 
 `tar_reader`: indexed tar-shard reading (one pread per member, no
 per-member Python object churn). The sources are one library, built
@@ -10,8 +11,8 @@ named after the hash of the sources, so an edited source rebuilds. The
 build writes a temporary file and renames it, so that worker processes
 building at once do not read a half-written library. Without a compiler
 the tar and PNG callers fall back to Python (tarfile; numpy row
-reconstruction), and `native_available()` says which; `decode_jpeg` has no
-fallback and raises.
+reconstruction), and `native_available()` says which; `decode_jpeg`,
+`decode_zstd` and `crc32c` have no fallback and raise.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-SOURCES = ("tar_reader.cpp", "png_unfilter.cpp", "jpeg_decode.cpp")
+SOURCES = ("tar_reader.cpp", "png_unfilter.cpp", "jpeg_decode.cpp", "zstd_decode.cpp")
 BUILD_DIR = _DIR / "_build"
 _FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 _lib = None
@@ -64,10 +65,12 @@ def _load() -> Optional[ctypes.CDLL]:
             _build(path)
         lib = ctypes.CDLL(str(path))
     except Exception as e:  # no compiler: the callers fall back to Python
-        _build_error = f"{type(e).__name__}: {e}"
+        stderr = getattr(e, "stderr", None)
+        _build_error = f"{type(e).__name__}: {e}" + (
+            f"\n{stderr.decode(errors='replace').strip()}" if stderr else "")
         print(f"[native] the native library could not be built ({_build_error}); "
               "tar shards are read by Python's tarfile, PNG rows by numpy, and JPEG "
-              "files raise", flush=True)
+              "files and zstd data raise", flush=True)
         return None
     i64, p = ctypes.c_int64, ctypes.c_void_p
     for name, args in (("tar_open", [ctypes.c_char_p]), ("tar_num_members", [i64]),
@@ -76,9 +79,12 @@ def _load() -> Optional[ctypes.CDLL]:
                        ("tar_read_member", [i64, i64, ctypes.POINTER(ctypes.c_uint8), i64]),
                        ("png_unfilter", [p, i64, i64, i64, p]),
                        ("jpeg_info", [p, i64, p, ctypes.c_char_p, i64]),
-                       ("jpeg_decode", [p, i64, p, i64, ctypes.c_char_p, i64])):
+                       ("jpeg_decode", [p, i64, p, i64, ctypes.c_char_p, i64]),
+                       ("zstd_content_size", [p, i64, ctypes.c_char_p, i64]),
+                       ("zstd_decode", [p, i64, p, i64, ctypes.c_char_p, i64])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i64
+    lib.crc32c.argtypes, lib.crc32c.restype = [p, i64], ctypes.c_uint32
     lib.tar_close.argtypes, lib.tar_close.restype = [i64], None
     _lib = lib
     return lib
@@ -86,6 +92,19 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def _required(what: str) -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"{what} needs the native library, which could not be built "
+                           f"({_build_error})")
+    return lib
+
+
+def _bytes(data) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) else \
+        np.ascontiguousarray(data).reshape(-1).view(np.uint8)
 
 
 def png_unfilter(data: bytes, height: int, rowbytes: int, bpp: int) -> np.ndarray:
@@ -108,10 +127,7 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> Tuple[np.ndarray, str]:
     coding, 12-bit, lossless, CMYK / YCCK, other sampling factors) or a
     truncated one raises ValueError naming `name` and the feature; without
     the native library it raises RuntimeError."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"{name}: JPEG needs the native library, which could not be built "
-                           f"({_build_error})")
+    lib = _required(f"{name}: JPEG")
     src = np.frombuffer(data, np.uint8)
     dims = np.zeros(3, np.int64)
     err = ctypes.create_string_buffer(256)
@@ -122,6 +138,49 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> Tuple[np.ndarray, str]:
     if lib.jpeg_decode(src.ctypes.data, src.size, out.ctypes.data, out.size, err, 256) != 0:
         raise ValueError(f"{name}: {err.value.decode()}")
     return out, ("RGB" if c == 3 else "L")
+
+
+def decode_zstd(data, out: Optional[np.ndarray] = None, name: str = "<zstd>") -> np.ndarray:
+    """The content of one or more zstd frames (RFC 8878; skippable frames
+    are passed over) as a uint8 array. `out`, a C-contiguous array of any
+    dtype, takes the content in place and is returned (viewed as uint8);
+    without it the array is allocated at the size the frames declare, or,
+    when a frame does not declare its size, grown until the content fits.
+    Content of another size than `out`, a corrupt frame, a failed content
+    checksum or a frame that needs a dictionary raises ValueError naming
+    `name`."""
+    lib = _required(f"{name}: zstd")
+    src = _bytes(data)
+    err = ctypes.create_string_buffer(256)
+    if out is not None:
+        if not (out.flags.c_contiguous and out.flags.writeable):
+            raise ValueError(f"{name}: `out` must be a writeable C-contiguous array")
+        dst = out.reshape(-1).view(np.uint8)
+        exact = True
+    else:
+        size = lib.zstd_content_size(src.ctypes.data, src.size, err, 256)
+        if size == -1:
+            raise ValueError(f"{name}: {err.value.decode()}")
+        exact = size != -2
+        dst = np.empty(size if exact else 4 * src.size + 65536, np.uint8)
+    while True:
+        n = lib.zstd_decode(src.ctypes.data, src.size, dst.ctypes.data, dst.size, err, 256)
+        if n != -2 or exact:
+            break
+        dst = np.empty(2 * dst.size, np.uint8)  # no declared size: grow
+    if n == -1:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    if exact and n != dst.size:
+        raise ValueError(f"{name}: the zstd content is "
+                         f"{f'more than {dst.size}' if n == -2 else n} bytes, "
+                         f"{dst.size} were expected")
+    return dst if exact else dst[:n]
+
+
+def crc32c(data) -> int:
+    """The CRC-32C (Castagnoli) of a buffer, as OCDBT checks its files."""
+    src = _bytes(data)
+    return int(_required("CRC-32C").crc32c(src.ctypes.data, src.size))
 
 
 class NativeTarFile:

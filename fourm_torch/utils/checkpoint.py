@@ -26,7 +26,9 @@ machine with the card has neither `safetensors` nor PyYAML):
 Train state (fourm_tpu/utils/checkpoint.py:31-82, orbax there, here
 `torch.save`): `save_checkpoint` writes `step_N` directories (under a
 temporary name, then renamed) and keeps the newest `keep`;
-`latest_checkpoint_steps`, `load_checkpoint`, `auto_resume`.
+`latest_checkpoint_steps`, `load_checkpoint`, `auto_resume`, which read
+the port's own step directories and, by utils/orbax.py, those the JAX
+package's orbax wrote (`is_orbax_step` tells them apart).
 
 Weight bridge: each `from_jax_*` function takes a fourm_tpu variables tree
 as nested dicts of numpy arrays (what `jax.tree.map(np.asarray,
@@ -41,8 +43,19 @@ the port's module takes with `load_state_dict(..., strict=True)`:
     them;
   * `from_jax_teacher_params(params)`: a ViTTeacher's `params`;
   * `from_jax_adam_state(opt_state, config)`: optax AdamW's `count`, `mu`
-    and `nu` of a FourM, as the port's FusedAdamW state (`load_state_dict`).
-Dense kernels (in, out) become nn.Linear weights (out, in), convolution
+    and `nu` of a FourM, as the port's FusedAdamW state (`load_state_dict`);
+  * `from_jax_train_state(tree, config)`: a JAX TrainState (`step`,
+    `params`, `opt_state`, fourm_tpu/parallel/train.py:28) as the port's
+    checkpoint dict (`step`, `model`, `optimizer`).
+And back: `to_jax_params(state, config)` (the port's copy of
+fourm_tpu/utils/checkpoint.py:138 import_fourm_state_dict) and
+`to_jax_train_state(model_state, opt_state, step, config)`, the JAX
+train_4m's TrainState layout (optax's chain of the default clip and AdamW),
+which utils/orbax.py:write_orbax_tree writes as the JAX package would.
+A returned tensor shares its memory with the tree's array where that array
+owns writeable contiguous data (read_orbax_tree's: no second copy of a
+checkpoint); other arrays are copied. Dense kernels (in, out) become
+nn.Linear weights (out, in), convolution
 kernels (kh, kw, in, out) the reference's (out, in, kh, kw), transposed
 convolution kernels (kh, kw, out, in; flax's transpose_kernel=True) the
 (in, out, kh, kw) of nn.ConvTranspose2d (the same permutation), flax
@@ -60,6 +73,7 @@ import mmap
 import os
 import re
 import shutil
+from types import SimpleNamespace
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -116,7 +130,76 @@ def from_jax_params(params: Mapping, config) -> Dict[str, torch.Tensor]:
                     out[f"{top}.{mod}.{name}"] = np.asarray(sub)
         else:
             raise KeyError(f"unhandled JAX param {key}")
-    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+    return _tensors(out)
+
+
+def _numpy(t, transpose: bool = False) -> np.ndarray:
+    """A tensor (or array) as numpy on the host, bf16 widened to fp32;
+    `transpose` reverses its axes first (where it lies, on the card)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if transpose:
+            t = t.permute(*reversed(range(t.ndim))).contiguous()
+        t = t.to("cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.ascontiguousarray(np.asarray(t).T) if transpose else np.asarray(t)
+
+
+def _jax_leaf(parts, t):
+    """(path, value) of a block or embedding tensor in the JAX tree: an
+    nn.Linear / convolution weight is a flax kernel, transposed back
+    (_walk's .T), a token embedding's weight its `embedding`, a norm's 1-D
+    weight stays `weight`."""
+    *sub, leaf = parts
+    if leaf == "weight":
+        if sub and sub[-1] == "token_emb":
+            return tuple(sub) + ("embedding",), _numpy(t)
+        if len(t.shape) >= 2:
+            return tuple(sub) + ("kernel",), _numpy(t, transpose=True)
+    return tuple(parts), _numpy(t)
+
+
+def to_jax_params(state: Mapping[str, Any], config) -> Dict:
+    """The JAX FourM's `params` tree (nested dicts of numpy arrays) of a
+    reference-named state dict: the inverse of from_jax_params, by the rules
+    of fourm_tpu/utils/checkpoint.py:138 import_fourm_state_dict. A
+    `pos_emb` (the reference's (1, N, D)) becomes the JAX (N, D) table, as
+    there; the port's state dicts hold none where the table is sin-cos."""
+    params: Dict = {}
+
+    def put(path, value):
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    for key, t in state.items():
+        parts = key.split(".")
+        top = parts[0]
+        if top in ("encoder", "decoder") and len(parts) > 2 and parts[1].isdigit():
+            path, v = _jax_leaf(parts[2:], t)
+            put((f"{top}_{parts[1]}",) + path, v)
+        elif top in ("encoder_norm", "decoder_norm", "decoder_proj_context"):
+            path, v = _jax_leaf(parts[1:], t)
+            put((top,) + path, v)
+        elif key == "mask_token":
+            put(("mask_token",), _numpy(t).reshape(-1))
+        elif key == "register_tokens":
+            put(("register_tokens",), _numpy(t).reshape(t.shape[-2], t.shape[-1]))
+        elif top in ("encoder_embeddings", "decoder_embeddings") and len(parts) > 2:
+            mod, rest = parts[1], parts[2:]
+            if rest == ["mod_emb"]:
+                shared = top == "encoder_embeddings" or config.share_modality_embeddings
+                put((f"mod_emb_{mod}" if shared else f"dec_mod_emb_{mod}",),
+                    _numpy(t).reshape(-1))
+            elif rest == ["pos_emb"]:
+                put((f"{top}_{mod}", "pos_emb"), _numpy(t).reshape(t.shape[-2], t.shape[-1]))
+            else:
+                path, v = _jax_leaf(rest, t)
+                put((f"{top}_{mod}",) + path, v)
+        else:
+            raise KeyError(f"unhandled FourM tensor {key}")
+    return params
 
 
 def from_jax_vit_params(params: Mapping, img_size: int = 224) -> Dict[str, torch.Tensor]:
@@ -135,8 +218,17 @@ def from_jax_vit_params(params: Mapping, img_size: int = 224) -> Dict[str, torch
     return out
 
 
+def _own(v: np.ndarray) -> np.ndarray:
+    """v itself where it owns its writeable contiguous data (an array the
+    bridge or utils/orbax.py made), else a copy (a view of the caller's
+    tree, or JAX's read-only arrays)."""
+    v = np.asarray(v)
+    ok = v.base is None and v.flags.writeable and v.flags.c_contiguous
+    return v if ok else np.array(v, copy=True)
+
+
 def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+    return {k: torch.from_numpy(_own(v)) for k, v in out.items()}
 
 
 # flax module names -> the reference's (fourm_tpu/utils/checkpoint.py:_VQ_SEG_MAP)
@@ -217,8 +309,16 @@ def from_jax_teacher_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def _adam_states(state):
     """The optax ScaleByAdamState(s) in an optimizer state: any node with
-    count, mu and nu, found through tuples, lists and NamedTuples."""
-    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+    count, mu and nu (attributes, or the keys of a mapping as
+    utils/orbax.py:read_orbax_tree gives them), found through tuples,
+    lists, NamedTuples and mappings."""
+    if isinstance(state, Mapping):
+        if all(f in state for f in ("count", "mu", "nu")):
+            yield SimpleNamespace(count=state["count"], mu=state["mu"], nu=state["nu"])
+        else:
+            for sub in state.values():
+                yield from _adam_states(sub)
+    elif all(hasattr(state, f) for f in ("count", "mu", "nu")):
         yield state
     elif isinstance(state, (tuple, list)):
         for sub in state:
@@ -243,6 +343,42 @@ def from_jax_adam_state(opt_state, config) -> dict:
 
     return {"count": int(np.asarray(adam.count)), "mu": moments(adam.mu),
             "nu": moments(adam.nu)}
+
+
+def jax_params_of(tree: Mapping) -> Mapping:
+    """The FourM `params` of a tree read from a JAX run: a TrainState
+    (`step`, `params`: the variables, `opt_state`), a variables export
+    (train_4m's weights/step_N: {"params": ...}), or the params themselves."""
+    if "opt_state" in tree:
+        tree = tree["params"]
+    while set(tree) == {"params"}:  # the variables, or a TrainState read by its params
+        tree = tree["params"]
+    return tree
+
+
+def from_jax_train_state(tree: Mapping, config) -> Dict[str, Any]:
+    """The port's checkpoint dict ({"step", "model", "optimizer"}, what
+    cli/train_4m.py:restore_checkpoint loads) of a JAX TrainState
+    (fourm_tpu/parallel/train.py:28) read by read_orbax_tree: the fp32
+    masters, the AdamW moments and count, the step."""
+    return {"step": int(np.asarray(tree["step"])),
+            "model": from_jax_params(jax_params_of(tree), config),
+            "optimizer": from_jax_adam_state(tree["opt_state"], config)}
+
+
+def to_jax_train_state(model_state: Mapping[str, Any], opt_state: Mapping[str, Any], step: int,
+                       config) -> Dict:
+    """The JAX train_4m's TrainState of the port's fp32 masters and
+    FusedAdamW state ({"count", "mu", "nu"}), as nested dicts (int keys: a
+    tuple's entries): `params` the variables, `opt_state` the state of the
+    chain fourm_tpu/utils/optim.py:create_optimizer builds with the CLI's
+    defaults (clip_by_global_norm: no state; adamw: ScaleByAdamState, the
+    masked weight decay's empty state, the schedule's count)."""
+    count = np.int32(opt_state["count"])
+    adam = {"count": count, "mu": {"params": to_jax_params(opt_state["mu"], config)},
+            "nu": {"params": to_jax_params(opt_state["nu"], config)}}
+    return {"step": np.int32(step), "params": {"params": to_jax_params(model_state, config)},
+            "opt_state": {0: None, 1: {0: adam, 1: {"inner_state": None}, 2: {"count": count}}}}
 
 
 def _numpy_tree(tree):
@@ -589,9 +725,30 @@ def latest_checkpoint_steps(ckpt_dir: str):
 
 
 def load_checkpoint(ckpt_dir: str, step: int, map_location=None) -> Dict[str, Any]:
-    """The state saved at `step` (tensors onto map_location, as torch.load)."""
-    return torch.load(os.path.join(ckpt_dir, f"step_{step}", "state.pt"),
-                      map_location=map_location, weights_only=True)
+    """The state saved at `step`: the port's (tensors onto map_location, as
+    torch.load), or, where the JAX package's orbax wrote `step_N`,
+    read_orbax_tree's nested dicts of numpy arrays."""
+    from .orbax import is_orbax_step, read_orbax_tree
+
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if is_orbax_step(path):
+        return read_orbax_tree(path)
+    return torch.load(os.path.join(path, "state.pt"), map_location=map_location,
+                      weights_only=True)
+
+
+def load_fourm_weights(ckpt_dir: str, step: int, config) -> Dict[str, torch.Tensor]:
+    """The reference-named FourM state dict saved at `step`: the port's
+    params export or the `model` of its train checkpoint, or, in the JAX
+    package's orbax directory, the `params` of a variables export or of a
+    TrainState (only those are read)."""
+    from .orbax import is_orbax_step, read_orbax_tree
+
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if is_orbax_step(path):
+        return from_jax_params(jax_params_of(read_orbax_tree(path, prefix=("params",))), config)
+    state = load_checkpoint(ckpt_dir, step, map_location="cpu")
+    return state["model"] if "optimizer" in state else state  # train_checkpoint's dict
 
 
 def auto_resume(ckpt_dir: str, map_location=None) -> Tuple[Optional[Dict[str, Any]], int]:

@@ -3,8 +3,13 @@ reference fourm/vq/__init__.py:8-79).
 
 Loads a tokenizer checkpoint from
   * a `.safetensors` file with the config as metadata (the release format,
-    reference utils/checkpoint.py:176-192; utils/checkpoint.py reads it), or
-  * a legacy `.pth` file (`{'model': state_dict, 'args': Namespace}`),
+    reference utils/checkpoint.py:176-192; utils/checkpoint.py reads it),
+  * a legacy `.pth` file (`{'model': state_dict, 'args': Namespace}`), or
+  * a run directory of the JAX package's tokenizer training: `config.json`
+    and orbax `checkpoints/step_*` (the newest) with the `params` and
+    `codebook` collections (JAX vq/loader.py:122-160; read by
+    utils/orbax.py), or the same of train_vqvae's checkpoints, whose
+    collections nest one level deeper ({"params": {"params": ...}}),
 applies the reference's legacy argument renames (encoder_type -> enc_type,
 input_size -> image_size, input_size_sd -> image_size_sd, ...), infers the
 model class from the state dict and the config (`controlnet` keys ->
@@ -16,14 +21,15 @@ parameter the file lacks, raises). Returns `(model, None)`: the port's
 modules hold their weights, where the JAX loader returns (model,
 variables); `TokenizerBundle(model)` takes it for decoding.
 
-Not ported: an orbax run directory of the JAX trainers (orbax is not on
-the machine with the card), which raises; the port's trainers write
-`tokenizer.safetensors` beside their checkpoints.
+The JAX loader reads no model class from an orbax directory's weights (its
+state dict is empty there); the port reads them and so infers a
+VQControlNet from `controlnet` keys there too.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -92,6 +98,35 @@ def _filter_fields(cls, args: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in args.items() if k in names and v is not None}
 
 
+def read_jax_vq_variables(path: str) -> Dict[str, Any]:
+    """{"params", "codebook"} (nested dicts of numpy arrays) of a JAX
+    tokenizer checkpoint that orbax wrote: `path` is a step directory or a
+    directory of them (the newest is read). The collections are taken as
+    the JAX loader restores them ({"params": ..., "codebook": ...}), or from
+    train_vqvae's and train_vqcontrolnet's checkpoints, which nest each one
+    level deeper and hold the optimizer state beside (not read)."""
+    from ..utils.checkpoint import latest_checkpoint_steps
+    from ..utils.orbax import is_orbax_step, read_orbax_tree
+
+    if not is_orbax_step(path):
+        steps = latest_checkpoint_steps(path)
+        if not steps:
+            raise FileNotFoundError(f"{path}: no step_N checkpoint")
+        path = os.path.join(path, f"step_{steps[-1]}")
+        if not is_orbax_step(path):
+            raise ValueError(f"{path}: not an orbax checkpoint (no _METADATA / manifest.ocdbt)")
+    out = {}
+    for name in ("params", "codebook"):
+        try:
+            tree = read_orbax_tree(path, prefix=(name,))[name]
+        except KeyError:
+            if name == "params":
+                raise
+            continue  # a quantizer without codebook state
+        out[name] = tree[name] if set(tree) == {name} else tree
+    return out
+
+
 def _read(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     if path.endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
@@ -104,8 +139,16 @@ def _read(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         cfg = metadata.get("config", {})
         return state, dict(cfg) if isinstance(cfg, dict) else {}
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: an orbax run directory; the port reads "
-                                  ".safetensors and .pth tokenizer checkpoints")
+        from ..utils.checkpoint import from_jax_vq_variables
+
+        cfg_path = os.path.join(path, "config.json")
+        if not os.path.isfile(cfg_path):
+            raise FileNotFoundError(f"{path}: a tokenizer run directory holds config.json "
+                                    "and orbax checkpoints/step_*")
+        with open(cfg_path) as f:
+            args = json.load(f)
+        return from_jax_vq_variables(read_jax_vq_variables(
+            os.path.join(path, "checkpoints"))), args
     raise ValueError(f"unsupported tokenizer checkpoint: {path}")
 
 

@@ -9,7 +9,10 @@ DINOv2 tokenizers get the feature maps they tokenize:
 Each block's attention is fourm_torch.ops.transformer.Attention, which takes
 the `mha_short` kernel for these short, unmasked sequences; the MLP is two
 plain F.linear, as in the JAX package. Weights cross from the JAX package
-through fourm_torch.utils.checkpoint.from_jax_teacher_params.
+through fourm_torch.utils.checkpoint.from_jax_teacher_params, and come from
+the released checkpoints through `load_teacher` (the port's copy of
+fourm_tpu/vq/teachers.py:127-231: import_clip_visual_state,
+import_dinov2_state and get_feature_extractor's file reading).
 """
 
 from __future__ import annotations
@@ -136,4 +139,81 @@ def init_teacher_weights(teacher: ViTTeacher, seed: int, std: float = 0.02) -> V
                 scale = {"cls_token": std, "pos_embed": std, "proj": p.shape[0] ** -0.5}.get(
                     leaf, p[0].numel() ** -0.5)
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * scale)
+    return teacher
+
+
+def _clip_names(state) -> Dict[str, str]:
+    """{teacher name: OpenAI CLIP `visual.*` name} (JAX import_clip_visual_state)."""
+    names = {"patch_embed.weight": "visual.conv1.weight", "cls_token": "visual.class_embedding",
+             "pos_embed": "visual.positional_embedding", "ln_pre.weight": "visual.ln_pre.weight",
+             "ln_pre.bias": "visual.ln_pre.bias", "ln_post.weight": "visual.ln_post.weight",
+             "ln_post.bias": "visual.ln_post.bias"}
+    if "visual.proj" in state:
+        names["proj"] = "visual.proj"
+    i = 0
+    while f"visual.transformer.resblocks.{i}.ln_1.weight" in state:
+        src = f"visual.transformer.resblocks.{i}"
+        for dst, name in (("norm1", "ln_1"), ("attn.qkv", "attn.in_proj"),
+                          ("attn.proj", "attn.out_proj"), ("norm2", "ln_2"),
+                          ("fc1", "mlp.c_fc"), ("fc2", "mlp.c_proj")):
+            for leaf in ("weight", "bias"):
+                sep = "_" if name == "attn.in_proj" else "."
+                names[f"blocks.{i}.{dst}.{leaf}"] = f"{src}.{name}{sep}{leaf}"
+        i += 1
+    return names
+
+
+def _dinov2_names(state) -> Dict[str, str]:
+    """{teacher name: DINOv2 torchhub name} (JAX import_dinov2_state)."""
+    names = {"patch_embed.weight": "patch_embed.proj.weight",
+             "patch_embed.bias": "patch_embed.proj.bias", "cls_token": "cls_token",
+             "pos_embed": "pos_embed", "ln_post.weight": "norm.weight",
+             "ln_post.bias": "norm.bias"}
+    i = 0
+    while f"blocks.{i}.norm1.weight" in state:
+        src = f"blocks.{i}"
+        for dst, name in (("norm1", "norm1"), ("attn.qkv", "attn.qkv"), ("attn.proj", "attn.proj"),
+                          ("norm2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            for leaf in ("weight", "bias"):
+                names[f"blocks.{i}.{dst}.{leaf}"] = f"{src}.{name}.{leaf}"
+        names[f"blocks.{i}.gamma_1"] = f"{src}.ls1.gamma"
+        names[f"blocks.{i}.gamma_2"] = f"{src}.ls2.gamma"
+        i += 1
+    return names
+
+
+def read_teacher_state(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a teacher checkpoint, as the JAX loader reads them: a
+    .safetensors, a .pth / .pt (the dict itself, or its `state_dict`), or
+    an .npz."""
+    if path.endswith(".safetensors"):
+        from ..utils.checkpoint import load_safetensors
+
+        return load_safetensors(path, return_metadata=False)
+    if path.endswith((".pth", ".pt")):
+        raw = torch.load(path, map_location="cpu", weights_only=False)
+        raw = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
+        return dict(raw)
+    import numpy as np
+
+    with np.load(path) as f:
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+
+def load_teacher(teacher: ViTTeacher, task: str, path: str) -> ViTTeacher:
+    """A CLIP (OpenAI `visual.*` layout) or DINOv2 (torchhub layout)
+    checkpoint into `teacher`, in place, by `task`'s name as the JAX
+    package picks the layout; the blocks the file holds are copied (as many
+    as it numbers), each tensor cast to the teacher's parameter dtype. A
+    tensor the mapping needs and the file lacks raises KeyError."""
+    state = read_teacher_state(path)
+    names = _clip_names(state) if "CLIP" in task else _dinov2_names(state)
+    own = dict(teacher.named_parameters())
+    with torch.no_grad():
+        for dst, src in names.items():
+            if src not in state:
+                raise KeyError(f"{path}: no {src} for the teacher's {dst}")
+            p = own[dst]
+            p.copy_(state[src].float().reshape(p.shape))
+    print(f"[teacher] loaded {task} weights from {path}")
     return teacher

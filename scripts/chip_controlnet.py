@@ -12,12 +12,12 @@ SD-1.5-scale UNet and ControlNet branch over a 56 x 56 x 4 VAE latent;
   C1. VQ.tokenize of 2 seeded 448 px images (the encoder's inference
       kernels: 12 `ln_matmul`, 12 `mha_short`, 12 `ln_mlp`, one
       `nearest_code_cosine`), each launch held to its plain twin on the same
-      inputs (KernelTap); the latents against the encoder's fp32 and bf16
-      copies on the CPU and the tokens against the plain search on the
-      card's latents (phase 7's latent_gate and token_gate); then
-      controlnet_decode_tokens of the 2 grids
-      at 8 DDIM steps, CFG off (guidance 0) and on (guidance 2; the
-      unconditional pass skips the branch): (2, 448, 448, 3), finite, in
+      inputs (chip_smoke.KernelTap); the latents against the encoder's fp32
+      and bf16 copies on the CPU and the tokens against the plain search on
+      the card's latents (phase 7's latent_gate and token_gate); then
+      controlnet_decode_tokens of the 2 grids at 8 DDIM steps, CFG off
+      (guidance 0) and on (guidance 2; the unconditional pass skips the
+      branch): (2, 448, 448, 3), finite, in
       [-1, 1], no kernel launched by the decoding (it is convolutions,
       GroupNorm and plain attention). ms a call (median of 3 fenced calls
       after a warm one), requests/s, and the busy share (device time under
@@ -30,10 +30,11 @@ SD-1.5-scale UNet and ControlNet branch over a 56 x 56 x 4 VAE latent;
       `ln_matmul`, 12 `mha_short`, 12 `ln_mlp`, one `nearest_code_cosine`
       and one `fused_adamw` a step and nothing else, each launch of step 1
       (B = 32: 25088 encoder rows; AdamW over the branch's 256 leaves, clip
-      included) held to its plain twin on the same inputs (KernelTap); the
-      eval's 12 + 12 + 12 + 1; every parameter outside decoder.controlnet bit for bit over the
-      run, the branch moved; before step 1 the branch's time embedding and
-      encoder equal to the UNet's (--init_controlnet_from_unet).
+      included) held to its plain twin on the same inputs
+      (chip_smoke.KernelTap); the eval's 12 + 12 + 12 + 1; every parameter
+      outside decoder.controlnet bit for bit over the run, the branch moved;
+      before step 1 the branch's time embedding and encoder equal to the
+      UNet's (--init_controlnet_from_unet).
       samples/s (B / the median fenced step after the first), peak memory.
   C3. The run's tokenizer.safetensors read back by get_image_tokenizer
       (a VQControlNet, strict): every tensor equal to the trainer's.
@@ -44,7 +45,6 @@ nothing of JAX or fourm_tpu.
 
 from __future__ import annotations
 
-import importlib
 import os
 import shutil
 import statistics
@@ -63,100 +63,6 @@ TINY = ["--input_size", "32", "--patch_size", "4", "--enc_type", "vit_t_enc",
         "--channel_mult", "1", "2", "--attention_levels", "1", "--num_heads", "2",
         "--context_len", "4", "--context_dim", "16", "--vae_base_channels", "32",
         "--vae_ch_mult", "1", "2", "--dtype", "float32"]
-
-
-# the wrappers of this phase's kernels: the module that calls each, and the
-# kernels module that holds its plain twin
-TAPPED = {"ln_matmul": ("fourm_torch.ops.transformer", "fused_mlp", "ln_matmul_plain"),
-          "ln_mlp": ("fourm_torch.ops.transformer", "fused_mlp", "ln_mlp_plain"),
-          "mha_short": ("fourm_torch.ops.transformer", "attention", "mha_short_plain"),
-          "nearest_code_cosine": ("fourm_torch.vq.quantizer", "vq_codebook",
-                                  "nearest_code_cosine_plain"),
-          "fused_adamw": ("fourm_torch.utils.optim", "fused_adamw", "fused_adamw_plain")}
-
-
-class KernelTap:
-    """While entered, each launch of the path's kernels is held, as the path
-    makes it, to the kernel's plain twin on the same inputs on the card: the
-    wrapper's name in the module that calls it is bound to a function that
-    calls the wrapper (its one launch, counted as before) and then the twin
-    (no launch). bf16 outputs within chip_smoke.held's tolerance (two bf16
-    ulps of the largest value), the search's tokens exactly, fused_adamw's
-    parameters, moments and count bit for bit (the twin steps copies taken
-    before the launch, with the same gradients, norm and clip)."""
-
-    def __init__(self, run: "Run", label: str):
-        self.run, self.label = run, label
-        self.calls = {}  # name -> [calls held, largest error, its tolerance]
-        self._saved = []
-
-    def __enter__(self):
-        for name, (caller, kmod, plain) in TAPPED.items():
-            mod = importlib.import_module(caller)
-            real = getattr(mod, name)
-            twin = getattr(importlib.import_module(f"fourm_torch.kernels.{kmod}"), plain)
-            self._saved.append((mod, name, real))
-            setattr(mod, name, (self._adamw if name == "fused_adamw" else self._fn)(
-                name, real, twin))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, real in self._saved:
-            setattr(mod, name, real)
-
-    def _hold(self, name: str, parts: dict, exact: bool) -> None:
-        """parts: {part: (outputs, twin's outputs)}, lists of tensors."""
-        torch = self.run.torch
-        for part, (outs, refs) in parts.items():
-            err = max((o.float() - r.float()).abs().max() for o, r in zip(outs, refs)).item()
-            top = max(r.float().abs().max() for r in refs).item()
-            tol = 0.0 if exact else 2.0 ** -6 * top
-            finite = all(bool(torch.isfinite(o).all()) for o in outs)
-            self.run.check(finite and err <= tol,
-                           f"{self.label}: {name} {part} at {tuple(outs[0].shape)}: max abs "
-                           f"error {err} against its plain twin > tolerance {tol} (finite "
-                           f"{finite})")
-            rec = self.calls.setdefault(name, [0, 0.0, tol])
-            if part == next(iter(parts)):
-                rec[0] += 1
-            if err > rec[1] or (err == rec[1] and tol < rec[2]):
-                rec[1], rec[2] = err, tol
-
-    def _fn(self, name, real, twin):
-        def tapped(*a, **kw):
-            out = real(*a, **kw)
-            self._hold(name, {"out": ([out], [twin(*a, **kw)])}, name == "nearest_code_cosine")
-            return out
-        return tapped
-
-    def _adamw(self, name, real, twin):
-        from fourm_torch.kernels.fused_adamw import StepTables
-
-        def tapped(params, grads, exp_avgs, exp_avg_sqs, decay, s, steps, grad_norm=None,
-                   max_norm=None, table=None, **kw):
-            copies = [[t.clone() for t in ts] for ts in (params, exp_avgs, exp_avg_sqs)]
-            count = steps.count.clone()
-            real(params, grads, exp_avgs, exp_avg_sqs, decay, s, steps, grad_norm, max_norm,
-                 table, **kw)
-            twin(copies[0], grads, copies[1], copies[2], decay, s,
-                 StepTables(count, steps.parity, steps.lr, steps.bias), grad_norm, max_norm,
-                 **kw)
-            self._hold(name, {"p": (params, copies[0]), "m": (exp_avgs, copies[1]),
-                              "v": (exp_avg_sqs, copies[2]), "count": ([steps.count], [count])},
-                       exact=True)
-        return tapped
-
-    def report(self, want: dict) -> None:
-        """Every kernel of `want` ({name: launches}) held that many times."""
-        got = {k: self.calls.get(k, [0])[0] for k in want}
-        if self.run.cpu:  # the CPU takes the twins themselves, mostly
-            print(f"  (CPU rehearsal) {self.label}: calls held {got}", flush=True)
-        else:
-            self.run.check(got == want, f"{self.label}: launches held against the twins {got} "
-                                        f"!= {want}")
-        print(f"controlnet {self.label}: each launch held to its plain twin on the same inputs: "
-              + "; ".join(f"{k} x{n} max_abs_err {e:.6g} (tol {t:.6g})"
-                          for k, (n, e, t) in self.calls.items()), flush=True)
 
 
 class Run:
@@ -188,6 +94,11 @@ class Run:
     def sync(self):
         if not self.cpu:
             self.torch.cuda.synchronize()
+
+    def tap(self, label: str, names):
+        import chip_smoke
+
+        return chip_smoke.KernelTap(self.torch, f"controlnet {label}", names, self.cpu)
 
     def hold(self, label: str, got: dict, want: dict) -> None:
         want = {k: want.get(k, 0) for k in got}
@@ -230,7 +141,7 @@ def decode_part(run: Run, kernels) -> dict:
     images = torch.rand(DECODE_B, S, S, 3, generator=gen, device=dev) * 2 - 1
     kernels.reset_launch_counts()
     with torch.inference_mode():
-        with KernelTap(run, "C1 tokenize") as tap:
+        with run.tap("C1 tokenize", ENCODER) as tap:
             tokens = model.tokenize(images)
         run.sync()
         tok = kernels.launch_counts()
@@ -374,7 +285,7 @@ class StepRecorder:
             before = rec.kernels.launch_counts()
             t0 = time.perf_counter()
             if first:  # the first step's launches held to the twins (its time left out)
-                with KernelTap(rec.run, "C2 step 0") as tap:
+                with rec.run.tap("C2 step 0", dict(ENCODER, fused_adamw=1)) as tap:
                     out = orig(trainer, batch, draws)
                 tap.report(dict(ENCODER, fused_adamw=1))
             else:

@@ -397,8 +397,27 @@ def test_tokenizer_refusals(vqvae_file, tmp_path):
                   metadata={"config": __import__("yaml").safe_dump(VQVAE_CFG)})
     with pytest.raises(KeyError, match=r"quant_proj\.weight"):
         get_image_tokenizer(missing, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # a directory is a JAX run directory: config.json and orbax checkpoints
+    with pytest.raises(FileNotFoundError, match="config.json"):
         get_image_tokenizer(str(tmp_path), verbose=False, device="cpu")
+
+
+def test_tokenizer_from_orbax_run_directory():
+    """The JAX package's tokenizer run directory of tests/orbax_fixtures
+    (config.json, orbax checkpoints/step_1 of an encoder-only VQ, zstd)
+    through both get_image_tokenizer: tokens equal, weights equal."""
+    run = os.path.join(os.path.dirname(os.path.abspath(__file__)), "orbax_fixtures", "vq_run")
+    jm, jvars = jax_get_image_tokenizer(run, encoder_only=True, verbose=False)
+    pm, _ = get_image_tokenizer(run, encoder_only=True, verbose=False, device="cpu")
+    x = np.random.RandomState(6).rand(2, 32, 32, 3).astype(np.float32)
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            pm.tokenize(torch.from_numpy(x)).numpy(),
+            np.asarray(jm.apply(jvars, jnp.asarray(x), method="tokenize")))
+    own = pm.state_dict()
+    for k, v in tck.from_jax_vq_variables(jax.tree.map(np.asarray, jvars)).items():
+        if k in own:
+            assert torch.equal(own[k], v), k
 
 
 def test_port_export_reads_back_in_both_packages(vqvae_file, tmp_path):

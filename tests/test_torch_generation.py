@@ -135,14 +135,16 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_fourm_tpu():
     files = (sorted((REPO / "fourm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + [REPO / "scripts" / f"{name}.py" for name in ("chip_tokenizer", "chip_transfer",
-                                                             "chip_parallel", "chip_multicard")])
+                                                             "chip_parallel", "chip_multicard",
+                                                             "chip_controlnet", "chip_orbax")])
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):  # every import, inside functions too
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "fourm_tpu", "tokenizers",
-                                "safetensors", "yaml", "huggingface_hub", "orbax", "webdataset",
-                                "datasets", "wandb", "PIL", "cv2"), (f, mod)
+                                "safetensors", "yaml", "huggingface_hub", "orbax", "tensorstore",
+                                "zstandard", "webdataset", "datasets", "wandb", "PIL",
+                                "cv2"), (f, mod)
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
         # matplotlib is absent on the machine with the card: nothing imports
@@ -166,11 +168,13 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
             "fourm_torch.parallel.launch, fourm_torch.parallel.mesh, "
             "fourm_torch.parallel.shard, fourm_torch.ops.tensor_parallel, "
             "fourm_torch.data.transfer, fourm_torch.models.fm_vit, fourm_torch.models.lora, "
-            "fourm_torch.utils.remote, fourm_torch.utils.profiling, fourm_torch.utils.drawing; "
+            "fourm_torch.utils.remote, fourm_torch.utils.profiling, fourm_torch.utils.drawing, "
+            "fourm_torch.utils.orbax, fourm_torch.vq.teachers, fourm_torch.cli.save_vq_tokens, "
+            "fourm_torch.cli.train_vqcontrolnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'fourm_tpu', 'tokenizers', 'safetensors', 'yaml', "
-            "'huggingface_hub', 'orbax', 'PIL', 'cv2', 'matplotlib', 'webdataset', 'datasets', "
-            "'wandb')]; "
+            "('jax', 'flax', 'optax', 'fourm_tpu', 'tokenizers', 'safetensors', 'yaml', "
+            "'huggingface_hub', 'orbax', 'tensorstore', 'zstandard', 'PIL', 'cv2', "
+            "'matplotlib', 'webdataset', 'datasets', 'wandb')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
