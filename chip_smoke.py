@@ -281,14 +281,24 @@ nothing of JAX or fourm_tpu. Phases, each printing its lines:
      fixture's tokenizer, a ViT-B tokenizer run and the CLIP-B16 teacher
      from files, their launches held to their twins (O2); the decoder's
      rate (O3). `python3 chip_smoke.py --part orbax` runs the build and this
-     phase alone.
+     phase alone;
+  18. the last JAX modules' counterparts (scripts/chip_examples.py, which
+     says what it runs and gates): cli.train_text_tokenizer at vocab 30,000
+     with the 4M specials (E1, host seconds and merges/s), load_sampler on
+     a 4M-21 B release file against the in-memory model (E2),
+     CrossAttentionBlock at 4M-B width (E3), the two examples in bf16 (E4)
+     and the vit_t fixture tokenizer in bf16 (E5), both with heads of 32,
+     launches exact, each stage's launches held to their twins, and the
+     attention kernels at heads of 32 held to their twins (E6).
+     `python3 chip_smoke.py --part examples` runs the build and this phase
+     alone.
 A kernel wrapper never runs its plain twin on the card: a call its kernel
 does not take raises. The second-to-last line is the kernels' JSON (each row
 also with its wrapper's launches on the decode paths of phase 10, on the
 SR paths of phases 3c and 10b, on phase 11's CLI paths, on phase 12's
 pre-training run, on phase 13's tokenizer paths, on phase 14's transfer
-paths, on phase 15's mesh paths, on phase 16's ControlNet paths and on phase
-17's orbax paths); the last line is
+paths, on phase 15's mesh paths, on phase 16's ControlNet paths, on phase
+17's orbax paths and on phase 18's paths); the last line is
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is then
 not 0 and no result line is printed. Without a CUDA device it exits 2.
 """
@@ -525,6 +535,8 @@ TAPPED = {
     "ln_mlp": ("fourm_torch.ops.transformer", "fused_mlp", "ln_mlp_plain"),
     "attn_block": ("fourm_torch.ops.transformer", "attention", "attn_block_plain"),
     "mha_short": ("fourm_torch.ops.transformer", "attention", "mha_short_plain"),
+    "flash_mha": ("fourm_torch.ops.transformer", "attention", "flash_mha_plain"),
+    "attention": ("fourm_torch.ops.transformer", "attention", "attention_plain"),
     "nearest_code": ("fourm_torch.vq.quantizer", "vq_codebook", "nearest_code_plain"),
     "nearest_code_cosine": ("fourm_torch.vq.quantizer", "vq_codebook",
                             "nearest_code_cosine_plain"),
@@ -2256,12 +2268,16 @@ def eval_launches(cfg, n_enc: int, batches: int = 1) -> dict:
 
 def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = DEPTH,
                 kv_quant=None, label: str = "chain", generic: bool = False,
-                plain: bool = False):
+                plain: bool = False, warmup: bool = False):
     """Phase 3 (and 3b): `requests` requests, RGB -> all 14 targets, at full
-    width. A warm-up run; then the public entry alone, with the launch
-    counters reset just before and read just after it, gives samples/s; a
-    third run, instrumented, gives each sequence target's seconds. The
-    launch counts are chain_launches' (4M-B, XL), or, `generic`, those of
+    width. With `warmup`, an untimed run first (cuBLAS handles and shapes,
+    the allocator: phase 3's, the first chain of the process, whose cold
+    image targets took about 4x its warm ones on an H100,
+    scripts/compare_chains.py). An instrumented run gives each
+    target's seconds (without `warmup` it is the first, and warms up the
+    next); then the public entry alone, with the launch counters reset just
+    before and read just after it, gives samples/s. The launch counts are
+    chain_launches' (4M-B, XL), or, `generic`, those of
     the passes the run made (pass_launches: the narrow models, whose
     attention halves take mha_short or flash_mha by sequence length), or,
     `plain` (a float32 model, which the block layer sends to the plain
@@ -2287,19 +2303,11 @@ def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = 
         torch.cuda.synchronize()
         return out
 
-    run()  # warm-up: cuBLAS handles, allocator
-    lengths = PassLengths(model)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = run()  # the public entry alone: samples/s and the launch counts
-    seconds = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    lengths.close()
-    tokens = dict(sampler.sampler._ar_tokens)
-
-    # a third run, instrumented: each sequence target's seconds (its
-    # prefill, token loop and merge, fenced by syncs) and its encoder budget
-    # (the cross K/V length its tokens read)
+    if warmup:
+        run()
+    # the instrumented run: each sequence target's seconds (its prefill,
+    # token loop and merge, fenced by syncs) and its encoder budget (the
+    # cross K/V length its tokens read)
     ar_seconds, ar_budget = {}, {}
     inner = sampler.sampler._generate_seq_target
 
@@ -2318,6 +2326,15 @@ def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = 
     run()
     seconds_inst = time.perf_counter() - t0
     del sampler.sampler._generate_seq_target  # the class's method again
+
+    lengths = PassLengths(model)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()  # the public entry alone: samples/s and the launch counts
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    lengths.close()
+    tokens = dict(sampler.sampler._ar_tokens)
 
     for t in TARGETS:
         spec = MODALITY_INFO[t]
@@ -2343,7 +2360,8 @@ def chain_phase(torch, model, card: str, requests: int = REQUESTS, depth: int = 
     img_s = seconds_inst - ar_s
     print(f"{label}: {requests} requests x {len(TARGETS)} targets, FourMSampler.generate alone: "
           f"{seconds:.4f} s, {requests / seconds:.4f} samples/s; {card}", flush=True)
-    print(f"{label}, instrumented run (the third): {seconds_inst:.4f} s; image targets (batch "
+    print(f"{label}, instrumented run (the {'second' if warmup else 'first'}): "
+          f"{seconds_inst:.4f} s; image targets (batch "
           f"{2 * requests} with CFG) {img_s:.4f} s, {img_s / len(ROAR_TARGETS):.4f} s/target; "
           f"sequence targets {ar_s:.4f} s for {n_tok} decoded tokens, "
           f"{ar_s / n_tok * 1e3:.4f} ms/token with prefill and merge", flush=True)
@@ -5066,6 +5084,13 @@ def controlnet_phase(torch, card: str) -> dict:
                                                              token_gate, skip_init)
 
 
+def examples_phase(torch, card: str) -> dict:
+    """Phase 18 (scripts/chip_examples.py): the tokenizer trainer's CLI,
+    load_sampler, CrossAttentionBlock, the two examples, the vit_t
+    tokenizer in bf16, the attention kernels at heads of 32."""
+    return script_module("chip_examples").examples_phase(torch, card)
+
+
 def orbax_phase(torch, card: str) -> dict:
     """Phase 17 (scripts/chip_orbax.py): the JAX package's orbax run
     directories."""
@@ -5073,7 +5098,7 @@ def orbax_phase(torch, card: str) -> dict:
 
 
 def script_module(name: str):
-    """scripts/<name>.py beside this script (phases 13-17)."""
+    """scripts/<name>.py beside this script (phases 13-18)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
@@ -5090,10 +5115,10 @@ def main() -> int:
 
     parts = argparse.ArgumentParser(description="smoke run of the port on one card")
     parts.add_argument("--part", choices=["all", "tokenizer", "transfer", "parallel",
-                                          "controlnet", "orbax"],
+                                          "controlnet", "orbax", "examples"],
                        default="all", help="'tokenizer' / 'transfer' / 'parallel' / "
-                       "'controlnet' / 'orbax': the build and phase 13 / 14 / 15 / 16 / 17 "
-                       "alone")
+                       "'controlnet' / 'orbax' / 'examples': the build and phase 13 / 14 / 15 "
+                       "/ 16 / 17 / 18 alone")
     part = parts.parse_args().part
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -5125,6 +5150,8 @@ def main() -> int:
             controlnet_phase(torch, card)
         elif part == "orbax":
             orbax_phase(torch, card)
+        elif part == "examples":
+            examples_phase(torch, card)
         else:
             script_module("chip_transfer").transfer_phase(torch, card, check, gate, time_ms)
         print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)
@@ -5155,7 +5182,7 @@ def main() -> int:
     mark("kernel phases 2-2d")
     torch.cuda.empty_cache()
     model = build_model(torch, "bfloat16", "cuda")
-    out, launches, _ = chain_phase(torch, model, card)
+    out, launches, _ = chain_phase(torch, model, card, warmup=True)
     mark("phase 3 chain")
     decode_bench(torch, model, out, card)
     decode_bench(torch, model, out, card, kv_quant="int8")
@@ -5238,6 +5265,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     orbax_launches = orbax_phase(torch, card)
     mark("phase 17")
+    torch.cuda.empty_cache()
+    examples_launches = examples_phase(torch, card)
+    mark("phase 18")
     sr_paths = {"sr_chain": sr_chain_launches, "super_resolve": resolve_launches,
                 "decode448": decode448_launches, "uvit_decode448": uvit448_launches}
     path_launches = dict(vq_launches, chain=launches, train=train_launches,
@@ -5256,6 +5286,7 @@ def main() -> int:
         r["parallel_launches"] = {p: n[wrapper] for p, n in parallel_launches.items()}
         r["controlnet_launches"] = {p: n[wrapper] for p, n in controlnet_launches.items()}
         r["orbax_launches"] = {p: n[wrapper] for p, n in orbax_launches.items()}
+        r["examples_launches"] = {p: n[wrapper] for p, n in examples_launches.items()}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path ({path})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}", flush=True)

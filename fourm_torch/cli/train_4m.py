@@ -33,7 +33,10 @@ transformed, Dirichlet-masked and batched by fourm_torch/data, inline or in
 `--num_workers` spawn processes, prefetched by a thread; or
 `--synthetic_data`. Unlike the JAX CLI, which starts afresh when a resume
 fails (fourm_tpu/cli/train_4m.py:326-333), a checkpoint that cannot be read
-raises. Not ported: wandb (`--log_wandb` raises).
+raises. A MetricLogger keeps the printed steps' loss and gradient norm, and
+the step and eval stats go to log.txt and to WandbLogger: `--log_wandb`
+prints that wandb is absent (the port imports no wandb) and carries on, as
+the JAX CLI does where wandb is not installed.
 
 Several cards: run it under torchrun, one process a card. `--fsdp` and
 `--tensor` size those axes of the (data, fsdp, tensor) mesh and `data` takes
@@ -345,15 +348,12 @@ def main(args=None):
                                    process_count, shutdown)
     from ..utils.checkpoint import auto_resume, from_jax_train_state, save_checkpoint
     from ..utils.config import expand_run_name, parse_args_with_config
-    from ..utils.logger import JSONLLogger, tokens_seen
+    from ..utils.logger import JSONLLogger, MetricLogger, WandbLogger, tokens_seen
     from ..utils.orbax import is_orbax_step
     from ..utils.optim import create_optimizer, make_schedule
     from ..utils.synthetic import to_torch
 
     args = parse_args_with_config(get_parser(), args)
-    if args.log_wandb:
-        raise NotImplementedError("--log_wandb: the port does not use wandb; the run logs to "
-                                  "log.txt (JSONL) in its output directory")
     initialize_multihost(device=args.device)
     world = process_count()
     mesh = None
@@ -416,6 +416,9 @@ def main(args=None):
                                           trainable_mask=frozen_trunk_mask(model))
         say(f"[train] frozen-trunk phase for the first {frozen_steps} steps")
     jsonl = JSONLLogger(output_dir) if main_rank else None
+    metric_logger = MetricLogger()
+    wandb_logger = WandbLogger(project=args.wandb_project if args.log_wandb and main_rank
+                               else None, name=run_name, config=vars(args))
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)  # shared by the ranks
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     start_step = 0
@@ -465,13 +468,16 @@ def main(args=None):
             sps = global_bs * args.print_freq / max(time.time() - t0, 1e-6)
             t0 = time.time()
             gnorm = float(metrics["grad_norm"])
+            metric_logger.update(loss=loss, grad_norm=gnorm)
             tokens_b = tokens_seen(step + 1, global_bs, args.num_input_tokens,
                                    args.num_target_tokens)
             say(f"step {step}/{total_steps} loss {loss:.4f} gnorm {gnorm:.2f} "
                 f"samples/s {sps:.1f} tokens {tokens_b:.3f}B", flush=True)
             if main_rank:
-                jsonl.write({"step": step, "loss": loss, "grad_norm": gnorm,
-                             "samples_per_sec": sps, "tokens_B": tokens_b})
+                stats = {"step": step, "loss": loss, "grad_norm": gnorm,
+                         "samples_per_sec": sps, "tokens_B": tokens_b}
+                jsonl.write(stats)
+                wandb_logger.log(stats, step=step)
 
         if (step + 1) % (steps_per_epoch * args.save_ckpt_freq) == 0 or step == total_steps - 1:
             ckpt = train_checkpoint(state, generator, step + 1)  # every rank: a gather
@@ -492,7 +498,9 @@ def main(args=None):
             say(f"[eval] step {step + 1}: {stats}", flush=True)
             if main_rank:
                 jsonl.write({"step": step + 1, **{f"eval_{k}": v for k, v in stats.items()}})
+                wandb_logger.log({f"eval_{k}": v for k, v in stats.items()}, step=step + 1)
             t0 += time.time() - t_eval
+    wandb_logger.finish()
     if hasattr(loader, "close"):
         loader.close()  # stops the prefetch thread and the data workers
     say("training done")

@@ -13,7 +13,8 @@ What differs, and why:
   * Images are numpy uint8 arrays, not PIL images: data/image_io.py
     decodes PNG and JPEG and crops, resizes (Pillow's BICUBIC, byte for
     byte) and flips without Pillow, which the machine with the card lacks;
-    `color_jitter` (PIL ImageEnhance) raises.
+    `color_jitter`'s ImageEnhance / ImageOps steps are data/image_enhance.py,
+    byte for byte.
   * Randomness comes from explicit generators, not the global `random`
     and `np.random` that the JAX transforms draw from: each transform
     takes `rng` (random.Random) and `np_rng` (np.random.RandomState),
@@ -47,7 +48,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from . import image_io
+from . import image_enhance, image_io
 from .modality_info import (IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN,
                             IMAGENET_INCEPTION_STD, IMAGENET_SURFACE_NORMAL_MEAN,
                             IMAGENET_SURFACE_NORMAL_STD)
@@ -243,15 +244,27 @@ class RGBTransform(ImageTransform):
             IMAGENET_DEFAULT_STD if imagenet_default_mean_and_std else IMAGENET_INCEPTION_STD,
             dtype=np.float32,
         )
-        if color_jitter:
-            raise NotImplementedError("RGBTransform(color_jitter=True) is not ported (it needs "
-                                      "PIL's ImageEnhance); no 4M config turns it on")
+        self.color_jitter = color_jitter
+        self.strength = color_jitter_strength
+
+    def _jitter(self, img: np.ndarray) -> np.ndarray:
+        """Brightness, contrast and saturation by factors U(1 +- 0.8 s) with
+        p 0.8, then grayscale with p 0.2 (transforms.py:190-201)."""
+        s = self.strength
+        if self.rng.random() < 0.8:
+            for enhance in (image_enhance.brightness, image_enhance.contrast,
+                            image_enhance.color):
+                img = enhance(img, 1.0 + self.rng.uniform(-0.8 * s, 0.8 * s))
+        if self.rng.random() < 0.2:
+            img = image_enhance.grayscale_rgb(img)
+        return img
 
     def load(self, path):
         return self.pil_loader(path)
 
     def preprocess(self, sample):
-        return image_io.to_rgb(sample)
+        sample = image_io.to_rgb(sample)
+        return self._jitter(sample) if self.color_jitter else sample
 
     def image_augment(self, img, crop_coords, flip, orig_size, target_size,
                       rand_aug_idx, resample_mode=None):

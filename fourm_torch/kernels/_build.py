@@ -40,7 +40,7 @@ SIGNATURES = {
     "ln_matmul": ("ln_matmul", "fourm_ln_matmul", [_P] * 7 + [_I, _I, _I, _F, _P]),
     "ln_mlp": ("ln_mlp", "fourm_ln_mlp", [_P] * 12 + [_I, _I, _I, _I, _F, _P]),
     "attention": ("attention", "fourm_attention",
-                  [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 5 + [_I] * 4
+                  [_P, _P, _P, _P] + [_I] * 12 + [_P] + [_I] * 4 + [_P] * 5 + [_I] * 5
                   + [_F, _F, _I, _P, _P]),
     "self_decode": ("self_decode", "fourm_self_decode",
                     [_P] * 8 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _IA, _P]),

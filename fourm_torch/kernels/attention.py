@@ -55,11 +55,15 @@ def _strides_ok(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) and aligned(t, 16)
 
 
+HEAD_DIMS = (64, 32)  # the head widths csrc/attention.cu takes
+
+
 def attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether csrc/attention.cu takes attention(q, k, v), from dtypes and
-    shapes alone: bf16, head dim 64, rows read through strides that are
-    multiples of 8 with a contiguous last dim, 16-byte aligned."""
-    return (all_bf16(q, k, v) and q.shape[-1] == 64 and all(_strides_ok(t) for t in (q, k, v))
+    shapes alone: bf16, head dim 64 or 32, rows read through strides that
+    are multiples of 8 with a contiguous last dim, 16-byte aligned."""
+    return (all_bf16(q, k, v) and q.shape[-1] in HEAD_DIMS
+            and all(_strides_ok(t) for t in (q, k, v))
             and max(t.numel() for t in (q, k, v)) < 2**31)
 
 
@@ -69,14 +73,14 @@ def _launch(name, q, k, v, o, qs, ks, vs, os_, bias, bs, norms, B, H, N, M, Dh, 
     contiguous or None, gets each row's statistics (attention_train_fwd)."""
     from . import _build
 
-    # QK-norm: the kernel's pre-pass writes LN(k) (B, M, H, 64) here once,
+    # QK-norm: the kernel's pre-pass writes LN(k) (B, M, H, Dh) here once,
     # and the attention kernel reads it back (it normalises its q tiles)
     scratch = None
     if norms[0] is not None:
         scratch = torch.empty((B * M * H, Dh), dtype=q.dtype, device=dev)
     code = _build.entry("attention")(
         ptr(q), ptr(k), ptr(v), ptr(o), *qs, *ks, *vs, *os_, ptr(bias), *bs,
-        *[ptr(t) for t in norms], ptr(scratch), B, H, N, M, float(Dh) ** -0.5, float(eps),
+        *[ptr(t) for t in norms], ptr(scratch), B, H, N, M, Dh, float(Dh) ** -0.5, float(eps),
         int(allow_zero_attn), ptr(stats), stream(dev))
     _build.check(name, code)
 
@@ -136,10 +140,10 @@ def flash_mha_plain(q, k, v, num_heads: int, bias=None, qn_gamma=None, qn_beta=N
 
 def flash_mha_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> bool:
     """Whether csrc/attention.cu takes heads-concatenated (B, N, C) q and
-    (B, M, C) k, v, from dtypes and shapes alone: bf16, C = 64 x num_heads,
-    strides that are multiples of 8 with a contiguous last dim, 16-byte
-    aligned."""
-    return (all_bf16(q, k, v) and q.shape[-1] == 64 * num_heads
+    (B, M, C) k, v, from dtypes and shapes alone: bf16, C = 64 or 32 x
+    num_heads, strides that are multiples of 8 with a contiguous last dim,
+    16-byte aligned."""
+    return (all_bf16(q, k, v) and q.shape[-1] in tuple(d * num_heads for d in HEAD_DIMS)
             and all(_strides_ok(t) for t in (q, k, v))
             and max(t.storage_offset() + t.stride(0) * t.shape[0] for t in (q, k, v)) < 2**31)
 

@@ -34,10 +34,17 @@
 //   * the producer loads the Q tile once, then streams K and V tiles of KT
 //     keys x 64 through a STAGES-deep ring (cp.async.bulk.tensor.4d into the
 //     128-byte swizzle, `full` and `empty` mbarriers). Every operand is a
-//     4-D tensor map (make_rows_map) over (batch, head, rows, 64) with the
+//     4-D tensor map (make_rows_map) over (batch, head, rows, Dh) with the
 //     caller's strides, so a box never reads the next image's rows (TMA
 //     zero-fills rows past N or M) and q/k/v may be column slices of one
 //     QKV buffer or (B, H, N, Dh) views;
+//   * heads of 32 (the vit_t tokenizers, narrow 4M models) run the same
+//     tiles: every box is 64 head dims wide, and TMA zero-fills the 32 past
+//     the map's Dh, so the shared-memory layout, the swizzle and the wgmma
+//     shapes are those of Dh = 64. The zero columns add nothing to Q K^T
+//     and give O zero columns, which are not stored; QK-norm takes its
+//     statistics over the Dh real columns and leaves the rest zero. Half of
+//     each product is spent on zeros;
 //   * the consumers run the core: S = Q K^T by wgmma from shared memory,
 //     the softmax on the accumulators in registers, P V by wgmma with P
 //     from registers, one product in flight behind the softmax;
@@ -61,7 +68,7 @@
 //     threads doing it one row each measured slower: the LN sat on every
 //     CTA's critical path). The pre-pass lets the attention kernel start
 //     its prologue before it ends (programmatic dependent launch).
-// Dh = 64 only (every 4M size). Output rows past N are not written.
+// Dh = 64 (every 4M size) or 32. Output rows past N are not written.
 #include "attn_sm90.cuh"
 
 namespace fourm {
@@ -106,7 +113,7 @@ struct AttnArgs {
   const float* bias; int sbb, sbh, sbn, sbm;
   const float* qg; const float* qb;  // QK-norm's q LN parameters, or null
   float2* stats;  // STATS: (B, H, N) x (max in log2 units, 1 / sum)
-  int N, M; float scale, eps; int zero_attn;
+  int N, M, D; float scale, eps; int zero_attn;  // D: head dims, 64 or 32
   int ord_q, ord_k, ord_v;  // coordinate slots of each map (make_rows_map)
   int bias_flags;           // make_bias_map's flags (BIAS 3)
 };
@@ -114,20 +121,25 @@ struct AttnArgs {
 // QK-norm of a consumer warpgroup's 64 query rows of the Q tile (128-byte
 // swizzle: 16-byte chunk j of row r at chunk j ^ (r % 8)), in place, two
 // threads a row, 32 values each: fp32 mean, fp32 mean of squared
-// deviations, (x - mean) * rsqrt(var + eps) * g (+ b), one rounding to
-// bf16. g and b (this thread's 32 columns) are read before the tile lands.
+// deviations over the D head dims, (x - mean) * rsqrt(var + eps) * g (+ b),
+// one rounding to bf16. g and b (this thread's 32 columns) are read before
+// the tile lands. At D = 32 the second thread of a row holds the
+// zero-filled columns: it adds nothing to the statistics and writes nothing.
 struct QNorm {
   float4 g[8], b[8];
-  __device__ __forceinline__ void load(const float* qg, const float* qb) {
+  bool live;  // this thread's 32 columns are head dims
+  __device__ __forceinline__ void load(const float* qg, const float* qb, int D) {
     const int half = threadIdx.x % 2;
+    live = half * 32 < D;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      g[i] = __ldg(reinterpret_cast<const float4*>(qg + half * 32) + i);
-      b[i] = qb != nullptr ? __ldg(reinterpret_cast<const float4*>(qb + half * 32) + i)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      g[i] = live ? __ldg(reinterpret_cast<const float4*>(qg + half * 32) + i)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      b[i] = live && qb != nullptr ? __ldg(reinterpret_cast<const float4*>(qb + half * 32) + i)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  __device__ __forceinline__ void apply(unsigned char* rows64, float eps) const {
+  __device__ __forceinline__ void apply(unsigned char* rows64, float eps, int D) const {
     const int t = threadIdx.x % 128, r = t / 2, half = t % 2;
     unsigned char* base = rows64 + r * 128;
     float f[32];
@@ -138,11 +150,13 @@ struct QNorm {
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) s += f[i];
-    const float mean = (s + __shfl_xor_sync(0xffffffffu, s, 1)) / 64.f;
+    const float mean = (s + __shfl_xor_sync(0xffffffffu, s, 1)) / (float)D;
     float q = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) q += (f[i] - mean) * (f[i] - mean);
-    const float rstd = rsqrtf((q + __shfl_xor_sync(0xffffffffu, q, 1)) / 64.f + eps);
+    if (!live) q = 0.f;
+    const float rstd = rsqrtf((q + __shfl_xor_sync(0xffffffffu, q, 1)) / (float)D + eps);
+    if (!live) return;
     const float* gs = reinterpret_cast<const float*>(g);
     const float* bs = reinterpret_cast<const float*>(b);
 #pragma unroll
@@ -262,9 +276,9 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     sm90::RowState st;
     if (p.qg != nullptr) {
       QNorm qn;
-      qn.load(p.qg, p.qb);
+      qn.load(p.qg, p.qb, p.D);
       sm90::mbar_wait(qbar, 0);
-      qn.apply(qs + wg * 64 * 128, p.eps);
+      qn.apply(qs + wg * 64 * 128, p.eps, p.D);
       // the generic-proxy stores, seen by the warpgroup's wgmma (async proxy)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
@@ -282,7 +296,7 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
                        : nullptr;
       if (STATS && n < p.N) stats[r] = p.stats + ((size_t)b * gridDim.y + h) * p.N + n;
     }
-    sm90::store_rows(st, p.zero_attn, dst, stats);
+    sm90::store_rows(st, p.zero_attn, dst, stats, p.D);
   }
 }
 
@@ -292,9 +306,15 @@ int launch_attn(const void* q, const void* k, const void* v, const long long (&q
                 const long long (&ks)[3], const long long (&vs)[3], int B, int H, AttnArgs p,
                 const CUtensorMap& tb, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  int err = sm90::make_rows_map(&tq, q, B, H, p.N, qs[0], qs[1], qs[2], S::BQ, &p.ord_q);
-  if (err == 0) err = sm90::make_rows_map(&tk, k, B, H, p.M, ks[0], ks[1], ks[2], S::KT, &p.ord_k);
-  if (err == 0) err = sm90::make_rows_map(&tv, v, B, H, p.M, vs[0], vs[1], vs[2], S::KT, &p.ord_v);
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int err = sm90::make_rows_map(&tq, q, B, H, p.N, qs[0], qs[1], qs[2], S::BQ, &p.ord_q, false,
+                                sw, p.D);
+  if (err == 0)
+    err = sm90::make_rows_map(&tk, k, B, H, p.M, ks[0], ks[1], ks[2], S::KT, &p.ord_k, false, sw,
+                              p.D);
+  if (err == 0)
+    err = sm90::make_rows_map(&tv, v, B, H, p.M, vs[0], vs[1], vs[2], S::KT, &p.ord_v, false, sw,
+                              p.D);
   if (err != 0) return err;
   auto kern = p.stats != nullptr ? attn_kernel<S, BIAS, true> : attn_kernel<S, BIAS, false>;
   const cudaError_t e =
@@ -330,37 +350,40 @@ struct KNormArgs {
   const bf16* k; bf16* out;
   int skb, skh, skn;
   const float* kg; const float* kb;
-  int B, H, M; float eps;
+  int B, H, M, D; float eps;
 };
 
-// LN over the 64 head dims of every row of k (B, H, M), read through
-// strides, into out (B, M, H, 64), contiguous -- the order of a
+// LN over the D head dims (64 or 32) of every row of k (B, H, M), read
+// through strides, into out (B, M, H, D), contiguous -- the order of a
 // heads-concatenated (B, M, C) buffer, so that reads and writes both walk
-// whole token rows. 8 lanes per row, 8 values each, KN_ROWS rows per lane
-// group (their loads in flight together); fp32 mean, fp32 mean of squared
-// deviations, (x - mean) * rsqrt(var + eps) * g (+ b), one rounding to bf16.
+// whole token rows. 8 lanes per row, 8 values each (at D = 32 the last four
+// lanes hold none), KN_ROWS rows per lane group (their loads in flight
+// together); fp32 mean, fp32 mean of squared deviations, (x - mean) *
+// rsqrt(var + eps) * g (+ b), one rounding to bf16.
 constexpr int KN_ROWS = 2;
 
 __global__ void __launch_bounds__(256) k_norm_kernel(KNormArgs a) {
   sm90::allow_dependents();  // the attention kernel's prologue may start
   const int total = a.B * a.M * a.H;
   const int vi = threadIdx.x % 8;
+  const bool live = vi * 8 < a.D;  // this lane's 8 values are head dims
   const int first = (blockIdx.x * 32 + threadIdx.x / 8) * KN_ROWS;
   uint4 u[KN_ROWS];
 #pragma unroll
   for (int i = 0; i < KN_ROWS; ++i) {
     const int row = first + i;
     u[i] = make_uint4(0, 0, 0, 0);
-    if (row >= total) continue;
+    if (row >= total || !live) continue;
     const int h = row % a.H, bm = row / a.H;
     const int m = bm % a.M, b = bm / a.M;
     u[i] = *reinterpret_cast<const uint4*>(a.k + (size_t)b * a.skb + (size_t)h * a.skh +
                                            (size_t)m * a.skn + vi * 8);
   }
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4* g4 = reinterpret_cast<const float4*>(a.kg + vi * 8);
-  const float4 g[2] = {g4[0], g4[1]};
-  float4 bv[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-  if (a.kb != nullptr) {
+  const float4 g[2] = {live ? g4[0] : zero, live ? g4[1] : zero};
+  float4 bv[2] = {zero, zero};
+  if (a.kb != nullptr && live) {
     bv[0] = reinterpret_cast<const float4*>(a.kb + vi * 8)[0];
     bv[1] = reinterpret_cast<const float4*>(a.kb + vi * 8)[1];
   }
@@ -379,35 +402,36 @@ __global__ void __launch_bounds__(256) k_norm_kernel(KNormArgs a) {
     }
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / 64.f;
+    const float mean = s / (float)a.D;
     float q = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float d = f[j] - mean;
       q += d * d;
     }
+    if (!live) q = 0.f;
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-    const float rstd = rsqrtf(q / 64.f + a.eps);
-    if (row >= total) continue;
+    const float rstd = rsqrtf(q / (float)a.D + a.eps);
+    if (row >= total || !live) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float y = (f[j] - mean) * rstd * gg[j];
       if (a.kb != nullptr) y += bb[j];
       e[j] = __float2bfloat16(y);
     }
-    *reinterpret_cast<uint4*>(a.out + (size_t)row * 64 + vi * 8) = u[i];
+    *reinterpret_cast<uint4*>(a.out + (size_t)row * a.D + vi * 8) = u[i];
   }
 }
 
 }  // namespace fourm
 
-// q (B, H, N, 64), k and v (B, H, M, 64) bf16 read through element strides
+// q (B, H, N, Dh), k and v (B, H, M, Dh), Dh 64 or 32, bf16 read through element strides
 // (s*b, s*h, s*n: multiples of 8, the last dim contiguous, 16-byte aligned
 // bases); o written through its strides. bias: fp32 through (sbb, sbh,
 // sbn, sbm), 0 on broadcast axes, or null. qg, qb, kg, kb: QK-norm's fp32
 // LN parameters, 16-byte aligned (qg null: no QK-norm; qb, kb may be null);
-// qk_scratch: bf16 (B * M * H, 64), LN(k), when qg is given. stats: null,
+// qk_scratch: bf16 (B * M * H, Dh), LN(k), when qg is given. stats: null,
 // or fp32 (B, H, N, 2), contiguous, for each row its max logit in log2
 // units and 1 / its softmax sum.
 extern "C" int fourm_attention(
@@ -416,11 +440,11 @@ extern "C" int fourm_attention(
     int svb, int svh, int svn, int sob, int soh, int son,
     const void* bias, int sbb, int sbh, int sbn, int sbm,
     const void* qg, const void* qb, const void* kg, const void* kb, void* qk_scratch,
-    int B, int H, int N, int M, float scale, float eps, int zero_attn, void* stats,
+    int B, int H, int N, int M, int Dh, float scale, float eps, int zero_attn, void* stats,
     void* stream) {
   using namespace fourm;
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (N < 1 || M < 1 || (Dh != 64 && Dh != 32)) return (int)cudaErrorInvalidValue;
   const long long qs[3] = {sqb, sqh, sqn};
   long long ks[3] = {skb, skh, skn};
   if (qg != nullptr) {
@@ -429,7 +453,7 @@ extern "C" int fourm_attention(
     a.k = (const bf16*)k; a.out = (bf16*)qk_scratch;
     a.skb = skb; a.skh = skh; a.skn = skn;
     a.kg = (const float*)kg; a.kb = (const float*)kb;
-    a.B = B; a.H = H; a.M = M; a.eps = eps;
+    a.B = B; a.H = H; a.M = M; a.D = Dh; a.eps = eps;
     const long long rows = (long long)B * H * M;
     if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
     const long long per_block = 32 * KN_ROWS;
@@ -437,14 +461,14 @@ extern "C" int fourm_attention(
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     k = qk_scratch;
-    ks[0] = (long long)M * H * 64; ks[1] = 64; ks[2] = (long long)H * 64;
+    ks[0] = (long long)M * H * Dh; ks[1] = Dh; ks[2] = (long long)H * Dh;
   }
   AttnArgs p;
   p.o = (bf16*)o; p.sob = sob; p.soh = soh; p.son = son;
   p.bias = (const float*)bias; p.sbb = sbb; p.sbh = sbh; p.sbn = sbn; p.sbm = sbm;
   p.qg = (const float*)qg; p.qb = (const float*)qb;
   p.stats = (float2*)stats;
-  p.N = N; p.M = M; p.scale = scale; p.eps = eps; p.zero_attn = zero_attn;
+  p.N = N; p.M = M; p.D = Dh; p.scale = scale; p.eps = eps; p.zero_attn = zero_attn;
   p.bias_flags = 0;
   const long long vs[3] = {svb, svh, svn};
   return launch_attention(q, k, v, qs, ks, vs, B, H, p, st);

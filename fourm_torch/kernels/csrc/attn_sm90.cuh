@@ -1,6 +1,7 @@
 // The Hopper attention core of attention.cu (flash_mha, mha_short,
 // attention, attention_train's forward) and attn_block.cu: one consumer
-// warpgroup attends a block of 64 query rows (head dim 64) to key tiles of
+// warpgroup attends a block of 64 query rows (head dim 64; attention.cu
+// zero-fills heads of 32 to it) to key tiles of
 // KT = 64 or 128 keys held in shared memory in the 128-byte swizzle, with
 // an online softmax; optionally it leaves each row's statistics (the max
 // in log2 units, 1 / sum) for attention_train.cu's backward, which builds
@@ -299,13 +300,13 @@ __device__ __forceinline__ void attend(Src& src, uint64_t dq, int n_tiles, int M
   src.release(n_tiles - 1);
 }
 
-// O / l of the thread's two rows, as bf16, into dst[r] (64 columns of
-// row r; null: a row past the sequence, not written), and where stats[r]
-// is not null the row's statistics there: (max, 1 / l), the max in log2
+// O / l of the thread's two rows, as bf16, into dst[r] (the first D of
+// the 64 columns of row r; null: a row past the sequence, not written), and
+// where stats[r] is not null the row's statistics there: (max, 1 / l), the max in log2
 // units (the logit's, times log2(e)). Softmax1 adds its implicit zero
 // logit, exp(-max), to the sum.
 __device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf16* const (&dst)[2],
-                                           float2* const (&stats)[2]) {
+                                           float2* const (&stats)[2], int D = 64) {
   const int quad = threadIdx.x % 4;
   float inv[2];
 #pragma unroll
@@ -321,7 +322,8 @@ __device__ __forceinline__ void store_rows(const RowState& st, int zero_attn, bf
     if (dst[r] == nullptr) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst[r] + 8 * j + 2 * quad) =
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst[r] + 8 * j + 2 * quad) =
           __floats2bfloat162_rn(st.o[4 * j + 2 * r] * inv[r], st.o[4 * j + 2 * r + 1] * inv[r]);
   }
 }

@@ -510,9 +510,10 @@ inline int make_map_batched(CUtensorMap* map, const void* base, int batch, int r
   return encode_map(map, base, 3, dims, strides, box);
 }
 
-// The map of an attention operand: (batch, heads, rows, 64) bf16 read
-// through element strides sb, sh, sr (the 64 head dims contiguous), in boxes
-// of box_rows rows x 64 of one (batch, head): rows past `rows` read as zero.
+// The map of an attention operand: (batch, heads, rows, cols) bf16 read
+// through element strides sb, sh, sr (the cols head dims contiguous, 64 or
+// 32), in boxes of box_rows rows x 64 of one (batch, head): rows past `rows`
+// and columns past `cols` read as zero.
 // The three outer dimensions are ordered by stride, smallest first (a dim of
 // size 1 last), since q, k and v may be column slices of one row (heads
 // within a row) or (B, H, N, Dh) views with any order of strides. *ord gets
@@ -523,7 +524,8 @@ inline int make_map_batched(CUtensorMap* map, const void* base, int batch, int r
 inline int make_rows_map(CUtensorMap* map, const void* base, int batch, int heads, int rows,
                          long long sb, long long sh, long long sr, int box_rows, int* ord,
                          bool int8 = false,
-                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                         int cols = 64) {
   const int esize = int8 ? 1 : 2;
   long long size[3] = {rows, heads, batch};
   long long stride[3] = {sr, sh, sb};
@@ -538,7 +540,7 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int batch, int head
       perm[j] = perm[j - 1];
       perm[j - 1] = t;
     }
-  cuuint64_t dims[4] = {64, 0, 0, 0};
+  cuuint64_t dims[4] = {(cuuint64_t)cols, 0, 0, 0};
   cuuint64_t strides[3];
   cuuint32_t box[4] = {64, 1, 1, 1};
   *ord = 0;

@@ -6,7 +6,7 @@ the same sort-and-threshold formulation so both packages filter identically.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -61,3 +61,22 @@ def top_k_top_p_filtering_dynamic(logits: torch.Tensor, top_k: float,
                                sorted_k).amin(dim=-1, keepdim=True)
         logits = torch.where(logits < min_kept, neg, logits)
     return logits
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float = 1.0,
+                  top_k: Union[int, float] = 0.0, top_p: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample token ids and their probabilities from (..., V) logits
+    (fourm_tpu/ops/sampling.py:81; reference generate.py:360-370).
+
+    Returns (samples (...,), sampled_probs (...,) fp32). |temperature| below
+    1e-10 is argmax with probability 1; otherwise the top-k / top-p filtered
+    logits over `temperature` are drawn from with `generator`."""
+    if abs(float(temperature)) < 1e-10:
+        samples = torch.argmax(logits, dim=-1)
+        return samples, torch.ones(samples.shape, dtype=torch.float32, device=logits.device)
+    probs = torch.softmax(top_k_top_p_filtering(logits, top_k, top_p) / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    samples = torch.multinomial(flat, 1, generator=generator).reshape(probs.shape[:-1])
+    return samples, torch.gather(probs, -1, samples[..., None])[..., 0]

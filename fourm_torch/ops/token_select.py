@@ -27,6 +27,23 @@ def select_tokens(mask: torch.Tensor, num_keep: int) -> torch.Tensor:
     return idx
 
 
+def select_tokens_partition(mask: torch.Tensor, num_keep: int) -> torch.Tensor:
+    """select_tokens as a two-way stable partition instead of a sort
+    (fourm_tpu/ops/token_select.py:46): two cumsums give each position its
+    destination slot, one scatter inverts the permutation. The same indices
+    as select_tokens, bit for bit."""
+    O = mask.shape[-1]
+    num_keep = min(num_keep, O)
+    valid = (~mask.bool()).to(torch.int64)
+    masked = 1 - valid
+    inc = torch.cumsum(valid, dim=-1)
+    dest = torch.where(valid.bool(), inc - valid,
+                       torch.cumsum(masked, dim=-1) - masked + inc[..., -1:])
+    pos = torch.arange(O, dtype=torch.int64, device=mask.device).expand_as(dest)
+    idx = torch.empty_like(dest).scatter_(-1, dest, pos)
+    return idx[..., :num_keep]
+
+
 def gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather along dim 1 with batched indices. x: (B, O, ...), idx: (B, K)."""
     idx = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(

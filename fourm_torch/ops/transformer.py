@@ -498,6 +498,41 @@ class Block(nn.Module):
         return _fused_ln_mlp(self.norm2, self.mlp, x, self.gated_mlp)
 
 
+class CrossAttentionBlock(nn.Module):
+    """Cross-attention + MLP block (reference fm_utils.py:369-388;
+    fourm_tpu/ops/transformer.py:1016), with the JAX module's fields. In
+    bf16 the cross half is the `attention` kernel and the MLP half
+    `ln_mlp`, as DecoderBlock's are."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, drop_path_rate: float = 0.0, act: str = "gelu",
+                 gated_mlp: bool = False, allow_zero_attn: bool = False,
+                 norm_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gated_mlp = gated_mlp
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias,
+                                         allow_zero_attn=allow_zero_attn, dtype=dtype)
+        self.query_norm = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.context_norm = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.norm2 = LayerNorm(dim, use_bias=norm_bias, dtype=dtype)
+        self.mlp = _make_mlp(gated_mlp, act, dim, mlp_ratio, True, dtype)
+        self.drop_path = DropPath(drop_path_rate)
+
+    BRANCHES = 2  # drop-path draws of one training forward
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                xa_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                keeps: Optional[tuple] = None) -> torch.Tensor:
+        xa = self.cross_attn(self.query_norm(x), self.context_norm(context), xa_mask,
+                             train=train)
+        if train:
+            k = keeps or (None,) * self.BRANCHES
+            x = x + self.drop_path(xa, True, generator, k[0])
+            return x + self.drop_path(self.mlp(self.norm2(x)), True, generator, k[1])
+        return _fused_ln_mlp(self.norm2, self.mlp, x + xa, self.gated_mlp)
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN decoder block: self-attention, cross-attention, MLP (reference
     fm_utils.py:337-366) over a full query grid, and its KV-cached decode

@@ -202,6 +202,16 @@ def to_jax_params(state: Mapping[str, Any], config) -> Dict:
     return params
 
 
+def from_jax_block_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of one block of ops/transformer.py (Block,
+    DecoderBlock, CrossAttentionBlock) from its JAX parameter tree, mapped
+    as from_jax_params maps each layer of a FourM."""
+    out: Dict[str, np.ndarray] = {}
+    for key, val in params.items():
+        _walk(out, key, val)
+    return _tensors(out)
+
+
 def from_jax_vit_params(params: Mapping, img_size: int = 224) -> Dict[str, torch.Tensor]:
     """The port's FourMViT state dict from a JAX FourMViT parameter tree
     (models/fm_vit.py): the encoder as from_jax_params maps a FourM's, and

@@ -28,11 +28,14 @@ the sentinels [S_0], [S_1], ...).
 
 from __future__ import annotations
 
+import heapq
 import json
+import os
+import re
 import unicodedata
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 
 def get_sentinel_to_id_mapping(tokenizer, match_str: str = "[S_") -> Dict[int, int]:
@@ -99,6 +102,54 @@ def _is_chinese(c: str) -> bool:
 
 def _is_punct(c: str) -> bool:
     return c in _ASCII_PUNCT or unicodedata.category(c)[0] == "P"
+
+
+# ASCII text: clean_text drops the control characters but \t \n \r, which
+# become blanks; a word is a run of what is neither blank nor punctuation
+_ASCII_CLEAN = {c: None for c in (*range(32), 127) if chr(c) not in "\t\n\r"}
+_ASCII_CLEAN.update({ord(c): " " for c in "\t\n\r"})
+_ASCII_PIECES = re.compile(r"[^\t\n\x0b\x0c\r !-/:-@\[-`{-~]+|[!-/:-@\[-`{-~]")
+
+
+def bert_normalize(text: str, clean_text: bool = True, handle_chinese_chars: bool = True,
+                   strip_accents: bool = True, lowercase: bool = True) -> str:
+    """The library's BertNormalizer (strip_accents given, not None)."""
+    if text.isascii():  # no CJK, nothing to strip: the same result, fast
+        if clean_text:
+            text = text.translate(_ASCII_CLEAN)
+        return text.lower() if lowercase else text
+    if clean_text:
+        text = "".join(" " if c in _WHITE_SPACE else c for c in text
+                       if not (c in "\x00\ufffd" or (c not in "\t\n\r" and
+                                                      unicodedata.category(c) in _CONTROL)))
+    if handle_chinese_chars:
+        text = "".join(f" {c} " if _is_chinese(c) else c for c in text)
+    if strip_accents:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    if lowercase:
+        text = "".join(c.lower() for c in text)
+    return text
+
+
+def bert_pre_tokenize(text: str) -> List[str]:
+    """The library's BertPreTokenizer: split on blanks, each punctuation mark
+    a word of its own."""
+    if text.isascii():
+        return _ASCII_PIECES.findall(text)
+    words, cur = [], []
+    for c in text:
+        if c in _WHITE_SPACE or _is_punct(c):
+            if cur:
+                words.append("".join(cur))
+                cur = []
+            if c not in _WHITE_SPACE:
+                words.append(c)
+        else:
+            cur.append(c)
+    if cur:
+        words.append("".join(cur))
+    return words
 
 
 @dataclass
@@ -169,6 +220,7 @@ class WordPieceTokenizer:
                 kind = spec[part].get("type", part) if isinstance(spec[part], dict) else part
                 raise NotImplementedError(f"tokenizer.json: {part} {kind!r} is not read by "
                                           "the port")
+        self.spec = spec
         norm = spec["normalizer"]
         self.clean_text = norm.get("clean_text", True)
         self.handle_chinese_chars = norm.get("handle_chinese_chars", True)
@@ -199,34 +251,10 @@ class WordPieceTokenizer:
 
     # -- the pipeline
     def normalize(self, text: str) -> str:
-        if self.clean_text:
-            text = "".join(" " if c in _WHITE_SPACE else c for c in text
-                           if not (c in "\x00\ufffd" or (c not in "\t\n\r" and
-                                                          unicodedata.category(c) in _CONTROL)))
-        if self.handle_chinese_chars:
-            text = "".join(f" {c} " if _is_chinese(c) else c for c in text)
-        if self.strip_accents:
-            text = "".join(c for c in unicodedata.normalize("NFD", text)
-                           if unicodedata.category(c) != "Mn")
-        if self.lowercase:
-            text = "".join(c.lower() for c in text)
-        return text
+        return bert_normalize(text, self.clean_text, self.handle_chinese_chars,
+                              self.strip_accents, self.lowercase)
 
-    @staticmethod
-    def pre_tokenize(text: str) -> List[str]:
-        words, cur = [], []
-        for c in text:
-            if c in _WHITE_SPACE or _is_punct(c):
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-                if c not in _WHITE_SPACE:
-                    words.append(c)
-            else:
-                cur.append(c)
-        if cur:
-            words.append("".join(cur))
-        return words
+    pre_tokenize = staticmethod(bert_pre_tokenize)
 
     def wordpiece(self, word: str) -> List[str]:
         if len(word) > self.max_chars:
@@ -287,6 +315,15 @@ class WordPieceTokenizer:
             vocab.update(self.added)
         return vocab
 
+    def get_vocab_size(self, with_added_tokens: bool = True) -> int:
+        return len(self.get_vocab(with_added_tokens))
+
+    def save(self, path: str) -> None:
+        """Write the tokenizer JSON (the library's layout: `tokenizers.
+        Tokenizer.from_file` reads it too)."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.spec, f, indent=2, ensure_ascii=False)
+
     def token_to_id(self, token: str) -> Optional[int]:
         return self.added.get(token, self.vocab.get(token))
 
@@ -298,3 +335,252 @@ def load_tokenizer(path: str) -> WordPieceTokenizer:
     """The tokenizer JSON at `path` (fourm_tpu/utils/text_tokenizer.py:108-112
     reads it with tokenizers.Tokenizer.from_file)."""
     return WordPieceTokenizer.from_file(path)
+
+
+# ------------------------------------------------- training the tokenizer
+
+# The COCO-80 class names (alphabetical): the default object-class tokens
+# (fourm_tpu/utils/text_tokenizer.py:27; reference object_classes.json "coco")
+COCO_CLASSES = [
+    "airplane", "apple", "backpack", "banana", "baseball bat", "baseball glove",
+    "bear", "bed", "bench", "bicycle", "bird", "boat", "book", "bottle", "bowl",
+    "broccoli", "bus", "cake", "car", "carrot", "cat", "cell phone", "chair",
+    "clock", "couch", "cow", "cup", "dining table", "dog", "donut", "elephant",
+    "fire hydrant", "fork", "frisbee", "giraffe", "hair drier", "handbag", "horse",
+    "hot dog", "keyboard", "kite", "knife", "laptop", "microwave", "motorcycle",
+    "mouse", "orange", "oven", "parking meter", "person", "pizza", "potted plant",
+    "refrigerator", "remote", "sandwich", "scissors", "sheep", "sink", "skateboard",
+    "skis", "snowboard", "spoon", "sports ball", "stop sign", "suitcase",
+    "surfboard", "teddy bear", "tennis racket", "tie", "toaster", "toilet",
+    "toothbrush", "traffic light", "train", "truck", "tv", "umbrella", "vase",
+    "wine glass", "zebra",
+]
+
+
+@dataclass(frozen=True)
+class AddedToken:
+    """A token matched before the normalizer (the library's AddedToken, with
+    its defaults)."""
+
+    content: str
+    single_word: bool = False
+    lstrip: bool = False
+    rstrip: bool = False
+    normalized: bool = True
+    special: bool = False
+
+
+def generate_sentinel_tokens(num: int = 100, start_id: int = 0) -> List[AddedToken]:
+    return [AddedToken(content=f"[S_{i}]", single_word=True, normalized=False)
+            for i in range(start_id, num + start_id)]
+
+
+def generate_coord_tokens(bins: int = 1000) -> List[AddedToken]:
+    """Coordinate value tokens v0=..v3= used by det/pose/palette/metadata."""
+    return [AddedToken(content=s.format(i), single_word=True, normalized=False)
+            for s in ("v0={}", "v1={}", "v2={}", "v3={}") for i in range(bins)]
+
+
+def generate_object_class_tokens(classes: Optional[Sequence[str]] = None) -> List[AddedToken]:
+    classes = classes if classes is not None else COCO_CLASSES
+    return [AddedToken(content=c, single_word=True, normalized=True) for c in classes]
+
+
+class _Pos(set):
+    """The words that hold a queued pair. Two queue entries of one pair and
+    count are equal, as in the library's heap: neither is less."""
+
+    def __lt__(self, other):
+        return False
+
+
+def _merge_word(syms: List[int], a: int, b: int, new: int) -> List[Tuple[Tuple[int, int], int]]:
+    """Merge every (a, b) of the word in place, left to right; the pair
+    count changes, as the library's Word::merge gives them (the merged pair's
+    own count is left as it was)."""
+    changes = []
+    i = 0
+    while i < len(syms):
+        if syms[i] == a and i + 1 < len(syms) and syms[i + 1] == b:
+            if i > 0:
+                changes.append(((syms[i - 1], a), -1))
+                changes.append(((syms[i - 1], new), 1))
+            syms[i:i + 2] = [new]
+            if i < len(syms) - 1:
+                changes.append(((b, syms[i + 1]), -1))
+                changes.append(((new, syms[i + 1]), 1))
+        i += 1
+    return changes
+
+
+def train_wordpiece_vocab(word_counts: Dict[str, int], special_tokens: Sequence[str],
+                          vocab_size: int, min_frequency: int = 0, prefix: str = "##",
+                          _continuation_order: Sequence[str] = ()) -> Tuple[Dict[str, int], int]:
+    """The library's WordPieceTrainer: its BPE trainer with the continuing-
+    subword prefix, on the counted words, turned into a WordPiece vocabulary.
+
+    The special tokens take ids 0.. in order, then the alphabet by code
+    point, then the `prefix` characters, each at its first appearance in
+    `word_counts`' order (the library takes them in hash-map order, so its
+    ids differ from run to run, and so may its merges where counts tie).
+    `_continuation_order` exists to reproduce one library run: given that
+    run's `prefix` characters by id, those that occur come first in that
+    order, and the result is that run's vocabulary. A merge takes
+    the most frequent pair, a tie the smaller (left id, right id); counts
+    live per pair with the words that hold it, only the merged words are
+    updated, and a max-heap keeps stale entries until they surface (lazy
+    invalidation). Training stops at `vocab_size` tokens or below
+    `min_frequency`; specials and alphabet are all kept even past
+    `vocab_size`. Returns (token -> id, merges made)."""
+    w2id: Dict[str, int] = {}
+
+    def add(tok):
+        if tok not in w2id:
+            w2id[tok] = len(w2id)
+        return w2id[tok]
+
+    for tok in special_tokens:
+        add(tok)
+    alphabet = set()
+    for w in word_counts:
+        alphabet.update(w)
+    for c in sorted(alphabet):
+        add(c)
+    inner = {c for w in word_counts for c in w[1:]}
+    for tok in _continuation_order:
+        if tok.startswith(prefix) and tok[len(prefix):] in inner:
+            add(tok)
+    words, counts = [], []
+    for w, n in word_counts.items():
+        words.append([add(c if i == 0 else prefix + c) for i, c in enumerate(w)])
+        counts.append(n)
+    id2w = list(w2id)
+
+    pair_counts: Dict[Tuple[int, int], int] = {}
+    where: Dict[Tuple[int, int], _Pos] = {}
+    for i, syms in enumerate(words):
+        n = counts[i]
+        for p in zip(syms, syms[1:]):
+            pair_counts[p] = pair_counts.get(p, 0) + n
+            pos = where.get(p)
+            if pos is None:
+                where[p] = pos = _Pos()
+            pos.add(i)
+    # min-heap of (-count, pair, words): the most frequent first, then the
+    # smaller pair
+    queue = [(-pair_counts[p], p, pos) for p, pos in where.items() if pair_counts[p] > 0]
+    heapq.heapify(queue)
+    merges = 0
+    while len(w2id) < vocab_size and queue:
+        neg, pair, pos = heapq.heappop(queue)
+        count = pair_counts[pair]
+        if -neg != count:
+            heapq.heappush(queue, (-count, pair, pos))
+            continue
+        if count < 1 or min_frequency > count:
+            break
+        a, b = pair
+        right = id2w[b]
+        if right.startswith(prefix):
+            right = right[len(prefix):]
+        tok = id2w[a] + right
+        new = w2id.get(tok)
+        if new is None:
+            new = w2id[tok] = len(id2w)
+            id2w.append(tok)
+        merges += 1
+        where = {}
+        for iw in pos:
+            n = counts[iw]
+            for p, change in _merge_word(words[iw], a, b, new):
+                pair_counts[p] = pair_counts.get(p, 0) + change * n
+                if change > 0:
+                    s = where.get(p)
+                    if s is None:
+                        where[p] = s = _Pos()
+                    s.add(iw)
+        for p, s in where.items():
+            if pair_counts[p] > 0:
+                heapq.heappush(queue, (-pair_counts[p], p, s))
+    return w2id, merges
+
+
+def count_words(files: Sequence[str], lowercase: bool = True) -> Dict[str, int]:
+    """Word counts of text files after the BertNormalizer and the
+    BertPreTokenizer, as the library's trainer counts them (added tokens are
+    not split out of the corpus), in order of first appearance."""
+    counts: Dict[str, int] = {}
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                for word in bert_pre_tokenize(bert_normalize(line, strip_accents=lowercase,
+                                                             lowercase=lowercase)):
+                    counts[word] = counts.get(word, 0) + 1
+    return counts
+
+
+def _token_entry(tok, id_: int) -> dict:
+    if isinstance(tok, str):  # a special token given by its text
+        tok = AddedToken(tok, normalized=False)
+    return {"id": id_, "content": tok.content, "single_word": tok.single_word,
+            "lstrip": tok.lstrip, "rstrip": tok.rstrip, "normalized": tok.normalized,
+            "special": True}
+
+
+def train_unified_wordpiece_tokenizer(
+    files: Union[str, Sequence[str]],
+    vocab_size: int,
+    sentinel_tokens: Optional[List] = None,
+    coord_tokens: Optional[List] = None,
+    object_class_tokens: Optional[List] = None,
+    unk_token: str = "[UNK]",
+    pad_token: str = "[PAD]",
+    sos_token: str = "[SOS]",
+    eos_token: str = "[EOS]",
+    additional_special_tokens: Optional[List] = None,
+    min_frequency: int = 0,
+    lowercase: bool = True,
+    wordpieces_prefix: str = "##",
+    show_progress: bool = True,
+) -> WordPieceTokenizer:
+    """Train the shared WordPiece tokenizer (fourm_tpu/utils/text_tokenizer.py:
+    61, which runs the `tokenizers` library's WordPieceTrainer; reference
+    text_tokenizer.py:47-105), deterministically.
+
+    Special token order is load-bearing: [PAD]=0, [UNK]=1, [SOS]=2, [EOS]=3, then
+    sentinels, coords, object classes. `show_progress` prints the counts; the
+    tokenizer's `training` holds them ({"word_types", "words", "merges"}).
+    Added tokens are not split out of the corpus, as in the library."""
+    if isinstance(files, (str, os.PathLike)):
+        files = [files]
+    specials = [pad_token, unk_token, sos_token, eos_token]
+    for extra in (sentinel_tokens, coord_tokens, object_class_tokens, additional_special_tokens):
+        if extra is not None:
+            specials.extend(extra)
+    contents = [t if isinstance(t, str) else t.content for t in specials]
+    word_counts = count_words(files, lowercase)
+    vocab, merges = train_wordpiece_vocab(word_counts, contents, vocab_size, min_frequency,
+                                          wordpieces_prefix)
+    if show_progress:
+        print(f"wordpiece: {len(word_counts)} word types, {merges} merges, vocab {len(vocab)}",
+              flush=True)
+    added, seen = [], set()
+    for tok, content in zip(specials, contents):
+        if content not in seen:
+            seen.add(content)
+            added.append(_token_entry(tok, vocab[content]))
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": lowercase},
+        "pre_tokenizer": {"type": "BertPreTokenizer"}, "post_processor": None,
+        "decoder": {"type": "WordPiece", "prefix": wordpieces_prefix, "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": str(unk_token),
+                  "continuing_subword_prefix": wordpieces_prefix,
+                  "max_input_chars_per_word": 100, "vocab": vocab},
+    }
+    tokenizer = WordPieceTokenizer(spec)
+    tokenizer.training = {"word_types": len(word_counts), "words": sum(word_counts.values()),
+                          "merges": merges}
+    return tokenizer

@@ -14,11 +14,13 @@ from .loader import get_image_tokenizer
 from .memcodes import Memcodes
 from .mlp_models import build_mlp
 from .quantizer import VectorQuantize, l2norm
-from .scheduling import DiffusionScheduler, diffusion_sample, pndm_sample
+from .scheduling import (DDIMScheduler, DDPMScheduler, DiffusionScheduler, PNDMScheduler,
+                         diffusion_sample, pndm_sample)
 from .teachers import TEACHER_PRESETS, ViTTeacher, init_teacher_weights, quick_gelu
 from .unet import PatchedUNetCondCat, unet_patched
 from .uvit import UVIT_PRESETS, UViT
-from .vit_models import VIT_SIZES, PatchProj, ViTDecoder, ViTEncoder
+from .vit_models import (VIT_SIZES, PatchProj, ViTDecoder, ViTEncoder, build_vit_decoder,
+                         build_vit_encoder)
 from .vqvae import (VQ, VQVAE, DiVAE, VQControlNet, controlnet_decode_quant,
                     controlnet_decode_tokens, divae_decode_quant, divae_decode_tokens,
                     init_vq_weights)

@@ -262,6 +262,21 @@ class DiffusionScheduler:
 
 # ---------------------------------------------------------------------- PLMS
 
+def DDPMScheduler(**kw) -> DiffusionScheduler:
+    return DiffusionScheduler(kind="ddpm", **kw)
+
+
+def PNDMScheduler(**kw) -> DiffusionScheduler:
+    """PNDM / PLMS (reference scheduling_pndm.py:74-430, skip_prk_steps mode;
+    fourm_tpu/vq/scheduling.py:257); sample with `pndm_sample`."""
+    kw.setdefault("prediction_type", "epsilon")
+    return DiffusionScheduler(kind="pndm", **kw)
+
+
+def DDIMScheduler(**kw) -> DiffusionScheduler:
+    return DiffusionScheduler(kind="ddim", **kw)
+
+
 def _plms_combine(ets: Sequence[torch.Tensor]) -> torch.Tensor:
     """The linear multistep combination of the newest-first epsilon history."""
     n = len(ets)

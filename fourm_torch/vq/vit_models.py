@@ -238,3 +238,22 @@ class ViTDecoder(nn.Module):
             for blk in self.out_conv:
                 x = blk(x)
         return x
+
+
+def build_vit_encoder(enc_type: str, in_channels: int, patch_size: int, resolution: int,
+                      patch_proj: bool = True, post_mlp: bool = False,
+                      dtype: torch.dtype = torch.float32) -> ViTEncoder:
+    """A ViTEncoder of a VIT_SIZES preset ("vit_b" or "vit_b_enc")."""
+    size = VIT_SIZES[enc_type.replace("_enc", "")]
+    return ViTEncoder(in_channels=in_channels, patch_size=patch_size, resolution=resolution,
+                      patch_proj=patch_proj, post_mlp=post_mlp, dtype=dtype, **size)
+
+
+def build_vit_decoder(dec_type: str, out_channels: int, patch_size: int, resolution: int,
+                      patch_proj: bool = True, post_mlp: bool = False, out_conv: bool = False,
+                      dtype: torch.dtype = torch.float32) -> ViTDecoder:
+    """A ViTDecoder of a VIT_SIZES preset ("vit_b" or "vit_b_dec")."""
+    size = VIT_SIZES[dec_type.replace("_dec", "")]
+    return ViTDecoder(out_channels=out_channels, patch_size=patch_size, resolution=resolution,
+                      patch_proj=patch_proj, post_mlp=post_mlp, out_conv=out_conv, dtype=dtype,
+                      **size)

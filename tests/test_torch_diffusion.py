@@ -271,3 +271,57 @@ def test_uvit_matches_jax(case):
             port = pm(_t(sample), _t(t), _t(cond), None if cm is None else _t(cm),
                       orig_res=_t(orig), unconditional=uncond)
         _close(port, ref)
+
+
+@pytest.mark.parametrize("factory, kw", [("DDPMScheduler", {}),
+                                         ("DDIMScheduler", dict(beta_schedule="scaled_linear",
+                                                                eta=0.5)),
+                                         ("PNDMScheduler", {}),
+                                         ("PNDMScheduler", dict(prediction_type="sample",
+                                                                zero_terminal_snr=False))])
+def test_scheduler_factories_match_jax(factory, kw):
+    """DDPMScheduler / DDIMScheduler / PNDMScheduler (PNDM's epsilon
+    default): the same fields as the JAX factories' schedulers, and the
+    same tables."""
+    import dataclasses
+
+    ours, ref = getattr(ts, factory)(**kw), getattr(js, factory)(**kw)
+    assert {f.name: getattr(ours, f.name) for f in dataclasses.fields(ours)} == \
+        {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
+    np.testing.assert_array_equal(ours.alphas_cumprod, np.asarray(ref.alphas_cumprod))
+
+
+@pytest.mark.parametrize("kind, name, kw", [
+    ("encoder", "vit_t_enc", dict(in_channels=3, patch_size=8, resolution=32)),
+    ("encoder", "vit_s", dict(in_channels=5, patch_size=1, resolution=8, patch_proj=False,
+                              post_mlp=True)),
+    ("decoder", "vit_t_dec", dict(out_channels=3, patch_size=8, resolution=32, out_conv=True)),
+    ("decoder", "vit_s", dict(out_channels=4, patch_size=16, resolution=64, post_mlp=True))])
+def test_vit_constructors_match_jax(kind, name, kw):
+    """build_vit_encoder / build_vit_decoder over VIT_SIZES: the fields of
+    the JAX function's module, and the same parameter shapes (a Dense kernel
+    transposed)."""
+    from fourm_tpu.vq import vit_models as jvit
+    from fourm_torch.vq import vit_models as tvit
+
+    build = f"build_vit_{kind}"
+    ours, ref = getattr(tvit, build)(name, **kw), getattr(jvit, build)(name, **kw)
+    size = tvit.VIT_SIZES[name.replace(f"_{kind[:3]}", "")]
+    assert (ref.dim_tokens, ref.depth, ref.num_heads) == (size["dim_tokens"], size["depth"],
+                                                          size["num_heads"])
+    assert ours.dim_tokens == ref.dim_tokens and len(ours.blocks) == ref.depth
+    assert {b.attn.num_heads for b in ours.blocks} == {ref.num_heads}
+    grid = kw["resolution"] // kw["patch_size"]
+    if kind == "encoder":
+        x = (jnp.zeros((1, kw["resolution"], kw["resolution"], kw["in_channels"]))
+             if kw.get("patch_proj", True) else jnp.zeros((1, grid, grid, kw["in_channels"])))
+    else:
+        x = jnp.zeros((1, grid, grid, ref.dim_tokens))
+    params = jax.eval_shape(ref.init, jax.random.key(0), x)["params"]
+
+    def torch_shape(s):  # Dense (in, out) -> (out, in); Conv (kh, kw, in, out) -> OIHW
+        s = tuple(s)
+        return s[::-1] if len(s) == 2 else (s[3], s[2], s[0], s[1]) if len(s) == 4 else s
+
+    assert sorted(torch_shape(v.shape) for v in jax.tree.leaves(params)) == \
+        sorted(tuple(p.shape) for p in ours.parameters())

@@ -136,7 +136,10 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
     files = (sorted((REPO / "fourm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + [REPO / "scripts" / f"{name}.py" for name in ("chip_tokenizer", "chip_transfer",
                                                              "chip_parallel", "chip_multicard",
-                                                             "chip_controlnet", "chip_orbax")])
+                                                             "chip_controlnet", "chip_orbax",
+                                                             "chip_examples")]
+             + [REPO / "examples" / f"{name}.py" for name in ("end_to_end_demo_torch",
+                                                              "retrieval_demo_torch")])
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):  # every import, inside functions too
@@ -170,7 +173,8 @@ def test_port_imports_neither_jax_nor_fourm_tpu():
             "fourm_torch.data.transfer, fourm_torch.models.fm_vit, fourm_torch.models.lora, "
             "fourm_torch.utils.remote, fourm_torch.utils.profiling, fourm_torch.utils.drawing, "
             "fourm_torch.utils.orbax, fourm_torch.vq.teachers, fourm_torch.cli.save_vq_tokens, "
-            "fourm_torch.cli.train_vqcontrolnet; "
+            "fourm_torch.cli.train_vqcontrolnet, fourm_torch.cli.train_text_tokenizer, "
+            "fourm_torch.utils.logger, fourm_torch.data.image_enhance; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'fourm_tpu', 'tokenizers', 'safetensors', 'yaml', "
             "'huggingface_hub', 'orbax', 'tensorstore', 'zstandard', 'PIL', 'cv2', "
@@ -225,3 +229,50 @@ def test_sampler_call_generates_then_decodes(pair):
     ref = jdec.decode_dict({"tok_clip@224": {k: v.numpy() for k, v in gen["tok_clip@224"].items()}},
                            {"tok_clip": jdec.TokenizerBundle(jclip, variables)}, None)
     np.testing.assert_allclose(out["tok_clip@224"], ref["tok_clip@224"], atol=1e-4, rtol=0)
+
+
+def test_load_sampler_matches_jax(pair, tmp_path):
+    """fourm_torch.load_sampler on a release .safetensors (the pair's JAX
+    weights in the reference names, the release's config metadata) against
+    fourm_tpu.load_sampler on the same file: equal tokens at temperature
+    0, on the CPU when asked (the card by default)."""
+    from safetensors.numpy import save_file
+
+    import fourm_tpu
+    import fourm_torch
+    from fourm_tpu.utils.checkpoint import export_fourm_torch_state
+
+    (jm, variables), _ = pair
+    cfg = jm.config
+    meta = {"domains_in": list(cfg.encoder_modalities),
+            "domains_out": list(cfg.decoder_modalities), "dim": cfg.dim,
+            "encoder_depth": cfg.encoder_depth, "decoder_depth": cfg.decoder_depth,
+            "num_heads": cfg.num_heads, "mlp_ratio": cfg.mlp_ratio, "qkv_bias": cfg.qkv_bias,
+            "proj_bias": cfg.proj_bias, "mlp_bias": cfg.mlp_bias, "norm_bias": cfg.norm_bias,
+            "act_layer": "SiLU", "gated_mlp": cfg.gated_mlp, "qk_norm": cfg.qk_norm,
+            "decoder_causal_mask": cfg.decoder_causal_mask,
+            "decoder_sep_mask": cfg.decoder_sep_mask, "num_register_tokens": 0,
+            "share_modality_embeddings": cfg.share_modality_embeddings, "image_size": 224,
+            "patch_size": 16}
+    state = export_fourm_torch_state(variables, cfg)
+    for m in cfg.decoder_modalities:  # a release's logits are untied
+        emb = f"decoder_embeddings.{m}."
+        state.setdefault(emb + "to_logits.weight", state[emb + "token_emb.weight"])
+    path = str(tmp_path / "fm.safetensors")
+    save_file({k: np.ascontiguousarray(v, np.float32) for k, v in state.items()}, path,
+              metadata={"config": str(meta)})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fourm_torch.load_sampler(path)
+    ours, ref = fourm_torch.load_sampler(path, device="cpu"), fourm_tpu.load_sampler(path)
+    assert ours.model.config.dim == 64 and fourm_torch.FourM is type(ours.model)
+    targets = TARGETS[:2]
+    defaults = {t: {**jax_api.DEFAULTS_RGB2X[t], "temp": 0.0} for t in targets}
+    outs = []
+    for s in (ours, ref):
+        md = s.prepare_sample({"rgb@224": _rgb(2, 4)}, ["rgb@224"], targets, batch_size=2)
+        outs.append(s.generate(md, s.build_schedule(["rgb@224"], targets, defaults=defaults),
+                               seed=0))
+    for t in targets:
+        np.testing.assert_array_equal(np.asarray(outs[0][t]["tensor"]),
+                                      np.asarray(outs[1][t]["tensor"]))

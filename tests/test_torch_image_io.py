@@ -120,5 +120,41 @@ def test_rgb_transform_equals_jax(tmp_path):
         x = ours.postprocess(ours.image_augment(a, crop, flip, (250, 290), (224, 224), 0))
         y = ref.postprocess(ref.image_augment(b, crop, flip, (250, 290), (224, 224), 0))
         assert x.dtype == y.dtype == np.float32 and np.array_equal(x, y), crop
-    with pytest.raises(NotImplementedError, match="color_jitter"):
-        tt.RGBTransform(color_jitter=True)
+    # the colour jitter (transforms.py:190-201): the JAX transform draws from
+    # the global `random`, the port's from its own generator, seeded alike
+    import random
+
+    for seed in range(12):
+        for strength in (0.5, 1.0):
+            random.seed(seed)
+            ref = jt.RGBTransform(color_jitter=True, color_jitter_strength=strength)
+            ours = tt.RGBTransform(color_jitter=True, color_jitter_strength=strength,
+                                   rng=random.Random(seed))
+            for _ in range(3):
+                got, want = ours.preprocess(a), np.asarray(ref.preprocess(ref.load(path)))
+                assert got.dtype == np.uint8 and np.array_equal(got, want), (seed, strength)
+
+
+def test_image_enhance_equals_pillow():
+    """Pillow's ImageEnhance.Brightness / Contrast / Color and
+    ImageOps.grayscale(...).convert("RGB"), byte for byte, on random images
+    (smooth and noisy, flat ones too) and factors in [0, 2]."""
+    from PIL import ImageEnhance, ImageOps
+
+    from fourm_torch.data import image_enhance as ie
+
+    rng = np.random.default_rng(9)
+    ops = {"brightness": ImageEnhance.Brightness, "contrast": ImageEnhance.Contrast,
+           "color": ImageEnhance.Color}
+    for i in range(60):
+        h, w = (int(v) for v in rng.integers(1, 48, size=2))
+        arr = _image(rng, h, w, "RGB") if i % 4 else np.full((h, w, 3), rng.integers(256),
+                                                               np.uint8)
+        pil = Image.fromarray(arr)
+        factors = [0.0, 0.5, 1.0, 2.0] if i < 4 else rng.uniform(0.0, 2.0, size=3)
+        for f in factors:
+            for name, enhancer in ops.items():
+                want = np.asarray(enhancer(pil).enhance(float(f)))
+                assert np.array_equal(getattr(ie, name)(arr, float(f)), want), (name, f)
+        assert np.array_equal(ie.grayscale_rgb(arr),
+                              np.asarray(ImageOps.grayscale(pil).convert("RGB")))

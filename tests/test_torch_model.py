@@ -207,3 +207,74 @@ def test_sampling_filters_match_jax(top_k, top_p):
     np.testing.assert_array_equal(
         sampling.top_k_top_p_filtering_dynamic(_t(logits), top_k, top_p).numpy(),
         np.asarray(ref))
+
+
+@pytest.mark.parametrize("gated, qkv_bias, norm_bias, allow_zero_attn",
+                         [(False, False, True, False), (True, True, False, True)])
+def test_cross_attention_block_matches_jax(gated, qkv_bias, norm_bias, allow_zero_attn):
+    """CrossAttentionBlock (reference fm_utils.py:369-388) in fp32, its JAX
+    initialisation carried over by from_jax_block_params: atol 1e-5."""
+    from fourm_torch.ops.transformer import CrossAttentionBlock
+    from fourm_torch.utils.checkpoint import from_jax_block_params
+
+    rng = np.random.RandomState(5)
+    B, N, M, D, H = 2, 9, 13, 64, 4
+    x = rng.randn(B, N, D).astype(np.float32)
+    ctx = rng.randn(B, M, D).astype(np.float32)
+    xa = rng.rand(B, 1, M) > 0.5
+    xa[0] = True  # a fully masked row
+    kw = dict(dim=D, num_heads=H, mlp_ratio=4.0, qkv_bias=qkv_bias, gated_mlp=gated,
+              allow_zero_attn=allow_zero_attn, norm_bias=norm_bias)
+    jblock = jt.CrossAttentionBlock(**kw, act=jax.nn.silu if gated else jt.gelu_exact)
+    variables = jblock.init(jax.random.key(3), jnp.asarray(x), jnp.asarray(ctx),
+                            jnp.asarray(xa))
+    params = jax.tree.map(np.asarray, variables)["params"]
+    ref = jblock.apply(variables, jnp.asarray(x), jnp.asarray(ctx), jnp.asarray(xa))
+    block = CrossAttentionBlock(**kw, act="silu" if gated else "gelu").eval()
+    block.load_state_dict(from_jax_block_params(params), strict=True)
+    with torch.no_grad():
+        _close(block(_t(x), _t(ctx), _t(xa)), ref, 1e-5)
+        # the training forward at rate 0: the same values, differentiably
+        _close(block(_t(x), _t(ctx), _t(xa), train=True), ref, 1e-5)
+
+
+@pytest.mark.parametrize("num_keep", [5, 37, 64, 100])
+def test_select_tokens_partition_exact(num_keep):
+    """The cumsum + scatter partition: bit for bit select_tokens and the JAX
+    function."""
+    rng = np.random.RandomState(num_keep + 1)
+    mask = rng.rand(4, 64) > 0.4
+    mask[1], mask[2] = True, False
+    ours = ts.select_tokens_partition(_t(mask), num_keep)
+    assert torch.equal(ours, ts.select_tokens(_t(mask), num_keep))
+    np.testing.assert_array_equal(
+        ours.numpy(), np.asarray(jax_ts.select_tokens_partition(jnp.asarray(mask), num_keep)))
+
+
+@pytest.mark.parametrize("temperature, top_k, top_p", [(0.0, 0.0, 0.0), (1e-11, 3, 0.0),
+                                                       (1.0, 0.0, 0.0), (0.7, 5, 0.0),
+                                                       (1.3, 0.0, 0.8), (1.0, 1, 0.0)])
+def test_sample_tokens_match_jax(temperature, top_k, top_p):
+    """sample_tokens: argmax with probability 1 below |temperature| 1e-10,
+    exactly as JAX; otherwise each sample inside JAX's filtered support and
+    its probability JAX's for that token (the two packages draw from their
+    own generators); top_k 1 filters to one token, taken with probability
+    1."""
+    logits = np.random.RandomState(13).randn(3, 7, 50).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    samples, probs = sampling.sample_tokens(_t(logits), temperature, top_k, top_p, gen)
+    assert samples.shape == (3, 7) and probs.dtype == torch.float32
+    js, jp = jax_sampling.sample_tokens(jax.random.key(0), jnp.asarray(logits), temperature,
+                                        top_k, top_p)
+    if abs(temperature) < 1e-10:
+        np.testing.assert_array_equal(samples.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(probs.numpy(), np.asarray(jp))
+        return
+    table = np.asarray(jax.nn.softmax(jax_sampling.top_k_top_p_filtering(
+        jnp.asarray(logits), top_k, top_p) / temperature, axis=-1))
+    mine = np.take_along_axis(table, samples.numpy()[..., None], -1)[..., 0]
+    assert (mine > 0).all()
+    np.testing.assert_allclose(probs.numpy(), mine, rtol=1e-6, atol=1e-7)
+    if top_k == 1:
+        np.testing.assert_array_equal(samples.numpy(), logits.argmax(-1))
+        np.testing.assert_array_equal(probs.numpy(), np.ones((3, 7), np.float32))

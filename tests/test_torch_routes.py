@@ -90,13 +90,16 @@ def test_attention_predicates(D, heads, HID):
     assert at.flash_mha_takes(q, k, v, heads) and at.mha_short_takes(qkv, heads)
     assert not at.flash_mha_takes(q.float(), k.float(), v.float(), heads)
     assert not at.mha_short_takes(qkv.float(), heads)
-    assert not at.flash_mha_takes(q, k, v, heads * 2)  # heads of 32
+    assert at.flash_mha_takes(q, k, v, heads * 2) and at.mha_short_takes(qkv, heads * 2)
+    assert not at.flash_mha_takes(q, k, v, heads * 4)  # heads of 16
     qh = _meta(B, heads, N, 64)
     kh = _meta(B, heads, 2304, 64)
     assert at.attention_takes(qh, kh, kh)
     assert not at.attention_takes(qh.float(), kh.float(), kh.float())
-    assert not at.attention_takes(_meta(B, heads, N, 32), _meta(B, heads, 9, 32),
-                                  _meta(B, heads, 9, 32))
+    assert at.attention_takes(_meta(B, heads, N, 32), _meta(B, heads, 9, 32),
+                              _meta(B, heads, 9, 32))
+    assert not at.attention_takes(_meta(B, heads, N, 16), _meta(B, heads, 9, 16),
+                                  _meta(B, heads, 9, 16))
     # decode step: one token per row, caches (B, H, L, 64), cross K/V (B, H, M, 64)
     x1 = _meta(8, D)
     cache = _meta(8, heads, 256, 64)
@@ -148,13 +151,15 @@ def _on_meta(monkeypatch, *modules):
         monkeypatch.setattr(mod, "require_cuda", lambda name, *ts: torch.device("meta"))
 
 
-def test_refused_calls_run_the_twin_and_count():
+def test_refused_calls_run_the_twin_and_count(monkeypatch):
     """A float32 model off the CPU (meta tensors stand in for the card)
     takes the plain twins at the block layer: every inference half, the
     KV-cached decode step and the training attention run with the shapes
     following and no kernel wrapper called, so every launch count stays 0.
     A bf16 block there goes to the wrappers, which do not take meta
-    tensors."""
+    tensors. The block layer decides by dtype alone: a bf16 block with
+    heads of 32 reaches the same wrappers as one with heads of 64, and
+    none of its calls goes to a twin by shape."""
     kernels.reset_launch_counts()
     B, N, M, D, H, L = 2, 7, 9, 128, 2, 16
     with torch.device("meta"):
@@ -176,6 +181,35 @@ def test_refused_calls_run_the_twin_and_count():
     assert not any(kernels.launch_counts().values())
     with pytest.raises(ValueError, match="CUDA device"):
         bf16(x.to(BF))
+
+    # bf16 heads of 32 and of 64: each wrapper reached is recorded here in
+    # its place (the wrappers do not take meta tensors)
+    reached = []
+    for name in ("ln_matmul", "ln_mlp", "mha_short", "flash_mha", "attention", "attn_block",
+                 "self_decode", "cross_decode_attn", "residual_mlp"):
+        twin = getattr(tt, f"{name}_plain")
+        monkeypatch.setattr(tt, name, lambda *a, _n=name, _t=twin, **k: (reached.append(_n),
+                                                                        _t(*a, **k))[1])
+        monkeypatch.setattr(tt, f"{name}_plain", lambda *a, _n=name, **k: pytest.fail(
+            f"the block layer called {_n}'s twin"))
+    with torch.device("meta"):
+        narrow = [tt.Block(64, 2, dtype=BF), tt.DecoderBlock(64, 2, dtype=BF),
+                  tt.CrossAttentionBlock(64, 2, dtype=BF)]
+        wide = [tt.Block(128, 2, dtype=BF), tt.DecoderBlock(128, 2, dtype=BF),
+                tt.CrossAttentionBlock(128, 2, dtype=BF)]
+    for D, blocks, heads in ((64, narrow, 32), (128, wide, 64)):
+        enc, dec, xblock = (m.to(BF).eval() for m in blocks)
+        reached.clear()
+        xb, cb = _meta(B, N, D), _meta(B, M, D)
+        assert enc(xb, key).shape == dec(xb, cb).shape == xblock(xb, cb).shape == xb.shape
+        cache = _meta(B, H, L, heads)
+        y, _, _ = dec.step(_meta(B, 1, D), cache, cache, *dec.cross_kv(cb), None,
+                           torch.zeros(1, dtype=torch.int32, device="meta"))
+        assert y.shape == (B, 1, D)
+        assert sorted(reached) == sorted(
+            ["ln_matmul", "mha_short"] * 2 + ["ln_mlp"] * 3 + ["attention"] * 2
+            + ["self_decode", "cross_decode_attn", "residual_mlp"]), heads
+    assert not any(kernels.launch_counts().values())
 
 
 def test_refused_wrapper_calls_raise(monkeypatch):
@@ -222,7 +256,7 @@ def test_refused_wrapper_calls_raise(monkeypatch):
     with pytest.raises(ValueError, match="does not take"):
         fm.ln_mlp(_meta(3, 100), g, None, _meta(64, 100), None, _meta(100, 64), None)
     with pytest.raises(ValueError, match="does not take"):
-        at.attention(_meta(B, H, N, 32), _meta(B, H, 9, 32), _meta(B, H, 9, 32))
+        at.attention(_meta(B, H, N, 16), _meta(B, H, 9, 16), _meta(B, H, 9, 16))
     with pytest.raises(ValueError, match="does not take"):
         ds.residual_mlp(_meta(D, B).t(), x1.to(BF), wq.to(BF), None, g, None, w1.to(BF),
                         None, w2.to(BF), None)

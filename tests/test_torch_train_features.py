@@ -400,3 +400,51 @@ def test_cli_data_config_cpu(tmp_path):
     assert [r["step"] for r in lines if "loss" in r] == [0, 1, 2, 3, 4]
     ckpt = load_checkpoint(str(tmp_path / "out" / "r" / "checkpoints"), 5)
     assert ckpt["optimizer"]["count"] == 4 and ckpt["step"] == 5
+
+
+def test_metric_logger_prints_the_jax_lines(monkeypatch, capsys):
+    """SmoothedValue / MetricLogger (reference logger.py:34-182): on the same
+    values, and a clock stepping alike, the port prints the JAX package's
+    lines, log_every's included."""
+    import time
+
+    from fourm_tpu.utils import logger as jl
+    from fourm_torch.utils import logger as tl
+
+    values = np.random.RandomState(3).rand(30, 2) * 10
+    printed = {}
+    for name, mod in (("port", tl), ("jax", jl)):
+        clock = iter(np.arange(0.0, 1000.0, 0.37))
+        monkeypatch.setattr(time, "time", lambda: float(next(clock)))
+        sv = mod.SmoothedValue(window_size=7, fmt="{median:.3f} {avg:.3f} {global_avg:.3f} "
+                                                  "{max:.3f} {value:.3f}")
+        ml = mod.MetricLogger(delimiter=" | ")
+        lines = []
+        for i, (loss, gnorm) in enumerate(ml.log_every(values, 4, header="train",
+                                                        total_len=len(values))):
+            sv.update(loss, n=i % 3 + 1)
+            ml.update(loss=loss, grad_norm=gnorm)
+            lines.append(f"{sv} / {ml} / {ml.loss.median:.6f}")
+        printed[name] = (lines, capsys.readouterr().out)
+    assert printed["port"] == printed["jax"]
+    with pytest.raises(AttributeError):
+        tl.MetricLogger().missing
+
+
+def test_train_4m_log_wandb_prints_and_carries_on(tmp_path, capsys):
+    """--log_wandb: the wandb writer says wandb is absent, as the JAX CLI's
+    says where it is not installed, and the run trains on."""
+    from fourm_torch.utils.logger import WandbLogger
+
+    WandbLogger().log({"loss": 1.0}, step=0)  # no project: nothing
+    assert capsys.readouterr().out == ""
+    port_cli.main(["--device", "cpu", "--synthetic_data", "--model", "fm_tiny_6e_6d_gelu",
+                   "--in_domains", "tok_clip@224-caption", "--out_domains",
+                   "tok_clip@224-caption", "--dim", "64", "--num_heads", "2",
+                   "--encoder_depth", "1", "--decoder_depth", "1", "--dtype", "float32",
+                   "--batch_size", "2", "--num_input_tokens", "16", "--num_target_tokens", "16",
+                   "--print_freq", "1", "--max_steps", "2", "--epoch_size", "2", "--eval_size", "2",
+                   "--log_wandb", "--wandb_project", "fourm", "--output_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[logger] wandb disabled: No module named 'wandb'" in out
+    assert "step 1/2" in out and "training done" in out
