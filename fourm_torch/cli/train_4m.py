@@ -45,8 +45,13 @@ world x grad_accum_steps and lr = blr x global batch / 256, as the JAX CLI
 (a tensor group shares batch_size x tensor samples). Each rank of the
 (data, fsdp) group takes its rows of the global batch: of each synthetic
 batch, or from its own shards of a data config (data/pretrain_utils.py).
-The eval's losses are the global batch's. Only rank 0 prints, logs and
-writes; checkpoints hold whole tensors (gathered), and resume at any mesh.
+The eval's losses are the global batch's. At fsdp > 1 the model is born
+sharded (built under parallel.meta_params: each rank draws --seed's
+weights leaf by leaf and keeps its chunk) and holds its parameters,
+gradients and optimizer state as 1 / fsdp chunks, gathered unit by unit
+(parallel/shard.py); --finetune weights go into the chunks. Only rank 0
+prints, logs and writes; checkpoints hold whole tensors (gathered), and
+resume at any mesh.
 
 Usage:
   python -m fourm_torch.cli.train_4m --config cfgs/default/4m/models/main/4m-b_mod21_500b.yaml \
@@ -124,7 +129,8 @@ def get_parser():
     p.add_argument("--num_workers", type=int, default=0,
                    help="data-loading worker processes (0 = inline)")
     # mesh (under torchrun; data = world / (fsdp * tensor))
-    p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size (sharded masters)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fsdp axis size (parameters, gradients and optimizer state sharded)")
     p.add_argument("--tensor", type=int, default=1, help="tensor-parallel axis size")
     # misc
     p.add_argument("--output_dir", default="out/train_4m")
@@ -263,7 +269,7 @@ def build_loaders(args, all_domains, global_bs: int, eval_in: int, eval_tgt: int
     return loader, val_loader_fn
 
 
-def load_finetune_weights(path: str, model) -> None:
+def load_finetune_weights(path: str, model, plan=None) -> None:
     """--finetune: copy released or trained weights into the model without
     their `.pos_emb` tensors (reference run_training_4m.py:475-487, which
     loads with strict=False and prints what did not match): a .safetensors;
@@ -271,7 +277,9 @@ def load_finetune_weights(path: str, model) -> None:
     reads an orbax one, fourm_tpu/cli/train_4m.py:121-150); or a run
     directory (its weights/). Step directories are the port's (a params
     export or a train checkpoint) or the JAX package's orbax ones (a params
-    export or a TrainState). A file that fills no parameter raises."""
+    export or a TrainState). A file that fills no parameter raises. Over a
+    mesh (`plan`) the tensors go into the rank's masters and chunks
+    (ParallelPlan.load_full)."""
     from ..utils.checkpoint import (latest_checkpoint_steps, load_fourm_state_dict,
                                     load_fourm_weights, load_safetensors)
     from ..utils.orbax import is_orbax_step
@@ -290,7 +298,9 @@ def load_finetune_weights(path: str, model) -> None:
                                         "directory of step_N or a run directory with weights/")
             step = steps[-1]
         state = load_fourm_weights(ckpt_dir, step, model.config)
-    missing, unexpected = load_fourm_state_dict(model, state, drop_pos_emb=True, strict=False)
+    load = None if plan is None else (lambda sd: plan.load_full(sd, strict=False))
+    missing, unexpected = load_fourm_state_dict(model, state, drop_pos_emb=True, strict=False,
+                                                load=load)
     loaded = len(state) - sum(".pos_emb" in k for k in state) - len(unexpected)
     if loaded == 0:
         raise ValueError(f"--finetune {path}: no tensor of it is a parameter of the model "
@@ -343,7 +353,8 @@ def restore_checkpoint(state, generator, ckpt: dict) -> int:
 
 def main(args=None):
     from ..models import FourM, create_fourm_config, init_weights
-    from ..parallel import build_train_step, frozen_trunk_mask, init_train_state, make_mesh
+    from ..parallel import (build_train_step, frozen_trunk_mask, init_train_state, make_mesh,
+                            meta_params)
     from ..parallel.launch import (barrier, initialize_multihost, is_main_process,
                                    process_count, shutdown)
     from ..utils.checkpoint import auto_resume, from_jax_train_state, save_checkpoint
@@ -392,15 +403,21 @@ def main(args=None):
     if main_rank:
         with open(os.path.join(output_dir, "config.json"), "w") as f:
             json.dump(dataclasses.asdict(config), f, indent=1)
-    model = init_weights(FourM(config), args.seed)  # alike on every rank: one seed
-    if args.finetune:
-        load_finetune_weights(args.finetune, model)
+    if mesh is not None and args.fsdp > 1:  # born sharded: no rank holds the whole tree
+        with meta_params():
+            model = FourM(config)
+        init_seed = args.seed
+    else:
+        model = init_weights(FourM(config), args.seed)  # alike on every rank: one seed
+        init_seed = None
     sched = make_schedule(args.scheduler, lr, total_steps, warmup_steps, min_lr=args.min_lr,
                           cooldown_steps=cooldown_steps)
     tx = create_optimizer(model, sched, weight_decay=args.weight_decay,
                           betas=tuple(args.opt_betas), clip_grad=args.clip_grad,
                           skip_grad=args.skip_grad, layer_decay=args.layer_decay)
-    state = init_train_state(model, tx, device=args.device, mesh=mesh)
+    state = init_train_state(model, tx, device=args.device, mesh=mesh, seed=init_seed)
+    if args.finetune:
+        load_finetune_weights(args.finetune, model, state.plan)
     device = model.mask_token.device
     shard = (0, 1) if state.plan is None else (state.plan.batch_index, state.plan.batch_count)
     step_kw = dict(loss_type=args.loss_type, grad_accum_steps=args.grad_accum_steps, mesh=mesh)

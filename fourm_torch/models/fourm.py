@@ -475,25 +475,30 @@ class FourM(nn.Module):
         return [(zeros(), zeros()) for _ in range(cfg.decoder_depth)]
 
 
+def init_value(owner: nn.Module, leaf: str, shape, gen: torch.Generator, device,
+               std: float = 0.02) -> torch.Tensor:
+    """The fp32 value init_weights gives the parameter `leaf` of `owner`,
+    of the given (whole) shape, drawn from `gen` on `device`."""
+    if isinstance(owner, LayerNorm):
+        return torch.full(shape, 1.0 if leaf == "weight" else 0.0, device=device)
+    if leaf == "bias":
+        return torch.zeros(shape, device=device)
+    if isinstance(owner, nn.Linear):
+        return torch.randn(shape, generator=gen, device=device) * shape[1] ** -0.5
+    return torch.randn(shape, generator=gen, device=device) * std
+
+
 def init_weights(model: FourM, seed: int, std: float = 0.02) -> FourM:
     """Random weights from a seeded torch.Generator on the model's device,
     following the JAX package's initialisers: linear weights lecun-normal
     (std 1/sqrt(fan_in)), embeddings, modality and mask tokens normal(std),
-    LayerNorm weights one, all biases zero."""
+    LayerNorm weights one, all biases zero (init_value)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
-            if isinstance(owner, LayerNorm):
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
-                p.zero_()
-            elif isinstance(owner, nn.Linear):
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
-                        * p.shape[1] ** -0.5)
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+            p.copy_(init_value(owner, leaf, p.shape, gen, p.device, std))
     return model
 
 

@@ -3,13 +3,12 @@ rules (the counterpart of fourm_tpu/parallel/mesh.py).
 
   data   - data parallelism: every rank holds the whole state, gradients are
            summed over the ranks;
-  fsdp   - data parallelism with the fp32 masters and both AdamW moments
-           sharded (reference run_training_4m_fsdp.py:516-555): the masters
-           are all-gathered into the model's whole parameters after each
-           update, the whole gradients reduce-scattered. Only the optimizer
-           state is 1 / fsdp a rank (ZeRO-1's memory, not ZeRO-3's): each
-           rank still holds the whole fp32 parameters and, in the backward,
-           whole fp32 gradients (parallel/shard.py);
+  fsdp   - data parallelism with the parameters, their gradients and both
+           AdamW moments sharded, as the JAX package shards the whole
+           TrainState (reference run_training_4m_fsdp.py:516-555; ZeRO-3's
+           memory): 1 / fsdp of each a rank, a unit (a block, an embedding
+           module, the root) all-gathered whole only while it computes, its
+           gradients reduce-scattered in the backward (parallel/shard.py);
   tensor - Megatron tensor parallelism of the blocks: column-parallel qkv /
            q / kv / fc1 / fc3, row-parallel proj / fc2, one all-reduce after
            each row-parallel product.

@@ -25,11 +25,13 @@ batch: each modality's summed loss is divided by its count over the ranks
 (the counts all-reduced before the loss), so the ranks' losses and
 gradients sum to the global batch's; the stochastic-depth masks are the
 global batch's (ops/transformer.py:RankDraws); gradients are summed over
-the ranks (reduce-scatter into fsdp chunks, all-reduce otherwise) and their
-norm counts each element once, the same on every rank, so that the clip and
-skip_grad decide alike; the update is one `fused_adamw` launch over the
-rank's masters; fsdp chunks are then all-gathered into the parameters.
-`loss` and `loss_{mod}` are the global batch's.
+the ranks (at fsdp, reduce-scattered unit by unit during the backward into
+the rank's chunks; all-reduced otherwise) and their norm counts each
+element once, the same on every rank, so that the clip and skip_grad decide
+alike; the update is one `fused_adamw` launch over the rank's masters, which
+at fsdp are the parameters' only storage between steps (the forward and
+backward gather each unit as they reach it). `loss` and `loss_{mod}` are
+the global batch's.
 """
 
 from __future__ import annotations
@@ -66,23 +68,42 @@ def _check_mesh(mesh) -> None:
 
 
 def init_train_state(model: nn.Module, optimizer: FusedAdamW, device: Optional[str] = None,
-                     mesh=None, shard: Optional[bool] = None) -> TrainState:
+                     mesh=None, shard: Optional[bool] = None, seed: Optional[int] = None
+                     ) -> TrainState:
     """Move the model to `device` (the card unless "cpu" is asked; raises
     without one) and give the optimizer zero moments there. With a mesh:
-    split the blocks over its tensor axis, keep the fp32 masters (and so
-    the moments) as the rank's fsdp chunks (`shard`, default fsdp > 1;
-    parallel/shard.py) and step those. The model holds its current whole
-    weights on every rank, as given: each rank must build it alike."""
+    split the blocks over its tensor axis, hold the parameters the fsdp rule
+    shards (and so their gradients, masters and moments) as the rank's fsdp
+    chunks (`shard`, default fsdp > 1; parallel/shard.py) and step those. A
+    whole model must be built alike on every rank; its sharded storage is
+    freed once chunked. A model built under parallel.meta_params() (its
+    parameters on the meta device, no storage) is born sharded over the
+    mesh: each leaf is drawn whole on `device` as init_weights(model, seed)
+    draws it, and the rank keeps its chunk."""
+    dev = resolve_device(device)
+    meta = any(p.is_meta for p in model.parameters())
+    if meta:
+        if mesh is None or seed is None:
+            raise ValueError("the model's parameters are on the meta device: it is born "
+                             "sharded over a mesh from the seed of its init_weights draws "
+                             "(init_train_state(..., mesh=, seed=))")
+        if any(b.is_meta for b in model.buffers()):
+            raise ValueError("the model's buffers are on the meta device: build it under "
+                             "fourm_torch.parallel.meta_params(), which keeps them")
+        for m in model.modules():
+            for k, b in m._buffers.items():
+                if b is not None:
+                    m._buffers[k] = b.to(dev)
     if mesh is None:
-        model.to(resolve_device(device))
+        model.to(dev)
         optimizer.init()
         return TrainState(model, optimizer, 0)
     _check_mesh(mesh)
-    dev = resolve_device(device)
     if dev.type != mesh.device_type:
         raise ValueError(f"the mesh is over {mesh.device_type} devices, the model goes to {dev}")
-    model.to(dev)
-    plan = ParallelPlan(model, mesh, shard)
+    if not meta:
+        model.to(dev)
+    plan = ParallelPlan(model, mesh, shard, device=dev, seed=seed if meta else None)
     optimizer.use_leaves(plan.named_masters()).init()
     optimizer.plan = plan
     return TrainState(model, optimizer, 0, plan)
@@ -179,8 +200,6 @@ def build_train_step(model: nn.Module, optimizer: FusedAdamW, num_encoder_tokens
             torch._foreach_mul_(zero, 0.0)
         grad_norm = plan.grad_norm(grads)
         optimizer.step(grad_norm, trainable_mask, grads=grads)
-        if plan.shard:
-            plan.gather_params()
         state.step += 1
         losses = {"loss": loss, **{f"loss_{m}": v.detach() for m, v in mod_loss.items()}}
         if count_reduce is not None:

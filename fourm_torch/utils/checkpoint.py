@@ -590,7 +590,7 @@ def _check_sincos(key: str, value: torch.Tensor, table: torch.Tensor, one_d: boo
 
 
 def load_fourm_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tensor],
-                          drop_pos_emb: bool = False, strict: bool = True):
+                          drop_pos_emb: bool = False, strict: bool = True, load=None):
     """Copy a reference-named FourM state dict into `model`'s own
     parameters (load_state_dict copies in place, so a padded fc2 storage
     stays). A `pos_emb` the model computes as a sin-cos table is held to
@@ -599,7 +599,10 @@ def load_fourm_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tens
     drop_pos_emb (the --finetune warm start, reference run_training_4m.py:
     475-487) leaves out every `.pos_emb` key first; with strict=False
     (that warm start, as the reference's load_state_dict(strict=False))
-    the keys left out either way are returned: (missing, unexpected)."""
+    the keys left out either way are returned: (missing, unexpected).
+    load: what takes the matched tensors, {name: tensor} (default: the
+    model's load_state_dict; a mesh's ParallelPlan.load_full for a sharded
+    model)."""
     own = model.state_dict()
     sd = {}
     for k, t in state.items():
@@ -616,7 +619,11 @@ def load_fourm_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tens
     if strict and (missing or unexpected):
         raise KeyError(f"checkpoint keys the model has no place for: {unexpected}; model "
                        f"parameters the checkpoint lacks: {missing}")
-    model.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
+    matched = {k: v for k, v in sd.items() if k in own}
+    if load is None:
+        model.load_state_dict(matched, strict=False)
+    else:
+        load(matched)
     return missing, unexpected
 
 

@@ -29,12 +29,17 @@ rank and each rank taking its rows.
       step accumulating the 4 micro-batches), their ratio, peak memory a
       card, launches a rank a step.
   M2  FSDP at 4M-21 XL (4m-xl_mod21_500b.yaml: fm_xlarge_24e_24d_swiglu_nobias
-      at full width and depth, 32 a card, 256 + 256): a few steps at fsdp 4
-      (--m2_remat: activation checkpointing per block). Reports peak memory
-      a card, each rank's bytes of masters and moments, samples/s; gates
-      every rank's loss equal and finite. Parity at full width, depth 2 + 2:
-      fsdp 4 against rank 0 alone on the same uneven global batch of 128
-      (one_card_step, 4 micro-batches of 32), gated as M1.
+      at full width and depth, 32 a card, 256 + 256), born sharded (built
+      under meta_params, each rank drawing its chunks): a few steps at
+      fsdp 4 with activation checkpointing per block, then without it if
+      it fits (its peak a card predicted first from one step each at depth
+      4 + 4 and 8 + 8, linear in depth; run only below 88% of the card).
+      Reports peak memory a card, each rank's bytes of parameters (those
+      held between steps), masters and moments, samples/s, launches a rank
+      a step; gates every rank's loss equal and finite. Parity at full
+      width, depth 2 + 2: fsdp 4 against rank 0 alone on the same uneven
+      global batch of 128 (one_card_step, 4 micro-batches of 32), gated as
+      M1.
   M3  tensor parallel at 4M-21 XL (fm_xlarge_24e_24d_swiglu_qknorm_nobias,
       32 heads, 8 a rank; bf16 weights): forward_generation_img of a
       tok_depth@224 target from rgb@224, caption and tok_clip@224 inputs at
@@ -49,6 +54,12 @@ rank and each rank taking its rows.
       Trainer over the world's group. Gate: every rank's codebook (embed,
       cluster_size) bit for bit equal after every step. Reports samples/s
       and launches a rank a step.
+
+  M5  the two meshes that combine fsdp with another axis, at XL width,
+      depth 2 + 2, born sharded, each a parity run gated as M2's on an
+      uneven global batch of 32 a batch rank: M5a data 2 x fsdp 2, M5b
+      fsdp 2 x tensor 2 (the combined rule: the fsdp dim skips the tensor
+      one; the ranks of a tensor group share their rows).
 
 `--device cpu --tiny` rehearses every part on the CPU under gloo at narrow
 widths (launch counts stay 0 there).
@@ -127,12 +138,19 @@ def tiny(ctx) -> dict:
     return dict(dim=32 * heads, encoder_depth=2, decoder_depth=2, num_heads=heads)
 
 
-def build(ctx, name: str, dtype="bfloat16", params_dtype=None, **over):
+def build(ctx, name: str, dtype="bfloat16", params_dtype=None, meta=False, **over):
+    """The model with seed-0 weights on the rank's card; `meta`: its
+    parameters on the meta device, for init_train_state(..., seed=0) to
+    draw the rank's chunks (born sharded)."""
     from fourm_torch.models import FourM, create_fourm_config, init_weights
+    from fourm_torch.parallel import meta_params
     from fourm_torch.utils.synthetic import MOD21_DECODER_MODALITIES, MOD21_MODALITIES
 
     cfg = create_fourm_config(name, MOD21_MODALITIES, MOD21_DECODER_MODALITIES, dtype=dtype,
                               **{**tiny(ctx), **over})
+    if meta:
+        with meta_params():
+            return FourM(cfg)
     with torch.device(ctx.device):
         model = FourM(cfg)
     model = model.to(device=ctx.device, dtype=params_dtype)  # the tables made on the host too
@@ -287,24 +305,27 @@ def reset_counts():
 # ------------------------------------------------------------------ parts
 
 def train_parity(ctx, name: str, per_card: int, over: dict, lr: float, label: str,
-                 fsdp: bool, timing_steps: int = 0):
-    """STEPS mesh steps (data = world, or fsdp = world) from seed-0 weights
-    on an uneven global batch, and the same global batch on rank 0 alone
-    (one_card_step over the ranks' rows in turn). timing_steps: samples/s
-    of both, one card's by the port's step accumulating the micro-batches.
-    -> the report."""
+                 mesh_kw: dict, timing_steps: int = 0):
+    """STEPS mesh steps (make_mesh(**mesh_kw); born sharded at fsdp > 1)
+    from seed-0 weights on an uneven global batch of per_card rows a batch
+    rank, and the same global batch on rank 0 alone (one_card_step over the
+    batch ranks' rows in turn). timing_steps: samples/s of both, one card's
+    by the port's step accumulating the micro-batches. -> the report."""
     from fourm_torch.parallel import build_train_step, init_train_state, make_mesh
     from fourm_torch.utils.optim import constant_schedule, create_optimizer
     from fourm_torch.utils.synthetic import to_torch
 
-    n = per_card * ctx.world
-    batch = uneven(global_batch(ctx, n), ctx.world)
-    mesh = make_mesh(fsdp=ctx.world if fsdp else 1)
+    mesh = make_mesh(**mesh_kw)
+    sharded = int(mesh["fsdp"].size()) > 1
+    count = ctx.world // int(mesh["tensor"].size())  # the batch ranks
+    n = per_card * count
+    batch = uneven(global_batch(ctx, n), count)
     ctx.peak_reset()
-    model = build(ctx, name, **over)
+    model = build(ctx, name, meta=sharded, **over)
     tx = create_optimizer(model, constant_schedule(lr), weight_decay=0.05, betas=(0.9, 0.95),
                           clip_grad=1.0)
-    state = init_train_state(model, tx, device=str(ctx.device), mesh=mesh)
+    state = init_train_state(model, tx, device=str(ctx.device), mesh=mesh,
+                             seed=0 if sharded else None)
     plan = state.plan
     step = build_train_step(model, tx, TOKENS, TOKENS, mesh=mesh)
     local = local_rows(ctx, batch, plan)
@@ -319,8 +340,7 @@ def train_parity(ctx, name: str, per_card: int, over: dict, lr: float, label: st
            "rank_losses_equal": len(set(map(tuple, ctx.gather(losses)))) == 1,
            "plan_bytes_per_rank": ctx.gather(plan.param_bytes())}
     check(out["rank_losses_equal"], f"{label}: ranks' losses differ")
-    mine = masters_cpu(model) if ctx.rank == 0 else None  # after the parity steps
-    _, moments = plan.full_state(tx)  # whole mu and nu on rank 0 (every rank gathers)
+    mine, moments = plan.full_state(tx)  # whole masters, mu and nu on rank 0 (all gather)
     if timing_steps:
         state, sec, _ = timed_steps(ctx, step, state, local, timing_steps)
         out["samples_per_s"] = n / sec
@@ -336,7 +356,7 @@ def train_parity(ctx, name: str, per_card: int, over: dict, lr: float, label: st
         init = masters_cpu(model)
         ref = to_torch(batch, ctx.device)
         micro = [{m: {k: v[i * per_card:(i + 1) * per_card] for k, v in d.items()}
-                  for m, d in ref.items()} for i in range(ctx.world)]
+                  for m, d in ref.items()} for i in range(count)]
         ref_mets = [one_card_step(model, tx, micro) for _ in range(STEPS)]
         out["one_card_losses"] = [m["loss"] for m in ref_mets]
         out["one_card_grad_norms"] = [m["grad_norm"] for m in ref_mets]
@@ -350,10 +370,9 @@ def train_parity(ctx, name: str, per_card: int, over: dict, lr: float, label: st
             tx = create_optimizer(model, constant_schedule(lr), weight_decay=0.05,
                                   betas=(0.9, 0.95), clip_grad=1.0)
             state = init_train_state(model, tx, device=str(ctx.device))
-            accum = ctx.world
-            step = build_train_step(model, tx, TOKENS, TOKENS, grad_accum_steps=accum)
-            if accum > 1:
-                ref = {m: {k: v.reshape((accum, -1) + v.shape[1:]) for k, v in d.items()}
+            step = build_train_step(model, tx, TOKENS, TOKENS, grad_accum_steps=count)
+            if count > 1:
+                ref = {m: {k: v.reshape((count, -1) + v.shape[1:]) for k, v in d.items()}
                        for m, d in ref.items()}
             state, _ = step(state, ref)  # warm-up
             ctx.sync()
@@ -375,59 +394,103 @@ def train_parity(ctx, name: str, per_card: int, over: dict, lr: float, label: st
 def part_m1(ctx):
     per_card = 64 if not ctx.args.tiny else 2
     lr = 1e-4 * per_card * ctx.world / 256
-    out = train_parity(ctx, B_MODEL, per_card, {}, lr, "M1", fsdp=False,
+    out = train_parity(ctx, B_MODEL, per_card, {}, lr, "M1", dict(data=ctx.world),
                        timing_steps=ctx.args.timing_steps)
     if "samples_per_s" in out and "one_card_samples_per_s" in out:
         out["scaling"] = out["samples_per_s"] / out["one_card_samples_per_s"]
     return dict(out, model=B_MODEL, per_card=per_card, tokens=[TOKENS, TOKENS], lr=lr)
 
 
-def part_m2(ctx):
+def m2_run(ctx, remat: bool, depth: dict, timing_steps: int, lr: float, batch) -> dict:
+    """Steps of M2's XL at fsdp = world, born sharded: one, then
+    timing_steps timed. -> its report."""
     from fourm_torch.parallel import build_train_step, init_train_state, make_mesh
     from fourm_torch.utils.optim import constant_schedule, create_optimizer
 
+    n = len(next(iter(batch.values()))["tensor"])
+    mesh = make_mesh(fsdp=ctx.world)
+    ctx.peak_reset()
+    t0 = time.perf_counter()
+    model = build(ctx, XL_MODEL, meta=True, remat=remat, **depth)
+    tx = create_optimizer(model, constant_schedule(lr), weight_decay=0.05, betas=(0.9, 0.95),
+                          clip_grad=1.0)
+    state = init_train_state(model, tx, device=str(ctx.device), mesh=mesh, seed=0)
+    ctx.sync()
+    init_s = time.perf_counter() - t0
+    init_peak = ctx.peak()
+    params = sum(l.param.numel() for l in state.plan.leaves)
+    step = build_train_step(model, tx, TOKENS, TOKENS, mesh=mesh)
+    local = local_rows(ctx, batch, state.plan)
+    reset_counts()
+    state, first_s, mets = timed_steps(ctx, step, state, local, 1)
+    launches = counts()
+    more = []
+    if timing_steps:
+        state, sec, more = timed_steps(ctx, step, state, local, timing_steps)
+    losses = [m["loss"] for m in mets + more]
+    gathered = ctx.gather(losses)
+    check(all(g == losses for g in gathered) and all(np.isfinite(losses)),
+          f"M2: ranks' losses differ or are not finite: {gathered}")
+    out = {"model": XL_MODEL, "parameters": params, "global_batch": n, "remat": remat,
+           "depth": depth or "full", "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "init_s": init_s, "init_peak_memory_bytes_per_card": init_peak,
+           "first_step_s": first_s, "losses": losses, "rank_losses_equal": True,
+           "launches_per_rank_per_step": launches,
+           "plan_bytes_per_rank": ctx.gather(state.plan.param_bytes()),
+           "peak_whole_units_per_rank": ctx.gather(state.plan.peak_whole),
+           "peak_memory_bytes_per_card": ctx.peak()}
+    if timing_steps:
+        out.update(ms_per_step=sec * 1e3, samples_per_s=n / sec)
+    del state, step, tx, model, local
+    if ctx.cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def part_m2(ctx):
     per_card = 32 if not ctx.args.tiny else 2
     n = per_card * ctx.world
     lr = 1e-4 * n / 256
     depth = {} if ctx.args.tiny else dict(encoder_depth=2, decoder_depth=2)
     if ctx.world == 1:  # the whole XL state does not fit one card: the parity run alone
         return {"parity_2_2": train_parity(ctx, XL_MODEL, per_card, depth, lr, "M2 parity",
-                                           fsdp=True)}
-    remat = ctx.args.m2_remat == "on"
-    mesh = make_mesh(fsdp=ctx.world)
+                                           dict(fsdp=1))}
     batch = global_batch(ctx, n, seed=1)
-    ctx.peak_reset()
-    t0 = time.perf_counter()
-    model = build(ctx, XL_MODEL, remat=remat)
-    tx = create_optimizer(model, constant_schedule(lr), weight_decay=0.05, betas=(0.9, 0.95),
-                          clip_grad=1.0)
-    state = init_train_state(model, tx, device=str(ctx.device), mesh=mesh)
-    init_s = time.perf_counter() - t0
-    params = sum(p.numel() for p in model.parameters())
-    step = build_train_step(model, tx, TOKENS, TOKENS, mesh=mesh)
-    local = local_rows(ctx, batch, state.plan)
-    reset_counts()
-    state, first_s, mets = timed_steps(ctx, step, state, local, 1)
-    launches = counts()
-    state, sec, more = timed_steps(ctx, step, state, local, ctx.args.timing_steps)
-    losses = [m["loss"] for m in mets + more]
-    gathered = ctx.gather(losses)
-    check(all(g == losses for g in gathered) and all(np.isfinite(losses)),
-          f"M2: ranks' losses differ or are not finite: {gathered}")
-    full = {"model": XL_MODEL, "parameters": params, "per_card": per_card,
-            "global_batch": n, "remat": remat, "mesh": dict(zip(mesh.mesh_dim_names,
-                                                                mesh.shape)),
-            "init_s": init_s, "first_step_s": first_s, "ms_per_step": sec * 1e3,
-            "samples_per_s": n / sec, "losses": losses, "rank_losses_equal": True,
-            "launches_per_rank_per_step": launches,
-            "plan_bytes_per_rank": ctx.gather(state.plan.param_bytes()),
-            "peak_memory_bytes_per_card": ctx.peak()}
-    del state, step, tx, model, local
-    if ctx.cuda:
-        torch.cuda.empty_cache()
-    ctx.say(json.dumps({"part": "M2 full depth", **full}))
-    parity = train_parity(ctx, XL_MODEL, per_card, depth, lr, "M2 parity", fsdp=True)
+    full = {"per_card": per_card,
+            "remat": m2_run(ctx, True, {}, ctx.args.timing_steps, lr, batch)}
+    ctx.say(json.dumps({"part": "M2 full depth, remat", **full["remat"]}))
+    fits, predicted = True, None
+    if ctx.cuda and not ctx.args.tiny:  # without remat: predicted from depths 4 and 8 first
+        p4, p8 = (max(m2_run(ctx, False, dict(encoder_depth=d, decoder_depth=d), 0, lr,
+                             batch)["peak_memory_bytes_per_card"]) for d in (4, 8))
+        predicted = p4 + (p8 - p4) * (24 - 4) / 4
+        fits = predicted <= 0.88 * torch.cuda.get_device_properties(ctx.device).total_memory
+        full["no_remat_probe"] = {"peak_depth_4": p4, "peak_depth_8": p8,
+                                  "predicted_peak_depth_24": predicted, "fits": fits}
+        ctx.say(json.dumps({"part": "M2 no remat, predicted", **full["no_remat_probe"]}))
+    if fits:
+        full["no_remat"] = m2_run(ctx, False, {}, ctx.args.timing_steps, lr, batch)
+        ctx.say(json.dumps({"part": "M2 full depth, no remat", **full["no_remat"]}))
+    parity = train_parity(ctx, XL_MODEL, per_card, depth, lr, "M2 parity",
+                          dict(fsdp=ctx.world))
     return {"full_depth": full, "parity_2_2": parity}
+
+
+def part_m5(ctx):
+    """M5a data x fsdp 2, M5b fsdp 2 x tensor 2 (at world 2: fsdp 2, and
+    tensor 2 alone), parity runs at XL width, depth 2 + 2."""
+    if ctx.world % 2:
+        return {"skipped": f"world {ctx.world}: the meshes need an even one"}
+    per_card = 32 if not ctx.args.tiny else 2
+    depth = {} if ctx.args.tiny else dict(encoder_depth=2, decoder_depth=2)
+    out = {}
+    for label, mesh_kw in (("M5a", dict(data=ctx.world // 2, fsdp=2)),
+                           ("M5b", dict(data=1, fsdp=ctx.world // 2, tensor=2))):
+        lr = 1e-4 * per_card * (ctx.world // mesh_kw.get("tensor", 1)) / 256
+        out[label] = dict(train_parity(ctx, XL_MODEL, per_card, depth, lr, label, mesh_kw),
+                          lr=lr, per_card=per_card)
+        ctx.say(json.dumps({"part": label, **out[label]}))
+    return out
 
 
 def gate_logits(gpu, ref, ref_bf16, label: str) -> dict:
@@ -577,16 +640,15 @@ def part_m4(ctx):
     return out
 
 
-PARTS = {"M1": part_m1, "M2": part_m2, "M3": part_m3, "M4": part_m4}
+PARTS = {"M1": part_m1, "M2": part_m2, "M3": part_m3, "M4": part_m4, "M5": part_m5}
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description="the port's mesh paths over the cards of one host")
-    p.add_argument("--parts", default="M1,M2,M3,M4")
+    p.add_argument("--parts", default="M1,M2,M3,M4,M5")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--tiny", action="store_true", help="narrow widths (CPU rehearsal)")
     p.add_argument("--timing_steps", type=int, default=5)
-    p.add_argument("--m2_remat", default="on", choices=["on", "off"])
     p.add_argument("--json_out", default=None, help="write every part's JSON here too")
     args = p.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():

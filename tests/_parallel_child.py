@@ -5,7 +5,8 @@ torch and fourm_torch only, so that a spawned process loads no JAX.
 
 `spawn(tmp_path, jobs)` writes the jobs, runs them on both ranks in turn,
 and returns rank 0's results: {job name: result}. A job is a dict with
-"kind" ("train", "forward" or "vq") and "name"; see run_* below.
+"kind" ("train", "forward", "vq", "born" or "eval") and "name"; see run_*
+below.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def _child(rank: int, world: int, tmp: str) -> None:
             obj = [results[job["resume_from"]].get("saved")]
             dist.broadcast_object_list(obj, src=0)
             job = dict(job, resume=obj[0])
-        results[job["name"]] = {"train": run_train, "forward": run_forward,
-                                "vq": run_vq}[job["kind"]](job)
+        results[job["name"]] = {"train": run_train, "forward": run_forward, "vq": run_vq,
+                                "born": run_born, "eval": run_eval}[job["kind"]](job)
         dist.barrier()
     if rank == 0:
         torch.save(results, os.path.join(tmp, "results.pt"))
@@ -79,9 +80,10 @@ def run_train(job):
     model), opt (create_optimizer kwargs; "frozen_trunk": the trainable mask),
     sched, accum, batches (global numpy batches, one a step), gen_seed
     (drop-path generator), resume (a full state to load first), save_after
-    (steps after which to keep the full state). -> rank 0's metrics a step,
-    the final full state, the saved state, this job's per-rank counts and
-    local-count losses of the first batch (counts), every rank's bytes."""
+    (steps after which to keep the full state), probe (hold_a_share after
+    init and after each step). -> rank 0's metrics a step, the final full
+    state, the saved state, this job's per-rank counts and local-count
+    losses of the first batch (counts), every rank's bytes, the probes."""
     from fourm_torch.parallel import (build_train_step, frozen_trunk_mask, init_train_state,
                                       make_mesh)
     from fourm_torch.utils import optim
@@ -107,15 +109,92 @@ def run_train(job):
                             grad_accum_steps=job.get("accum", 1), trainable_mask=mask)
     gen = None if job.get("gen_seed") is None else torch.Generator().manual_seed(job["gen_seed"])
     metrics = []
+    probes = [hold_a_share(plan)] if job.get("probe") else []
     for i, batch in enumerate(job["batches"]):
+        plan.reset_peak()
         state, m = step(state, local_batch(batch, plan, job.get("accum", 1)), gen)
         metrics.append({k: float(v) for k, v in m.items()})
+        if job.get("probe"):
+            probes.append(hold_a_share(plan))
         if job.get("save_after") == i + 1:
             out["saved"] = plan.full_state(tx)
+    out["probes"] = _gather_obj(probes)
     out["metrics"] = metrics
     out["full"] = plan.full_state(tx)
     out["count"] = tx.count
     return out
+
+
+def hold_a_share(plan) -> dict:
+    """What the rank holds now: the sharded leaves whose parameter's
+    storage is above their chunk's bytes or that have a gradient, and the
+    most units whole at once since the plan's last reset_peak."""
+    over = [l.name for l in plan.leaves if l.fdim is not None
+            and l.param.untyped_storage().nbytes() > l.n * 4]
+    grads = [l.name for l in plan.leaves if l.fdim is not None and l.param.grad is not None]
+    return {"sharded": sum(l.fdim is not None for l in plan.leaves), "over_chunk": over,
+            "with_grad": grads, "peak_whole_units": plan.peak_whole,
+            "whole_now": [u.name for u in plan.units if u.whole], "units": len(plan.units)}
+
+
+def run_born(job):
+    """A model built under meta_params, born sharded through init_train_state
+    (seed job["seed"]), against init_weights of the whole model chunked by
+    the same plan. -> every rank's (leaves equal bit for bit, leaves, its
+    probe)."""
+    from fourm_torch.models import FourM, create_fourm_config, init_weights
+    from fourm_torch.parallel import init_train_state, make_mesh, meta_params
+    from fourm_torch.utils import optim
+
+    cfg = create_fourm_config(job["flavor"], job["mods"], job["dec"], **job["config"])
+    with meta_params():
+        model = FourM(cfg)
+    tx = optim.create_optimizer(model, optim.cosine_schedule(*job["sched"]))
+    plan = init_train_state(model, tx, device="cpu", mesh=make_mesh(**job["mesh"]),
+                            seed=job["seed"]).plan
+    whole = dict(init_weights(FourM(cfg), job["seed"]).named_parameters())
+    equal = [torch.equal(plan.master(l), plan._chunk(whole[l.name], l) if l.fdim is not None
+                         else whole[l.name]) for l in plan.leaves]
+    buffers = all(torch.equal(b, dict(FourM(cfg).named_buffers())[n])
+                  for n, b in model.named_buffers())
+    return {"equal": _gather_obj((sum(equal), len(equal), buffers)),
+            "probe": _gather_obj(hold_a_share(plan))}
+
+
+def run_eval(job):
+    """The eval forward (train=False, no gradient) of a sharded model on the
+    rank's rows of job["batch"], the loss over the global batch
+    (cli/train_4m.py:evaluate's count_reduce); then DecoderBlock.step and
+    cross_kv, which must raise. -> the global loss and per-modality losses,
+    every rank's probe and what each call raised."""
+    from fourm_torch.parallel import init_train_state, make_mesh
+    from fourm_torch.parallel.shard import ShardedUnitError
+    from fourm_torch.utils import optim
+
+    model = build_model(job)
+    tx = optim.create_optimizer(model, optim.cosine_schedule(*job["sched"]))
+    plan = init_train_state(model, tx, device="cpu", mesh=make_mesh(**job["mesh"])).plan
+    b = local_batch(job["batch"], plan, 1)
+    plan.reset_peak()
+    with torch.no_grad():
+        loss, (mod_loss, _) = model(b, job["ni"], job["nt"], train=False,
+                                    count_reduce=plan.reduce_batch)
+    mods = list(mod_loss)
+    vals = plan.reduce_batch(torch.stack([loss] + [mod_loss[m] for m in mods]))
+    raised = {}
+    blk = model.decoder[0]
+    x = torch.zeros(2, 1, model.config.dim)
+    for name, call in (("step", lambda: blk.step(x, None, None, None, None, None, None)),
+                       ("cross_kv", lambda: blk.cross_kv(x)),
+                       ("forward_generation_img",
+                        lambda: model.forward_generation_img(b, "tok_rgb@224", None))):
+        try:
+            call()
+            raised[name] = None
+        except ShardedUnitError as e:
+            raised[name] = str(e)
+    return {"loss": float(vals[0]), "mod_loss": dict(zip(mods, vals[1:].tolist())),
+            "probe": _gather_obj(hold_a_share(plan)), "raised": _gather_obj(raised)}
 
 
 def run_forward(job):

@@ -273,7 +273,7 @@ def world2(tmp_path_factory):
     skip_seeds = [norms[0][1], norms[1][1], norms[0][1]]
     jobs = [
         _job("data", GELU, dict(data=2), uneven, opt=dict(clip_grad=1.0), counts=True),
-        _job("fsdp", QKNORM, dict(data=1, fsdp=2), acc_batches, accum=2),
+        _job("fsdp", QKNORM, dict(data=1, fsdp=2), acc_batches, accum=2, probe=True),
         _job("tensor_gelu", GELU, dict(data=1, tensor=2), batches, opt=dict(clip_grad=1.0)),
         _job("tensor_qknorm", QKNORM, dict(data=1, tensor=2), batches),
         _job("frozen_skip", QKNORM, dict(data=2), [_batch(s) for s in skip_seeds],
@@ -285,6 +285,16 @@ def world2(tmp_path_factory):
              opt=dict(clip_grad=1.0, layer_decay=0.75)),
     ]
     jobs[6]["config"] = dict(TINY, drop_path_rate_encoder=0.5, drop_path_rate_decoder=0.5)
+    jobs += [
+        _job("bits_fsdp", GELU, dict(data=1, fsdp=2), uneven, probe=True),
+        _job("bits_data", GELU, dict(data=2), uneven),
+        _job("share_remat", QKNORM, dict(data=1, fsdp=2), batches[:2], probe=True),
+        dict(kind="born", name="born", flavor=QKNORM, mods=MODS, dec=DEC, config=TINY,
+             mesh=dict(data=1, fsdp=2), sched=SCHED, seed=3),
+        dict(_job("eval", QKNORM, dict(data=1, fsdp=2), []), kind="eval",
+             batch=_uneven_batch(9)),
+    ]
+    jobs[-3]["config"] = dict(TINY, remat=True)
     md, target, sa = _forward_inputs()
     jobs.append(dict(kind="forward", name="tp_forward", flavor=QKNORM, mods=MODS, dec=DEC,
                      config=TINY, state=_pair(QKNORM)["state"], mesh=dict(data=1, tensor=2),
@@ -452,3 +462,82 @@ def test_tensor_parallel_forward_matches_jax(world2):
         assert b["parameters"] < whole, (b, whole)
     # each split attention holds one of the two heads
     assert got["split_heads"] and set(got["split_heads"]) == {1}
+
+
+# ------------------------------------------- fsdp: parameters held in chunks
+
+UNITS = 1 + 2 + 2 + len(MODS) + len(DEC)  # root, blocks, embedding modules
+
+
+@pytest.mark.parametrize("name", ["fsdp", "bits_fsdp", "share_remat"])
+def test_fsdp_holds_a_share(world2, name):
+    """After init and after every step (accumulation 2; remat off; remat
+    on), every rank's sharded parameters hold no storage above their
+    chunk's bytes and no gradient; during each step at most two units and
+    the root were whole at once."""
+    probes = world2["res"][name]["probes"]
+    steps = len(world2["jobs"][name]["batches"])
+    assert len(probes) == 2 and all(len(p) == steps + 1 for p in probes)
+    for rank, per_rank in enumerate(probes):
+        for i, p in enumerate(per_rank):
+            assert p["sharded"] > 0 and p["units"] == UNITS, (rank, i, p)
+            assert p["over_chunk"] == [] and p["with_grad"] == [], (rank, i, p)
+            assert p["whole_now"] == [], (rank, i, p)
+            if i:
+                assert 2 <= p["peak_whole_units"] <= 3, (rank, i, p)
+
+
+def test_fsdp_equals_data_parallel_bit_for_bit(world2):
+    """fsdp 2 and data 2 on the same uneven batches, no clip, no skip: the
+    two ranks' gradients meet in a reduce-scatter or an all-reduce, a + b
+    either way, so the losses and every master after 3 steps are equal bit
+    for bit (a wrong chunk <-> gather mapping is not rounding)."""
+    fsdp, data = world2["res"]["bits_fsdp"], world2["res"]["bits_data"]
+    assert [m["loss"] for m in fsdp["metrics"]] == [m["loss"] for m in data["metrics"]]
+    for k in fsdp["metrics"][0]:
+        if k.startswith("loss_"):
+            assert [m[k] for m in fsdp["metrics"]] == [m[k] for m in data["metrics"]], k
+    start = world2["jobs"]["bits_fsdp"]["state"]
+    moved = 0
+    for name, t in data["full"][0].items():
+        assert torch.equal(fsdp["full"][0][name], t), name
+        moved += int(name in start and not torch.equal(t, start[name]))
+    assert moved > 0.9 * len(start)
+    for k in ("mu", "nu"):
+        for name, t in data["full"][1][k].items():
+            assert torch.equal(fsdp["full"][1][k][name], t), (k, name)
+
+
+def test_fsdp_born_sharded_init(world2):
+    """A model built under meta_params and born sharded by init_train_state
+    (seed 3): each rank's masters equal init_weights(seed 3) of the whole
+    model, chunked, bit for bit; the buffers are the whole model's; no
+    sharded parameter holds storage."""
+    res = world2["res"]["born"]
+    for n_equal, n, buffers in res["equal"]:
+        assert n_equal == n > 0 and buffers
+    for p in res["probe"]:
+        assert p["over_chunk"] == [] and p["whole_now"] == [] and p["sharded"] > 0
+
+
+def test_fsdp_eval_forward(world2):
+    """The eval forward (train=False, no gradient) at fsdp 2, each rank on
+    its rows, the global loss over the all-reduced counts: within 1e-6 of
+    one process on the whole batch; no unit left whole; DecoderBlock.step,
+    cross_kv and FourM.forward_generation_img raise ShardedUnitError."""
+    res = world2["res"]["eval"]
+    pair = _pair(QKNORM)
+    model = FourM(pair["tcfg"])
+    model.load_state_dict(pair["state"])
+    with torch.no_grad():
+        loss, (mod_loss, _) = model(synthetic.to_torch(world2["jobs"]["eval"]["batch"], "cpu"),
+                                    NI, NT, train=False)
+    np.testing.assert_allclose(res["loss"], float(loss), rtol=0, atol=1e-6)
+    for m, v in mod_loss.items():
+        np.testing.assert_allclose(res["mod_loss"][m], float(v), rtol=0, atol=1e-6, err_msg=m)
+    for p in res["probe"]:
+        assert p["whole_now"] == [] and p["over_chunk"] == [] and p["peak_whole_units"] <= 3
+    for raised in res["raised"]:
+        assert "DecoderBlock.step (decoder.0)" in raised["step"]
+        assert "DecoderBlock.cross_kv (decoder.0)" in raised["cross_kv"]
+        assert "FourM.forward_generation_img (the root)" in raised["forward_generation_img"]
